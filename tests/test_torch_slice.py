@@ -137,6 +137,8 @@ def test_port_imports_no_jax_and_nothing_of_tpukube():
     for d, _, files in os.walk(os.path.join(REPO, "tpukube_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 10
+    for new in ("tp.py", "train.py", "resnet.py"):
+        assert os.path.join(REPO, "tpukube_torch", "workload", new) in paths
     for p in paths:
         for mod in _import_targets(p):
             top = mod.split(".")[0]
@@ -148,8 +150,12 @@ def test_port_pulls_in_no_control_plane_dependency():
         "import json, sys\n"
         "import tpukube_torch.device, tpukube_torch.native, "
         "tpukube_torch.workload, tpukube_torch.graft\n"
-        "bad = ('yaml', 'grpc', 'google.protobuf', 'aiohttp', 'jax', 'tpukube')\n"
-        "print(json.dumps(sorted(m for m in sys.modules if m in bad)))\n"
+        "import tpukube_torch.workload.tp, tpukube_torch.workload.train, "
+        "tpukube_torch.workload.resnet, tpukube_torch.workload.meshenv\n"
+        "bad = ('yaml', 'grpc', 'google.protobuf', 'aiohttp', 'jax', 'jaxlib', 'optax', "
+        "'tpukube')\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m in bad "
+        "or m.startswith(('jax.', 'tpukube.', 'grpc.', 'yaml.')))))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                           capture_output=True, text=True, timeout=120)
@@ -166,3 +172,18 @@ def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_breakdown_sorts_kernels_by_kind_and_needs_the_card(monkeypatch):
+    # the measurement script behind PERF.md's step breakdown: kernel names
+    # map to kinds, and without CUDA it exits non-zero, measuring nothing
+    from tpukube_torch import breakdown
+
+    assert breakdown._kind("ncclDevKernel_AllReduce_Sum_f32_RING_LL") == "nccl"
+    assert breakdown._kind("sm90_xmma_fprop_implicit_gemm_bf16bf16") == "convolution"
+    assert breakdown._kind("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT") == "matmul"
+    assert breakdown._kind("void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel") == "normalization"
+    assert breakdown._kind("void at::native::unrolled_elementwise_kernel<direct_copy_kernel_cuda>") == "copy/cast"
+    assert breakdown._kind("void at::native::vectorized_elementwise_kernel<4, AddFunctor>") == "elementwise"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert breakdown.main() == 1

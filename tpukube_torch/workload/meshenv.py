@@ -1,10 +1,15 @@
-"""Allocate env → CUDA device — the port of ``tpukube/workload/meshenv.py``.
+"""Allocate env → CUDA device and ``DeviceMesh`` — the port of
+``tpukube/workload/meshenv.py``.
 
 The node agent injects ``CUDA_VISIBLE_DEVICES`` (+ ``CUDA_DEVICE_ORDER``),
 ``TPU_KUBE_CHIP_COORDS`` / ``TPU_KUBE_MESH_DIMS`` / ``TPU_HBM_LIMIT_BYTES``
-at Allocate (:mod:`tpukube_torch.device.gpu`); this module is the consumer
-side inside the pod. This slice runs one process on one GPU; the dp×tp
-``DeviceMesh`` comes with the training slice.
+at Allocate (:mod:`tpukube_torch.device.gpu`), and the extender the
+``TPU_KUBE_GANG_*`` keys of a DCN-spanning gang; this module is the
+consumer side inside the pod. Where the reference arranges
+``jax.devices()`` into a ``Mesh``, the port arranges the ranks of the
+default process group into a ``DeviceMesh``: rank r is the r-th device of
+the reference's list. The mesh's device type follows the process group's
+backend (NCCL → ``cuda``, gloo → ``cpu``).
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from dataclasses import dataclass
 from typing import Mapping, Optional, Sequence
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from tpukube_torch.device.gpu import (
     DEVICE_ORDER,
@@ -143,3 +150,84 @@ def device_from_alloc_env(env: Optional[Mapping[str, str]] = None) -> torch.devi
             f"CUDA sees {n} devices, the allocation has {len(pe.visible_chips)}"
         )
     return torch.device("cuda:0")
+
+
+def build_mesh(device_type: str, dp: int, tp: int) -> DeviceMesh:
+    """The default group's ranks as a ``DeviceMesh(("dp", "tp"))``, tp
+    fastest. Collective: every rank calls it."""
+    return init_device_mesh(device_type, (dp, tp), mesh_dim_names=("dp", "tp"))
+
+
+def build_multislice_mesh(device_type: str, num_slices: int, dp: int,
+                          tp: int) -> DeviceMesh:
+    """``DeviceMesh(("dcn", "dp", "tp"))`` for a DCN-spanning gang, ranks
+    slice-major: shard only the batch over ``dcn``. Collective."""
+    return init_device_mesh(device_type, (num_slices, dp, tp),
+                            mesh_dim_names=("dcn", "dp", "tp"))
+
+
+def mesh_shape_from_alloc_env(
+    env: Optional[Mapping[str, str]], world_size: int, tp: Optional[int] = None,
+) -> tuple[tuple[str, ...], tuple[int, ...], PodGpuEnv]:
+    """The reference's ``mesh_from_alloc_env`` policy, without building
+    anything: -> (axis names, axis sizes, PodGpuEnv) for ``world_size``
+    ranks.
+
+    A DCN-spanning gang gets ("dcn", "dp", "tp") with one ``dcn`` entry per
+    slice, and the ranks must split evenly over the slices. Otherwise the
+    gang's box gives (dp, tp); where fewer ranks run than the box has
+    chips (a dry run), the mesh folds onto the ranks, and a pinned ``tp``
+    must divide them."""
+    pe = PodGpuEnv.from_env(env)
+    if pe.spans_dcn:
+        ns = pe.gang_num_slices
+        if world_size % ns:
+            raise ValueError(
+                f"{world_size} devices do not divide over {ns} slices; a DCN "
+                f"mesh needs equal per-slice device counts"
+            )
+        dp, tp_ = mesh_axes_from_box((world_size // ns, 1, 1), tp)
+        return ("dcn", "dp", "tp"), (ns, dp, tp_), pe
+    shape = box_shape(pe.coords)
+    if world_size < shape[0] * shape[1] * shape[2]:
+        dp, tp_ = mesh_axes_from_box((world_size, 1, 1), tp)
+    else:
+        dp, tp_ = mesh_axes_from_box(shape, tp)
+    return ("dp", "tp"), (dp, tp_), pe
+
+
+def mesh_from_alloc_env(env: Optional[Mapping[str, str]] = None,
+                        world_size: Optional[int] = None,
+                        tp: Optional[int] = None) -> tuple[DeviceMesh, PodGpuEnv]:
+    """One-call consumer: env → (DeviceMesh, PodGpuEnv) over the default
+    process group (``world_size`` defaults to its size). Collective."""
+    if world_size is None:
+        world_size = dist.get_world_size()
+    names, sizes, pe = mesh_shape_from_alloc_env(env, world_size, tp)
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mesh = init_device_mesh(device_type, sizes, mesh_dim_names=names)
+    return mesh, pe
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """The device this rank computes on: the CPU, or its current GPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def batch_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+    """The group of ranks that split the batch: ``dp``, or ``("dcn",
+    "dp")`` on a multislice mesh, built with ``dist.new_group`` for each tp
+    index (every rank creates every group, in the same order). A rank's
+    index in the batch is its rank in this group."""
+    if "dcn" not in mesh.mesh_dim_names:
+        return mesh.get_group("dp")
+    ranks = mesh.mesh
+    mine = None
+    for t in range(ranks.shape[-1]):
+        members = ranks[..., t].flatten().tolist()
+        group = dist.new_group(members)
+        if dist.get_rank() in members:
+            mine = group
+    return mine

@@ -27,7 +27,18 @@ Drives the port's main path the way a cluster does, on the card:
    images must agree with the CPU;
 7. ``python -m tpukube_torch.graft --dryrun``: ``dryrun_multichip`` over
    every visible GPU, NCCL;
-8. prints the kernels line: the JAX package has no Pallas kernel, so the
+8. vGPU (BASELINE config 3, two inference pods sharing one card under a
+   hard memory quota): a second node agent with two shares per GPU must
+   advertise exactly ``tpu-0-frac0of2`` and ``tpu-0-frac1of2`` as
+   ``qiniu.com/vtpu``, prefer both for a pod of 2, mint each share's env
+   (half the memory, fraction 0.5000, half the SMs) and refuse a third;
+   g++ builds the quota guard (``libcudaguard.so``); the ``--quota`` pod,
+   under it on share 0's env, shows it refusing at ⌊quota / 4 GiB⌋ blocks
+   with the card physically free; then two ``--shared`` pods, one per
+   share, each under the guard, serve Llama-3-8B (B=1, S=2048) at the same
+   time, released together, while the node agent samples NVML telemetry
+   and its XID watch;
+9. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -39,12 +50,15 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 POD_TIMEOUT_S = 900
+TELEMETRY_PERIOD_S = 0.25
 H100_BF16_FLOPS = 989e12  # NVIDIA data sheet, SXM, dense, at 700 W
 
 
@@ -53,16 +67,21 @@ def fail(msg: str) -> int:
     return 1
 
 
+def pod_env(env: dict) -> dict:
+    """The child's environment: this process's, the Allocate env over it."""
+    pythonpath = os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH", "")) if p
+    )
+    return {**os.environ, **env, "PYTHONPATH": pythonpath}
+
+
 def run_pod(flags: list, env: dict, key: str):
     """``python -m tpukube_torch.graft *flags`` as a child with the Allocate
     env; its stdout lines are echoed, the last one is its JSON report.
     Returns ``report[key]``, or None when the child failed."""
-    pythonpath = os.pathsep.join(
-        p for p in (ROOT, os.environ.get("PYTHONPATH", "")) if p
-    )
     proc = subprocess.run(
         [sys.executable, "-m", "tpukube_torch.graft", *flags],
-        cwd=ROOT, env={**os.environ, **env, "PYTHONPATH": pythonpath},
+        cwd=ROOT, env=pod_env(env),
         stdout=subprocess.PIPE, text=True, timeout=POD_TIMEOUT_S,
     )
     lines = proc.stdout.strip().splitlines()
@@ -73,6 +92,206 @@ def run_pod(flags: list, env: dict, key: str):
         fail(f"pod {' '.join(flags) or '(serve)'} exited {proc.returncode}")
         return None
     return json.loads(lines[-1])[key]
+
+
+def mps_daemon_running() -> bool:
+    """Whether an MPS control daemon runs on this machine: without one,
+    CUDA_MPS_ACTIVE_THREAD_PERCENTAGE binds nothing."""
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/comm") as f:
+                if f.read().strip() == "nvidia-cuda-mps-control":
+                    return True
+        except OSError:  # not a process, or it ended
+            continue
+    return False
+
+
+def pump(stream, q: queue.Queue) -> None:
+    """Put each line of ``stream`` on ``q``, then None at its end."""
+    for line in stream:
+        q.put(line)
+    q.put(None)
+
+
+def run_shared(envs: list, guard: str, mgr) -> tuple:
+    """Two ``--shared`` pods, one per share env, under the guard: both are
+    started, and released by ``go`` together once both are ``ready``;
+    while they run, the node agent's telemetry is sampled and its probe
+    must stay healthy. Returns (reports, ready lines, [(phase, telemetry)])
+    or None when a pod or the probe failed. No pod outlives the call."""
+    procs, lines = [], []
+    try:
+        for env in envs:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tpukube_torch.graft", "--shared"],
+                cwd=ROOT, env=pod_env({**env, "LD_PRELOAD": guard}),
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True))
+            lines.append(queue.Queue())
+        for proc, q in zip(procs, lines):
+            threading.Thread(target=pump, args=(proc.stdout, q), daemon=True).start()
+        deadline = time.monotonic() + POD_TIMEOUT_S
+        outs = [[] for _ in procs]
+
+        def take(i: int, timeout: float):
+            line = lines[i].get(timeout=timeout)
+            if line is not None:
+                outs[i].append(line.rstrip("\n"))
+                print(f"shared pod {i}: {line.rstrip()}", flush=True)
+            return line
+
+        ready = []
+        for i in range(len(procs)):
+            while True:
+                line = take(i, max(deadline - time.monotonic(), 1.0))
+                if line is None:
+                    fail(f"shared pod {i} exited {procs[i].wait()} before ready")
+                    return None
+                if line.startswith('{"ready"'):
+                    ready.append(json.loads(line)["ready"])
+                    break
+        samples = [("ready", mgr.telemetry_snapshot()[0])]
+        if not mgr.probe():
+            fail(f"XID/liveness probe failed: {mgr.probe_report()}")
+            return None
+        for proc in procs:
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+            proc.stdin.close()
+        done = [False] * len(procs)
+        while not all(done):
+            if time.monotonic() > deadline:
+                fail(f"shared pods did not finish in {POD_TIMEOUT_S} s")
+                return None
+            time.sleep(TELEMETRY_PERIOD_S)
+            samples.append(("running", mgr.telemetry_snapshot()[0]))
+            if not mgr.probe():
+                fail(f"XID/liveness probe failed while the pods ran: {mgr.probe_report()}")
+                return None
+            for i in range(len(procs)):
+                try:
+                    while not done[i]:
+                        done[i] = take(i, 0) is None
+                except queue.Empty:
+                    pass
+        reports = []
+        for i, proc in enumerate(procs):
+            rc = proc.wait()
+            if rc != 0 or not outs[i]:
+                fail(f"shared pod {i} exited {rc}")
+                return None
+            reports.append(json.loads(outs[i][-1])["shared"])
+        return reports, ready, samples
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def vgpu_phase(card: str, c0, solo: dict) -> int:
+    """BASELINE config 3 on the card (module docstring, step 8); 0 or the
+    exit code of the failed check."""
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.types import Health
+    from tpukube_torch.device import DeviceError, GpuDeviceManager
+    from tpukube_torch.device.gpu import (
+        ENV_HBM_LIMIT,
+        ENV_KUBE_CORE_IDS,
+        ENV_MEM_FRACTION,
+        ENV_MPS_THREAD_PERCENTAGE,
+    )
+    from tpukube_torch.native import cudaguard
+
+    mps = mps_daemon_running()
+    print(f"vGPU: MPS control daemon running: {mps}"
+          + ("" if mps else " (the SM split below is advertised, not enforced)"),
+          flush=True)
+    cfg = load_config(env={"TPUKUBE_BACKEND": "real", "TPUKUBE_SHARES_PER_CHIP": "2"})
+    with GpuDeviceManager(cfg) as mgr:
+        devices = mgr.device_list()
+        ids = ["tpu-0-frac0of2", "tpu-0-frac1of2"]
+        if devices != [(d, Health.HEALTHY) for d in ids]:
+            return fail(f"vGPU device list {devices}")
+        if mgr.resource_name != "qiniu.com/vtpu":
+            return fail(f"vGPU resource {mgr.resource_name}")
+        picked = mgr.preferred_allocation(ids, [], 2)
+        if sorted(picked) != ids:
+            return fail(f"preferred_allocation picked {picked}")
+        quota = c0.hbm_bytes // 2
+        cps = c0.num_cores // 2
+        envs = [mgr.allocate_env([d]) for d in ids]
+        for k, env in enumerate(envs):
+            sms = "0:" + "+".join(str(c) for c in range(k * cps, (k + 1) * cps))
+            want = {ENV_HBM_LIMIT: str(quota), ENV_MEM_FRACTION: "0.5000",
+                    ENV_KUBE_CORE_IDS: sms,
+                    ENV_MPS_THREAD_PERCENTAGE: str(cps * 100 // c0.num_cores)}
+            got = {key: env.get(key) for key in want}
+            if got != want:
+                return fail(f"share {k} env {got}, want {want}")
+            print(f"vGPU allocate env, share {k}: " + json.dumps(env, sort_keys=True),
+                  flush=True)
+        try:
+            mgr.allocate_env(["tpu-0-frac2of2"])
+            return fail("a third share of the card was allocated")
+        except DeviceError as e:
+            print(f"vGPU: third share refused: {e}", flush=True)
+
+        guard = cudaguard.library_path()
+        # share 0's env without its fraction: with it, PyTorch's caching
+        # allocator refuses at the same byte count before cudaMalloc is
+        # called, and the guard is never asked
+        qenv = {k: v for k, v in envs[0].items() if k != ENV_MEM_FRACTION}
+        q = run_pod(["--quota"], {**qenv, "LD_PRELOAD": guard}, "quota")
+        if q is None:
+            return 1
+        if q["uuid"] != c0.chip_id:
+            return fail(f"quota pod ran on {q['uuid']}, allocated {c0.chip_id}")
+        print("quota: " + json.dumps(q, sort_keys=True), flush=True)
+        print(
+            f"quota pod: guard refused 4 GiB block {q['blocks_fitted'] + 1} at "
+            f"{q['used_at_refusal']} bytes metered of a {q['limit']}-byte quota; "
+            f"limit + 1 GiB refused with {q['nvml_free_at_over_request']} bytes "
+            f"free on the card (NVML) [{card}]",
+            flush=True,
+        )
+
+        ran = run_shared(envs, guard, mgr)
+        if ran is None:
+            return 1
+        reports, ready, samples = ran
+    for i, r in enumerate(reports):
+        if r["uuid"] != c0.chip_id:
+            return fail(f"shared pod {i} ran on {r['uuid']}, allocated {c0.chip_id}")
+        if r["max_memory_reserved"] > quota or r["guard_peak"] > quota:
+            return fail(f"shared pod {i} passed its quota {quota}: {r}")
+        print(f"shared {i}: " + json.dumps(r, sort_keys=True), flush=True)
+    nvml_used = max(t.hbm_used_bytes for _, t in samples)
+    reserved = sum(r["memory_reserved"] for r in ready)
+    if nvml_used <= reserved:
+        return fail(f"NVML used {nvml_used} <= the pods' reserved {reserved}")
+    util = max(t.duty_cycle_percent for w, t in samples if w == "running")
+    if util <= 0:
+        return fail("NVML utilization stayed 0 while the pods ran")
+    for i, r in enumerate(reports):
+        print(
+            f"shared pod {i}, Llama-3-8B B={r['batch']} S={r['seq']} beside the "
+            f"other pod: median {r['forward_ms_median']:.3f} ms, "
+            f"{r['tokens_per_s']:.1f} tokens/s; peak reserved "
+            f"{r['max_memory_reserved']} of a {quota}-byte quota, guard peak "
+            f"{r['guard_peak']}, refused {r['guard_refused']} [{card}]",
+            flush=True,
+        )
+    both = sum(r["tokens_per_s"] for r in reports)
+    print(
+        f"shared card: two B=1 pods {both:.1f} tokens/s together against the solo "
+        f"B=2 pod's {solo['tokens_per_s']:.1f} ({both / solo['tokens_per_s']:.1%}); "
+        f"NVML over {len(samples)} samples: used up to {nvml_used} bytes (pods "
+        f"reserved {reserved} at ready), utilization up to {util:.0f}%, XID probe "
+        f"healthy throughout [{card}]",
+        flush=True,
+    )
+    return 0
 
 
 def main() -> int:
@@ -97,6 +316,7 @@ def main() -> int:
 
     # -- node agent -------------------------------------------------------
     props = torch.cuda.get_device_properties(0)
+    # the real backend's default health watch: NVML XID events + liveness
     with GpuDeviceManager(load_config(env={"TPUKUBE_BACKEND": "real"})) as mgr:
         if mgr.inventory_source() != "nvml":
             return fail(f"inventory source {mgr.inventory_source()!r}")
@@ -208,12 +428,19 @@ def main() -> int:
     if dry is None:
         return 1
     print("dryrun: " + json.dumps(dry, sort_keys=True) + f" [{card}]", flush=True)
+
+    # -- vGPU: two pods on shares of the card ---------------------------------
+    rc = vgpu_phase(card, c0, pod)
+    if rc:
+        return rc
     print(f"chip_smoke: whole run {time.monotonic() - t_start:.1f} s [{card}]",
           flush=True)
 
     print(json.dumps({
         "kernels": [],
-        "note": "no Pallas kernel in tpukube; native discovery shim: gpuinfo (nvml)",
+        "note": "no Pallas kernel in tpukube; the port's native code is host "
+                "C++: gpuinfo (NVML discovery, XID health, telemetry) and "
+                "cudaguard (CUDA driver quota guard)",
     }), flush=True)
     print(json.dumps({
         "ok": True,

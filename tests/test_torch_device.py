@@ -141,8 +141,18 @@ def test_allocate_refusals_match_reference(ids, match):
 
 
 def test_vgpu_sharing_is_refused():
-    with pytest.raises(DeviceError, match="vGPU sharing is not ported yet"):
-        GpuDeviceManager(load_config(env=_env({"TPUKUBE_SHARES_PER_CHIP": "2"})))
+    """A shares config, once refused outright, now builds and advertises
+    shares; what vGPU mode refuses is a whole-GPU id and a share of
+    another size."""
+    with GpuDeviceManager(load_config(env=_env({"TPUKUBE_SHARES_PER_CHIP": "2"}))) as m:
+        assert m.resource_name == "qiniu.com/vtpu"
+        assert [d for d, _ in m.device_list()] == [
+            f"tpu-{i}-frac{k}of2" for i in range(4) for k in range(2)]
+        assert m.allocate_env(["tpu-1-frac1of2"])[ENV_HBM_LIMIT] == str(HBM // 2)
+        with pytest.raises(DeviceError, match="whole-chip id rejected"):
+            m.allocate_env(["tpu-1"])
+        with pytest.raises(DeviceError, match="share does not match"):
+            m.allocate_env(["tpu-1-frac0of4"])
 
 
 def test_config_defaults_and_env_overlay():
@@ -159,7 +169,10 @@ def test_config_defaults_and_env_overlay():
     for f in dataclasses.fields(port):
         if hasattr(ref, f.name) and f.name != "backend":
             assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    assert cfg.probe_mode == "" and load_config(
+        env={"TPUKUBE_PROBE_MODE": "liveness"}).probe_mode == "liveness"
     for bad in ({"TPUKUBE_SHARES_PER_CHIP": "0"}, {"TPUKUBE_BACKEND": "pjrt"},
+                {"TPUKUBE_PROBE_MODE": "client"}, {"TPUKUBE_PROBE_MODE": "nvml"},
                 {"TPUKUBE_SIM_HOST_ORIGIN": "1,2"}, {"TPUKUBE_SLICE_ID": ""},
                 {"TPUKUBE_SIM_MESH_DIMS": "4,4"}):
         with pytest.raises(ValueError):

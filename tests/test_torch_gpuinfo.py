@@ -3,7 +3,8 @@
 The sim backend of libgpuinfo is held against libtpuinfo's on the same
 spec: chips, links and link faults must agree exactly. The real backend
 (NVML) runs against tpukube_torch/native/nvml_stub.cpp, a stand-in
-libnvidia-ml built here, configured through NVML_STUB_* env knobs."""
+libnvidia-ml built here, configured through NVML_STUB_* env knobs; XID
+events are injected through the stub's nvml_stub_inject_xid."""
 
 import dataclasses
 import os
@@ -23,7 +24,8 @@ STUB_SRC = os.path.join(
     "tpukube_torch", "native", "nvml_stub.cpp",
 )
 _STUB_KNOBS = ["NVML_STUB_COUNT", "NVML_STUB_NAME", "NVML_STUB_MEM",
-               "NVML_STUB_FAIL_INIT", "NVML_STUB_LOST"]
+               "NVML_STUB_FAIL_INIT", "NVML_STUB_LOST", "NVML_STUB_NO_EVENTS",
+               "NVML_STUB_MEM_USED", "NVML_STUB_UTIL"]
 
 # (dims, host_block, torus, host, origin)
 SIM_MESHES = {
@@ -181,3 +183,86 @@ def test_nvml_probe_tracks_lost_gpu(nvml_stub, monkeypatch):
         monkeypatch.delenv("NVML_STUB_LOST")
         assert gi.probe() is True
         assert all(c.health is Health.HEALTHY for c in gi.chips())
+
+
+# -- XID health and telemetry against the NVML stub ------------------------
+
+def _inject_xid(stub, index, xid):
+    # the stub's own hook; the same library the session dlopen'ed
+    import ctypes
+
+    lib = ctypes.CDLL(stub)
+    lib.nvml_stub_inject_xid.argtypes = [ctypes.c_int, ctypes.c_ulonglong]
+    assert lib.nvml_stub_inject_xid(index, xid) == 0
+
+
+def test_nvml_critical_xid_marks_its_gpu_unhealthy_for_good(nvml_stub, monkeypatch):
+    monkeypatch.setenv("NVML_STUB_COUNT", "3")
+    with _real(nvml_stub) as gi:  # xid is the real backend's default
+        assert gi.probe() is True
+        _inject_xid(nvml_stub, 1, 79)  # fallen off the bus
+        assert gi.probe() is False
+        assert "GPU 1: critical XID 79" in gi.last_error()
+        assert [c.health for c in gi.chips()] == [
+            Health.HEALTHY, Health.UNHEALTHY, Health.HEALTHY]
+        # sticky: liveness alone would pass it again
+        assert gi.probe() is False
+        assert gi.chips()[1].health is Health.UNHEALTHY
+        assert "GPU 1: critical XID 79" in gi.last_error()
+
+
+@pytest.mark.parametrize("xid", [13, 31, 43, 45, 68])
+def test_nvml_application_xids_leave_the_gpu_healthy(nvml_stub, monkeypatch, xid):
+    monkeypatch.setenv("NVML_STUB_COUNT", "2")
+    with _real(nvml_stub) as gi:
+        _inject_xid(nvml_stub, 0, xid)
+        assert gi.probe() is True
+        assert all(c.health is Health.HEALTHY for c in gi.chips())
+
+
+def test_nvml_unattributed_xid_marks_every_gpu(nvml_stub, monkeypatch):
+    monkeypatch.setenv("NVML_STUB_COUNT", "2")
+    with _real(nvml_stub) as gi:
+        _inject_xid(nvml_stub, -1, 48)
+        assert gi.probe() is False
+        assert all(c.health is Health.UNHEALTHY for c in gi.chips())
+
+
+def test_nvml_xid_registration_refused_fails_init_in_xid_mode(nvml_stub, monkeypatch):
+    monkeypatch.setenv("NVML_STUB_NO_EVENTS", "1")
+    for spec in (f"nvml={nvml_stub}\n", f"nvml={nvml_stub}\nprobe=xid\n"):
+        with pytest.raises(GpuInfoError,
+                           match=r"nvmlDeviceRegisterEvents failed: Not Supported \(nvmlReturn 3\)"):
+            GpuInfo("real", spec)
+    for mode in ("liveness", "off"):  # modes that need no events still start
+        with GpuInfo("real", f"nvml={nvml_stub}\nprobe={mode}\n") as gi:
+            assert gi.probe() is True
+    with pytest.raises(GpuInfoError, match="unknown probe mode: client"):
+        GpuInfo("real", f"nvml={nvml_stub}\nprobe=client\n")
+
+
+def test_nvml_liveness_and_off_modes_ignore_xids(nvml_stub, monkeypatch):
+    monkeypatch.setenv("NVML_STUB_COUNT", "2")
+    with GpuInfo("real", f"nvml={nvml_stub}\nprobe=liveness\n") as gi:
+        _inject_xid(nvml_stub, 0, 79)  # no event set is registered
+        assert gi.probe() is True
+        monkeypatch.setenv("NVML_STUB_LOST", "0")
+        assert gi.probe() is False
+    monkeypatch.delenv("NVML_STUB_LOST")
+    with GpuInfo("real", f"nvml={nvml_stub}\nprobe=off\n") as gi:
+        monkeypatch.setenv("NVML_STUB_LOST", "0")
+        assert gi.probe() is True  # off: NVML is not asked
+        assert all(c.health is Health.HEALTHY for c in gi.chips())
+
+
+def test_nvml_telemetry(nvml_stub, monkeypatch):
+    monkeypatch.setenv("NVML_STUB_COUNT", "2")
+    monkeypatch.setenv("NVML_STUB_MEM_USED", str(12345 << 20))
+    monkeypatch.setenv("NVML_STUB_UTIL", "64")
+    with _real(nvml_stub) as gi:
+        assert gi.telemetry(1) == (64, 12345 << 20)
+        with pytest.raises(GpuInfoError, match="out of range"):
+            gi.telemetry(2)
+    with GpuInfo("sim", "dims=2,1,1\nhost_block=2,1,1\n") as gi:
+        with pytest.raises(GpuInfoError, match="needs the real backend"):
+            gi.telemetry(0)

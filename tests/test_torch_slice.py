@@ -61,7 +61,10 @@ def test_slice_matches_reference_end_to_end():
         env = gm.allocate_env(alloc)
 
     ref_pe, pe = PodTpuEnv.from_env(ref_env), PodGpuEnv.from_env(env)
-    assert dataclasses.asdict(pe) == dataclasses.asdict(ref_pe)
+    # the port's one field more: a share's memory fraction, none for whole GPUs
+    assert pe.mem_fraction is None
+    assert {k: v for k, v in dataclasses.asdict(pe).items() if k != "mem_fraction"} == (
+        dataclasses.asdict(ref_pe))
     assert box_shape(pe.coords) == ref_box_shape(ref_pe.coords) == (1, 2, 1)
     assert mesh_axes_from_box(box_shape(pe.coords)) == ref_mesh_axes(
         ref_box_shape(ref_pe.coords))
@@ -110,6 +113,25 @@ def test_pod_serve_at_tiny_size_on_cpu():
     assert out["max_memory_allocated"] is None
 
 
+def test_serve_waits_on_warm_before_its_timed_requests(monkeypatch):
+    # the shared pod's ready/go handshake sits between warm-up and timing:
+    # no timed request may start before on_warm() returns
+    cfg = port.LlamaConfig(**dataclasses.asdict(CFG))
+    events = []
+    forward = port.Llama.forward
+
+    def counted(self, tokens):
+        events.append("forward")
+        return forward(self, tokens)
+
+    monkeypatch.setattr(port.Llama, "forward", counted)
+    out = graft.serve(cfg, CPU, seed=0, requests=2, batch=1, seq=CFG.max_seq,
+                      parity_layers=1, parity_seq=8,
+                      on_warm=lambda: events.append("warm"))
+    assert events[:4] == ["forward", "warm", "forward", "forward"]
+    assert out["batch"] == 1 and len(out["forward_ms"]) == 2
+
+
 def test_forward_flops_counts_what_torch_counts():
     # the compute bound chip_smoke.py prints rests on this count
     from torch.utils.flop_counter import FlopCounterMode
@@ -137,8 +159,9 @@ def test_port_imports_no_jax_and_nothing_of_tpukube():
     for d, _, files in os.walk(os.path.join(REPO, "tpukube_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 10
-    for new in ("tp.py", "train.py", "resnet.py"):
-        assert os.path.join(REPO, "tpukube_torch", "workload", new) in paths
+    for new in ("workload/tp.py", "workload/train.py", "workload/resnet.py",
+                "native/cudaguard.py", "obs/health.py"):
+        assert os.path.join(REPO, "tpukube_torch", *new.split("/")) in paths
     for p in paths:
         for mod in _import_targets(p):
             top = mod.split(".")[0]
@@ -152,6 +175,7 @@ def test_port_pulls_in_no_control_plane_dependency():
         "tpukube_torch.workload, tpukube_torch.graft\n"
         "import tpukube_torch.workload.tp, tpukube_torch.workload.train, "
         "tpukube_torch.workload.resnet, tpukube_torch.workload.meshenv\n"
+        "import tpukube_torch.native.cudaguard, tpukube_torch.obs.health\n"
         "bad = ('yaml', 'grpc', 'google.protobuf', 'aiohttp', 'jax', 'jaxlib', 'optax', "
         "'tpukube')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in bad "

@@ -3,8 +3,10 @@ NVIDIA Hopper GPUs. Each module mirrors one module of ``tpukube``, which
 stays the reference the port is tested against; the port imports nothing
 of it.
 
-Ported so far: NVML discovery (``native``), the device manager's Allocate
-env (``device``), and the in-pod workloads that consume that env
-(``workload``, ``graft``): the Llama decoder served and trained dp×tp over
-a ``DeviceMesh``, and the ResNet trained data-parallel.
+Ported so far: NVML discovery, XID health and telemetry, and the CUDA
+driver quota guard (``native``, ``obs``), the device manager's Allocate env
+for whole GPUs and vGPU shares (``device``), and the in-pod workloads that
+consume that env (``workload``, ``graft``): the Llama decoder served and
+trained dp×tp over a ``DeviceMesh``, the ResNet trained data-parallel, and
+two serving pods sharing one GPU under their quotas.
 """

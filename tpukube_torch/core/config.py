@@ -24,14 +24,19 @@ ENV_PREFIX = "TPUKUBE_"
 
 @dataclass(frozen=True)
 class GpuKubeConfig:
-    # >1 asks for fractional shares, which the port does not serve yet
-    shares_per_chip: int = 1
+    # resources: a node advertises whole GPUs or shares of them, never both
+    resource_tpu: str = "qiniu.com/tpu"
+    resource_vtpu: str = "qiniu.com/vtpu"
+    shares_per_chip: int = 1  # >1 mints vGPU shares (e.g. 2 or 4)
     # the ICI-domain name of the reference; here the NVLink domain
     slice_id: str = "slice-0"
     backend: str = "real"  # real (NVML) | sim
     # explicit libnvidia-ml path for the real backend; empty = the loader's
     # libnvidia-ml.so.1
     nvml_path: str = ""
+    # real-backend health watch: "" = the native default (xid), or
+    # xid|liveness|off — see native/gpuinfo.h gpuinfo_probe
+    probe_mode: str = ""
     # sim topology (used when backend == "sim")
     sim_mesh_dims: tuple[int, int, int] = (8, 1, 1)
     sim_host_block: tuple[int, int, int] = (8, 1, 1)
@@ -81,6 +86,8 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> GpuKubeConfig:
         raise ValueError("shares_per_chip must be >= 1")
     if cfg.backend not in ("sim", "real"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
+    if cfg.probe_mode not in ("", "xid", "liveness", "off"):
+        raise ValueError(f"unknown probe_mode {cfg.probe_mode!r}")
     if cfg.sim_host_origin:
         parts = cfg.sim_host_origin.split(",")
         if len(parts) != 3 or not all(p.strip().lstrip("-").isdigit() for p in parts):

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from tpukube_torch.core.types import TopologyCoord
+
 
 @dataclass(frozen=True)
 class MeshSpec:
@@ -34,3 +36,23 @@ class MeshSpec:
                 raise ValueError(
                     f"host_block {self.host_block} does not divide dims {self.dims}"
                 )
+
+    def neighbors(self, c: TopologyCoord) -> list[TopologyCoord]:
+        """Mesh neighbours of a chip (±1 per axis, honouring per-axis
+        torus), in the reference's order."""
+        out: list[TopologyCoord] = []
+        for axis in range(3):
+            d = self.dims[axis]
+            if d == 1:
+                continue
+            for step in (-1, 1):
+                v = list(c)
+                v[axis] += step
+                if not 0 <= v[axis] < d:
+                    if not self.torus[axis]:
+                        continue
+                    v[axis] %= d
+                nb = TopologyCoord(*v)
+                if nb != c and nb not in out:
+                    out.append(nb)
+        return out

@@ -16,7 +16,13 @@ one JSON line of results:
   world-1 NCCL group and the ``DeviceMesh`` of the env (:func:`train`);
 - ``--resnet``: trains ResNet-50 data-parallel over NCCL
   (:func:`train_resnet`);
-- ``--dryrun``: ``dryrun_multichip`` over every visible GPU.
+- ``--dryrun``: ``dryrun_multichip`` over every visible GPU;
+- ``--quota``: on a share's env under the quota guard (``LD_PRELOAD`` of
+  ``native/cudaguard``), proves the hard quota bites (:func:`quota_check`);
+- ``--shared``: serves Llama-3-8B at B=1 on a share, under its cooperative
+  cap and the guard, beside another such pod on the same GPU: it prints a
+  ``ready`` line after its warm-up and waits for ``go`` on stdin before
+  its timed requests, so the pods' timed windows overlap.
 
 Everything runs on the GPU unless the caller passes ``device="cpu"``; with
 no CUDA device the entry points raise rather than carry on on the CPU.
@@ -41,7 +47,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from tpukube_torch.native import GpuInfo
+from tpukube_torch.native import GpuInfo, cudaguard
 from tpukube_torch.workload import resnet
 from tpukube_torch.workload.llama import (
     Llama,
@@ -85,6 +91,14 @@ PARITY_ATOL_OF_MAX = 2e-2
 # how long run_ranks waits for its ranks
 RANK_TIMEOUT_S = 600.0
 
+GiB = 1 << 30
+# the block the quota pod allocates until the quota refuses one
+QUOTA_BLOCK = 4 * GiB
+# what the caching allocator may still hold after empty_cache()
+QUOTA_SLACK = 64 << 20
+# timed requests of a shared pod: a window of seconds on a shared card
+SHARED_REQUESTS = 10
+
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
     """``device`` as given, or the GPU when None; never falls back to the CPU."""
@@ -121,10 +135,12 @@ def forward_flops(cfg: LlamaConfig, batch: int, seq: int) -> int:
 
 @torch.inference_mode()
 def serve(cfg: LlamaConfig, device: torch.device, *, seed: int, requests: int,
-          batch: int, seq: int, parity_layers: int, parity_seq: int) -> dict:
+          batch: int, seq: int, parity_layers: int, parity_seq: int,
+          on_warm: Optional[Callable[[], None]] = None) -> dict:
     """Build the decoder from ``seed`` on ``device``, serve ``requests``
-    forward passes of (batch, seq) random tokens after one warm-up, and
-    check what comes out. Raises on any failed check; returns the numbers.
+    forward passes of (batch, seq) random tokens after one warm-up (and
+    ``on_warm()``, when given), and check what comes out. Raises on any
+    failed check; returns the numbers.
 
     Checks: f32 logits of the right shape, all finite; the loss of the
     random weights within 1.0 of ln(vocab); causality (changing token t
@@ -137,6 +153,8 @@ def serve(cfg: LlamaConfig, device: torch.device, *, seed: int, requests: int,
             for _ in range(requests + 1)]
     model(toks[0])  # warm-up
     _sync(device)
+    if on_warm is not None:
+        on_warm()
     times, logits = [], None
     for t in toks[1:]:
         t0 = time.perf_counter()
@@ -564,9 +582,126 @@ def dryrun_main() -> int:
     return 0
 
 
+def quota_check(device: torch.device, limit: int, guard: cudaguard.Guard,
+                nvml_free: Callable[[], int]) -> dict:
+    """Prove that the guard preloaded into this process holds it to
+    ``limit`` bytes of device memory, on a card with more free than that
+    (``nvml_free()``: NVML's free bytes). Checks, in order: the guard read
+    ``limit``; ``torch.cuda.mem_get_info`` reports no more free than it;
+    4 GiB blocks fit until the guard refuses one, after exactly
+    ⌊limit / 4 GiB⌋; after ``empty_cache`` the guard's count is back near 0
+    and a (limit − 4 GiB) tensor fits; limit + 1 GiB is refused while NVML
+    says the card has that much free. Raises on any failed check; returns
+    the numbers."""
+    if limit <= 0 or guard.limit() != limit:
+        raise RuntimeError(f"guard limit {guard.limit()}, the share's {limit}")
+    free, total = torch.cuda.mem_get_info(device)
+    if free > limit:
+        raise RuntimeError(f"mem_get_info free {free} > the quota {limit}")
+    refused0 = guard.refused()
+    blocks = []
+    try:
+        for _ in range(limit // QUOTA_BLOCK + 1):
+            blocks.append(torch.empty(QUOTA_BLOCK, dtype=torch.uint8, device=device))
+    except torch.OutOfMemoryError:
+        pass
+    fitted, used_full = len(blocks), guard.used()
+    if fitted != limit // QUOTA_BLOCK:
+        raise RuntimeError(f"{fitted} blocks of 4 GiB fitted, the quota allows "
+                           f"{limit // QUOTA_BLOCK}")
+    if guard.refused() <= refused0:
+        raise RuntimeError("the allocation failed, but not by the guard's refusal")
+    del blocks
+    torch.cuda.empty_cache()
+    used_empty = guard.used()
+    if used_empty > QUOTA_SLACK:
+        raise RuntimeError(f"guard still counts {used_empty} bytes after empty_cache")
+    big = torch.empty(limit - QUOTA_BLOCK, dtype=torch.uint8, device=device)
+    used_big = guard.used()
+    del big
+    torch.cuda.empty_cache()
+    over = limit + GiB
+    card_free = nvml_free()
+    if card_free <= over:
+        raise RuntimeError(f"NVML free {card_free}: the card cannot show the quota "
+                           f"refusing {over} bytes")
+    refused1 = guard.refused()
+    try:
+        torch.empty(over, dtype=torch.uint8, device=device)
+    except torch.OutOfMemoryError:
+        pass
+    else:
+        raise RuntimeError(f"{over} bytes over a {limit}-byte quota were granted")
+    if guard.refused() <= refused1:
+        raise RuntimeError("limit + 1 GiB failed, but not by the guard's refusal")
+    return {
+        "limit": limit,
+        "mem_get_info_free": free,
+        "mem_get_info_total": total,
+        "blocks_fitted": fitted,
+        "used_at_refusal": used_full,
+        "used_after_empty_cache": used_empty,
+        "used_with_limit_minus_4GiB": used_big,
+        "over_request": over,
+        "nvml_free_at_over_request": card_free,
+        "refused": guard.refused() - refused0,
+        "guard_peak": guard.peak(),
+    }
+
+
+def quota_main() -> int:
+    """The quota pod: run on a share's env without its memory fraction,
+    under the guard; one JSON line."""
+    pe, device, uuid = _pod_device()
+    if pe.mem_fraction is not None:
+        raise RuntimeError("the quota pod runs without the cooperative cap: "
+                           "PyTorch would refuse before the guard is asked")
+    chip = pe.visible_chips[0]
+
+    def nvml_free() -> int:
+        with GpuInfo("real", "probe=off\n") as gi:
+            _, used = gi.telemetry(chip)
+            return gi.chips()[chip].hbm_bytes - used
+
+    out = quota_check(device, pe.hbm_limit_bytes, cudaguard.Guard(), nvml_free)
+    out.update(device=torch.cuda.get_device_name(device), uuid=uuid,
+               device_ids=list(pe.device_ids))
+    print(json.dumps({"quota": out}), flush=True)
+    return 0
+
+
+def shared_main() -> int:
+    """A serving pod on a share: Llama-3-8B at B=1 under the share's
+    memory fraction and the guard; ``ready`` after the warm-up, the timed
+    requests after ``go`` on stdin; one JSON line."""
+    pe, device, uuid = _pod_device()
+    if pe.mem_fraction is None:
+        raise RuntimeError("the shared pod needs a share's env (no memory fraction)")
+    guard = cudaguard.Guard()
+    if guard.limit() != pe.hbm_limit_bytes:
+        raise RuntimeError(f"guard limit {guard.limit()}, the share's {pe.hbm_limit_bytes}")
+
+    def ready() -> None:
+        print(json.dumps({"ready": {"memory_reserved": torch.cuda.memory_reserved(device),
+                                    "guard_used": guard.used()}}), flush=True)
+        line = sys.stdin.readline().strip()
+        if line != "go":
+            raise RuntimeError(f"expected 'go' on stdin, got {line!r}")
+
+    out = serve(LlamaConfig.llama3_8b(), device, seed=0, requests=SHARED_REQUESTS,
+                batch=1, seq=2048, parity_layers=2, parity_seq=64, on_warm=ready)
+    out.update(device=torch.cuda.get_device_name(device), uuid=uuid,
+               device_ids=list(pe.device_ids), mem_fraction=pe.mem_fraction,
+               hbm_limit_bytes=pe.hbm_limit_bytes,
+               max_memory_reserved=torch.cuda.max_memory_reserved(device),
+               guard_peak=guard.peak(), guard_refused=guard.refused())
+    print(json.dumps({"shared": out}), flush=True)
+    return 0
+
+
 def _check_uuid(device: torch.device, chip_index: int) -> str:
     """The CUDA device must be the GPU NVML lists at the allocated index."""
-    with GpuInfo("real") as gi:
+    with GpuInfo("real", "probe=off\n") as gi:
         nvml_uuid = gi.chips()[chip_index].chip_id
     cuda_uuid = "GPU-" + str(torch.cuda.get_device_properties(device).uuid)
     if cuda_uuid != nvml_uuid:
@@ -602,6 +737,10 @@ def main(argv: Optional[list] = None) -> int:
     mode.add_argument("--resnet", action="store_true", help="the ResNet-50 DP pod")
     mode.add_argument("--dryrun", action="store_true",
                       help="dryrun_multichip over every visible GPU")
+    mode.add_argument("--quota", action="store_true",
+                      help="prove a share's hard quota under the guard")
+    mode.add_argument("--shared", action="store_true",
+                      help="serve on a share, beside another pod")
     a = parser.parse_args(argv)
     if a.train:
         return train_main()
@@ -609,6 +748,10 @@ def main(argv: Optional[list] = None) -> int:
         return resnet_main()
     if a.dryrun:
         return dryrun_main()
+    if a.quota:
+        return quota_main()
+    if a.shared:
+        return shared_main()
     return pod_main()
 
 

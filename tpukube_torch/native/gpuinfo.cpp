@@ -28,7 +28,25 @@ typedef struct {
   unsigned long long free;
   unsigned long long used;
 } nvmlMemory_t;
+typedef struct {
+  unsigned int gpu;     /* percent of the sample period a kernel ran */
+  unsigned int memory;  /* percent of it device memory was read or written */
+} nvmlUtilization_t;
+typedef struct nvmlEventSet_st* nvmlEventSet_t;
+typedef struct {
+  nvmlDevice_t device;              /* null when NVML cannot attribute it */
+  unsigned long long eventType;
+  unsigned long long eventData;     /* the XID, for an XID event */
+  unsigned int gpuInstanceId;
+  unsigned int computeInstanceId;
+} nvmlEventData_t;
 constexpr unsigned kNvmlNameLen = 96;  /* NVML_DEVICE_NAME_V2_BUFFER_SIZE */
+constexpr nvmlReturn_t kNvmlErrorTimeout = 10;  /* NVML_ERROR_TIMEOUT */
+constexpr unsigned long long kXidCriticalError = 0x8;  /* nvmlEventTypeXidCriticalError */
+/* Application faults, not the GPU's (graphics engine exception, memory
+ * page fault, GPU stopped processing, preemptive cleanup, NVDEC0
+ * exception): NVIDIA's device plugin keeps the GPU healthy on these. */
+constexpr unsigned long long kApplicationXids[] = {13, 31, 43, 45, 68};
 
 struct Nvml {
   void* handle = nullptr;
@@ -39,8 +57,17 @@ struct Nvml {
   nvmlReturn_t (*DeviceGetUUID)(nvmlDevice_t, char*, unsigned) = nullptr;
   nvmlReturn_t (*DeviceGetName)(nvmlDevice_t, char*, unsigned) = nullptr;
   nvmlReturn_t (*DeviceGetMemoryInfo)(nvmlDevice_t, nvmlMemory_t*) = nullptr;
+  nvmlReturn_t (*DeviceGetUtilizationRates)(nvmlDevice_t, nvmlUtilization_t*) = nullptr;
+  /* XID watch: bound in xid mode only */
+  nvmlReturn_t (*EventSetCreate)(nvmlEventSet_t*) = nullptr;
+  nvmlReturn_t (*EventSetFree)(nvmlEventSet_t) = nullptr;
+  nvmlReturn_t (*DeviceRegisterEvents)(nvmlDevice_t, unsigned long long,
+                                       nvmlEventSet_t) = nullptr;
+  nvmlReturn_t (*EventSetWait_v2)(nvmlEventSet_t, nvmlEventData_t*, unsigned) = nullptr;
   const char* (*ErrorString)(nvmlReturn_t) = nullptr;  /* optional */
 };
+
+enum class ProbeMode { kXid, kLiveness, kOff };
 
 using LinkPair = std::array<int32_t, 6>;  /* ax,ay,az,bx,by,bz, a<=b lex */
 
@@ -52,6 +79,10 @@ struct State {
   std::vector<LinkPair> bad_links;
   std::string source = "";  /* "sim" | "nvml" */
   Nvml nvml;                /* real backend only; NVML stays initialized */
+  ProbeMode probe_mode = ProbeMode::kXid;
+  nvmlEventSet_t events = nullptr;  /* xid mode */
+  std::vector<nvmlDevice_t> devices;   /* NVML handle of each chip */
+  std::vector<std::string> xid_fault; /* sticky: the critical XID seen, or "" */
 };
 
 State g_state;
@@ -195,8 +226,9 @@ std::string nvml_error(const Nvml& n, const char* call, nvmlReturn_t rc) {
   return std::string("real: ") + call + " failed: " + nvml_reason(n, rc);
 }
 
-/* Open libnvidia-ml and bind the calls this shim makes. */
-bool load_nvml(const std::string& path, Nvml* n) {
+/* Open libnvidia-ml and bind the calls this shim makes (the event calls
+ * only when `events`). */
+bool load_nvml(const std::string& path, bool events, Nvml* n) {
   n->handle = dlopen(path.c_str(), RTLD_LAZY | RTLD_LOCAL);
   if (n->handle == nullptr) {
     set_error(std::string("real: cannot load NVML: ") + dlerror());
@@ -215,16 +247,28 @@ bool load_nvml(const std::string& path, Nvml* n) {
       {"nvmlDeviceGetUUID", reinterpret_cast<void**>(&n->DeviceGetUUID)},
       {"nvmlDeviceGetName", reinterpret_cast<void**>(&n->DeviceGetName)},
       {"nvmlDeviceGetMemoryInfo", reinterpret_cast<void**>(&n->DeviceGetMemoryInfo)},
+      {"nvmlDeviceGetUtilizationRates",
+       reinterpret_cast<void**>(&n->DeviceGetUtilizationRates)},
   };
-  for (const Sym& s : required) {
+  const Sym event_calls[] = {
+      {"nvmlEventSetCreate", reinterpret_cast<void**>(&n->EventSetCreate)},
+      {"nvmlEventSetFree", reinterpret_cast<void**>(&n->EventSetFree)},
+      {"nvmlDeviceRegisterEvents", reinterpret_cast<void**>(&n->DeviceRegisterEvents)},
+      {"nvmlEventSetWait_v2", reinterpret_cast<void**>(&n->EventSetWait_v2)},
+  };
+  auto bind = [n](const Sym& s) {
     *s.slot = dlsym(n->handle, s.name);
-    if (*s.slot == nullptr) {
-      set_error(std::string("real: NVML lacks ") + s.name);
-      dlclose(n->handle);
-      *n = Nvml{};
-      return false;
-    }
-  }
+    if (*s.slot != nullptr) return true;
+    set_error(std::string("real: NVML lacks ") + s.name);
+    dlclose(n->handle);
+    *n = Nvml{};
+    return false;
+  };
+  for (const Sym& s : required)
+    if (!bind(s)) return false;
+  if (events)
+    for (const Sym& s : event_calls)
+      if (!bind(s)) return false;
   *reinterpret_cast<void**>(&n->ErrorString) = dlsym(n->handle, "nvmlErrorString");
   return true;
 }
@@ -262,13 +306,25 @@ bool read_gpu(const Nvml& n, unsigned i, gpuinfo_chip* out) {
 
 int init_real(const char* spec) {
   std::string nvml_path = "libnvidia-ml.so.1";
+  ProbeMode mode = ProbeMode::kXid;
   for (const auto& [key, val] : parse_spec(spec)) {
-    if (key == "nvml") nvml_path = val;
-    else { set_error("real: unknown spec key: " + key); return -1; }
+    if (key == "nvml") {
+      nvml_path = val;
+    } else if (key == "probe") {
+      if (val == "xid") mode = ProbeMode::kXid;
+      else if (val == "liveness") mode = ProbeMode::kLiveness;
+      else if (val == "off") mode = ProbeMode::kOff;
+      else { set_error("real: unknown probe mode: " + val); return -1; }
+    } else {
+      set_error("real: unknown spec key: " + key);
+      return -1;
+    }
   }
   Nvml n;
-  if (!load_nvml(nvml_path, &n)) return -1;
-  auto fail = [&n]() {
+  if (!load_nvml(nvml_path, mode == ProbeMode::kXid, &n)) return -1;
+  nvmlEventSet_t events = nullptr;
+  auto fail = [&n, &events]() {
+    if (events != nullptr) n.EventSetFree(events);
     n.Shutdown();
     dlclose(n.handle);
     return -1;
@@ -284,8 +340,26 @@ int init_real(const char* spec) {
   if (rc != 0) { set_error(nvml_error(n, "nvmlDeviceGetCount_v2", rc)); return fail(); }
   if (count == 0) { set_error("real: NVML reports no GPUs"); return fail(); }
   std::vector<gpuinfo_chip> chips(count);
-  for (unsigned i = 0; i < count; ++i)
+  std::vector<nvmlDevice_t> devices(count);
+  for (unsigned i = 0; i < count; ++i) {
     if (!read_gpu(n, i, &chips[i])) return fail();
+    rc = n.DeviceGetHandleByIndex_v2(i, &devices[i]);
+    if (rc != 0) { set_error(nvml_error(n, "nvmlDeviceGetHandleByIndex_v2", rc)); return fail(); }
+  }
+  if (mode == ProbeMode::kXid) {
+    /* KubeGPU's and NVIDIA's health watch. No fallback to liveness: a node
+     * that asked for XID health and cannot have it must say so. */
+    rc = n.EventSetCreate(&events);
+    if (rc != 0) { set_error(nvml_error(n, "nvmlEventSetCreate", rc)); return fail(); }
+    for (unsigned i = 0; i < count; ++i) {
+      rc = n.DeviceRegisterEvents(devices[i], kXidCriticalError, events);
+      if (rc != 0) {
+        set_error(nvml_error(n, "nvmlDeviceRegisterEvents", rc) + " for GPU " +
+                  std::to_string(i));
+        return fail();
+      }
+    }
+  }
 
   /* GPUs of one node on a line: NVLink/NVSwitch joins them all to all, so
    * the mesh only orders them (coord x == NVML index). */
@@ -295,7 +369,45 @@ int init_real(const char* spec) {
   g_state.is_sim = false;
   g_state.source = "nvml";
   g_state.nvml = n;
+  g_state.probe_mode = mode;
+  g_state.events = events;
+  g_state.devices = std::move(devices);
+  g_state.xid_fault.assign(count, "");
   return 0;
+}
+
+bool application_xid(unsigned long long xid) {
+  for (unsigned long long a : kApplicationXids)
+    if (a == xid) return true;
+  return false;
+}
+
+/* Take every pending NVML event without waiting; mark the GPUs a critical
+ * XID names (every GPU, for one NVML cannot attribute or a failed wait). */
+void drain_xid_events() {
+  const Nvml& n = g_state.nvml;
+  auto mark_all = [](const std::string& reason) {
+    for (auto& f : g_state.xid_fault) f = reason;
+  };
+  for (;;) {
+    nvmlEventData_t data{};
+    nvmlReturn_t rc = n.EventSetWait_v2(g_state.events, &data, 0);
+    if (rc == kNvmlErrorTimeout) return;  /* nothing pending */
+    if (rc != 0) {
+      mark_all("nvmlEventSetWait_v2 failed: " + nvml_reason(n, rc));
+      return;
+    }
+    if (!(data.eventType & kXidCriticalError) || application_xid(data.eventData))
+      continue;
+    const std::string xid = "critical XID " + std::to_string(data.eventData);
+    size_t i = 0;
+    while (i < g_state.devices.size() && g_state.devices[i] != data.device) ++i;
+    if (i == g_state.devices.size()) {
+      mark_all(xid + " on an unattributed device");
+    } else {
+      g_state.xid_fault[i] = xid;
+    }
+  }
 }
 
 bool mesh_adjacent(const int32_t a[3], const int32_t b[3]) {
@@ -346,7 +458,9 @@ int gpuinfo_shutdown(void) {
     return -1;
   }
   Nvml n = g_state.nvml;
+  nvmlEventSet_t events = g_state.events;
   g_state = State{};
+  if (events != nullptr) n.EventSetFree(events);
   if (n.handle != nullptr) {
     nvmlReturn_t rc = n.Shutdown();
     std::string err = rc != 0 ? nvml_error(n, "nvmlShutdown", rc) : "";
@@ -475,23 +589,47 @@ const char* gpuinfo_source(void) { return g_state.source.c_str(); }
 
 int gpuinfo_probe(void) {
   if (!g_state.initialized) { set_error("not initialized"); return -1; }
-  if (g_state.is_sim) return 1;
+  if (g_state.is_sim || g_state.probe_mode == ProbeMode::kOff) return 1;
   const Nvml& n = g_state.nvml;
+  if (g_state.probe_mode == ProbeMode::kXid) drain_xid_events();
   int ok = 1;
   std::string why;
   for (auto& c : g_state.chips) {
+    const std::string gpu = " GPU " + std::to_string(c.index) + ": ";
     nvmlDevice_t dev = nullptr;
     nvmlMemory_t mem{};
     nvmlReturn_t rc = n.DeviceGetHandleByIndex_v2(static_cast<unsigned>(c.index), &dev);
     if (rc == 0) rc = n.DeviceGetMemoryInfo(dev, &mem);
-    c.healthy = rc == 0 ? 1 : 0;
-    if (rc != 0) {
-      ok = 0;
-      why += " GPU " + std::to_string(c.index) + ": " + nvml_reason(n, rc) + ";";
-    }
+    if (rc != 0) why += gpu + nvml_reason(n, rc) + ";";
+    const std::string& xid = g_state.xid_fault[c.index];
+    if (!xid.empty()) why += gpu + xid + ";";
+    c.healthy = rc == 0 && xid.empty() ? 1 : 0;
+    if (!c.healthy) ok = 0;
   }
   if (!ok) set_error("probe failed:" + why);
   return ok;
+}
+
+int gpuinfo_chip_telemetry(int32_t index, uint32_t* util_percent,
+                           uint64_t* mem_used) {
+  if (!g_state.initialized) { set_error("not initialized"); return -1; }
+  if (g_state.is_sim) { set_error("telemetry needs the real backend"); return -1; }
+  if (util_percent == nullptr || mem_used == nullptr) { set_error("out is null"); return -1; }
+  if (index < 0 || index >= static_cast<int32_t>(g_state.chips.size())) {
+    set_error("chip index out of range");
+    return -1;
+  }
+  const Nvml& n = g_state.nvml;
+  nvmlDevice_t dev = g_state.devices[index];
+  nvmlUtilization_t util{};
+  nvmlReturn_t rc = n.DeviceGetUtilizationRates(dev, &util);
+  if (rc != 0) { set_error(nvml_error(n, "nvmlDeviceGetUtilizationRates", rc)); return -1; }
+  nvmlMemory_t mem{};
+  rc = n.DeviceGetMemoryInfo(dev, &mem);
+  if (rc != 0) { set_error(nvml_error(n, "nvmlDeviceGetMemoryInfo", rc)); return -1; }
+  *util_percent = util.gpu;
+  *mem_used = mem.used;
+  return 0;
 }
 
 }  // extern "C"

@@ -12,7 +12,9 @@
  *            count, UUID, name and total memory. The SM count comes from a
  *            table keyed by the NVML device name. GPUs sit on a line,
  *            coord (i,0,0), no torus. There is no fallback: NVML serves
- *            many clients at once, so an NVML failure is an error.
+ *            many clients at once, so an NVML failure is an error. Health
+ *            is watched through NVML XID events (see gpuinfo_probe), and
+ *            gpuinfo_chip_telemetry reads utilization and memory in use.
  *
  * Consumed from Python via ctypes (tpukube_torch/native/gpuinfo.py). All
  * calls return 0 on success, -1 on error; gpuinfo_last_error() describes
@@ -27,7 +29,7 @@
 extern "C" {
 #endif
 
-#define GPUINFO_ABI_VERSION 1
+#define GPUINFO_ABI_VERSION 2
 /* NVML_DEVICE_UUID_V2_BUFFER_SIZE: a UUID fits with room to spare */
 #define GPUINFO_MAX_ID 96
 
@@ -53,6 +55,9 @@ int gpuinfo_abi_version(void);
  *                host=host-i-j-k  origin=X,Y,Z  hbm=<bytes>  cores=<n>
  * Real spec keys (optional): nvml=<path of libnvidia-ml> (default: the
  *                loader's libnvidia-ml.so.1)
+ *                probe=xid|liveness|off (default xid; see gpuinfo_probe).
+ *                In xid mode init registers every GPU for NVML's critical
+ *                XID events and fails with NVML's reason if it cannot.
  */
 int gpuinfo_init(const char* backend, const char* spec);
 int gpuinfo_shutdown(void);
@@ -84,11 +89,24 @@ const char* gpuinfo_last_error(void);
  * before init. */
 const char* gpuinfo_source(void);
 
-/* Liveness re-probe. Real backend: each GPU is healthy while NVML still
- * hands out its handle and answers its memory query; returns 1 when every
- * GPU passed, 0 when any failed (those are marked unhealthy), -1 on error.
- * Sim backend: no-op, returns 1. */
+/* Health re-probe. Real backend, by probe mode:
+ *   xid      — drain the pending NVML events without waiting: a critical
+ *              XID marks its GPU unhealthy for the rest of the session
+ *              (application XIDs 13, 31, 43, 45 and 68 do not, as in
+ *              NVIDIA's device plugin; an event NVML cannot attribute, or
+ *              a failed wait, marks every GPU). Then the liveness check.
+ *   liveness — each GPU is healthy while NVML still hands out its handle
+ *              and answers its memory query.
+ *   off      — no check; health stays as it is.
+ * Returns 1 when every GPU is healthy, 0 when any is not (the reason is in
+ * gpuinfo_last_error), -1 on error. Sim backend: no-op, returns 1. */
 int gpuinfo_probe(void);
+
+/* NVML telemetry of GPU `index` (real backend only): GPU utilization over
+ * NVML's last sample period, in percent, and device memory in use, in
+ * bytes. */
+int gpuinfo_chip_telemetry(int32_t index, uint32_t* util_percent,
+                           uint64_t* mem_used);
 
 #ifdef __cplusplus
 }

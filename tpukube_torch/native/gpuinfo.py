@@ -29,7 +29,7 @@ _SOURCES = tuple(
 BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
 _LIB_PATH = os.path.join(BUILD_DIR, "libgpuinfo.so")
 
-ABI_VERSION = 1
+ABI_VERSION = 2
 _MAX_ID = 96
 _MAX_LINKS = 6
 
@@ -57,14 +57,14 @@ class _Mesh(ctypes.Structure):
     ]
 
 
-def compile_shared(src: str, out: str) -> str:
-    """g++ ``src`` into the shared library ``out``: compiled under a name of
-    its own, then renamed into place. Raises GpuInfoError with the
-    compiler's output on failure."""
+def compile_shared(src: str, out: str, flags: tuple = ()) -> str:
+    """g++ ``src`` (with the extra ``flags``) into the shared library
+    ``out``: compiled under a name of its own, then renamed into place.
+    Raises GpuInfoError with the compiler's output on failure."""
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = ["g++", "-O2", "-Wall", "-Werror", "-fPIC", "-shared", "-std=c++17",
-           "-o", tmp, src, "-ldl"]
+           *flags, "-o", tmp, src, "-ldl"]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
@@ -135,6 +135,12 @@ def _load() -> ctypes.CDLL:
         lib.gpuinfo_source.restype = ctypes.c_char_p
         lib.gpuinfo_probe.argtypes = []
         lib.gpuinfo_probe.restype = ctypes.c_int
+        lib.gpuinfo_chip_telemetry.argtypes = [
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint32),
+            ctypes.POINTER(ctypes.c_uint64),
+        ]
+        lib.gpuinfo_chip_telemetry.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -246,15 +252,33 @@ class GpuInfo:
             return (self._lib.gpuinfo_source() or b"").decode()
 
     def probe(self) -> bool:
-        """Liveness re-probe (see gpuinfo.h gpuinfo_probe): True when every
-        GPU passed; False when any failed and was marked unhealthy. Sim
-        backend: always True (sim health is driven by inject_fault)."""
+        """Health re-probe (see gpuinfo.h gpuinfo_probe): drains NVML's XID
+        events in xid mode, then checks liveness. True when every GPU is
+        healthy; False when any is not. Sim backend: always True (sim
+        health is driven by inject_fault)."""
         with self._lock:
             self._check_open()
             rc = self._lib.gpuinfo_probe()
             if rc < 0:
                 raise GpuInfoError(self._last_error())
             return bool(rc)
+
+    def last_error(self) -> str:
+        """Why the last call failed, or what the last probe found."""
+        with self._lock:
+            return self._last_error()
+
+    def telemetry(self, index: int) -> tuple[int, int]:
+        """NVML's (GPU utilization percent, device memory in use in bytes)
+        of GPU ``index`` — real backend only."""
+        with self._lock:
+            self._check_open()
+            util, used = ctypes.c_uint32(), ctypes.c_uint64()
+            rc = self._lib.gpuinfo_chip_telemetry(
+                index, ctypes.byref(util), ctypes.byref(used))
+            if rc != 0:
+                raise GpuInfoError(self._last_error())
+            return int(util.value), int(used.value)
 
     def chips(self) -> list[ChipInfo]:
         with self._lock:

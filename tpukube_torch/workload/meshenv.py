@@ -3,7 +3,7 @@
 
 The node agent injects ``CUDA_VISIBLE_DEVICES`` (+ ``CUDA_DEVICE_ORDER``),
 ``TPU_KUBE_CHIP_COORDS`` / ``TPU_KUBE_MESH_DIMS`` / ``TPU_HBM_LIMIT_BYTES``
-at Allocate (:mod:`tpukube_torch.device.gpu`), and the extender the
+(and, for a share, ``TPU_KUBE_MEM_FRACTION``) at Allocate (:mod:`tpukube_torch.device.gpu`), and the extender the
 ``TPU_KUBE_GANG_*`` keys of a DCN-spanning gang; this module is the
 consumer side inside the pod. Where the reference arranges
 ``jax.devices()`` into a ``Mesh``, the port arranges the ranks of the
@@ -35,6 +35,7 @@ from tpukube_torch.device.gpu import (
     ENV_KUBE_MESH_DIMS,
     ENV_KUBE_SLICE,
     ENV_KUBE_TENANT,
+    ENV_MEM_FRACTION,
     ENV_VISIBLE_DEVICES,
 )
 
@@ -58,6 +59,9 @@ class PodGpuEnv:
     gang_num_slices: int = 1
     gang_slice_index: int = 0
     gang_slices: tuple[str, ...] = ()
+    # a share's cooperative cap on the process's device memory (None for
+    # whole GPUs)
+    mem_fraction: Optional[float] = None
 
     @property
     def spans_dcn(self) -> bool:
@@ -74,6 +78,7 @@ class PodGpuEnv:
             gang_slices = tuple(
                 s for s in e.get(ENV_GANG_SLICES, "").split(",") if s
             )
+            fraction = e.get(ENV_MEM_FRACTION)
             return PodGpuEnv(
                 visible_chips=tuple(
                     int(v) for v in e[ENV_VISIBLE_DEVICES].split(",")
@@ -88,6 +93,7 @@ class PodGpuEnv:
                 gang_num_slices=int(e.get(ENV_GANG_NUM_SLICES, "1")),
                 gang_slice_index=int(e.get(ENV_GANG_SLICE_INDEX, "0")),
                 gang_slices=gang_slices,
+                mem_fraction=float(fraction) if fraction is not None else None,
             )
         except KeyError as k:
             raise RuntimeError(
@@ -129,7 +135,9 @@ def device_from_alloc_env(env: Optional[Mapping[str, str]] = None) -> torch.devi
     Checks that the process sees exactly the allocated GPUs, in NVML's
     order: CUDA reads ``CUDA_VISIBLE_DEVICES`` and ``CUDA_DEVICE_ORDER``
     from the process environment, so those must carry the allocation's
-    values, and CUDA must count as many devices as were allocated."""
+    values, and CUDA must count as many devices as were allocated. For a
+    share, applies its memory fraction to PyTorch's caching allocator, as
+    XLA honours ``XLA_PYTHON_CLIENT_MEM_FRACTION`` by itself."""
     e = os.environ if env is None else env
     pe = PodGpuEnv.from_env(e)
     for key in (ENV_VISIBLE_DEVICES, ENV_DEVICE_ORDER):
@@ -149,7 +157,10 @@ def device_from_alloc_env(env: Optional[Mapping[str, str]] = None) -> torch.devi
         raise RuntimeError(
             f"CUDA sees {n} devices, the allocation has {len(pe.visible_chips)}"
         )
-    return torch.device("cuda:0")
+    device = torch.device("cuda:0")
+    if pe.mem_fraction is not None:
+        torch.cuda.set_per_process_memory_fraction(pe.mem_fraction, device)
+    return device
 
 
 def build_mesh(device_type: str, dp: int, tp: int) -> DeviceMesh:

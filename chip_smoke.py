@@ -9,7 +9,14 @@ Drives the port's main path the way a cluster does, on the card:
 2. node agent: GpuDeviceManager on the real backend builds the NVML
    discovery shim (g++) and finds the card through NVML; its SM count,
    memory, health and probe are held against what CUDA reports;
-3. Allocate: allocate_env(["tpu-0"]) mints the container env;
+3. placement: the node agent annotates its node (``codec.annotate_node``);
+   the port's scheduler extender serves its webhooks on 127.0.0.1 over
+   HTTP, and a ``qiniu.com/tpu: 1`` pod goes through ``/filter`` ->
+   ``/prioritize`` -> ``/bind`` as kube-scheduler sends them: it must bind
+   ``tpu-0`` on this node, and a second such pod must be unschedulable
+   while the first is bound; the bound ids go to ``allocate_env``, and the
+   alloc's env merged with the Allocate env is the env of every pod below
+   (serving, train, ResNet, dryrun);
 4. pod: ``python -m tpukube_torch.graft`` runs as a child process with that
    env, checks it got the allocated GPU (UUID), builds Llama-3-8B at full
    width and depth from a seed, serves 3 forward requests (B=2, S=2048),
@@ -32,13 +39,31 @@ Drives the port's main path the way a cluster does, on the card:
    advertise exactly ``tpu-0-frac0of2`` and ``tpu-0-frac1of2`` as
    ``qiniu.com/vtpu``, prefer both for a pod of 2, mint each share's env
    (half the memory, fraction 0.5000, half the SMs) and refuse a third;
+   two ``qiniu.com/vtpu: 1`` pods are placed through the extender (over
+   HTTP, on the node the share agent annotates) and must bind
+   ``tpu-0-frac0of2`` and ``tpu-0-frac1of2``, and a third must be
+   unschedulable;
    g++ builds the quota guard (``libcudaguard.so``); the ``--quota`` pod,
    under it on share 0's env, shows it refusing at ⌊quota / 4 GiB⌋ blocks
    with the card physically free; then two ``--shared`` pods, one per
    share, each under the guard, serve Llama-3-8B (B=1, S=2048) at the same
    time, released together, while the node agent samples NVML telemetry
    and its XID watch;
-9. prints the kernels line: the JAX package has no Pallas kernel, so the
+9. config 4 on an HGX fleet (host work, no GPU): the port's ``SimCluster``
+   over 4 hosts of 8 GPUs (``8,4,1`` / ``8,1,1``) with two 4-GPU background
+   pods, then a 16-member gang of 1-GPU pods, which must commit on two
+   whole hosts as one (8,2,1) box at utilization 0.75; then 16 hosts
+   (``8,16,1``) and a 64-member gang, which must take 8 whole hosts,
+   contiguous along y. Each gang's per-member schedule-cycle p50 and p99,
+   its commit latency and the utilization are printed, as host CPU times;
+10. the scheduled pod: member 0 of the 16-member gang, its env the
+   extender's gang keys merged with the node agent's Allocate on the sim
+   node, runs ``python -m tpukube_torch.graft --scheduled`` on the card,
+   which holds the env against the bind and serves one Llama-3-8B request
+   (B=2, S=2048) after the UUID check;
+11. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+   on a DCN gang env the port's extender mints on a two-slice sim fleet;
+12. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -48,6 +73,7 @@ without CUDA it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -92,6 +118,119 @@ def run_pod(flags: list, env: dict, key: str):
         fail(f"pod {' '.join(flags) or '(serve)'} exited {proc.returncode}")
         return None
     return json.loads(lines[-1])[key]
+
+
+@contextlib.contextmanager
+def extender_server():
+    """The port's scheduler extender, serving its webhooks on 127.0.0.1 at
+    a free port (yielded) for the length of the block."""
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.sched.extender import Extender, serve
+
+    server = serve(Extender(load_config(env={})), "127.0.0.1", 0)
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def node_object(mgr) -> dict:
+    """The v1.Node kube-scheduler sends for the node agent's node: its
+    name and the agent's topology annotations."""
+    from tpukube_torch.core import codec
+
+    return {"metadata": {"name": mgr.host,
+                         "annotations": codec.annotate_node(mgr.node_info(), mgr.mesh)}}
+
+
+def place_pods(node: dict, pods: list, want: list, refused: dict, card: str):
+    """Place ``pods`` in order on ``node`` through the extender over HTTP
+    (each bind must name ``want[i]``'s device ids on that node), then
+    filter ``refused``, which must find no node. Returns the allocs, or
+    None when a check failed."""
+    from tpukube_torch.sched import client
+
+    allocs = []
+    with extender_server() as port:
+        for pod, ids in zip(pods, want):
+            name = pod["metadata"]["name"]
+            try:
+                host, alloc, ms = client.place(port, pod, [node])
+            except RuntimeError as e:
+                fail(f"pod {name} was not placed: {e}")
+                return None
+            if host != node["metadata"]["name"] or alloc.device_ids != ids:
+                fail(f"pod {name} bound {alloc.device_ids} on {host}, want {ids}")
+                return None
+            print(f"placed {name} on {host} {alloc.device_ids} over HTTP: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+                  + f" (host CPU round trips) [{card}]", flush=True)
+            allocs.append(alloc)
+        res = client.filter_nodes(port, refused, [node])
+        if res["NodeNames"] or res.get("Error"):
+            fail(f"pod {refused['metadata']['name']} was schedulable: {res}")
+            return None
+        print(f"pod {refused['metadata']['name']} unschedulable while the others "
+              f"are bound: {json.dumps(res['FailedNodes'])}", flush=True)
+    return allocs
+
+
+def config4_phase(card: str):
+    """Config 4 on a simulated HGX fleet (module docstring, step 9).
+    Returns (member 0's alloc, its env) of the 16-member gang, or None
+    when a check failed."""
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.types import PodGroup
+    from tpukube_torch.obs.registry import quantile
+    from tpukube_torch.sim import SimCluster
+
+    member0 = None
+    for hosts, members, util in ((4, 16, 0.75), (16, 64, 0.5625)):
+        cfg = load_config(env={"TPUKUBE_SIM_MESH_DIMS": f"8,{hosts},1",
+                               "TPUKUBE_SIM_HOST_BLOCK": "8,1,1"})
+        with SimCluster(cfg) as c:
+            for i in range(2):
+                c.schedule(c.make_pod(f"bg-{i}", tpu=4))
+            group = PodGroup("llama-8b", min_member=members)
+            cycles, binds = [], []
+            for i in range(members):
+                pod = c.make_pod(f"llama-8b-{i}", tpu=1, group=group)
+                t = time.perf_counter()
+                binds.append(c.schedule(pod))
+                cycles.append(time.perf_counter() - t)
+            res = c.extender.gang.reservation("default", "llama-8b")
+            got_util = c.utilization()
+            nodes = sorted({n for n, _ in binds})
+            coords = {tuple(co) for _, a in binds for co in a.coords}
+            ys = sorted({co[1] for co in coords})
+            whole = all(c.nodes[n].chips and {ch.coord for ch in c.nodes[n].chips}
+                        <= coords for n in nodes)
+            if (res is None or not res.committed or len(coords) != members
+                    or len(nodes) != members // 8 or not whole
+                    or ys != list(range(ys[0], ys[0] + members // 8))
+                    or got_util != util):
+                fail(f"{members}-member gang on 8,{hosts},1: nodes {nodes}, "
+                     f"rows {ys}, utilization {got_util}, committed "
+                     f"{res is not None and res.committed}")
+                return None
+            if members == 16:
+                if nodes != ["host-0-1-0", "host-0-2-0"]:
+                    fail(f"config 4 gang on {nodes}")
+                    return None
+                member0 = (binds[0][1], {**binds[0][1].env,
+                                         **c.execute_allocation(binds[0][1])})
+            print(
+                f"config 4, {members}-member gang on 8,{hosts},1 ({hosts} HGX hosts "
+                f"of 8 GPUs, two 4-GPU background pods): committed on {nodes[0]}.."
+                f"{nodes[-1]} ({len(nodes)} whole hosts, rows y={ys[0]}..{ys[-1]}); "
+                f"schedule cycle per member p50 {quantile(cycles, 0.5) * 1e3:.3f} ms, "
+                f"p99 {quantile(cycles, 0.99) * 1e3:.3f} ms, gang commit latency "
+                f"{res.commit_latency * 1e3:.3f} ms, utilization {got_util} "
+                f"(host CPU times, in-process extender) [{card}]",
+                flush=True,
+            )
+    return member0
 
 
 def mps_daemon_running() -> bool:
@@ -220,7 +359,14 @@ def vgpu_phase(card: str, c0, solo: dict) -> int:
             return fail(f"preferred_allocation picked {picked}")
         quota = c0.hbm_bytes // 2
         cps = c0.num_cores // 2
-        envs = [mgr.allocate_env([d]) for d in ids]
+        from tpukube_torch.sched.kube import pod_object
+
+        allocs = place_pods(node_object(mgr),
+                            [pod_object(f"shared-{k}", vtpu=1) for k in range(2)],
+                            [[d] for d in ids], pod_object("shared-2", vtpu=1), card)
+        if allocs is None:
+            return 1
+        envs = [{**a.env, **mgr.allocate_env(a.device_ids)} for a in allocs]
         for k, env in enumerate(envs):
             sms = "0:" + "+".join(str(c) for c in range(k * cps, (k + 1) * cps))
             want = {ENV_HBM_LIMIT: str(quota), ENV_MEM_FRACTION: "0.5000",
@@ -304,9 +450,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
 
+    from tpukube_torch.core import codec
     from tpukube_torch.core.config import load_config
     from tpukube_torch.core.types import Health
     from tpukube_torch.device import GpuDeviceManager
+    from tpukube_torch.graft import ENV_ALLOC
+    from tpukube_torch.sched.kube import pod_object
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -334,8 +483,12 @@ def main() -> int:
         print(f"node agent: {len(chips)} GPU(s) via {mgr.inventory_source()}; "
               f"tpu-0 = {c0.chip_id}, {c0.num_cores} SMs, {c0.hbm_bytes} bytes",
               flush=True)
-        # -- Allocate -----------------------------------------------------
-        env = mgr.allocate_env(["tpu-0"])
+        # -- placement, then Allocate of the bound ids ----------------------
+        allocs = place_pods(node_object(mgr), [pod_object("serve-0", tpu=1)],
+                            [["tpu-0"]], pod_object("serve-1", tpu=1), card)
+        if allocs is None:
+            return 1
+        env = {**allocs[0].env, **mgr.allocate_env(allocs[0].device_ids)}
     print("allocate env: " + json.dumps(env, sort_keys=True), flush=True)
 
     # -- pod ---------------------------------------------------------------
@@ -433,6 +586,57 @@ def main() -> int:
     rc = vgpu_phase(card, c0, pod)
     if rc:
         return rc
+
+    # -- config 4 on a simulated HGX fleet, then its member 0 on the card ----
+    member0 = config4_phase(card)
+    if member0 is None:
+        return 1
+    alloc0, env0 = member0
+    # the sim node's GPU index names nothing on this one-card machine: the
+    # pod's one visible device maps to the local card, which the pod's
+    # UUID check then holds to NVML's GPU 0
+    senv = {**env0, "CUDA_VISIBLE_DEVICES": "0",
+            ENV_ALLOC: codec.encode_alloc(alloc0)}
+    print("scheduled pod env: " + json.dumps(senv, sort_keys=True), flush=True)
+    sp = run_pod(["--scheduled"], senv, "scheduled")
+    if sp is None:
+        return 1
+    checked = sp["scheduled"]
+    if (sp["uuid"] != c0.chip_id or checked["mesh_dims"] != [8, 4, 1]
+            or checked["device_ids"] != alloc0.device_ids
+            or checked["node"] != alloc0.node_name):
+        return fail(f"scheduled pod: {checked} on {sp['uuid']}, bound {alloc0}")
+    print("scheduled: " + json.dumps(sp, sort_keys=True), flush=True)
+    print(
+        f"scheduled pod {checked['pod']} (bound {checked['device_ids']} at "
+        f"{checked['coords']} on {checked['node']} of the 8,4,1 fleet, gang keys "
+        f"{checked['gang']}): Llama-3-8B B={sp['batch']} S={sp['seq']}, one "
+        f"request {sp['forward_ms_median']:.3f} ms on {sp['uuid']} [{card}]",
+        flush=True,
+    )
+
+    # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import json; from tpukube_torch import graft; "
+         "print(json.dumps(graft.dryrun_multichip(4, device='cpu')))"],
+        cwd=ROOT, env=pod_env({}), stdout=subprocess.PIPE, text=True,
+        timeout=POD_TIMEOUT_S,
+    )
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or any("skipping" in x for x in lines):
+        print(proc.stdout, flush=True)
+        return fail(f"gloo dry run exited {proc.returncode} or skipped a leg")
+    gloo = json.loads(lines[-1])
+    if gloo.get("leg2", {}).get("axes") != ["dcn", "dp", "tp"]:
+        return fail(f"gloo dry run legs {gloo}")
+    print(
+        f"dryrun_multichip(4, cpu) over gloo: leg 1 {gloo['leg1']['axes']} "
+        f"{gloo['leg1']['shape']} loss {gloo['leg1']['loss']:.4f}; leg 2 "
+        f"{gloo['leg2']['axes']} {gloo['leg2']['shape']} loss "
+        f"{gloo['leg2']['loss']:.4f} on the port-minted DCN gang env",
+        flush=True,
+    )
     print(f"chip_smoke: whole run {time.monotonic() - t_start:.1f} s [{card}]",
           flush=True)
 
@@ -440,7 +644,8 @@ def main() -> int:
         "kernels": [],
         "note": "no Pallas kernel in tpukube; the port's native code is host "
                 "C++: gpuinfo (NVML discovery, XID health, telemetry) and "
-                "cudaguard (CUDA driver quota guard)",
+                "cudaguard (CUDA driver quota guard); the scheduler extender "
+                "is host Python (numpy)",
     }), flush=True)
     print(json.dumps({
         "ok": True,

@@ -23,6 +23,9 @@ from tpukube_torch.device import DeviceError, GpuDeviceManager
 from tpukube_torch.device.gpu import ENV_HBM_LIMIT, ENV_MEM_FRACTION
 from tpukube_torch.native import cudaguard
 from tpukube_torch.native.gpuinfo import compile_shared
+from torch_refnative import use_private_tpuinfo
+
+use_private_tpuinfo()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE = os.path.join(REPO, "tpukube_torch", "native")

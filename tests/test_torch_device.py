@@ -22,6 +22,9 @@ from tpukube_torch.device.gpu import (
     ENV_VISIBLE_DEVICES,
 )
 from tpukube_torch.native.gpuinfo import compile_shared
+from torch_refnative import use_private_tpuinfo
+
+use_private_tpuinfo()
 
 HBM = 16 << 30
 

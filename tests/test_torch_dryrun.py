@@ -23,6 +23,9 @@ from tpukube_torch.workload.meshenv import (
     mesh_shape_from_alloc_env,
 )
 from test_torch_train import port_env
+from torch_refnative import use_private_tpuinfo
+
+use_private_tpuinfo()
 
 BOX_ENV = {
     "TPU_VISIBLE_DEVICES": "0,1,2,3",
@@ -67,9 +70,13 @@ def test_dryrun_multichip_on_cpu(n):
 
 def test_dryrun_says_why_it_skips_the_dcn_leg(monkeypatch, capsys):
     monkeypatch.setattr(graft, "run_ranks", lambda fn, n, backend, args: [{"args": args}])
-    assert graft.dryrun_multichip(4, device="cpu") == {"args": (4, None)}
-    assert "no gang env" in capsys.readouterr().out
+    # no gang env given: the port mints its own, and nothing is skipped
+    assert graft.dryrun_multichip(4, device="cpu") == {
+        "args": (4, graft._mint_dcn_gang_env())}
+    assert "skipping" not in capsys.readouterr().out
     assert graft.dryrun_multichip(2, device="cpu", gang_env=DCN_ENV) == {"args": (2, None)}
+    assert "not an even count >= 4" in capsys.readouterr().out
+    assert graft.dryrun_multichip(2, device="cpu") == {"args": (2, None)}
     assert "not an even count >= 4" in capsys.readouterr().out
 
 

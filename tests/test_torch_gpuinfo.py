@@ -18,6 +18,9 @@ from tpukube_torch.core.mesh import MeshSpec
 from tpukube_torch.core.types import Health, TopologyCoord
 from tpukube_torch.native import GpuInfo, GpuInfoError, sim_spec
 from tpukube_torch.native.gpuinfo import compile_shared
+from torch_refnative import use_private_tpuinfo
+
+use_private_tpuinfo()
 
 STUB_SRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

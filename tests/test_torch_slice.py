@@ -34,6 +34,9 @@ from tpukube_torch.workload.meshenv import (
     device_from_alloc_env,
     mesh_axes_from_box,
 )
+from torch_refnative import use_private_tpuinfo
+
+use_private_tpuinfo()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -176,10 +179,27 @@ def test_port_pulls_in_no_control_plane_dependency():
         "import tpukube_torch.workload.tp, tpukube_torch.workload.train, "
         "tpukube_torch.workload.resnet, tpukube_torch.workload.meshenv\n"
         "import tpukube_torch.native.cudaguard, tpukube_torch.obs.health\n"
+        "import tpukube_torch.sched, tpukube_torch.sched.extender, "
+        "tpukube_torch.sched.client, tpukube_torch.sim\n"
         "bad = ('yaml', 'grpc', 'google.protobuf', 'aiohttp', 'jax', 'jaxlib', 'optax', "
         "'tpukube')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in bad "
         "or m.startswith(('jax.', 'tpukube.', 'grpc.', 'yaml.')))))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                          capture_output=True, text=True, timeout=120)
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_scheduler_is_host_code_without_torch():
+    # the extender, gang, slicefit and sim fleet import numpy, never torch
+    code = (
+        "import json, sys\n"
+        "import tpukube_torch.sched.extender, tpukube_torch.sched.client, "
+        "tpukube_torch.sim, tpukube_torch.trace, tpukube_torch.obs.events, "
+        "tpukube_torch.core.clock\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'tpukube', 'aiohttp', 'grpc', 'yaml'))))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                           capture_output=True, text=True, timeout=120)

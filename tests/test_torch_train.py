@@ -44,6 +44,9 @@ from tpukube_torch import graft
 from tpukube_torch.workload import llama as port
 from tpukube_torch.workload import train as port_train
 from test_torch_tp import init_params_numpy, llama_rank
+from torch_refnative import use_private_tpuinfo
+
+use_private_tpuinfo()
 
 TINY = ref.LlamaConfig(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
                        d_ff=64, max_seq=16)

@@ -27,6 +27,9 @@ from tpukube_torch.device.gpu import (
 )
 from tpukube_torch.native.gpuinfo import compile_shared
 from tpukube_torch.workload.meshenv import PodGpuEnv, device_from_alloc_env
+from torch_refnative import use_private_tpuinfo
+
+use_private_tpuinfo()
 
 HBM = 16 << 30
 STUB_SRC = os.path.join(

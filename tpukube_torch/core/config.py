@@ -1,10 +1,14 @@
-"""Node-agent configuration of the port.
+"""Configuration of the port's node agent and scheduler extender.
 
-Its own copy of the device-manager fields of ``tpukube/core/config.py``
-with the same ``TPUKUBE_<FIELD>`` environment overlay, and no YAML file
-(the machines the port runs on have no YAML parser). The default backend
-is ``"real"`` (NVML): a node agent runs against its GPUs unless asked for
-the sim.
+Its own copy of the fields of ``tpukube/core/config.py`` that the device
+manager and the extender's default path read, with the same names, the
+same ``TPUKUBE_<FIELD>`` environment overlay and the same defaults, and
+no YAML file (the machines the port runs on have no YAML parser). The
+default backend is ``"real"`` (NVML): a node agent runs against its GPUs
+unless asked for the sim.
+
+The reference's opt-in planes are not ported yet: a config that turns one
+on is refused by :func:`load_config` rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -47,6 +51,42 @@ class GpuKubeConfig:
     hbm_bytes_per_chip: int = DEFAULT_HBM_BYTES
     cores_per_chip: int = DEFAULT_SMS
 
+    # scheduler extender
+    extender_host: str = "0.0.0.0"
+    extender_port: int = 12345
+    score_mode: str = "topology"  # topology | binpack | spread
+    reservation_ttl_seconds: float = 30.0
+    # decision trace: in-memory ring size (0 disables) and an optional
+    # JSONL sink, rotated once at trace_sink_max_bytes (0 = unlimited)
+    trace_capacity: int = 4096
+    trace_path: str = ""
+    trace_sink_max_bytes: int = 256 * 1024**2
+    # structured event journal (obs/events.py); capacity 0 disables
+    events_capacity: int = 4096
+    events_path: str = ""
+    events_sink_max_bytes: int = 64 * 1024**2
+    # snapshot audit sentinel: on this fraction of scheduling-path cache
+    # hits, rebuild the snapshot from the ledger and raise on divergence
+    snapshot_audit_rate: float = 0.0
+    # incremental snapshot maintenance (O(delta) advance per epoch)
+    snapshot_delta_enabled: bool = True
+    # batched node upserts with lazy decode on first touch
+    bulk_ingest_enabled: bool = True
+
+    # The reference's opt-in planes, not ported yet: load_config refuses
+    # a config that turns one on.
+    journal_enabled: bool = False
+    batch_enabled: bool = False
+    filter_from_plan: bool = False
+    planner_replicas: int = 1
+    shard_transport: str = "inprocess"
+    decisions_enabled: bool = False
+    capacity_enabled: bool = False
+    tenancy_enabled: bool = False
+    drain_enabled: bool = False
+    autoscale_enabled: bool = False
+    lock_monitor: bool = False
+
     def sim_mesh(self) -> MeshSpec:
         return MeshSpec(
             dims=self.sim_mesh_dims,
@@ -56,6 +96,24 @@ class GpuKubeConfig:
 
 
 _TUPLE_FIELDS = {"sim_mesh_dims", "sim_host_block", "sim_torus"}
+
+# opt-in field -> the plane it would turn on (refused until ported)
+_NOT_PORTED = {
+    "journal_enabled": "the durable journal",
+    "batch_enabled": "the batch scheduling cycle",
+    "filter_from_plan": "the batch scheduling cycle",
+    "decisions_enabled": "decision provenance",
+    "capacity_enabled": "capacity analytics",
+    "tenancy_enabled": "the tenancy plane",
+    "drain_enabled": "drain",
+    "autoscale_enabled": "the autoscaler",
+    "lock_monitor": "the lock-order monitor",
+}
+# the reference's alloc change log for incremental resync (on by default
+# there, capacity 65536): its readers, the shard router and the
+# apiserver resync, are not ported, so the port has no such field and
+# refuses a positive capacity
+_RESYNC_LOG_KEY = ENV_PREFIX + "GENERATION_LOG_CAPACITY"
 
 
 def _coerce(name: str, raw: str, current):
@@ -68,6 +126,8 @@ def _coerce(name: str, raw: str, current):
         if len(vals) != 3:
             raise ValueError(f"config {name}: need 3 values, got {vals!r}")
         return vals
+    if isinstance(current, bool):
+        return raw.lower() in ("1", "true", "yes")
     return type(current)(raw)
 
 
@@ -96,4 +156,30 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> GpuKubeConfig:
             )
     if not cfg.slice_id:
         raise ValueError("slice_id must be non-empty")
+    if not 0 < cfg.extender_port < 65536:
+        raise ValueError(f"extender_port {cfg.extender_port} out of range")
+    if cfg.reservation_ttl_seconds <= 0:
+        raise ValueError("poll/ttl intervals must be positive")
+    if cfg.score_mode not in ("topology", "binpack", "spread"):
+        raise ValueError(f"unknown score_mode {cfg.score_mode!r}")
+    if (cfg.trace_sink_max_bytes < 0 or cfg.events_capacity < 0
+            or cfg.events_sink_max_bytes < 0):
+        raise ValueError(
+            "trace_sink_max_bytes, events_capacity, and "
+            "events_sink_max_bytes must be >= 0"
+        )
+    if not 0.0 <= cfg.snapshot_audit_rate <= 1.0:
+        raise ValueError(
+            "snapshot_audit_rate must be in [0, 1] (0 = audit off)"
+        )
+    for name, plane in _NOT_PORTED.items():
+        if getattr(cfg, name):
+            raise ValueError(f"{name}: {plane} is not ported yet")
+    if int(env.get(_RESYNC_LOG_KEY, "0")) != 0:
+        raise ValueError("generation_log_capacity: the incremental resync "
+                         "log is not ported yet")
+    if cfg.planner_replicas != 1 or cfg.shard_transport != "inprocess":
+        raise ValueError(
+            "planner_replicas/shard_transport: the shard router is not "
+            "ported yet")
     return cfg

@@ -1,5 +1,6 @@
-"""Shared core types (L0) of the port — its own copy of the part of
-``tpukube/core/types.py`` the node agent needs.
+"""Shared core types (L0) of the port — its own copy of
+``tpukube/core/types.py``: the node agent's chip inventory and the
+scheduler's pods, gangs and allocations, field for field.
 
 The wire names are unchanged: device ids are ``tpu-<i>`` for a whole GPU
 and ``tpu-<i>-frac<k>of<n>`` for a share, because the scheduler extender
@@ -12,7 +13,12 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import NamedTuple, Optional
+from typing import Iterator, Mapping, NamedTuple, Optional
+
+# Resources advertised to the cluster (wire names kept): whole GPUs, and
+# fractional shares as a distinct extended resource.
+RESOURCE_TPU = "qiniu.com/tpu"
+RESOURCE_VTPU = "qiniu.com/vtpu"
 
 DEFAULT_SLICE = "slice-0"
 
@@ -72,6 +78,39 @@ def canonical_link(a, b) -> Link:
     return (a, b) if a <= b else (b, a)
 
 
+class ResourceList(dict):
+    """name -> integer quantity, with the arithmetic schedulers need.
+
+    Flat extended-resource names; topology travels in the
+    :mod:`tpukube_torch.core.codec` annotations, not in the name.
+    """
+
+    def __init__(self, items: Optional[Mapping[str, int]] = None, **kw: int):
+        super().__init__()
+        for src in (items or {}), kw:
+            for k, v in src.items():
+                self[k] = int(v)
+
+    def fits(self, capacity: "ResourceList") -> bool:
+        """True if every requested quantity is available in ``capacity``."""
+        return all(capacity.get(k, 0) >= v for k, v in self.items())
+
+    def plus(self, other: Mapping[str, int]) -> "ResourceList":
+        out = ResourceList(self)
+        for k, v in other.items():
+            out[k] = out.get(k, 0) + int(v)
+        return out
+
+    def minus(self, other: Mapping[str, int]) -> "ResourceList":
+        out = ResourceList(self)
+        for k, v in other.items():
+            out[k] = out.get(k, 0) - int(v)
+        return out
+
+    def nonneg(self) -> bool:
+        return all(v >= 0 for v in self.values())
+
+
 @dataclass
 class ChipInfo:
     """One GPU as seen by the node agent."""
@@ -108,7 +147,7 @@ class NodeInfo:
     name: str
     chips: list[ChipInfo] = field(default_factory=list)
     shares_per_chip: int = 1
-    capacity: dict[str, int] = field(default_factory=dict)
+    capacity: ResourceList = field(default_factory=ResourceList)
     annotations: dict[str, str] = field(default_factory=dict)
     # downed links with at least one endpoint on this node (canonical pairs)
     bad_links: list[Link] = field(default_factory=list)
@@ -124,3 +163,96 @@ class NodeInfo:
             if c.index == index:
                 return c
         raise KeyError(f"{self.name}: no chip with index {index}")
+
+
+@dataclass
+class PodGroup:
+    """Gang-scheduling group identity.
+
+    ``shape`` optionally pins the requested box geometry (e.g. (8,2,1) for
+    16 GPUs on two HGX hosts); None means "any contiguous box of the right
+    size".
+    """
+
+    name: str
+    min_member: int
+    shape: Optional[tuple[int, int, int]] = None
+    # Opt-in for data-parallel jobs whose gradient reduction tolerates
+    # crossing slices (the data-centre network): when no single slice
+    # fits, the gang may split into contiguous per-slice sub-boxes.
+    # Incompatible with a shape hint (a shape names one box).
+    allow_dcn: bool = False
+
+    def __post_init__(self) -> None:
+        if self.allow_dcn and self.shape is not None:
+            raise ValueError(
+                f"pod group {self.name!r}: allow_dcn is incompatible with a "
+                f"shape hint (a shape names one contiguous box)"
+            )
+
+
+@dataclass
+class ContainerInfo:
+    name: str
+    requests: ResourceList = field(default_factory=ResourceList)
+
+
+@dataclass
+class PodInfo:
+    """The slice of a k8s Pod this framework reasons about."""
+
+    name: str
+    namespace: str = "default"
+    uid: str = ""
+    containers: list[ContainerInfo] = field(default_factory=list)
+    priority: int = 0
+    group: Optional[PodGroup] = None
+    node_name: str = ""
+    annotations: dict[str, str] = field(default_factory=dict)
+    labels: dict[str, str] = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if not self.uid:
+            self.uid = f"{self.namespace}/{self.name}"
+
+    def requests(self) -> ResourceList:
+        total = ResourceList()
+        for c in self.containers:
+            total = total.plus(c.requests)
+        return total
+
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass
+class AllocResult:
+    """Outcome of placing one pod: which devices on which node, plus the
+    gang env the container must receive so the in-pod runtime forms the
+    intended mesh (the node agent's Allocate adds the device env)."""
+
+    pod_key: str
+    node_name: str
+    device_ids: list[str] = field(default_factory=list)
+    coords: list[TopologyCoord] = field(default_factory=list)
+    env: dict[str, str] = field(default_factory=dict)
+    # pod priority, persisted in the annotation so a restarted extender
+    # rebuilds preemption protection (not just occupancy)
+    priority: int = 0
+    # pod UID at bind time ("" for pre-UID annotations). Pod names recur
+    # — controllers recreate StatefulSet members under the same name — so
+    # the UID is what lets the lifecycle release loop and the restart
+    # rebuild tell THIS incarnation's allocation from a stale one
+    uid: str = ""
+
+    def chip_indices(self) -> list[int]:
+        return [parse_device_id(d)[0] for d in self.device_ids]
+
+
+def iter_pod_device_requests(pod: PodInfo) -> Iterator[tuple[str, int]]:
+    """Yield (resource_name, count) for the TPU-flavored requests of a pod."""
+    req = pod.requests()
+    for name in (RESOURCE_TPU, RESOURCE_VTPU):
+        n = req.get(name, 0)
+        if n:
+            yield name, n

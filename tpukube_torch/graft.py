@@ -5,7 +5,8 @@
 forward step of the Llama decoder at the reference's tiny config, and one
 sharded training step over n ranks (one per GPU over NCCL, or gloo ranks
 on the CPU), with a second leg over the ("dcn", "dp", "tp") mesh of a DCN
-gang's env.
+gang's env, which the port's own extender schedules on a sim fleet
+(:func:`_mint_dcn_gang_env`).
 
 ``python -m tpukube_torch.graft`` runs a pod. Each reads the env the node
 agent minted at Allocate, checks it got the GPU it was given, and prints
@@ -22,7 +23,10 @@ one JSON line of results:
 - ``--shared``: serves Llama-3-8B at B=1 on a share, under its cooperative
   cap and the guard, beside another such pod on the same GPU: it prints a
   ``ready`` line after its warm-up and waits for ``go`` on stdin before
-  its timed requests, so the pods' timed windows overlap.
+  its timed requests, so the pods' timed windows overlap;
+- ``--scheduled``: a pod the port's extender placed: its Allocate env is
+  held against the bind (``TPU_KUBE_ALLOC``, the alloc annotation) before
+  it serves one Llama-3-8B request (:func:`check_scheduled_env`).
 
 Everything runs on the GPU unless the caller passes ``device="cpu"``; with
 no CUDA device the entry points raise rather than carry on on the CPU.
@@ -35,6 +39,7 @@ import dataclasses
 import json
 import math
 import multiprocessing as mp
+import os
 import queue
 import socket
 import statistics
@@ -496,15 +501,46 @@ def _dryrun_step(mesh: DeviceMesh, *, seed: int, rows: int) -> dict:
             "loss": loss}
 
 
+def _mint_dcn_gang_env() -> dict:
+    """Schedule a DCN-spanning gang through the port's own control plane —
+    the extender's filter/prioritize/bind over a two-slice sim fleet, then
+    the node agent's Allocate on the bound node — and return the first
+    member's merged container env. The TPU_KUBE_GANG_* keys are what the
+    extender mints at bind; nothing here is hand-written."""
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.mesh import MeshSpec
+    from tpukube_torch.core.types import PodGroup
+    from tpukube_torch.device.gpu import ENV_GANG_NUM_SLICES
+    from tpukube_torch.sim import SimCluster
+
+    slices = {
+        "dcn-a": MeshSpec((2, 1, 1), (2, 1, 1)),
+        "dcn-b": MeshSpec((2, 1, 1), (2, 1, 1)),
+    }
+    with SimCluster(load_config(env={}), slices=slices) as c:
+        group = PodGroup("dry", min_member=4, allow_dcn=True)
+        allocs = [
+            c.schedule(c.make_pod(f"dry-{i}", tpu=1, group=group))[1]
+            for i in range(4)
+        ]
+        first = allocs[0]
+        env = dict(first.env)  # the extender's TPU_KUBE_GANG_* keys
+        if env.get(ENV_GANG_NUM_SLICES) != "2":
+            raise RuntimeError(f"gang did not span 2 slices: {env}")
+        env.update(c.execute_allocation(first))  # node agent's GPU env
+        return env
+
+
 def dryrun_multichip(n_devices: int, device: Union[str, torch.device, None] = None,
                      gang_env: Optional[Mapping[str, str]] = None) -> dict:
     """One sharded training step of the reference dryrun's config over
     ``n_devices`` ranks: NCCL, one per GPU, unless ``device="cpu"`` asks for
     gloo ranks. Leg 1: a (dp, tp) mesh with tp = 2 for even n, tokens
-    (2·dp, 17). Leg 2, given ``gang_env`` (a DCN gang's Allocate env) and an
-    even n >= 4: the ("dcn", "dp", "tp") mesh ``mesh_from_alloc_env`` makes
-    of it, tokens (2·dcn·dp, 17). Each loss must be finite. Returns rank
-    0's report of the legs it ran."""
+    (2·dp, 17). Leg 2, for an even n >= 4: the ("dcn", "dp", "tp") mesh
+    ``mesh_from_alloc_env`` makes of a DCN gang's Allocate env — ``gang_env``
+    if given, else the one :func:`_mint_dcn_gang_env` schedules — tokens
+    (2·dcn·dp, 17). Each loss must be finite. Returns rank 0's report of
+    the legs it ran."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         if n_devices > torch.cuda.device_count():
@@ -514,13 +550,14 @@ def dryrun_multichip(n_devices: int, device: Union[str, torch.device, None] = No
         backend = "nccl"
     else:
         backend = "gloo"
-    if gang_env is None:
-        print("dryrun: skipping DCN multislice leg (no gang env; the port "
-              "cannot mint one yet)", flush=True)
-    elif n_devices < 4 or n_devices % 2:
+    if n_devices < 4 or n_devices % 2:
+        # the 2-slice mesh needs an even split of >=2 devices per slice;
+        # say so rather than silently passing with the leg uncovered
         print(f"dryrun: skipping DCN multislice leg (n_devices={n_devices} "
               "not an even count >= 4)", flush=True)
         gang_env = None
+    elif gang_env is None:
+        gang_env = _mint_dcn_gang_env()
     return run_ranks(_dryrun_rank, n_devices, backend, (n_devices, gang_env))[0]
 
 
@@ -711,6 +748,56 @@ def _check_uuid(device: torch.device, chip_index: int) -> str:
     return nvml_uuid
 
 
+# the pod's ``tpu.qiniu.com/alloc`` annotation, as the downward API projects
+# it into the container (read by the scheduled pod)
+ENV_ALLOC = "TPU_KUBE_ALLOC"
+
+
+def check_scheduled_env(pe: PodGpuEnv, alloc_payload: str) -> dict:
+    """Hold a pod's Allocate env against the extender's bind: the device
+    ids, the chip coords (``TPU_KUBE_CHIP_COORDS``) and the gang keys must
+    be the alloc's, and every coord must lie inside ``TPU_KUBE_MESH_DIMS``.
+    Raises on any mismatch; returns what was checked."""
+    from tpukube_torch.core import codec
+    from tpukube_torch.device.gpu import (
+        ENV_GANG_NUM_SLICES,
+        ENV_GANG_SLICE_INDEX,
+        ENV_GANG_SLICES,
+    )
+
+    alloc = codec.decode_alloc(alloc_payload)
+    if list(pe.device_ids) != alloc.device_ids:
+        raise RuntimeError(f"env devices {pe.device_ids}, bound {alloc.device_ids}")
+    bound = [tuple(c) for c in alloc.coords]
+    if list(pe.coords) != bound:
+        raise RuntimeError(f"env coords {pe.coords}, bound {bound}")
+    if not all(0 <= v < d for c in pe.coords for v, d in zip(c, pe.mesh_dims)):
+        raise RuntimeError(f"coords {pe.coords} outside mesh {pe.mesh_dims}")
+    gang = (str(pe.gang_num_slices), ",".join(pe.gang_slices),
+            str(pe.gang_slice_index))
+    want = (alloc.env.get(ENV_GANG_NUM_SLICES), alloc.env.get(ENV_GANG_SLICES),
+            alloc.env.get(ENV_GANG_SLICE_INDEX))
+    if gang != want:
+        raise RuntimeError(f"env gang keys {gang}, bound {want}")
+    return {"pod": alloc.pod_key, "node": alloc.node_name,
+            "device_ids": alloc.device_ids, "coords": [list(c) for c in bound],
+            "mesh_dims": list(pe.mesh_dims), "gang": list(gang)}
+
+
+def scheduled_main() -> int:
+    """A pod the port's extender placed: check its Allocate env against the
+    bind (``TPU_KUBE_ALLOC``), then serve one Llama-3-8B request at full
+    width and depth on the GPU the env names; one JSON line."""
+    pe, device, uuid = _pod_device()
+    checked = check_scheduled_env(pe, os.environ[ENV_ALLOC])
+    out = serve(LlamaConfig.llama3_8b(), device, seed=0, requests=1,
+                batch=2, seq=2048, parity_layers=2, parity_seq=64)
+    out.update(device=torch.cuda.get_device_name(device), uuid=uuid,
+               scheduled=checked)
+    print(json.dumps({"scheduled": out}), flush=True)
+    return 0
+
+
 def pod_main() -> int:
     """Serve Llama-3-8B (random weights from a fixed seed) on the GPU the
     Allocate env names; print one JSON line."""
@@ -741,6 +828,8 @@ def main(argv: Optional[list] = None) -> int:
                       help="prove a share's hard quota under the guard")
     mode.add_argument("--shared", action="store_true",
                       help="serve on a share, beside another pod")
+    mode.add_argument("--scheduled", action="store_true",
+                      help="check the env against the extender's bind, then serve")
     a = parser.parse_args(argv)
     if a.train:
         return train_main()
@@ -752,6 +841,8 @@ def main(argv: Optional[list] = None) -> int:
         return quota_main()
     if a.shared:
         return shared_main()
+    if a.scheduled:
+        return scheduled_main()
     return pod_main()
 
 

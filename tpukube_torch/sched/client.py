@@ -1,0 +1,65 @@
+"""kube-scheduler's side of the extender protocol, over HTTP: one
+scheduling cycle (filter -> prioritize -> bind the highest score) against
+an extender's webhooks, as the smoke run drives the port's extender
+(:func:`tpukube_torch.sched.extender.serve`). Standard library only."""
+
+from __future__ import annotations
+
+import http.client
+import json
+import time
+from typing import Any
+
+from tpukube_torch.core import codec
+from tpukube_torch.core.types import AllocResult
+
+
+def post(port: int, path: str, body: Any, host: str = "127.0.0.1") -> Any:
+    """POST ``body`` as JSON to ``http://host:port/path``; the parsed JSON
+    answer. Raises RuntimeError on a status other than 200."""
+    conn = http.client.HTTPConnection(host, port, timeout=60)
+    try:
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise RuntimeError(f"HTTP {resp.status} from {path}: "
+                           f"{raw.decode(errors='replace')[:300]}")
+    return json.loads(raw)
+
+
+def filter_nodes(port: int, pod: dict, nodes: list[dict]) -> dict:
+    """The ExtenderFilterResult for ``pod`` over the node objects."""
+    return post(port, "/filter", {"Pod": pod, "Nodes": {"Items": nodes}})
+
+
+def place(port: int, pod: dict,
+          nodes: list[dict]) -> tuple[str, AllocResult, dict[str, float]]:
+    """One scheduling cycle for ``pod`` over the node objects: the feasible
+    nodes, their scores, the bind of the best (ties go to the first name,
+    as the sim's scheduler breaks them). Returns (node, the bound alloc,
+    each webhook's round trip in ms on the host clock). Raises when the
+    pod is unschedulable or the bind fails."""
+    ms: dict[str, float] = {}
+    t = time.perf_counter()
+    fres = filter_nodes(port, pod, nodes)
+    ms["filter"] = (time.perf_counter() - t) * 1e3
+    if fres.get("Error") or not fres["NodeNames"]:
+        raise RuntimeError(f"unschedulable: {fres.get('Error') or fres['FailedNodes']}")
+    t = time.perf_counter()
+    pres = post(port, "/prioritize", {"Pod": pod, "NodeNames": fres["NodeNames"]})
+    ms["prioritize"] = (time.perf_counter() - t) * 1e3
+    scores = {e["Host"]: e["Score"] for e in pres}
+    best = max(sorted(scores), key=lambda h: scores[h])
+    meta = pod["metadata"]
+    t = time.perf_counter()
+    bres = post(port, "/bind", {"PodName": meta["name"],
+                                "PodNamespace": meta["namespace"],
+                                "PodUID": meta["uid"], "Node": best})
+    ms["bind"] = (time.perf_counter() - t) * 1e3
+    if bres.get("Error"):
+        raise RuntimeError(f"bind error: {bres['Error']}")
+    return best, codec.decode_alloc(bres["Annotations"][codec.ANNO_ALLOC]), ms

@@ -1,0 +1,1467 @@
+"""Cluster state as the extender sees it (L5 support) — the port's own
+copy of ``tpukube/sched/state.py``'s ledger, node views and ingest.
+
+The control plane is deliberately stateless — node truth arrives in ``node-topology`` annotations with each
+webhook call, and allocations live in pod annotations. The only in-memory
+structure is this ledger of commitments, and it is reconstructible from pod
+annotations after an extender restart (``rebuild_from_pods``), which the
+tests exercise.
+
+Occupancy accounting is share-granular: a whole-chip node is just the
+n=1 case of a vTPU node, so one ledger covers both resources.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+from dataclasses import dataclass, field
+from typing import Optional
+
+from tpukube_torch.core import codec
+from tpukube_torch.core.mesh import MeshSpec
+from tpukube_torch.core.types import (
+    DEFAULT_SLICE,
+    AllocResult,
+    ChipInfo,
+    Health,
+    Link,
+    NodeInfo,
+    TopologyCoord,
+    canonical_link,
+    parse_device_id,
+)
+
+
+log = logging.getLogger("tpukube_torch.state")
+
+
+class StateError(RuntimeError):
+    pass
+
+
+@dataclass
+class NodeView:
+    """One node's decoded annotation + live occupancy, tracked at device-id
+    granularity (a count would re-mint a released share's id while its twin
+    is still live — ids are the unit of truth, counts are derived).
+    ``share_counts`` is a per-chip cache of those derived counts, kept in
+    lockstep by add_ids/remove_ids (used_share_count is the hottest call
+    of every webhook — parsing ids per query was measurable)."""
+
+    info: NodeInfo
+    used_ids: set[str] = field(default_factory=set)
+    share_counts: dict[int, int] = field(default_factory=dict)
+    # weight each id contributed to share_counts AT COMMIT TIME — release
+    # must subtract exactly that, not a recomputation: a node whose
+    # shares_per_chip annotation changes under live allocations would
+    # otherwise leak counts permanently
+    id_weights: dict[str, int] = field(default_factory=dict)
+    # verbatim annotation payload this view was decoded from; upsert_node
+    # skips re-decoding when a webhook carries the identical string (hot:
+    # every /filter and /prioritize re-sends every node's annotations)
+    raw_payload: str = ""
+    # decoded tpu.qiniu.com/health-summary annotation (obs telemetry),
+    # None when the node agent predates it; the /statusz fleet rollup
+    # prefers these counts and falls back to chip health otherwise
+    health_summary: Optional[dict] = None
+
+    # coord -> chip index, built on first use (views are re-created per
+    # decoded annotation, never re-pointed at different chips); the bind
+    # path queries this per planned coord — a linear chip scan there was
+    # round-2 weak #2
+    _coord_index: dict[TopologyCoord, int] = field(default_factory=dict)
+    # occupancy version, bumped by add_ids/remove_ids: memoizes the
+    # derived free-chip list and free-share total, which every webhook
+    # recomputes per node (health changes arrive as NEW views via
+    # upsert_node, so version-only invalidation is sound)
+    _version: int = 0
+    _free_cache: Optional[tuple[int, list[ChipInfo]]] = None
+    _free_shares_cache: Optional[tuple[int, int]] = None
+
+    @property
+    def shares_per_chip(self) -> int:
+        return max(1, self.info.shares_per_chip)
+
+    def chip(self, index: int) -> ChipInfo:
+        return self.info.chip_by_index(index)
+
+    def index_at(self, coord: TopologyCoord) -> int:
+        if not self._coord_index:
+            self._coord_index = {c.coord: c.index for c in self.info.chips}
+        try:
+            return self._coord_index[coord]
+        except KeyError:
+            raise StateError(
+                f"no chip at {coord} on {self.info.name}"
+            ) from None
+
+    def add_ids(self, ids) -> None:
+        self._version += 1
+        for did in ids:
+            i, frac = parse_device_id(did)
+            self.used_ids.add(did)
+            weight = 1 if frac is not None else self.shares_per_chip
+            self.id_weights[did] = weight
+            self.share_counts[i] = self.share_counts.get(i, 0) + weight
+
+    def remove_ids(self, ids) -> None:
+        self._version += 1
+        for did in ids:
+            if did not in self.used_ids:
+                continue
+            i, _ = parse_device_id(did)
+            self.used_ids.discard(did)
+            weight = self.id_weights.pop(did, 0)
+            left = self.share_counts.get(i, 0) - weight
+            if left > 0:
+                self.share_counts[i] = left
+            else:
+                self.share_counts.pop(i, None)
+
+    def used_share_count(self, index: int) -> int:
+        return self.share_counts.get(index, 0)
+
+    def used_frac_ks(self, index: int) -> set[int]:
+        out = set()
+        for did in self.used_ids:
+            i, frac = parse_device_id(did)
+            if i == index and frac is not None:
+                out.add(frac[0])
+        return out
+
+    def free_shares(self, chip: ChipInfo) -> int:
+        if chip.health is not Health.HEALTHY:
+            return 0
+        return self.shares_per_chip - self.used_share_count(chip.index)
+
+    def total_free_shares(self) -> int:
+        cached = self._free_shares_cache
+        if cached is not None and cached[0] == self._version:
+            return cached[1]
+        total = sum(self.free_shares(c) for c in self.info.chips)
+        self._free_shares_cache = (self._version, total)
+        return total
+
+    def free_chips(self) -> list[ChipInfo]:
+        """Chips with ALL shares free (placeable as whole units).
+        Shared memoized list — callers must not mutate it."""
+        cached = self._free_cache
+        if cached is not None and cached[0] == self._version:
+            return cached[1]
+        out = [
+            c
+            for c in self.info.chips
+            if self.free_shares(c) == self.shares_per_chip
+        ]
+        self._free_cache = (self._version, out)
+        return out
+
+
+def _health_only_change(a: NodeInfo, b: NodeInfo) -> bool:
+    """True when the ONLY difference between two decoded node payloads
+    is per-chip health (and at least one chip flipped) — the shape the
+    snapshot can absorb as an O(chips-per-node) delta. Anything else
+    (links, coords, ids, sharing mode, HBM/core facts, source) is
+    structural and keeps the full-rebuild marker."""
+    if (a.slice_id != b.slice_id
+            or a.shares_per_chip != b.shares_per_chip
+            or a.source != b.source
+            or len(a.chips) != len(b.chips)
+            or set(a.bad_links) != set(b.bad_links)):
+        return False
+    changed = False
+    for ca, cb in zip(a.chips, b.chips):
+        if (ca.chip_id != cb.chip_id or ca.index != cb.index
+                or ca.coord != cb.coord or ca.hbm_bytes != cb.hbm_bytes
+                or ca.num_cores != cb.num_cores):
+            return False
+        changed |= ca.health is not cb.health
+    return changed
+
+
+#: shared decoder for the probe's raw_decode fast path: json.loads
+#: spends two whitespace-regex matches per document on stripping the
+#: (for our encoder, never-present) leading/trailing space — at 100k
+#: nodes that is 200k regex calls for nothing. Payloads that DO carry
+#: surrounding whitespace fall back to json.loads below.
+_PROBE_DECODER = json.JSONDecoder()
+
+#: NamedTuple's generated __new__ is a Python-level lambda; at 4 chips
+#: per node the probe constructs ~400k coords per 100k-node fleet, so
+#: it builds them the way _make does — straight through tuple.__new__.
+_TUPLE_NEW = tuple.__new__
+
+
+def _probe_node_payload(name: str, payload: str,
+                        mesh_memo: Optional[dict] = None) -> dict:
+    """Structural probe of a node-topology payload for the bulk ingest
+    fast path: runs every validation ``decode_node_topology`` +
+    ``node_from_annotations`` enforce — schema version, mesh, chip
+    entries (ids/indices/coords/hbm/cores/health values), shares,
+    badLinks containment + adjacency, slice id, annotation-vs-node name
+    — WITHOUT constructing the ChipInfo/NodeInfo objects (the deferred
+    cost lazy materialization pays on first touch). Raises CodecError
+    with the same messages the full decode raises, so a malformed
+    payload errors at ingest, never silently on first touch."""
+    try:
+        try:
+            obj, end = _PROBE_DECODER.raw_decode(payload)
+            if end != len(payload) and payload[end:].strip():
+                raise json.JSONDecodeError("Extra data", payload, end)
+        except json.JSONDecodeError:
+            # leading/trailing whitespace (or junk — which re-raises
+            # with loads' message): the tolerant path
+            obj = json.loads(payload)
+    except json.JSONDecodeError as e:
+        raise codec.CodecError(f"node-topology: bad JSON: {e}") from e
+    codec._check_version(obj, "node-topology")
+    try:
+        fragment = codec._field(obj, "mesh", "node-topology")
+        # a homogeneous fleet repeats one mesh fragment per slice:
+        # decode (and validate) it once per distinct fragment. The key
+        # covers exactly the fields from_json reads.
+        mesh = None
+        memo_key = None
+        if mesh_memo is not None:
+            memo_key = (
+                tuple(fragment["dims"]),
+                tuple(fragment.get("host_block", (2, 2, 1))),
+                tuple(fragment.get("torus", (False, False, False))),
+            )
+            mesh = mesh_memo.get(memo_key)
+        if mesh is None:
+            mesh = MeshSpec.from_json(fragment)
+            if memo_key is not None:
+                mesh_memo[memo_key] = mesh
+    except (KeyError, TypeError, ValueError) as e:
+        if isinstance(e, codec.CodecError):
+            raise
+        raise codec.CodecError(
+            f"node-topology: malformed mesh: {e}") from e
+    raw_chips = codec._field(obj, "chips", "node-topology")
+    if not isinstance(raw_chips, list):
+        raise codec.CodecError("node-topology: 'chips' must be a list")
+    # ONE pass over the chip entries (this loop runs per chip of the
+    # whole fleet): coord construction + every field materialization
+    # decodes later, so a malformed entry fails HERE with the decode's
+    # message. The "Healthy" string compare is the hot fast path — the
+    # enum call validates only the rare non-healthy value (junk raises
+    # the decode's exact error).
+    coords: list[TopologyCoord] = []
+    unhealthy: list[TopologyCoord] = []
+    append_coord = coords.append
+    try:
+        for c in raw_chips:
+            x, y, z = c["coord"]
+            coord = _TUPLE_NEW(TopologyCoord,
+                               (int(x), int(y), int(z)))
+            append_coord(coord)
+            c["id"]
+            int(c["index"])
+            int(c["hbm"])
+            int(c.get("cores", 2))
+            h = c.get("health", "Healthy")
+            if h != "Healthy" and Health(h) is not Health.HEALTHY:
+                unhealthy.append(coord)
+    except (KeyError, TypeError, ValueError) as e:
+        raise codec.CodecError(
+            f"node-topology: malformed chip entry: {e}") from e
+    try:
+        shares = int(obj.get("sharesPerChip", 1))
+    except (TypeError, ValueError) as e:
+        raise codec.CodecError(
+            f"node-topology: bad sharesPerChip: {e}") from e
+    if shares < 1:
+        raise codec.CodecError(
+            f"node-topology: sharesPerChip must be >= 1, got {shares}")
+    raw_links = obj.get("badLinks", [])
+    if not isinstance(raw_links, list):
+        raise codec.CodecError("node-topology: 'badLinks' must be a list")
+    try:
+        bad_links = [canonical_link(a, b) for a, b in raw_links]
+    except (TypeError, ValueError) as e:
+        raise codec.CodecError(
+            f"node-topology: malformed badLinks entry: {e}") from e
+    for a, b in bad_links:
+        if not (mesh.contains(a) and mesh.contains(b)):
+            raise codec.CodecError(
+                f"node-topology: badLinks endpoint outside mesh "
+                f"{mesh.dims}: {[a.as_list(), b.as_list()]}"
+            )
+        if b not in mesh.neighbors(a):
+            raise codec.CodecError(
+                f"node-topology: badLinks pair not ICI-adjacent: "
+                f"{[a.as_list(), b.as_list()]}"
+            )
+    slice_id = obj.get("slice", DEFAULT_SLICE)
+    if not isinstance(slice_id, str) or not slice_id:
+        raise codec.CodecError(
+            f"node-topology: bad slice id {slice_id!r}")
+    anno_name = codec._field(obj, "node", "node-topology")
+    if anno_name != name:
+        raise codec.CodecError(
+            f"node-topology annotation names {anno_name!r} but lives "
+            f"on {name!r}"
+        )
+    return {
+        "slice": slice_id,
+        "mesh": mesh,
+        "coords": coords,
+        "unhealthy": unhealthy,
+        "links": bad_links,
+        "shares": shares,
+        "healthy_chips": len(coords) - len(unhealthy),
+    }
+
+
+@dataclass
+class SliceView:
+    """One slice: its mesh geometry plus the data-driven coord->host map
+    built from node annotations (host naming is a sim convention, not a
+    contract — the annotation's chip coords are the truth)."""
+
+    mesh: MeshSpec
+    host_by_coord: dict[TopologyCoord, str] = field(default_factory=dict)
+
+
+class ClusterState:
+    """Thread-safe ledger: per-slice node views + per-chip share occupancy.
+
+    The extender serves concurrent webhook calls; all mutation goes through
+    this object's lock (reservations must be linearizable
+    under concurrent filter calls — the gang layer in M7 builds on this).
+
+    A cluster holds one or more ICI slices ("distributed
+    communication backend": ICI intra-slice, DCN inter-slice). Chip coords
+    are slice-local, so every coord-set accessor takes a slice id; the
+    no-argument forms serve the common single-slice cluster and raise on
+    ambiguity rather than silently mixing coordinate spaces.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.RLock()
+        self._nodes: dict[str, NodeView] = {}
+        self._slices: dict[str, SliceView] = {}
+        self._allocs: dict[str, AllocResult] = {}  # pod key -> commitment
+        # frozen coord->host snapshots handed to hot-path callers; rebuilt
+        # lazily after any host-map mutation (annotations rarely change)
+        self._hosts_cache: dict[str, dict[TopologyCoord, str]] = {}
+        # ledger epoch: bumped by EVERY mutation (node upsert, commit,
+        # release — rebuild_from_pods goes through commit). The epoch-
+        # cached scheduling snapshot (sched/snapshot.py) keys its
+        # validity on this, so a missed bump here would serve stale
+        # placements — treat any new mutation path as epoch-bumping.
+        self._epoch = 0
+        # snapshot delta sink (sched/snapshot.py SnapshotCache, wired
+        # by the owning GangManager): every epoch bump pairs with a
+        # _note_delta so the cache can advance O(Δ) instead of
+        # rebuilding. A bump without a note degrades to a full rebuild
+        # (log gap), never to a stale cache.
+        self._delta_sink = None
+        # cached sorted node-name tuple, invalidated when the node SET
+        # changes (a new node registers / a checkpoint restore) — NOT on
+        # occupancy or health churn. node_names() runs per batch cycle;
+        # a fresh sorted list per call was O(fleet) per cycle at 10k
+        # nodes.
+        self._names_cache: Optional[tuple[str, ...]] = None
+        # Per-slice occupied-coord sets, maintained INCREMENTALLY at
+        # the same seams the snapshot deltas fire from (commit /
+        # release / health-only re-annotation / structural upsert), so
+        # a forced structural rebuild stops walking every view of the
+        # slice (at 10k nodes the walk was the
+        # rebuild's dominant term). A slice absent from the dict is
+        # UNSEEDED: the first occupied_coords() call derives the set
+        # with the full walk (materializing any lazy nodes of the
+        # slice) and seeds it. The audit sentinel deliberately bypasses this cache
+        # (walk_occupied_coords) so a seam that forgot BOTH its delta
+        # and its incremental update still cannot hide from the audit.
+        self._occ_cache: dict[str, set[TopologyCoord]] = {}
+        # The REMAINING per-slice structural walks, given the same
+        # incremental treatment: unhealthy coord sets, broken-link report counts, and
+        # the (used, total) share integers. Same seeding/unseeded
+        # contract as _occ_cache, same seams (structural upsert,
+        # health-only re-annotation, commit, release), and the audit
+        # sentinel again re-derives via the walk_* variants so these
+        # caches can never hide a missed seam. _broken_cache counts
+        # REPORTING VIEWS per canonical link (both endpoint hosts may
+        # report one link; the set view is the keys with count > 0).
+        self._unhealthy_cache: dict[str, set[TopologyCoord]] = {}
+        self._broken_cache: dict[str, dict[Link, int]] = {}
+        self._share_cache: dict[str, list[int]] = {}  # sid -> [used, total]
+        # Bulk ingestion: nodes ingested through ingest_nodes() live
+        # here UNDECODED — name -> (topology payload, full annotation
+        # dict, slice id) — until first touch materializes a NodeView
+        # (_view_locked). The probe already ran every validation the
+        # full decode enforces and extracted the host map + health/link
+        # aggregates, so a materialization failure is pathological (and
+        # degrades that one node to 'unknown').
+        self._lazy_payloads: dict[str, tuple[str, dict[str, str], str]] = {}
+
+    def set_delta_sink(self, sink) -> None:
+        """Attach the snapshot cache's delta log (None detaches)."""
+        with self._lock:
+            self._delta_sink = sink
+
+    def _note_delta_locked(self, full: bool = False,
+                    slice_id: Optional[str] = None,
+                    occupied_add: tuple = (), occupied_remove: tuple = (),
+                    used_shares_delta: int = 0,
+                    unhealthy_add: tuple = (), unhealthy_remove: tuple = (),
+                    total_shares_delta: int = 0, why: str = "") -> None:
+        """Record the bump just taken (callers hold ``self._lock`` and
+        call this right after ``self._epoch += 1``). Import is lazy and
+        one-directional: snapshot.py never imports state."""
+        sink = self._delta_sink
+        if sink is None:
+            return
+        from tpukube_torch.sched.snapshot import SnapshotDelta
+
+        sink.note(SnapshotDelta(
+            kind="ledger", epoch=self._epoch, full=full,
+            slice_id=slice_id, occupied_add=occupied_add,
+            occupied_remove=occupied_remove,
+            used_shares_delta=used_shares_delta,
+            unhealthy_add=unhealthy_add,
+            unhealthy_remove=unhealthy_remove,
+            total_shares_delta=total_shares_delta, why=why,
+        ))
+
+    def epoch(self) -> int:
+        """Monotonic mutation counter (the snapshot cache's key half)."""
+        with self._lock:
+            return self._epoch
+
+    # -- lazy materialization (bulk ingest) --------------------------------
+    def _view_locked(self, name: str) -> Optional[NodeView]:
+        """The node's view, decoding a bulk-ingested node on first touch
+        (callers hold ``self._lock``). None for unknown nodes."""
+        view = self._nodes.get(name)
+        if view is not None:
+            return view
+        lazy = self._lazy_payloads.pop(name, None)
+        if lazy is not None:
+            # decode the retained annotations on first touch — the
+            # probe already ran every validation, so failure here is
+            # pathological
+            return self._materialize_payload_locked(name, *lazy)
+        return None
+
+    def _materialize_payload_locked(
+        self, name: str, payload: str, annotations: dict[str, str],
+        sid: str,
+    ) -> Optional[NodeView]:
+        """Materialize one bulk-ingested lazy node from its retained
+        annotations (callers hold ``self._lock``; the entry is already
+        popped). This is the deferred half of an ingest the probe
+        already validated, so a failure here is pathological and
+        degrades the node to 'unknown' (its next re-annotation
+        re-registers it)."""
+        del sid
+        try:
+            info, _mesh = codec.decode_node_topology(payload)
+        except codec.CodecError as e:
+            log.error("lazy node %s: retained payload fails its full "
+                      "decode (%s); treating the node as unknown until "
+                      "it re-annotates", name, e)
+            self._names_cache = None  # the node SET just shrank
+            return None
+        if info.name != name:
+            log.error("lazy node %s: retained payload names %r; "
+                      "treating the node as unknown", name, info.name)
+            self._names_cache = None
+            return None
+        info.annotations = dict(annotations)
+        summary = None
+        raw_summary = annotations.get(codec.ANNO_HEALTH_SUMMARY)
+        if raw_summary:
+            try:
+                summary = codec.decode_health_summary(raw_summary)
+            except codec.CodecError as e:
+                # same tolerance as the eager upsert path: a malformed
+                # summary never rejects the topology
+                log.warning("node %s: undecodable health summary: %s",
+                            name, e)
+        view = NodeView(info=info, raw_payload=payload,
+                        health_summary=summary)
+        # cache promotion, not a mutation: nothing observable changes,
+        # so no epoch moves
+        self._nodes[name] = view
+        return view
+
+    def _materialize_slice_locked(self, slice_id: Optional[str]) -> None:
+        """Materialize every lazy node of one slice (None = all) ahead
+        of a whole-slice scan (occupied_coords and friends)."""
+        if not self._lazy_payloads:
+            return
+        for name in [
+            n for n, e in self._lazy_payloads.items()
+            if slice_id is None or e[2] == slice_id
+        ]:
+            self._view_locked(name)
+
+    def payload_matches(self, name: str, payload: str) -> bool:
+        """True when the node's stored topology payload equals
+        ``payload`` — WITHOUT materializing a lazy node."""
+        with self._lock:
+            return self._payload_matches_locked(name, payload)
+
+    def _payload_matches_locked(self, name: str, payload: str) -> bool:
+        view = self._nodes.get(name)
+        if view is not None:
+            return view.raw_payload == payload
+        lazy = self._lazy_payloads.get(name)
+        return lazy is not None and lazy[0] == payload
+
+    def _hosts_locked(self, sl: SliceView) -> dict[TopologyCoord, str]:
+        """The slice's coord->host map."""
+        return sl.host_by_coord
+
+    # -- node ingestion ----------------------------------------------------
+    def upsert_node(self, name: str, annotations: dict[str, str]) -> bool:
+        """Decode and store a node's topology annotation. Returns False when
+        the node carries no tpukube annotation (not ours to manage)."""
+        payload = annotations.get(codec.ANNO_NODE_TOPOLOGY)
+        if payload is None:
+            return False
+        if self.payload_matches(name, payload):
+            # unchanged annotation: keep the stored view (a LAZY node
+            # compares by crc+length and stays unmaterialized — the
+            # hot webhook resend path must not force the fleet in)
+            return True
+        decoded = codec.node_from_annotations(name, annotations)
+        if decoded is None:
+            return False
+        info, mesh = decoded
+        summary = None
+        raw_summary = annotations.get(codec.ANNO_HEALTH_SUMMARY)
+        if raw_summary:
+            try:
+                summary = codec.decode_health_summary(raw_summary)
+            except codec.CodecError as e:
+                # a malformed summary must not reject the topology —
+                # the rollup simply falls back to chip health
+                log.warning("node %s: undecodable health summary: %s",
+                            name, e)
+        with self._lock:
+            prev = self._view_locked(name)
+            if (prev is not None
+                    and prev.info.slice_id == info.slice_id
+                    and _health_only_change(prev.info, info)):
+                # HEALTH-ONLY re-annotation (the health watch's steady
+                # churn shape): same chips, same links, same sharing
+                # mode — only per-chip health flipped. Emit an
+                # O(chips-per-node) snapshot delta instead of the
+                # full-rebuild marker a changed payload used to cost
+                # (at 40k chips a health flap
+                # forced a ~50ms rebuild; WAL replay of health churn
+                # degenerated to full rebuilds the same way). The
+                # coord->host map is untouched (coords identical), so
+                # the claim-validation walk and host-map rewrite of the
+                # structural path are skipped too.
+                self._apply_health_only_locked(
+                    name, prev, info, payload, summary, annotations)
+                return True
+            sl = self._slices.get(info.slice_id)
+            if sl is None:
+                sl = self._slices[info.slice_id] = SliceView(mesh=mesh)
+                # the slice set feeds snapshot.slice_ids(): bump at the
+                # seam itself, not only at the end of the upsert — the
+                # validation raises below must not leave a registered
+                # slice invisible to the epoch cache (found by
+                # tpukube-lint's epoch-discipline pass)
+                self._epoch += 1
+                # a new slice is structural: the delta path cannot
+                # patch a slice the base snapshot never held
+                self._note_delta_locked(full=True,
+                                 why=f"slice {info.slice_id} registered")
+            elif sl.mesh != mesh:
+                raise StateError(
+                    f"node {name} reports mesh {mesh.dims} for slice "
+                    f"{info.slice_id}, which has {sl.mesh.dims} — nodes of "
+                    f"one slice must agree on its geometry"
+                )
+            prev = self._nodes.get(name)
+            if prev is not None and prev.info.slice_id != info.slice_id:
+                # tpukube: allow(seam-triple) a slice registered by an upsert that then fails validation holds no nodes; the WAL only records successful upserts, so a restart simply never sees the empty slice
+                raise StateError(
+                    f"node {name} moved from slice {prev.info.slice_id} "
+                    f"to {info.slice_id} — drop and re-add the node"
+                )
+            if (
+                prev is not None
+                and prev.used_ids
+                and prev.info.shares_per_chip != info.shares_per_chip
+            ):
+                # a sharing-mode switch under live allocations cannot be
+                # accounted (committed ids carry the OLD mode's weights;
+                # mixing modes double-books chips) — drain the node first
+                # tpukube: allow(seam-triple) failed-validation raise: the registered-but-empty slice is deliberately not journaled (records land on success only)
+                raise StateError(
+                    f"node {name} changed shares_per_chip "
+                    f"{prev.info.shares_per_chip} -> {info.shares_per_chip} "
+                    f"with {len(prev.used_ids)} live allocations — drain "
+                    f"the node before switching sharing mode"
+                )
+            # validate EVERY claim before mutating anything: a partial
+            # apply would leave phantom claims with no owner on error
+            hosts = self._hosts_locked(sl)
+            for chip in info.chips:
+                claimed = hosts.get(chip.coord)
+                if claimed is not None and claimed != name:
+                    # tpukube: allow(seam-triple) failed-validation raise: the registered-but-empty slice is deliberately not journaled (records land on success only)
+                    raise StateError(
+                        f"nodes {claimed} and {name} both claim chip "
+                        f"{tuple(chip.coord)} in slice {info.slice_id}"
+                    )
+            if prev is not None:
+                for chip in prev.info.chips:
+                    if hosts.get(chip.coord) == name:
+                        del hosts[chip.coord]
+            for chip in info.chips:
+                hosts[chip.coord] = name
+            self._hosts_cache.pop(info.slice_id, None)
+            view = NodeView(info=info, raw_payload=payload,
+                            health_summary=summary)
+            if prev is not None:
+                view.used_ids = prev.used_ids
+                view.share_counts = prev.share_counts
+                view.id_weights = prev.id_weights
+            else:
+                # the node SET changed: the cached name tuple is stale
+                self._names_cache = None
+            self._nodes[name] = view
+            # incremental occupied maintenance for the structural path:
+            # ONE node's old contribution leaves, its new one enters —
+            # O(chips-per-node), so the full-rebuild the marker below
+            # forces stops walking every OTHER view of the slice
+            occ_old = tuple(
+                c.coord for c in prev.info.chips
+                if c.health is not Health.HEALTHY
+                or prev.used_share_count(c.index) > 0
+            ) if prev is not None else ()
+            occ_new = tuple(
+                c.coord for c in info.chips
+                if c.health is not Health.HEALTHY
+                or view.used_share_count(c.index) > 0
+            )
+            self._occ_apply_locked(info.slice_id, add=occ_new,
+                                   remove=occ_old)
+            # ... and the same one-node-out/one-node-in transition for
+            # the unhealthy/broken/share caches
+            used_old, total_old = (self._view_share_counts(prev)
+                                   if prev is not None else (0, 0))
+            used_new, total_new = self._view_share_counts(view)
+            self._aux_apply_locked(
+                info.slice_id,
+                unhealthy_add=tuple(
+                    c.coord for c in info.chips
+                    if c.health is not Health.HEALTHY
+                ),
+                unhealthy_remove=tuple(
+                    c.coord for c in prev.info.chips
+                    if c.health is not Health.HEALTHY
+                ) if prev is not None else (),
+                broken_add=tuple(set(info.bad_links)),
+                broken_remove=(tuple(set(prev.info.bad_links))
+                               if prev is not None else ()),
+                used_delta=used_new - used_old,
+                total_delta=total_new - total_old,
+            )
+            self._epoch += 1
+            # a STRUCTURALLY changed node payload may move links,
+            # topology, or sharing mode — all structural for the
+            # snapshot (they shift broken sets and the share totals the
+            # delta math assumes constant): full-rebuild marker. The
+            # unchanged-payload early return above keeps the hot
+            # webhook resend path bump- and delta-free, and the
+            # health-only path above keeps health churn O(chips/node).
+            self._note_delta_locked(full=True, why=f"node {name} re-annotated")
+        return True
+
+    def _apply_health_only_locked(
+        self, name: str, prev: NodeView, info: NodeInfo, payload: str,
+        summary: Optional[dict], annotations: dict[str, str],
+    ) -> None:
+        """Apply a health-only re-annotation (see upsert_node): swap the
+        node view and emit the per-chip transition delta — occupied and
+        unhealthy set moves plus the healthy-share capacity change the
+        slice's utilization integers carry. Callers hold ``self._lock``
+        and have verified ``_health_only_change``."""
+        n = prev.shares_per_chip
+        occupied_add: list[TopologyCoord] = []
+        occupied_remove: list[TopologyCoord] = []
+        unhealthy_add: list[TopologyCoord] = []
+        unhealthy_remove: list[TopologyCoord] = []
+        used_d = total_d = 0
+        for old_chip, new_chip in zip(prev.info.chips, info.chips):
+            if old_chip.health is new_chip.health:
+                continue
+            # counted shares on this chip (slice_share_counts caps at n)
+            cnt = min(n, prev.used_share_count(new_chip.index))
+            if new_chip.health is not Health.HEALTHY:
+                unhealthy_add.append(new_chip.coord)
+                total_d -= n
+                used_d -= cnt
+                if cnt == 0:
+                    # a free chip turning sick ENTERS occupied (health
+                    # holds it); a chip with live shares was there already
+                    occupied_add.append(new_chip.coord)
+            else:
+                unhealthy_remove.append(new_chip.coord)
+                total_d += n
+                used_d += cnt
+                if cnt == 0:
+                    occupied_remove.append(new_chip.coord)
+        view = NodeView(info=info, raw_payload=payload,
+                        health_summary=summary)
+        view.used_ids = prev.used_ids
+        view.share_counts = prev.share_counts
+        view.id_weights = prev.id_weights
+        self._nodes[name] = view
+        self._occ_apply_locked(info.slice_id, add=tuple(occupied_add),
+                               remove=tuple(occupied_remove))
+        self._aux_apply_locked(
+            info.slice_id,
+            unhealthy_add=tuple(unhealthy_add),
+            unhealthy_remove=tuple(unhealthy_remove),
+            # links are untouched on a health-only change by definition
+            used_delta=used_d, total_delta=total_d,
+        )
+        self._epoch += 1
+        self._note_delta_locked(
+            slice_id=info.slice_id,
+            occupied_add=tuple(occupied_add),
+            occupied_remove=tuple(occupied_remove),
+            used_shares_delta=used_d,
+            unhealthy_add=tuple(unhealthy_add),
+            unhealthy_remove=tuple(unhealthy_remove),
+            total_shares_delta=total_d,
+            why=f"node {name} health re-annotated",
+        )
+
+    # -- bulk cold-start ingestion -------------------------------------------
+    def ingest_nodes(self, items: list[dict]) -> list:
+        """Fleet-scale node ingest fast path. Each item is ``{"name":
+        ..., "annotations": {...}}``; the result list matches the
+        per-item ``upsert_node`` decision responses positionally
+        (``{"ours": bool}`` or ``{"error": str}``).
+
+        Semantics match per-item upserts — the parity suite proves the
+        resulting ledger/host/occupancy state identical — but the cost
+        model is the cold start's: payloads are PROBED (validated +
+        host-mapped) without building NodeView objects, the decoded
+        views materialize lazily on first touch exactly like the
+        checkpoint restore's, the per-slice incremental coord/share
+        caches are seeded from the probe aggregates (so the first
+        snapshot rebuild is O(slices), not O(fleet)), and the
+        epoch/delta/journal seam fires ONCE per batch instead of per
+        node. Items naming an already-known node with a CHANGED payload
+        are routed through the legacy per-node path (its health-only
+        delta and occupancy carry-over semantics own that shape)."""
+        results: list = [None] * len(items)
+        slow: list[int] = []
+        with self._lock:
+            # phase 1 — probe + validate: reads only, nothing mutated,
+            # so a bad item errors without a partial apply
+            staged: list[tuple] = []  # (pos, name, payload, annos, probe)
+            mesh_memo: dict = {}  # one mesh decode per distinct fragment
+            new_slices: dict[str, MeshSpec] = {}
+            staged_hosts: dict[str, dict[TopologyCoord, str]] = {}
+            agg: dict[str, dict] = {}  # sid -> batch aggregates
+            # hot-loop locals (this loop runs per node of the fleet)
+            nodes_get = self._nodes.get
+            lazyp_get = self._lazy_payloads.get
+            slices_get = self._slices.get
+            anno_key = codec.ANNO_NODE_TOPOLOGY
+            # per-sid (live_hosts, live_get, batch_hosts, agg entry):
+            # resolved once per slice, not once per node
+            slice_ctx: dict[str, tuple] = {}
+            staged_payloads: dict[str, str] = {}  # name staged earlier
+            for pos, item in enumerate(items):
+                name = item["name"]
+                annotations = dict(item.get("annotations") or {})
+                payload = annotations.get(anno_key)
+                if payload is None:
+                    results[pos] = {"ours": False}
+                    continue
+                view = nodes_get(name)
+                if view is not None:
+                    if view.raw_payload == payload:
+                        results[pos] = {"ours": True}
+                    else:
+                        slow.append(pos)
+                    continue
+                lazy = lazyp_get(name)
+                if lazy is not None:
+                    if lazy[0] == payload:
+                        results[pos] = {"ours": True}
+                    else:
+                        slow.append(pos)
+                    continue
+                earlier = staged_payloads.get(name)
+                if earlier is not None:
+                    # the SAME node twice in one batch: the per-node
+                    # path's second upsert answers unchanged-payload
+                    # True / runs the re-annotation path — match it
+                    # (the name-string identity trick below only
+                    # covers claims within ONE item)
+                    if earlier == payload:
+                        results[pos] = {"ours": True}
+                    else:
+                        slow.append(pos)
+                    continue
+                try:
+                    probe = _probe_node_payload(name, payload,
+                                                mesh_memo)
+                except codec.CodecError as e:
+                    results[pos] = {"error": str(e)}
+                    continue
+                sid = probe["slice"]
+                mesh = probe["mesh"]
+                ctx = slice_ctx.get(sid)
+                if ctx is None:
+                    sl = slices_get(sid)
+                    live_hosts = (self._hosts_locked(sl)
+                                  if sl is not None else {})
+                    a = agg[sid] = {"unhealthy": set(), "links": {},
+                                    "total": 0}
+                    batch_hosts = staged_hosts[sid] = {}
+                    ctx = slice_ctx[sid] = (
+                        sl.mesh if sl is not None else None,
+                        live_hosts, live_hosts.get,
+                        batch_hosts, batch_hosts.setdefault, a,
+                    )
+                (live_mesh, live_hosts, live_get,
+                 batch_hosts, bh_setdefault, a) = ctx
+                have_mesh = (live_mesh if live_mesh is not None
+                             else new_slices.get(sid))
+                # identity first: the memo hands every node of a
+                # homogeneous fleet the SAME MeshSpec object, so the
+                # dataclass __eq__ runs only on genuine disagreement
+                if (have_mesh is not None and have_mesh is not mesh
+                        and have_mesh != mesh):
+                    results[pos] = {"error": (
+                        f"node {name} reports mesh {mesh.dims} for "
+                        f"slice {sid}, which has {have_mesh.dims} — "
+                        f"nodes of one slice must agree on its geometry"
+                    )}
+                    continue
+                # validate-and-stage in ONE pass (this loop runs per
+                # chip of the whole fleet): setdefault stages the claim
+                # unless someone staged it first; a conflict unwinds
+                # this node's own staged claims (rare) and errors with
+                # the per-node path's message. An empty live map (the
+                # cold start) skips its per-coord probe entirely.
+                claimed_by = None
+                if live_hosts:
+                    for coord in probe["coords"]:
+                        claimed_by = live_get(coord)
+                        if claimed_by is None:
+                            owner = bh_setdefault(coord, name)
+                            if owner is name:
+                                continue
+                            claimed_by = owner
+                        break
+                else:
+                    for coord in probe["coords"]:
+                        owner = bh_setdefault(coord, name)
+                        if owner is not name:
+                            claimed_by = owner
+                            break
+                if claimed_by is not None:
+                    results[pos] = {"error": (
+                        f"nodes {claimed_by} and {name} both claim "
+                        f"chip {tuple(coord)} in slice {sid}"
+                    )}
+                    for coord in probe["coords"]:
+                        if batch_hosts.get(coord) is name:
+                            del batch_hosts[coord]
+                    continue
+                if have_mesh is None:
+                    new_slices[sid] = mesh
+                if probe["unhealthy"]:
+                    a["unhealthy"].update(probe["unhealthy"])
+                if probe["links"]:
+                    for link in set(probe["links"]):
+                        a["links"][link] = a["links"].get(link, 0) + 1
+                a["total"] += probe["shares"] * probe["healthy_chips"]
+                staged_payloads[name] = payload
+                staged.append((pos, name, payload, annotations, probe))
+            # phase 2 — apply: straight-line mutations, no raises, one
+            # deferred epoch/delta/journal seam for the whole batch
+            if staged:
+                for sid, mesh in new_slices.items():
+                    self._slices[sid] = SliceView(mesh=mesh)
+                for pos, name, payload, annotations, probe in staged:
+                    self._lazy_payloads[name] = (
+                        payload, annotations, probe["slice"])
+                    results[pos] = {"ours": True}
+                for sid, batch_hosts in staged_hosts.items():
+                    if not batch_hosts:
+                        continue
+                    sl = self._slices[sid]
+                    self._hosts_locked(sl).update(batch_hosts)
+                    self._hosts_cache.pop(sid, None)
+                    a = agg[sid]
+                    if sid in new_slices:
+                        # a slice born in this batch is COMPLETE
+                        # information: seed the incremental caches so
+                        # the first reader never pays the O(slice)
+                        # walk that would materialize the lazy fleet
+                        self._occ_cache[sid] = set(a["unhealthy"])
+                        self._unhealthy_cache[sid] = set(a["unhealthy"])
+                        self._broken_cache[sid] = dict(a["links"])
+                        self._share_cache[sid] = [0, a["total"]]
+                    else:
+                        # appending NEW nodes to a live slice: advance
+                        # already-seeded caches by the batch aggregates
+                        # (fresh nodes hold no shares — pure adds)
+                        self._occ_apply_locked(
+                            sid, add=tuple(a["unhealthy"]))
+                        self._aux_apply_locked(
+                            sid,
+                            unhealthy_add=tuple(a["unhealthy"]),
+                            broken_add=tuple(
+                                link for link, n in a["links"].items()
+                                for _ in range(n)
+                            ),
+                            total_delta=a["total"],
+                        )
+                self._names_cache = None
+                self._epoch += 1
+                self._note_delta_locked(
+                    full=True, why=f"bulk ingest ({len(staged)} nodes)")
+                # the note itself no-ops without a journal; the ternary
+                # only skips building the O(batch) items list, keeping
+                # the call UNCONDITIONAL so the seam-triple pass can
+                # prove the bump/delta/journal triple on every path
+        # known-node changed payloads run the legacy per-node path
+        # OUTSIDE the batch lock hold (upsert_node re-acquires; the
+        # per-node seams own health-only deltas and occupancy carry)
+        for pos in slow:
+            item = items[pos]
+            try:
+                results[pos] = {"ours": self.upsert_node(
+                    item["name"], dict(item.get("annotations") or {})
+                )}
+            except (codec.CodecError, StateError) as e:
+                results[pos] = {"error": str(e)}
+        return results
+
+    # -- geometry mask -------------------------------------------------------
+    def absent_coords(self, slice_id: Optional[str] = None):
+        """Chip coords of the slice's geometry with NO live host claim —
+        capacity that left (un-ingest, spot churn) or never arrived (a
+        recovery rebuilt from a partially-advertised fleet). Without
+        this mask a shrunken slice's departed chips would read as FREE
+        in every sweep (phantom capacity: a 16-chip reservation
+        "fitting" a 12-chip slice). Derived from the coord->host claim
+        map, which every ingest/upsert/remove seam already maintains —
+        one derivation shared by the snapshot's normal build and its
+        audit sentinel (nothing incremental to keep honest), exactly
+        the ``cordoned_coords`` contract. The fully-claimed common case
+        is an O(1) length check; only a partially-populated slice pays
+        the geometry enumeration."""
+        with self._lock:
+            sid = self._resolve_sid_locked(slice_id)
+            if sid is None:
+                return set()
+            sl = self._slices.get(sid)
+            if sl is None:
+                return set()
+            hosts = self._hosts_locked(sl)
+            if len(hosts) >= sl.mesh.num_chips:
+                return set()
+            return {c for c in sl.mesh.all_coords() if c not in hosts}
+
+    # -- views -------------------------------------------------------------
+    @property
+    def mesh(self) -> Optional[MeshSpec]:
+        """The sole slice's mesh (single-slice clusters). None before any
+        node is known; StateError when several slices exist — callers on a
+        multi-slice cluster must name the slice (slice_mesh)."""
+        with self._lock:
+            if not self._slices:
+                return None
+            if len(self._slices) > 1:
+                raise StateError(
+                    f"cluster has {len(self._slices)} slices; use "
+                    f"slice_mesh(slice_id)"
+                )
+            return next(iter(self._slices.values())).mesh
+
+    def slice_ids(self) -> list[str]:
+        with self._lock:
+            return sorted(self._slices)
+
+    def slice_mesh(self, slice_id: str) -> MeshSpec:
+        with self._lock:
+            sl = self._slices.get(slice_id)
+            if sl is None:
+                raise StateError(f"unknown slice {slice_id!r}")
+            return sl.mesh
+
+    def host_at(self, slice_id: str, coord: TopologyCoord) -> Optional[str]:
+        """Node owning a chip coord within a slice (annotation-derived)."""
+        with self._lock:
+            sl = self._slices.get(slice_id)
+            if sl is None:
+                return None
+            return self._hosts_locked(sl).get(coord)
+
+    def hosts_by_coord(self, slice_id: str) -> dict[TopologyCoord, str]:
+        """Snapshot of a slice's coord->node map — one lock round-trip for
+        callers that look up many coords (the per-node gang hot path).
+        The returned dict is a shared frozen snapshot: do NOT mutate it."""
+        with self._lock:
+            cached = self._hosts_cache.get(slice_id)
+            if cached is not None:
+                return cached
+            sl = self._slices.get(slice_id)
+            snap = dict(self._hosts_locked(sl)) if sl is not None else {}
+            self._hosts_cache[slice_id] = snap
+            return snap
+
+    def slice_of_node(self, name: str) -> Optional[str]:
+        with self._lock:
+            view = self._nodes.get(name)
+            if view is not None:
+                return view.info.slice_id
+            lazy = self._lazy_payloads.get(name)
+            return lazy[2] if lazy is not None else None
+
+    def node(self, name: str) -> Optional[NodeView]:
+        with self._lock:
+            return self._view_locked(name)
+
+    def node_names(self) -> tuple[str, ...]:
+        """Sorted node names as a SHARED frozen tuple, cached until the
+        node set itself changes (per-cycle callers — the batch planner,
+        /healthz, statusz — must not pay an O(fleet) sort-and-copy for
+        a set that moves only when nodes register)."""
+        with self._lock:
+            names = self._names_cache
+            if names is None:
+                names = self._names_cache = tuple(sorted(
+                    set(self._nodes) | set(self._lazy_payloads)
+                ))
+            return names
+
+    def _slice_views_locked(self, slice_id: Optional[str]) -> list[NodeView]:
+        """Node views of one slice — or of the WHOLE cluster only when it is
+        single-slice (mixing coord sets across slices would be meaningless;
+        raise instead). Callers hold ``self._lock`` (the ``_locked``
+        naming is the contract tpukube-lint's shared-state pass keys on)."""
+        if slice_id is None and len(self._slices) > 1:
+            raise StateError(
+                "coord sets are slice-local; pass slice_id on a "
+                f"{len(self._slices)}-slice cluster"
+            )
+        # a whole-slice scan needs every view, including lazily-restored
+        # ones (the background warmer usually got here first)
+        self._materialize_slice_locked(slice_id)
+        return [
+            v for v in self._nodes.values()
+            if slice_id is None or v.info.slice_id == slice_id
+        ]
+
+    def _occ_apply_locked(self, slice_id: str,
+                          add: tuple = (), remove: tuple = ()) -> None:
+        """Advance the slice's incremental occupied set by the same
+        transition tuples the snapshot delta for this seam carries
+        (callers hold ``self._lock``). Unseeded slices stay unseeded —
+        the first reader pays the walk once."""
+        cached = self._occ_cache.get(slice_id)
+        if cached is None:
+            return
+        cached.difference_update(remove)
+        cached.update(add)
+
+    def _aux_apply_locked(self, slice_id: str, *,
+                          unhealthy_add: tuple = (),
+                          unhealthy_remove: tuple = (),
+                          broken_add: tuple = (),
+                          broken_remove: tuple = (),
+                          used_delta: int = 0,
+                          total_delta: int = 0) -> None:
+        """Advance the slice's incremental unhealthy/broken/share-count
+        caches by one seam's transitions (callers hold ``self._lock``;
+        same contract as ``_occ_apply_locked`` — unseeded slices stay
+        unseeded, the first reader pays the walk once). ``broken_*``
+        are per-VIEW link report transitions: the count map tracks how
+        many node views currently report each canonical link."""
+        unhealthy = self._unhealthy_cache.get(slice_id)
+        if unhealthy is not None:
+            unhealthy.difference_update(unhealthy_remove)
+            unhealthy.update(unhealthy_add)
+        counts = self._broken_cache.get(slice_id)
+        if counts is not None:
+            for link in broken_remove:
+                n = counts.get(link, 0) - 1
+                if n <= 0:
+                    counts.pop(link, None)
+                else:
+                    counts[link] = n
+            for link in broken_add:
+                counts[link] = counts.get(link, 0) + 1
+        shares = self._share_cache.get(slice_id)
+        if shares is not None:
+            shares[0] += used_delta
+            shares[1] += total_delta
+
+    @staticmethod
+    def _view_share_counts(view: NodeView) -> tuple[int, int]:
+        """One view's (used, total) share contribution over its healthy
+        chips — the per-node term both the walk and the structural-
+        upsert transition math use."""
+        n = view.shares_per_chip
+        used = total = 0
+        for chip in view.info.chips:
+            if chip.health is Health.HEALTHY:
+                total += n
+                used += min(n, view.used_share_count(chip.index))
+        return used, total
+
+    def _walk_occupied_locked(
+        self, slice_id: Optional[str]
+    ) -> set[TopologyCoord]:
+        """Derive a slice's occupied set the original way: walk every
+        view (callers hold ``self._lock``)."""
+        out: set[TopologyCoord] = set()
+        for view in self._slice_views_locked(slice_id):
+            for chip in view.info.chips:
+                if (
+                    chip.health is not Health.HEALTHY
+                    or view.used_share_count(chip.index) > 0
+                ):
+                    out.add(chip.coord)
+        return out
+
+    def walk_occupied_coords(
+        self, slice_id: Optional[str] = None
+    ) -> set[TopologyCoord]:
+        """``occupied_coords`` WITHOUT the incremental cache — the
+        audit sentinel's independent derivation (sched/snapshot.py
+        audit builds): a seam that forgot both its snapshot delta and
+        its incremental occupied update must still diverge loudly
+        against a ground-truth walk, so the audit never reads the very
+        cache it is meant to check."""
+        with self._lock:
+            return self._walk_occupied_locked(slice_id)
+
+    def occupied_coords(self, slice_id: Optional[str] = None) -> set[TopologyCoord]:
+        """Coords unusable for a whole-chip/gang placement: any chip with
+        used shares, plus unhealthy chips. Served from the per-slice
+        incremental set (seeded by one walk, then advanced at every
+        mutation seam) — the returned set is the caller's copy."""
+        with self._lock:
+            sid = slice_id
+            if sid is None:
+                # the no-argument form serves single-slice clusters and
+                # raises on ambiguity (matching _slice_views_locked)
+                if len(self._slices) > 1:
+                    raise StateError(
+                        "coord sets are slice-local; pass slice_id on "
+                        f"a {len(self._slices)}-slice cluster"
+                    )
+                if not self._slices:
+                    return set()
+                sid = next(iter(self._slices))
+            cached = self._occ_cache.get(sid)
+            if cached is None:
+                cached = self._walk_occupied_locked(sid)
+                self._occ_cache[sid] = cached
+            return set(cached)
+
+    def _resolve_sid_locked(self, slice_id: Optional[str]) -> Optional[str]:
+        """The no-argument form of the per-slice coord accessors serves
+        single-slice clusters and raises on ambiguity (matching
+        ``_slice_views_locked``); None = no slices registered yet."""
+        if slice_id is not None:
+            return slice_id
+        if len(self._slices) > 1:
+            raise StateError(
+                "coord sets are slice-local; pass slice_id on a "
+                f"{len(self._slices)}-slice cluster"
+            )
+        if not self._slices:
+            return None
+        return next(iter(self._slices))
+
+    def _walk_unhealthy_locked(
+        self, slice_id: Optional[str]
+    ) -> set[TopologyCoord]:
+        return {
+            chip.coord
+            for view in self._slice_views_locked(slice_id)
+            for chip in view.info.chips
+            if chip.health is not Health.HEALTHY
+        }
+
+    def walk_unhealthy_coords(
+        self, slice_id: Optional[str] = None
+    ) -> set[TopologyCoord]:
+        """``unhealthy_coords`` WITHOUT the incremental cache — the
+        audit sentinel's independent derivation (see
+        ``walk_occupied_coords``)."""
+        with self._lock:
+            return self._walk_unhealthy_locked(slice_id)
+
+    def unhealthy_coords(self, slice_id: Optional[str] = None) -> set[TopologyCoord]:
+        """Coords of unhealthy chips, served from the per-slice
+        incremental set (seeded by one walk, advanced at the health
+        and structural seams) — the returned set is the caller's copy."""
+        with self._lock:
+            sid = self._resolve_sid_locked(slice_id)
+            if sid is None:
+                return set()
+            cached = self._unhealthy_cache.get(sid)
+            if cached is None:
+                cached = self._walk_unhealthy_locked(sid)
+                self._unhealthy_cache[sid] = cached
+            return set(cached)
+
+    def _walk_broken_locked(
+        self, slice_id: Optional[str]
+    ) -> dict[Link, int]:
+        counts: dict[Link, int] = {}
+        for view in self._slice_views_locked(slice_id):
+            # distinct links per view: the count is "how many views
+            # report this link", the unit the upsert transitions move
+            for link in set(view.info.bad_links):
+                counts[link] = counts.get(link, 0) + 1
+        return counts
+
+    def walk_broken_links(
+        self, slice_id: Optional[str] = None
+    ) -> set[Link]:
+        """``broken_links`` WITHOUT the incremental cache (the audit
+        sentinel's derivation)."""
+        with self._lock:
+            return set(self._walk_broken_locked(slice_id))
+
+    def broken_links(self, slice_id: Optional[str] = None) -> set[Link]:
+        """Downed ICI links, unioned over node reports. Both endpoint
+        hosts may report the same link; the incremental cache counts
+        reporting views per canonical link (a link leaves the set only
+        when its LAST reporter withdraws it)."""
+        with self._lock:
+            sid = self._resolve_sid_locked(slice_id)
+            if sid is None:
+                return set()
+            counts = self._broken_cache.get(sid)
+            if counts is None:
+                counts = self._walk_broken_locked(sid)
+                self._broken_cache[sid] = counts
+            return set(counts)
+
+    def _walk_share_counts_locked(self, slice_id: str) -> list[int]:
+        total = used = 0
+        for view in self._slice_views_locked(slice_id):
+            u, t = self._view_share_counts(view)
+            used += u
+            total += t
+        return [used, total]
+
+    def walk_slice_share_counts(self, slice_id: str) -> tuple[int, int]:
+        """``slice_share_counts`` WITHOUT the incremental cache (the
+        audit sentinel's derivation)."""
+        with self._lock:
+            used, total = self._walk_share_counts_locked(slice_id)
+            return used, total
+
+    def slice_share_counts(self, slice_id: str) -> tuple[int, int]:
+        """(used, total) shares over healthy capacity of ONE slice —
+        the integer pair the snapshot carries so ledger deltas can
+        advance utilization in O(1) (total only moves on health or
+        topology changes). Served from the per-slice incremental pair,
+        seeded by one walk and advanced at the commit/release/health/
+        structural seams — structural rebuilds stop walking every view
+       ."""
+        with self._lock:
+            shares = self._share_cache.get(slice_id)
+            if shares is None:
+                shares = self._walk_share_counts_locked(slice_id)
+                self._share_cache[slice_id] = shares
+            return shares[0], shares[1]
+
+    def slice_utilization(self, slice_id: str) -> float:
+        """Allocated share fraction over healthy capacity of ONE slice —
+        the gang layer's bin-pack signal for slice choice."""
+        used, total = self.slice_share_counts(slice_id)
+        return used / total if total else 0.0
+
+    def allocation(self, pod_key: str) -> Optional[AllocResult]:
+        with self._lock:
+            return self._allocs.get(pod_key)
+
+    def allocations(self) -> list[AllocResult]:
+        with self._lock:
+            return list(self._allocs.values())
+
+    # -- utilization (north-star metric feed) ------------------------------
+    def utilization(self) -> float:
+        """Allocated share fraction over healthy capacity, 0..1 —
+        summed from the per-slice incremental share counts (seeded by
+        one walk per slice, advanced at every seam), so a metrics
+        scrape stops walking every chip of the fleet per pull and a
+        lazily-ingested fleet is counted without materializing it."""
+        with self._lock:
+            used = total = 0
+            for sid in self._slices:
+                shares = self._share_cache.get(sid)
+                if shares is None:
+                    shares = self._walk_share_counts_locked(sid)
+                    self._share_cache[sid] = shares
+                used += shares[0]
+                total += shares[1]
+            return used / total if total else 0.0
+
+    def priority_of(self, pod_key: str) -> int:
+        """Pod priority as committed (AllocResult carries it, and it is
+        persisted in the alloc annotation, so preemption protection survives
+        an extender restart). 0 for unknown pods."""
+        with self._lock:
+            alloc = self._allocs.get(pod_key)
+            return alloc.priority if alloc is not None else 0
+
+    # -- commit / release --------------------------------------------------
+    def commit(self, alloc: AllocResult) -> None:
+        """Record a bind: devices of one pod on one node. ``alloc.priority``
+        is the single source of priority truth (no side table to diverge)."""
+        with self._lock:
+            if alloc.pod_key in self._allocs:
+                raise StateError(f"{alloc.pod_key} already has an allocation")
+            view = self._view_locked(alloc.node_name)
+            if view is None:
+                raise StateError(f"bind to unknown node {alloc.node_name}")
+            n = view.shares_per_chip
+            # validate first, then apply (no partial commit)
+            adding: set[str] = set()
+            pending_shares: dict[int, int] = {}
+            for did in alloc.device_ids:
+                index, frac = parse_device_id(did)
+                chip = view.chip(index)
+                if chip.health is not Health.HEALTHY:
+                    raise StateError(f"{did}: chip unhealthy")
+                if did in view.used_ids or did in adding:
+                    raise StateError(f"{did}: device id already allocated")
+                if frac is not None and not 0 <= frac[0] < n:
+                    raise StateError(f"{did}: share index out of range")
+                want = n if frac is None else 1
+                have = view.free_shares(chip) - pending_shares.get(index, 0)
+                if have < want:
+                    raise StateError(f"{did}: insufficient free shares")
+                adding.add(did)
+                pending_shares[index] = pending_shares.get(index, 0) + want
+            # occupied-set transitions for the snapshot delta: a chip
+            # enters `occupied` when its used shares leave zero (all
+            # committed chips are healthy — validated above — so the
+            # used-share change equals the full added weight)
+            newly_occupied = tuple(
+                view.chip(index).coord
+                for index in pending_shares
+                if view.used_share_count(index) == 0
+            )
+            view.add_ids(adding)
+            self._allocs[alloc.pod_key] = alloc
+            self._occ_apply_locked(view.info.slice_id, add=newly_occupied)
+            # all committed chips are healthy (validated above), so the
+            # counted share delta is exactly the added weight
+            self._aux_apply_locked(
+                view.info.slice_id,
+                used_delta=sum(pending_shares.values()),
+            )
+            self._epoch += 1
+            self._note_delta_locked(
+                slice_id=view.info.slice_id,
+                occupied_add=newly_occupied,
+                used_shares_delta=sum(pending_shares.values()),
+                why=f"commit {alloc.pod_key}",
+            )
+
+    def release(self, pod_key: str) -> Optional[AllocResult]:
+        """Pod gone (deleted/preempted): free its shares."""
+        with self._lock:
+            # look up before popping: the unknown-pod path mutates
+            # nothing, so it owes no epoch bump (tpukube-lint
+            # epoch-discipline checks every path after a seam write)
+            alloc = self._allocs.get(pod_key)
+            if alloc is None:
+                return None
+            self._allocs.pop(pod_key, None)
+            view = self._view_locked(alloc.node_name)
+            if view is None:
+                # node view gone: its chips are in no slice's occupied
+                # set either — an empty delta keeps the chain whole
+                self._epoch += 1
+                self._note_delta_locked(why=f"release {pod_key} (node gone)")
+                return alloc
+            # snapshot delta: shares removed from HEALTHY chips reduce
+            # the slice's used count (unhealthy chips were never counted
+            # — nor do they leave `occupied`, which health holds)
+            used_delta = 0
+            indices: set[int] = set()
+            for did in alloc.device_ids:
+                if did not in view.used_ids:
+                    continue
+                index, _ = parse_device_id(did)
+                indices.add(index)
+                if view.chip(index).health is Health.HEALTHY:
+                    used_delta -= view.id_weights.get(did, 0)
+            view.remove_ids(alloc.device_ids)
+            freed = tuple(
+                view.chip(index).coord
+                for index in sorted(indices)
+                if view.used_share_count(index) == 0
+                and view.chip(index).health is Health.HEALTHY
+            )
+            self._occ_apply_locked(view.info.slice_id, remove=freed)
+            self._aux_apply_locked(view.info.slice_id,
+                                   used_delta=used_delta)
+            self._epoch += 1
+            self._note_delta_locked(
+                slice_id=view.info.slice_id,
+                occupied_remove=freed,
+                used_shares_delta=used_delta,
+                why=f"release {pod_key}",
+            )
+            return alloc
+
+    # -- restart story -----------------------------------------------------
+    def rebuild_from_pods(
+        self, pods: list[dict[str, str]]
+    ) -> list[tuple[dict[str, str], AllocResult]]:
+        """Reconstruct the ledger from pod alloc annotations (each item is
+        one pod's annotation dict). Returns (annotations, alloc) pairs so
+        callers building further state (gang restore) keep the association
+        structurally — positional re-pairing against the input would break
+        silently the day this method skips one more pod."""
+        restored: list[tuple[dict[str, str], AllocResult]] = []
+        for annotations in pods:
+            payload = annotations.get(codec.ANNO_ALLOC)
+            if not payload:
+                continue
+            # a real cluster can hold annotations we did not write
+            # (malformed edits, pods bound to vanished nodes): one bad
+            # pod must not abort the whole rebuild. LOUD skips — until
+            # reconciled the ledger under-counts the skipped pod's chips.
+            try:
+                alloc = codec.decode_alloc(payload)
+            except codec.CodecError as e:
+                # undecodable payloads carry no pod key; log a snippet so
+                # the operator can find the offending annotation
+                log.error("rebuild: undecodable alloc annotation (%s): "
+                          "%.120s", e, payload)
+                continue
+            try:
+                self.commit(alloc)
+            except StateError as e:
+                log.error("rebuild: skipping %s (%s) — the ledger "
+                          "under-counts its chips until reconciled",
+                          alloc.pod_key, e)
+                continue
+            restored.append((annotations, alloc))
+        return restored

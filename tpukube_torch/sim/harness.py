@@ -1,0 +1,358 @@
+"""SimCluster — plays apiserver + kube-scheduler against the port's extender.
+
+The port's own copy of ``tpukube/sim/harness.py``'s in-process mode: node
+objects are minted from ``MeshSpec`` geometry and annotated with the node
+agent's codec, pods are kube-scheduler's JSON, and every webhook
+(filter -> prioritize -> pick max -> bind) goes straight into
+``Extender.handle`` — the reference's ``in_process=True`` path, the same
+decisions minus sockets (``tpukube_torch.sched.extender.serve`` is the
+HTTP server). ``execute_allocation`` then runs the bound pod's Allocate on
+a sim-backend ``GpuDeviceManager`` of the bound node and returns the
+container env, which is what the reference's gRPC Allocate returns.
+
+An HGX fleet is ``MeshSpec((8, H, 1), (8, 1, 1))``: H hosts of 8 GPUs
+along y (``TPUKUBE_SIM_MESH_DIMS=8,H,1``, ``TPUKUBE_SIM_HOST_BLOCK=8,1,1``).
+
+The sim's pod store stands in for the apiserver: an eviction deletes the
+pod object and confirms it gone at once (``victim_gone``), and a deleted or
+finished pod's chips are released through the recorded ``release``
+decision. The gRPC device-plugin stack, the eviction executor's retries
+and the lifecycle loop's watch are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from tpukube_torch.core import codec
+from tpukube_torch.core.clock import SYSTEM
+from tpukube_torch.core.config import GpuKubeConfig, load_config
+from tpukube_torch.core.mesh import MeshSpec
+from tpukube_torch.core.types import (
+    AllocResult,
+    ChipInfo,
+    Health,
+    NodeInfo,
+    PodGroup,
+    canonical_link,
+)
+from tpukube_torch.sched import kube
+from tpukube_torch.sched.extender import Extender
+
+# pod phases after which a pod's containers hold no devices
+TERMINAL_PHASES = ("Succeeded", "Failed")
+
+
+class SimCluster:
+    """A simulated multi-node GPU cluster around one live Extender."""
+
+    def __init__(
+        self,
+        config: Optional[GpuKubeConfig] = None,
+        mesh: Optional[MeshSpec] = None,
+        vtpu_nodes: Optional[set[str]] = None,
+        vtpu_shares: int = 2,
+        slices: Optional[dict[str, MeshSpec]] = None,
+        clock=None,
+    ):
+        """Single-slice by default (``mesh``, else the config's sim mesh);
+        pass ``slices`` (slice id -> MeshSpec) for a multi-slice cluster —
+        node names are then prefixed "<slice>-host-i-j-k" so they stay
+        unique cluster-wide. ``clock`` (core/clock.py) threads an
+        injectable — typically a FakeClock — through the gang TTLs."""
+        self.config = config or load_config(env={})
+        self.clock = clock if clock is not None else SYSTEM
+        if slices is not None and mesh is not None:
+            raise ValueError("pass either mesh or slices, not both")
+        self._prefixed = slices is not None
+        if slices is None:
+            slices = {self.config.slice_id: mesh or self.config.sim_mesh()}
+        self.slices: dict[str, MeshSpec] = dict(slices)
+        # single-slice convenience handle (most tests/scenarios)
+        self.mesh: Optional[MeshSpec] = (
+            next(iter(self.slices.values())) if len(self.slices) == 1 else None
+        )
+        self._vtpu_nodes = vtpu_nodes or set()
+        self.nodes: dict[str, NodeInfo] = {}
+        for sid in sorted(self.slices):
+            m = self.slices[sid]
+            for host in m.all_hosts():
+                name = f"{sid}-{host}" if self._prefixed else host
+                chips = [
+                    ChipInfo(
+                        chip_id=f"{name}-chip-{i}",
+                        index=i,
+                        coord=coord,
+                        hbm_bytes=self.config.hbm_bytes_per_chip,
+                        num_cores=self.config.cores_per_chip,
+                    )
+                    for i, coord in enumerate(m.coords_of_host(host))
+                ]
+                shares = vtpu_shares if name in self._vtpu_nodes else 1
+                self.nodes[name] = NodeInfo(
+                    name=name, chips=chips, shares_per_chip=shares,
+                    slice_id=sid,
+                )
+        self.extender = Extender(self.config, clock=self.clock)
+        self.pods: dict[str, dict[str, Any]] = {}  # key -> pod object
+        # node objects cached per node (schedule() resends every node on
+        # every webhook); fault injection invalidates the touched node
+        self._node_obj_cache: dict[str, dict[str, Any]] = {}
+        self._node_objs_list: Optional[list[dict[str, Any]]] = None
+        # the node set the extender has ingested error-free, and its
+        # names-only body (see _extender_node_args)
+        self._synced_objs: list[dict[str, Any]] = []
+        self._synced_names: list[str] = []
+
+    # -- lifecycle ---------------------------------------------------------
+    def stop(self) -> None:
+        """Close the trace and event sinks (their drain threads)."""
+        if self.extender.trace is not None:
+            self.extender.trace.close()
+        self.extender.events.close()
+
+    def __enter__(self) -> "SimCluster":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    # -- kube-object minting -----------------------------------------------
+    def _invalidate_node(self, name: str) -> None:
+        self._node_obj_cache.pop(name, None)
+        self._node_objs_list = None
+
+    def node_objects(self) -> list[dict[str, Any]]:
+        """Node API objects as kube-scheduler would send them, annotated
+        by the node agent's codec (cached; see ``_invalidate_node``)."""
+        cached = self._node_objs_list
+        if cached is not None:
+            return cached
+        out = []
+        for name, info in sorted(self.nodes.items()):
+            obj = self._node_obj_cache.get(name)
+            if obj is None:
+                obj = {
+                    "metadata": {
+                        "name": name,
+                        "annotations": codec.annotate_node(
+                            info, self.slices[info.slice_id]
+                        ),
+                    }
+                }
+                self._node_obj_cache[name] = obj
+            out.append(obj)
+        self._node_objs_list = out
+        return out
+
+    def _extender_node_args(
+        self,
+    ) -> tuple[dict[str, Any], Optional[list[dict[str, Any]]]]:
+        """The node half of ExtenderArgs, nodeCacheCapable style: full
+        node objects only when some annotation changed since the last full
+        send, names only otherwise — the traffic a kube-scheduler with
+        ``nodeCacheCapable: true`` produces. Returns (args, pending_objs):
+        the caller commits pending_objs only after the full send's
+        response arrived error-free."""
+        objs = self.node_objects()
+        # cached objects are reused between cycles, so identity comparison
+        # catches "nothing changed" without hashing annotation payloads
+        synced = self._synced_objs
+        if len(objs) == len(synced) and all(
+            a is b for a, b in zip(objs, synced)
+        ):
+            return {"NodeNames": self._synced_names}, None
+        return {"Nodes": {"Items": objs}}, objs
+
+    def _commit_synced(self, objs: list[dict[str, Any]]) -> None:
+        self._synced_objs = objs
+        self._synced_names = [o["metadata"]["name"] for o in objs]
+
+    def make_pod(
+        self,
+        name: str,
+        tpu: int = 0,
+        vtpu: int = 0,
+        namespace: str = "default",
+        priority: int = 0,
+        group: Optional[PodGroup] = None,
+        labels: Optional[dict[str, str]] = None,
+    ) -> dict[str, Any]:
+        pod = kube.pod_object(
+            name, tpu=tpu, vtpu=vtpu, namespace=namespace, priority=priority,
+            annotations=(codec.pod_group_annotations(group)
+                         if group is not None else None),
+        )
+        pod["metadata"]["labels"] = dict(labels or {})
+        self.pods[f"{namespace}/{name}"] = pod
+        return pod
+
+    # -- the scheduler loop (what kube-scheduler would do) -------------------
+    def _post(self, path: str, body: dict[str, Any]) -> Any:
+        """One webhook, dispatched into ``Extender.handle`` (a schema
+        error is what the HTTP server answers with 400)."""
+        try:
+            return self.extender.handle(path.strip("/"), body)
+        except kube.KubeSchemaError as e:
+            raise RuntimeError(f"HTTP 400 from {path}: {e}")
+
+    def drain_evictions(self) -> list[str]:
+        """Delete the pods the gang layer rolled back (all-or-nothing: a
+        half-assembled gang's members must not keep running) and confirm
+        each gone through the recorded ``victim_gone`` decision, which
+        unmasks its chips. Returns the confirmed pod keys, sorted."""
+        q = self.extender.pending_evictions
+        keys = [q.popleft() for _ in range(len(q))]
+        for key in keys:
+            pod = self.pods.pop(key, None)
+            if pod is not None:
+                pod["metadata"].get("annotations", {}).pop(
+                    codec.ANNO_ALLOC, None)
+                pod["spec"].pop("nodeName", None)
+        done = sorted(set(keys))
+        for key in done:
+            self.extender.handle("victim_gone", {"pod_key": key})
+        return done
+
+    def schedule(
+        self, pod: dict[str, Any], retries: int = 8
+    ) -> tuple[str, AllocResult]:
+        """One scheduling cycle for one pod, with kube-scheduler's requeue
+        semantics: a lost bind race re-runs the whole cycle. Evictions
+        drain at the top of every cycle. Raises on failure."""
+        last_err = ""
+        for _ in range(retries):
+            self.drain_evictions()
+            node_args, pending_objs = self._extender_node_args()
+            args = {"Pod": pod, **node_args}
+            fres = self._post("/filter", args)
+            if fres.get("Error"):
+                raise RuntimeError(f"filter error: {fres['Error']}")
+            if pending_objs is not None:
+                self._commit_synced(pending_objs)
+            feasible_names = fres["NodeNames"]
+            if not feasible_names:
+                raise RuntimeError(f"unschedulable: {fres['FailedNodes']}")
+            pres = self._post(
+                "/prioritize", {"Pod": pod, "NodeNames": feasible_names}
+            )
+            scores = {e["Host"]: e["Score"] for e in pres}
+            best = max(sorted(scores), key=lambda h: scores[h])
+            meta = pod["metadata"]
+            bres = self._post(
+                "/bind",
+                {
+                    "PodName": meta["name"],
+                    "PodNamespace": meta["namespace"],
+                    "PodUID": meta["uid"],
+                    "Node": best,
+                },
+            )
+            if bres.get("Error"):
+                last_err = bres["Error"]  # lost the race; requeue
+                continue
+            # apiserver role: persist alloc annotation + nodeName on the pod
+            meta.setdefault("annotations", {}).update(bres.get("Annotations", {}))
+            pod["spec"]["nodeName"] = best
+            alloc = codec.decode_alloc(meta["annotations"][codec.ANNO_ALLOC])
+            return best, alloc
+        raise RuntimeError(f"bind error after {retries} cycles: {last_err}")
+
+    def _release_gone(self) -> None:
+        """The lifecycle loop's resync over the pod store: terminal-phase
+        pods and allocations whose pod object is gone are released."""
+        ext = self.extender
+        for key, pod in list(self.pods.items()):
+            if ((pod.get("status") or {}).get("phase") in TERMINAL_PHASES
+                    and ext.state.allocation(key) is not None):
+                ext.handle("release", {"pod_key": key})
+        for alloc in ext.state.allocations():
+            if alloc.pod_key not in self.pods:
+                ext.handle("release", {"pod_key": alloc.pod_key})
+
+    def delete_pod(self, name: str, namespace: str = "default") -> None:
+        """Remove the pod object; its chips are released as a real
+        cluster's lifecycle loop would, through a recorded release."""
+        self.pods.pop(f"{namespace}/{name}", None)
+        self._release_gone()
+
+    def complete_pod(self, name: str, namespace: str = "default",
+                     phase: str = "Succeeded") -> None:
+        """Mark a pod's containers finished (terminal phase); the object
+        lingers, and its chips are freed from the phase alone."""
+        pod = self.pods.get(f"{namespace}/{name}")
+        if pod is None:
+            raise KeyError(f"no pod {namespace}/{name}")
+        pod.setdefault("status", {})["phase"] = phase
+        self._release_gone()
+
+    # -- fault injection ------------------------------------------------------
+    def inject_fault(self, node_name: str, chip_index: int,
+                     healthy: bool = False) -> None:
+        """Flip a chip's health in the node data — the node agent's health
+        watch re-annotates exactly so on a real cluster."""
+        info = self.nodes[node_name]
+        for chip in info.chips:
+            if chip.index == chip_index:
+                chip.health = Health.HEALTHY if healthy else Health.UNHEALTHY
+                self._invalidate_node(node_name)
+                return
+        raise KeyError(f"{node_name} has no chip {chip_index}")
+
+    def inject_link_fault(
+        self, a, b, up: bool = False, slice_id: Optional[str] = None
+    ) -> None:
+        """Drop (or restore) the link between adjacent coords ``a``/``b`` —
+        each endpoint's node reports its side. ``slice_id`` names the
+        slice on multi-slice clusters."""
+        if slice_id is None:
+            if len(self.slices) != 1:
+                raise ValueError("multi-slice cluster: pass slice_id")
+            slice_id = next(iter(self.slices))
+        mesh = self.slices[slice_id]
+        link = canonical_link(a, b)
+        ca, cb = link
+        if cb not in mesh.neighbors(ca):
+            raise ValueError(f"{ca} and {cb} are not ICI-adjacent")
+        for coord in link:
+            host = mesh.host_of(coord)
+            name = f"{slice_id}-{host}" if self._prefixed else host
+            info = self.nodes[name]
+            if up:
+                if link in info.bad_links:
+                    info.bad_links.remove(link)
+            elif link not in info.bad_links:
+                info.bad_links.append(link)
+            self._invalidate_node(name)
+
+    # -- node-agent composition ---------------------------------------------
+    def execute_allocation(self, alloc: AllocResult) -> dict[str, str]:
+        """The bound pod's Allocate on its node: a sim-backend
+        ``GpuDeviceManager`` for the bound node (the node's block of the
+        mesh, its slice, HBM and sharing mode) answers ``allocate_env``
+        for the bound device ids — the env the container receives."""
+        from tpukube_torch.device import GpuDeviceManager
+
+        info = self.nodes[alloc.node_name]
+        mesh = self.slices[info.slice_id]
+        origin = min(c.coord for c in info.chips)
+        cfg = load_config(env={
+            "TPUKUBE_BACKEND": "sim",
+            "TPUKUBE_SIM_MESH_DIMS": ",".join(str(d) for d in mesh.dims),
+            "TPUKUBE_SIM_HOST_BLOCK": ",".join(
+                str(d) for d in mesh.host_block
+            ),
+            "TPUKUBE_SIM_TORUS": ",".join(
+                str(t).lower() for t in mesh.torus
+            ),
+            "TPUKUBE_SIM_HOST_ORIGIN": ",".join(str(v) for v in origin),
+            "TPUKUBE_SLICE_ID": info.slice_id,
+            "TPUKUBE_HBM_BYTES_PER_CHIP": str(self.config.hbm_bytes_per_chip),
+            "TPUKUBE_SHARES_PER_CHIP": str(info.shares_per_chip),
+        })
+        with GpuDeviceManager(cfg, host=alloc.node_name) as device:
+            return device.allocate_env(alloc.device_ids)
+
+    # -- metrics ------------------------------------------------------------
+    def utilization(self) -> float:
+        return self.extender.state.utilization()

@@ -61,9 +61,29 @@ Drives the port's main path the way a cluster does, on the card:
    node, runs ``python -m tpukube_torch.graft --scheduled`` on the card,
    which holds the env against the bind and serves one Llama-3-8B request
    (B=2, S=2048) after the UUID check;
-11. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+11. config 5 (BASELINE: burst inference pods, then a high-priority training
+   gang that must preempt them):
+   a. host work on an HGX fleet of 16 hosts (``8,16,1`` / ``8,1,1``): 80
+      priority-0 burst pods, then a 64-member priority-100 gang, which must
+      preempt and commit on 8 whole hosts, contiguous along y, its victims
+      deleted from the pod store by the port's ``EvictionExecutor``; a
+      refill with burst pods to utilization >= 0.95; a priority-0 gang of
+      32 refused; the port's ``/metrics`` scraped over HTTP (utilization
+      >= 95%, gang p50 in (0, 60) s, preemptions > 0);
+   b. one real preemption on the card: the extender (over HTTP) binds a
+      priority-0 burst pod to ``tpu-0``, which serves Llama-3-8B (B=1,
+      S=2048, ``--requests 1000``) as a child; a priority-100 one-member
+      gang pod is planned over it; its first bind must be refused while the
+      burst process lives; the ``EvictionExecutor`` evicts the burst pod
+      through a fake apiserver whose eviction SIGTERMs the child (the
+      kubelet's part), and the pod object goes only once the process has
+      exited; the gang's bind must then land ``tpu-0``, never while the
+      victim lives, and its env runs the ``--train`` pod (as step 5); NVML
+      memory in use is read at idle, while the victim serves and at the
+      bind;
+12. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-12. prints the kernels line: the JAX package has no Pallas kernel, so the
+13. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -85,6 +105,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 POD_TIMEOUT_S = 900
 TELEMETRY_PERIOD_S = 0.25
+BURST_REQUESTS = 1000  # ≈ 150 s at B=1: the burst pod serves until evicted
+PREEMPT_TIMEOUT_S = 120
 H100_BF16_FLOPS = 989e12  # NVIDIA data sheet, SXM, dense, at 700 W
 
 
@@ -231,6 +253,301 @@ def config4_phase(card: str):
                 flush=True,
             )
     return member0
+
+
+# BASELINE config 5 on an HGX fleet: 16 hosts of 8 GPUs (step 11a)
+CONFIG5_ENV = {"TPUKUBE_SIM_MESH_DIMS": "8,16,1", "TPUKUBE_SIM_HOST_BLOCK": "8,1,1"}
+CONFIG5_BURST, CONFIG5_GANG = 80, 64
+
+
+def config5_fleet(sim_cls, load_config, group_cls, sim_kw=None) -> dict:
+    """Config 5's decisions on ``sim_cls`` (the port's ``SimCluster``, or
+    any class with its surface): 80 burst 1-GPU pods at priority 0, a
+    64-member priority-100 gang that must preempt, a refill with burst
+    pods, a priority-0 32-member gang, then a scrape of ``/metrics`` over
+    HTTP. Returns what happened; the caller judges it. Package-agnostic,
+    so the tests hold the port's run against the reference's."""
+    import urllib.request
+
+    with sim_cls(load_config(env=CONFIG5_ENV), **(sim_kw or {})) as c:
+        evicted: list = []
+        drain = c.drain_evictions
+
+        def drain_and_record() -> list:
+            done = drain()
+            evicted.extend(done)
+            return done
+
+        c.drain_evictions = drain_and_record  # schedule() drains per cycle
+        burst = [c.schedule(c.make_pod(f"infer-{i}", tpu=1))
+                 for i in range(CONFIG5_BURST)]
+        util_burst = c.utilization()
+        group = group_cls("llama-train", min_member=CONFIG5_GANG)
+        cycles, gang = [], []
+        for i in range(CONFIG5_GANG):
+            pod = c.make_pod(f"train-{i}", tpu=1, priority=100, group=group)
+            t = time.perf_counter()
+            gang.append(c.schedule(pod))
+            cycles.append(time.perf_counter() - t)
+        res = c.extender.gang.reservation("default", "llama-train")
+        victims = [a.pod_key for _, a in burst
+                   if c.extender.state.allocation(a.pod_key) is None]
+        still_stored = [k for k in victims if k in c.pods]
+        refill = []
+        names = ([f"{k.split('/', 1)[1]}-retry" for k in victims]
+                 + [f"fill-{i}" for i in range(len(c.nodes) * 8)])
+        for name in names:
+            try:
+                refill.append(c.schedule(c.make_pod(name, tpu=1)))
+            except RuntimeError:
+                break  # the fleet is full: the rest stay Pending
+        util = c.utilization()
+        try:
+            c.schedule(c.make_pod("fl-0", tpu=1, priority=0,
+                                  group=group_cls("freeloader", min_member=32)))
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        with urllib.request.urlopen(f"{c.base_url}/metrics", timeout=10) as r:
+            metrics = r.read().decode()
+        return {
+            "burst": [(n, a.device_ids, [tuple(x) for x in a.coords]) for n, a in burst],
+            "gang": [(n, a.device_ids, [tuple(x) for x in a.coords]) for n, a in gang],
+            "refill": [(n, a.device_ids) for n, a in refill],
+            "util_burst": util_burst,
+            "committed": res is not None and res.committed,
+            "commit_latency": res.commit_latency if res is not None else None,
+            "cycles": cycles,
+            "victims": victims,
+            "evicted": evicted,
+            "still_stored": still_stored,
+            "preemptions": c.extender.preemptions,
+            "utilization": util,
+            "refused": refused,
+            "metrics": metrics,
+            "hosts": {n: sorted(tuple(ch.coord) for ch in info.chips)
+                      for n, info in c.nodes.items()},
+        }
+
+
+def metric_lines(text: str) -> dict:
+    """The samples of a Prometheus text page: series (with labels) -> value."""
+    return {line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1])
+            for line in text.splitlines() if line and not line.startswith("#")}
+
+
+def config5_phase(card: str) -> bool:
+    """Config 5 on a simulated HGX fleet (module docstring, step 11a);
+    False when a check failed."""
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.types import PodGroup
+    from tpukube_torch.obs.registry import quantile
+    from tpukube_torch.sim import SimCluster
+
+    r = config5_fleet(SimCluster, load_config, PodGroup)
+    coords = {co for _, _, cs in r["gang"] for co in cs}
+    nodes = sorted({n for n, _, _ in r["gang"]})
+    ys = sorted({co[1] for co in coords})
+    whole = all(set(r["hosts"][n]) <= coords for n in nodes)
+    m = metric_lines(r["metrics"])
+    p50 = m.get('gang_schedule_latency_seconds{quantile="0.5"}', 0.0)
+    checks = {
+        "committed": r["committed"],
+        "64 GPUs on 8 whole hosts": len(coords) == CONFIG5_GANG and len(nodes) == 8 and whole,
+        "contiguous along y": ys == list(range(ys[0], ys[0] + len(ys))),
+        "preemptions > 0": r["preemptions"] > 0 and bool(r["victims"]),
+        "victims evicted from the pod store": not r["still_stored"]
+        and sorted(r["victims"]) == sorted(set(r["evicted"]) & set(r["victims"])),
+        "utilization >= 0.95": r["utilization"] >= 0.95,
+        "priority-0 gang refused": r["refused"] is not None
+        and "cannot preempt" in r["refused"],
+        "/metrics utilization >= 95": m.get("tpu_chip_utilization_percent", 0) >= 95.0,
+        "/metrics gang p50 in (0, 60) s": 0 < p50 < 60,
+        "/metrics preemptions > 0": m.get("tpukube_preemptions_total", 0) > 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"config 5: {bad}; nodes {nodes}, rows {ys}, utilization "
+             f"{r['utilization']}, refused {r['refused']!r}")
+        return False
+    cyc = r["cycles"]
+    print(
+        f"config 5, {CONFIG5_GANG}-member priority-100 gang on 8,16,1 after "
+        f"{CONFIG5_BURST} priority-0 burst pods (utilization {r['util_burst']}): "
+        f"committed on {nodes[0]}..{nodes[-1]} (8 whole hosts, rows y={ys[0]}.."
+        f"{ys[-1]}), {len(r['victims'])} victims preempted (extender preemptions "
+        f"{r['preemptions']}); schedule cycle per member p50 "
+        f"{quantile(cyc, 0.5) * 1e3:.3f} ms, p99 {quantile(cyc, 0.99) * 1e3:.3f} ms, "
+        f"gang commit latency {r['commit_latency'] * 1e3:.3f} ms; after "
+        f"{len(r['refill'])} refill pods utilization {r['utilization']}; "
+        f"priority-0 32-member gang refused; /metrics: utilization "
+        f"{m['tpu_chip_utilization_percent']}%, gang p50 {p50 * 1e3:.3f} ms, "
+        f"preemptions {m['tpukube_preemptions_total']:.0f}, evictions "
+        f"{m.get('tpukube_evictions_total', 0):.0f} (host CPU times, in-process "
+        f"extender) [{card}]",
+        flush=True,
+    )
+    return True
+
+
+def preempt_on_card(card: str, c0):
+    """One real preemption on the card (module docstring, step 11b).
+    Returns the training pod's report, or None when a check failed. The
+    burst pod never outlives the call."""
+    import signal
+
+    from tpukube_torch.apiserver import EvictionExecutor, FakeApiServer
+    from tpukube_torch.core import codec
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.types import PodGroup
+    from tpukube_torch.device import GpuDeviceManager
+    from tpukube_torch.sched import client
+    from tpukube_torch.sched.extender import Extender, serve
+    from tpukube_torch.sched.kube import pod_object
+
+    procs: dict = {}  # pod key -> the process of its container
+    t_sig: list = []
+
+    class KubeletApi(FakeApiServer):
+        """The fake apiserver, with the kubelet's half of an eviction: an
+        accepted eviction of a graceful pod SIGTERMs its container."""
+
+        def evict_pod(self, namespace, name, dry_run=False):
+            ok = super().evict_pod(namespace, name, dry_run=dry_run)
+            proc = procs.get(f"{namespace}/{name}")
+            if ok and not dry_run and proc is not None and proc.poll() is None:
+                t_sig.append(time.perf_counter())
+                proc.send_signal(signal.SIGTERM)
+            return ok
+
+    api = KubeletApi()
+    ext = Extender(load_config(env={}))
+    ext.evict_precheck = lambda key: api.evict_pod(*key.split("/", 1), dry_run=True)
+    execu = EvictionExecutor(ext, api)
+    server = serve(ext, evictions=execu)
+    port = server.server_address[1]
+    burst_proc = None
+    try:
+        with GpuDeviceManager(load_config(env={"TPUKUBE_BACKEND": "real"})) as mgr:
+            def nvml_used() -> int:
+                return mgr.telemetry_snapshot()[0].hbm_used_bytes
+
+            node = node_object(mgr)
+            used = {"idle": nvml_used()}
+            burst = pod_object("burst-0", tpu=1, priority=0)
+            host, alloc, _ = client.place(port, burst, [node])
+            if alloc.device_ids != ["tpu-0"]:
+                fail(f"burst pod bound {alloc.device_ids} on {host}")
+                return None
+            bkey = alloc.pod_key
+            burst["metadata"]["annotations"][codec.ANNO_ALLOC] = codec.encode_alloc(alloc)
+            burst["spec"]["nodeName"] = host
+            api.upsert_pod(burst)
+            api.graceful.add(bkey)  # terminates as the kubelet lets it
+            benv = {**alloc.env, **mgr.allocate_env(alloc.device_ids)}
+            burst_proc = subprocess.Popen(
+                [sys.executable, "-m", "tpukube_torch.graft", "--requests",
+                 str(BURST_REQUESTS), "--batch", "1"],
+                cwd=ROOT, env=pod_env(benv), stdout=subprocess.PIPE, text=True)
+            procs[bkey] = burst_proc
+            lines: queue.Queue = queue.Queue()
+            threading.Thread(target=pump, args=(burst_proc.stdout, lines),
+                             daemon=True).start()
+            while True:
+                line = lines.get(timeout=POD_TIMEOUT_S)
+                if line is None:
+                    fail(f"burst pod exited {burst_proc.wait()} before serving")
+                    return None
+                print(f"burst pod: {line.rstrip()}", flush=True)
+                if line.startswith('{"serving"'):
+                    break
+            used["serving"] = nvml_used()
+            exited = threading.Event()
+            t_exit = []
+
+            def kubelet() -> None:
+                burst_proc.wait()
+                t_exit.append(time.perf_counter())
+                exited.set()
+                api.finish_termination(*bkey.split("/", 1))
+
+            threading.Thread(target=kubelet, daemon=True).start()
+
+            gang = pod_object("llama-train-0", tpu=1, priority=100,
+                              annotations=codec.pod_group_annotations(
+                                  PodGroup("llama-train", min_member=1)))
+            fres = client.filter_nodes(port, gang, [node])
+            if fres.get("Error") or fres["NodeNames"] != [host]:
+                fail(f"the priority-100 gang pod was not planned on {host}: {fres}")
+                return None
+            client.post(port, "/prioritize", {"Pod": gang, "NodeNames": [host]})
+            meta = gang["metadata"]
+            bind = {"PodName": meta["name"], "PodNamespace": meta["namespace"],
+                    "PodUID": meta["uid"], "Node": host}
+            t0 = time.perf_counter()
+            refusals, t_gone = [], None
+            deadline = t0 + PREEMPT_TIMEOUT_S
+            while True:
+                alive = burst_proc.poll() is None
+                bres = client.post(port, "/bind", bind)
+                if not bres.get("Error"):
+                    break
+                if not refusals and "finish terminating" not in bres["Error"]:
+                    fail(f"first gang bind: {bres['Error']}")
+                    return None
+                if not refusals and not alive:
+                    fail("the burst pod was gone before the first gang bind")
+                    return None
+                if "terminating" not in bres["Error"]:
+                    fail(f"gang bind refused for another reason: {bres['Error']}")
+                    return None
+                refusals.append(bres["Error"])
+                if time.perf_counter() > deadline:
+                    fail(f"the victim did not go in {PREEMPT_TIMEOUT_S} s")
+                    return None
+                execu.check_once()
+                if t_gone is None and execu.evicted:
+                    t_gone = time.perf_counter()
+                time.sleep(0.01)
+            t_bind = time.perf_counter()
+            if burst_proc.poll() is None or not exited.is_set():
+                fail("the gang's bind landed while the victim process was alive")
+                return None
+            used["bind"] = nvml_used()
+            galloc = codec.decode_alloc(bres["Annotations"][codec.ANNO_ALLOC])
+            if galloc.device_ids != ["tpu-0"] or burst_proc.returncode != -signal.SIGTERM:
+                fail(f"gang bound {galloc.device_ids}; victim exit {burst_proc.returncode}")
+                return None
+            print(
+                f"preemption on the card: burst pod {bkey} (priority 0, Llama-3-8B "
+                f"B=1 serving) evicted for gang pod {galloc.pod_key} (priority 100): "
+                f"first bind refused while the victim lived ({refusals[0]!r}); "
+                f"after the first bind attempt: SIGTERM {(t_sig[0] - t0) * 1e3:.1f} "
+                f"ms, victim exit {(t_exit[0] - t0) * 1e3:.1f} ms (SIGTERM to exit "
+                f"{(t_exit[0] - t_sig[0]) * 1e3:.1f} ms), victim_gone "
+                f"{(t_gone - t0) * 1e3:.1f} ms, the bind of {galloc.device_ids} "
+                f"{(t_bind - t0) * 1e3:.1f} ms ({len(refusals)} refused binds); "
+                f"extender preemptions "
+                f"{ext.preemptions}, executor evicted {execu.evicted}; NVML memory "
+                f"in use: idle {used['idle']}, victim serving {used['serving']}, at "
+                f"the gang's bind {used['bind']} bytes [{card}]",
+                flush=True,
+            )
+            genv = {**galloc.env, **mgr.allocate_env(galloc.device_ids)}
+        tr = run_pod(["--train"], genv, "train")
+        if tr is None:
+            return None
+        if tr["uuid"] != c0.chip_id:
+            fail(f"the gang's training pod ran on {tr['uuid']}, allocated {c0.chip_id}")
+            return None
+        return tr
+    finally:
+        if burst_proc is not None:
+            if burst_proc.poll() is None:
+                burst_proc.kill()
+            burst_proc.wait()
+        server.shutdown()
+        server.server_close()
 
 
 def mps_daemon_running() -> bool:
@@ -612,6 +929,22 @@ def main() -> int:
         f"{checked['coords']} on {checked['node']} of the 8,4,1 fleet, gang keys "
         f"{checked['gang']}): Llama-3-8B B={sp['batch']} S={sp['seq']}, one "
         f"request {sp['forward_ms_median']:.3f} ms on {sp['uuid']} [{card}]",
+        flush=True,
+    )
+
+    # -- config 5: preemption on an HGX fleet, then one on the card ----------
+    if not config5_phase(card):
+        return 1
+    tr5 = preempt_on_card(card, c0)
+    if tr5 is None:
+        return 1
+    print("preemptor's train: " + json.dumps(tr5, sort_keys=True), flush=True)
+    print(
+        f"the preempting gang's training pod, Llama-3-8B width, {tr5['n_layers']} "
+        f"layers, B={tr5['batch']} S={tr5['seq']}: median "
+        f"{tr5['step_ms_median']:.3f} ms, losses "
+        f"{[round(x, 4) for x in tr5['losses']]}, card vs CPU loss "
+        f"{tr5['parity_loss']:.5f} vs {tr5['parity_ref_loss']:.5f} [{card}]",
         flush=True,
     )
 

@@ -71,7 +71,7 @@ def _builds_a_reference_extender():
 
 
 def _imports_what_the_port_lacks():
-    from tpukube.sched.policy import find_preemption_plan  # noqa: F401
+    from tpukube.sched.journal import StateJournal  # noqa: F401
 
 
 def _uses_a_global_the_port_lacks():
@@ -80,7 +80,7 @@ def _uses_a_global_the_port_lacks():
 
 @pytest.mark.parametrize("fn,error,match", [
     (_builds_a_reference_extender, AssertionError, "built the reference's Extender"),
-    (_imports_what_the_port_lacks, ImportError, "no module tpukube_torch.sched.policy"),
+    (_imports_what_the_port_lacks, ImportError, "no module tpukube_torch.sched.journal"),
     (_uses_a_global_the_port_lacks, AssertionError, "no tpukube_torch.sched.extender.make_app"),
 ])
 def test_twin_port_run_cannot_fall_back_to_the_reference(fn, error, match):

@@ -34,12 +34,6 @@ use_private_tpuinfo()
 EXTENDER_SKIPS = {
     "test_bad_json_is_400": "HTTP (the port's server: test_http_* below)",
     "test_healthz": "HTTP (the port's server: test_http_* below)",
-    "test_unbound_preempting_gang_never_evicts": "preemption is not ported yet",
-    "test_preemption_executes_once_at_first_bind": "preemption is not ported yet",
-    "test_failing_first_bind_leaves_victims_untouched":
-        "preemption and the bind effector are not ported yet",
-    "test_restart_rebuild_preserves_gang_granularity":
-        "its priority gang preempts the restored pods: preemption is not ported yet",
 }
 FIXTURES = {
     # tests/test_extender.py's ``cluster``: 4 nodes x 4 chips
@@ -153,7 +147,13 @@ def test_http_server_answers_as_handle_does():
             status, raw = _get(port, "/healthz")
             assert status == 200
             assert json.loads(raw) == {"ok": True, "nodes": ["host-0-0-0", "host-0-1-0"]}
-            assert _get(port, "/metrics")[0] == 404
+            status, raw = _get(port, "/metrics")
+            assert status == 200
+            text = raw.decode()
+            assert in_process.binds_total == over_http.binds_total == 1
+            assert "tpukube_binds_total 1\n" in text
+            assert "tpu_chip_utilization_percent 12.5\n" in text
+            assert _get(port, "/statusz")[0] == 404
         finally:
             server.shutdown()
             server.server_close()

@@ -21,7 +21,6 @@ from torch_twin import reference_tests, run_twin
 use_private_tpuinfo()
 
 DCN_SKIPS = {
-    "test_dcn_split_preemption_evicts_to_cover": "preemption is not ported yet",
     "test_mesh_from_alloc_env_builds_dcn_mesh": "a workload test (twin in test_torch_dryrun)",
     "test_dcn_gang_env_projected_as_per_key_annotations":
         "needs the apiserver bind effector, not ported yet",
@@ -108,13 +107,3 @@ def test_gang_refuses_as_the_reference_when_no_slice_is_free():
     assert out[0] == out[1]
     assert "cannot preempt" in out[0][0]
 
-
-def test_priority_gang_without_a_slice_is_refused_not_preempting():
-    with SimCluster(load_config(env={"TPUKUBE_SIM_MESH_DIMS": "8,2,1",
-                                     "TPUKUBE_SIM_HOST_BLOCK": "8,1,1"})) as c:
-        c.schedule(c.make_pod("bg", tpu=4))
-        with pytest.raises(RuntimeError, match="preemption is not ported yet"):
-            c.schedule(c.make_pod("vip", tpu=1, priority=100,
-                                  group=PodGroup("vip", min_member=16)))
-        assert c.extender.state.allocation("default/bg") is not None
-        assert c.extender.pending_evictions == type(c.extender.pending_evictions)()

@@ -21,7 +21,6 @@ from torch_twin import reference_tests, run_twin
 use_private_tpuinfo()
 
 SNAPSHOT_SKIPS = {
-    "test_gang_seams_bump_epoch": "drives preemption's register_terminating",
     "test_snapshot_metrics_and_statusz_render": "/metrics and /statusz wait",
     "test_observer_lookups_do_not_inflate_hit_counters": "/metrics waits",
     "test_audit_metrics_and_statusz_render": "/metrics and /statusz wait",
@@ -30,7 +29,6 @@ SNAPSHOT_SKIPS = {
 DELTA_SKIPS = {
     "test_property_random_mutations_delta_equals_cold_rebuild": "hypothesis-parametrized",
     "test_overflow_falls_back_to_full_rebuild": "drives the reference's scenarios module",
-    "test_webhook_placement_parity_delta_vs_rebuild_oracle": "a priority gang preempts",
     "test_delta_metrics_and_statusz_render_only_when_enabled": "/metrics waits",
     "test_kilonode10k_scenario_smoke": "drives the reference's scenarios module",
 }

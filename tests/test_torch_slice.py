@@ -163,7 +163,8 @@ def test_port_imports_no_jax_and_nothing_of_tpukube():
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 10
     for new in ("workload/tp.py", "workload/train.py", "workload/resnet.py",
-                "native/cudaguard.py", "obs/health.py"):
+                "native/cudaguard.py", "obs/health.py", "apiserver.py",
+                "metrics.py", "sched/policy.py", "core/retry.py"):
         assert os.path.join(REPO, "tpukube_torch", *new.split("/")) in paths
     for p in paths:
         for mod in _import_targets(p):
@@ -181,6 +182,8 @@ def test_port_pulls_in_no_control_plane_dependency():
         "import tpukube_torch.native.cudaguard, tpukube_torch.obs.health\n"
         "import tpukube_torch.sched, tpukube_torch.sched.extender, "
         "tpukube_torch.sched.client, tpukube_torch.sim\n"
+        "import tpukube_torch.apiserver, tpukube_torch.metrics, "
+        "tpukube_torch.sched.policy, tpukube_torch.core.retry\n"
         "bad = ('yaml', 'grpc', 'google.protobuf', 'aiohttp', 'jax', 'jaxlib', 'optax', "
         "'tpukube')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in bad "
@@ -197,7 +200,8 @@ def test_scheduler_is_host_code_without_torch():
         "import json, sys\n"
         "import tpukube_torch.sched.extender, tpukube_torch.sched.client, "
         "tpukube_torch.sim, tpukube_torch.trace, tpukube_torch.obs.events, "
-        "tpukube_torch.core.clock\n"
+        "tpukube_torch.core.clock, tpukube_torch.apiserver, tpukube_torch.metrics, "
+        "tpukube_torch.sched.policy, tpukube_torch.core.retry\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'tpukube', 'aiohttp', 'grpc', 'yaml'))))\n"
     )

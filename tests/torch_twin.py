@@ -88,6 +88,11 @@ class _RefRecorder(_Recording, RefSim):
         super().__init__(*args, **kw)
 
 
+class _RefServingRecorder(_Recording, RefSim):
+    """The reference's SimCluster over its own HTTP app (for tests that
+    scrape ``base_url``)."""
+
+
 class _PortSim(PortSim):
     """The port's SimCluster under the reference's constructor: in
     process always, the reference's sim defaults when no config is given."""
@@ -195,11 +200,14 @@ def _port_run():
             cls.__init__ = init
 
 
-def _rebind(fn: Callable, port: bool, log: list) -> Callable:
+def _rebind(fn: Callable, port: bool, log: list,
+            serve_ref: bool = False) -> Callable:
     """``fn`` with its module's globals remapped (helpers of the same
     module rebuilt over the same remapped globals)."""
     g = dict(fn.__globals__)
-    sim = type("Rec", (_PortRecorder if port else _RefRecorder,), {"log": log})
+    base = (_PortRecorder if port
+            else _RefServingRecorder if serve_ref else _RefRecorder)
+    sim = type("Rec", (base,), {"log": log})
     for name, val in list(g.items()):
         if val is RefSim:
             g[name] = sim
@@ -232,15 +240,16 @@ def _placed(log: list) -> list:
 
 
 def run_twin(fn: Callable, fixtures: Optional[dict] = None,
-             ordered: bool = True) -> list:
+             ordered: bool = True, serve_ref: bool = False) -> list:
     """Run reference test ``fn`` against the reference, then the port;
     assert the decision logs are equal (``ordered=False``: the chips bound,
     for a test whose threads race each other). ``fixtures`` maps a
-    parameter name to ``globals -> context manager``. Returns the
-    reference log."""
+    parameter name to ``globals -> context manager``; ``serve_ref`` runs
+    the reference's SimCluster over its HTTP app (the port's always
+    serves inside ``with``). Returns the reference log."""
     ref_log: list = []
     port_log: list = []
-    _call(_rebind(fn, False, ref_log), fixtures or {})
+    _call(_rebind(fn, False, ref_log, serve_ref), fixtures or {})
     with _port_run():
         _call(_rebind(fn, True, port_log), fixtures or {})
     if ordered:

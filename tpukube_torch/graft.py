@@ -12,7 +12,10 @@ gang's env, which the port's own extender schedules on a sim fleet
 agent minted at Allocate, checks it got the GPU it was given, and prints
 one JSON line of results:
 
-- no flag: serves Llama-3-8B at full width and depth (:func:`serve`);
+- no flag: serves Llama-3-8B at full width and depth (:func:`serve`),
+  ``--requests N`` requests of ``--batch B`` rows (default 3 of 2); it
+  prints a ``serving`` line once its first forward (the warm-up) is done,
+  so a long-running pod can be watched, and evicted, while it serves;
 - ``--train``: trains Llama-3-8B at full width, depth cut to 4, over a
   world-1 NCCL group and the ``DeviceMesh`` of the env (:func:`train`);
 - ``--resnet``: trains ResNet-50 data-parallel over NCCL
@@ -798,9 +801,10 @@ def scheduled_main() -> int:
     return 0
 
 
-def pod_main() -> int:
+def pod_main(requests: int = 3, batch: int = 2) -> int:
     """Serve Llama-3-8B (random weights from a fixed seed) on the GPU the
-    Allocate env names; print one JSON line."""
+    Allocate env names: a ``serving`` JSON line after the warm-up, one
+    JSON line of results at the end."""
     # f32 products stay full f32 (TF32 keeps ~3 decimal digits), and bf16
     # products reduce in f32 throughout, as XLA computes the reference
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -809,8 +813,15 @@ def pod_main() -> int:
     pe = PodGpuEnv.from_env()
     device = device_from_alloc_env()
     uuid = _check_uuid(device, pe.visible_chips[0])
-    out = serve(LlamaConfig.llama3_8b(), device, seed=0, requests=3,
-                batch=2, seq=2048, parity_layers=2, parity_seq=64)
+
+    def serving() -> None:
+        print(json.dumps({"serving": {
+            "uuid": uuid, "memory_reserved": torch.cuda.memory_reserved(device),
+            "pid": os.getpid()}}), flush=True)
+
+    out = serve(LlamaConfig.llama3_8b(), device, seed=0, requests=requests,
+                batch=batch, seq=2048, parity_layers=2, parity_seq=64,
+                on_warm=serving)
     out.update(device=torch.cuda.get_device_name(device), uuid=uuid,
                device_ids=list(pe.device_ids))
     print(json.dumps({"pod": out}), flush=True)
@@ -830,6 +841,10 @@ def main(argv: Optional[list] = None) -> int:
                       help="serve on a share, beside another pod")
     mode.add_argument("--scheduled", action="store_true",
                       help="check the env against the extender's bind, then serve")
+    parser.add_argument("--requests", type=int, default=3,
+                        help="the serving pod's timed requests")
+    parser.add_argument("--batch", type=int, default=2,
+                        help="the serving pod's rows per request")
     a = parser.parse_args(argv)
     if a.train:
         return train_main()
@@ -843,7 +858,7 @@ def main(argv: Optional[list] = None) -> int:
         return shared_main()
     if a.scheduled:
         return scheduled_main()
-    return pod_main()
+    return pod_main(a.requests, a.batch)
 
 
 if __name__ == "__main__":

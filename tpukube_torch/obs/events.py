@@ -7,7 +7,8 @@ ring and optionally streamed to a JSONL sink. On by default
 (``events_capacity`` 4096). Dedup follows the K8s model: an event with the
 same (reason, object, message) as a live ring entry bumps that entry's
 ``count`` and ``last_ts`` instead of appending. The ``/events`` route and
-the CLI are not ported yet.
+the CLI are not ported yet; ``counts_by_reason`` feeds the extender's
+``/metrics``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ class EventJournal:
         # leave the map when their entry is evicted from the ring
         self._live: dict[tuple[str, str, str], dict[str, Any]] = {}
         self._seq = 0
+        # emissions per reason, deduped ones included (the
+        # ``tpukube_events_total{reason}`` counter on /metrics)
+        self._by_reason: dict[str, int] = {}
         # The sink is a trace.JsonlSink: emit() only ENQUEUES the
         # serialized line — the file write happens on the sink's drain
         # thread. Emitters call from inside the gang manager's lock and
@@ -66,6 +70,7 @@ class EventJournal:
         now = time.time()
         key = (reason, obj, message)
         with self._lock:
+            self._by_reason[reason] = self._by_reason.get(reason, 0) + 1
             ev = self._live.get(key)
             if ev is not None:
                 ev["count"] += 1
@@ -111,6 +116,12 @@ class EventJournal:
         if limit is not None:
             out = out[-limit:]
         return out
+
+    def counts_by_reason(self) -> dict[str, int]:
+        """Cumulative emissions per reason (feeds the
+        ``tpukube_events_total{reason=...}`` counter)."""
+        with self._lock:
+            return dict(self._by_reason)
 
     def close(self) -> None:
         if self._sink is not None:

@@ -8,15 +8,26 @@ score: how snugly the pod's GPUs pack against walls and allocations), and
 pod's ``alloc`` annotation carries the result). ``Extender.handle`` is
 the one decision path: mutation and trace record under one lock.
 
+A gang with priority > 0 that finds no contiguous slice preempts
+(``sched/policy.py``), in two phases: /filter records the cheapest victim
+set on the gang's reservation; the gang's first /bind evicts them (plain
+pods released and queued on ``pending_evictions``, gang victims dissolved
+whole) and fails retryably until every victim's pod object is confirmed
+gone (the recorded ``victim_gone`` decision, sent by the eviction executor
+of ``tpukube_torch.apiserver``). ``evict_precheck``, when wired, refuses a
+bind whose plan a PodDisruptionBudget would block, before any eviction.
+
 The extender is a pure function of (pod, node annotations, ledger): no
 apiserver connection exists here. :func:`serve` answers the webhooks over
 the standard library's ``http.server`` (the machines the port runs on have
 no aiohttp), with the reference's JSON bodies; a schema error is HTTP 400.
+It also answers ``GET /healthz`` and ``GET /metrics``
+(``tpukube_torch.metrics``).
 
-Not ported yet (each refused or absent, none faked): preemption (a gang
-that finds no slice is refused), the journal, the batch cycle, tenancy,
-capacity, drain, autoscale, decision provenance, the shard router, the
-bind effector, device-id reconcile, and the other HTTP routes.
+Not ported yet (each refused or absent, none faked): the journal, the
+batch cycle, tenancy (with its preemption victim bias), capacity, drain,
+autoscale, decision provenance, the shard router, the bind effector,
+device-id reconcile, and the other HTTP routes.
 """
 
 from __future__ import annotations
@@ -38,9 +49,11 @@ from tpukube_torch.core.types import (
     RESOURCE_TPU,
     RESOURCE_VTPU,
     AllocResult,
+    Health,
     PodInfo,
     TopologyCoord,
     make_device_id,
+    parse_device_id,
 )
 from tpukube_torch.device.gpu import (
     ENV_GANG_NUM_SLICES,
@@ -48,7 +61,8 @@ from tpukube_torch.device.gpu import (
     ENV_GANG_SLICES,
 )
 from tpukube_torch.obs.events import EventJournal
-from tpukube_torch.sched import kube, slicefit
+from tpukube_torch.obs.registry import Histogram
+from tpukube_torch.sched import kube, policy, slicefit
 from tpukube_torch.sched.gang import (
     GangError,
     GangManager,
@@ -104,9 +118,10 @@ class Extender:
             path=config.events_path or None,
             max_sink_bytes=config.events_sink_max_bytes,
         )
-        # Eviction bus: pods whose chips were taken back (gang rollback)
-        # and must be deleted by the pod-lifecycle owner (the sim
-        # harness's drain_evictions).
+        # Cluster-wide eviction bus: pods whose chips were taken back
+        # (gang rollback/dissolve, preemption) and must be deleted by the
+        # pod-lifecycle owner (the EvictionExecutor of apiserver.py, which
+        # the sim harness's drain_evictions wraps).
         self.pending_evictions: deque[str] = deque()
         self.gang = GangManager(
             self.state,
@@ -149,6 +164,37 @@ class Extender:
             "prioritize": deque(maxlen=self.LATENCY_WINDOW),
             "bind": deque(maxlen=self.LATENCY_WINDOW),
         }
+        # the same latencies as monotonic histogram buckets (counters,
+        # cumulative since start — the windowed deques feed only the
+        # quantile summaries); children pre-created so every handler's
+        # _bucket series renders from the first scrape
+        self.webhook_hist = Histogram("tpukube_webhook_latency_seconds",
+                                      bucket_only=True)
+        for handler in self.latencies:
+            self.webhook_hist.labels(handler=handler)
+        self.preemptions = 0   # victims evicted for higher-priority gangs
+        self.binds_total = 0   # successful binds (metrics counter)
+        # The PDB PRECHECK: a callable pod_key -> Optional[bool] (True =
+        # evictable now, False = a PodDisruptionBudget blocks it, None =
+        # cannot determine). Consulted by _handle_bind BEFORE a gang's
+        # first bind executes its preemption plan: evictions are
+        # irreversible, so a plan with a PDB-blocked victim is refused
+        # loudly instead of half-executed (the reservation then TTLs out
+        # without costing anyone chips). Runs OUTSIDE the decision lock
+        # and is NOT part of the recorded decision — a refused precheck
+        # leaves no state to replay.
+        self.evict_precheck = None
+
+    def _emit_event(self, reason: str, obj: str, message: str,
+                    warning: bool = True) -> None:
+        """Journal an event; never let observability fail a webhook."""
+        try:
+            self.events.emit(
+                reason, obj=obj, message=message,
+                type="Warning" if warning else "Normal",
+            )
+        except Exception:
+            log.exception("event emit failed: %s %s", reason, obj)
 
     def _remember(self, pod: PodInfo) -> None:
         now = self.clock.monotonic()
@@ -243,9 +289,11 @@ class Extender:
                 try:
                     res = self.gang.ensure_reservation(pod, count)
                 except NoSliceError:
-                    # no contiguous slice: the reference would plan a
-                    # preemption for a gang with priority > 0
-                    self._refuse_preemption(pod)
+                    # no contiguous slice — a high-priority gang may evict
+                    # cheaper pods to open one (config 5). Other
+                    # GangErrors are configuration mistakes and must
+                    # never cost innocent pods their chips.
+                    res = self._try_preemption(pod, count)
                 if not self.gang.assignable(res, count):
                     # replica beyond min_member of a full gang: schedule it
                     # as a normal pod rather than wedging it Pending forever
@@ -282,29 +330,358 @@ class Extender:
         finally:
             self._observe_latency("filter", time.monotonic() - t0)
 
-    def _refuse_preemption(self, pod: PodInfo) -> None:
-        """The filter error for a gang that found no contiguous slice.
-        Below priority 1 the reference refuses in these words too; above
-        it the reference would plan a preemption, which the port does
-        not have yet."""
-        assert pod.group is not None
-        gang = f"{pod.namespace}/{pod.group.name}"
-        if not self.snapshots.current().slice_ids() or pod.priority <= 0:
-            raise GangError(
-                f"gang {gang}: no contiguous slice "
-                f"and priority {pod.priority} cannot preempt"
-            )
-        raise GangError(
-            f"gang {gang}: no contiguous slice at priority "
-            f"{pod.priority}; preemption is not ported yet"
-        )
-
     def _observe_latency(self, handler: str, seconds: float) -> None:
-        """One webhook latency sample, into its bounded window."""
+        """One webhook latency sample: into the bounded window (quantile
+        summaries) AND the cumulative histogram (_bucket counters)."""
         self.latencies[handler].append(seconds)
+        self.webhook_hist.labels(handler=handler).observe(seconds)
 
     def _reserved_by_slice(self) -> dict[str, frozenset[TopologyCoord]]:
         return self.snapshots.current().reserved_by_slice()
+
+    def _try_preemption(self, pod: PodInfo, count: int) -> GangReservation:
+        """Open a contiguous slice for a gang by planning the eviction of
+        lower-priority pods. Plans per ICI slice (victim chips only help
+        inside their own slice) and reserves the cheapest plan across
+        slices — TWO-PHASE: victims are recorded on the reservation, not
+        evicted; the evictions execute at the gang's first bind
+        (_execute_pending_preemption). A gang that filters but never binds
+        (crash, queue churn) costs no innocent pod its chips — the TTL
+        sweep drops the reservation and the victims were never touched.
+        Raises GangError (propagates unschedulability) if no eligible
+        victim set exists or the pod has no priority to preempt with."""
+        assert pod.group is not None
+        # one snapshot for the whole preemption plan: the planner's
+        # blocked sets (unhealthy + terminating) and link state come from
+        # the same epoch the candidate sweep is built against
+        snap = self.snapshots.current()
+        slice_ids = snap.slice_ids()
+        if not slice_ids or pod.priority <= 0:
+            raise GangError(
+                f"gang {pod.namespace}/{pod.group.name}: no contiguous slice "
+                f"and priority {pod.priority} cannot preempt"
+            )
+        total = pod.group.min_member * count
+        if pod.group.shape is not None:
+            sx, sy, sz = pod.group.shape
+            if sx * sy * sz != total:
+                raise GangError(
+                    f"gang {pod.namespace}/{pod.group.name}: shape "
+                    f"{pod.group.shape} holds {sx * sy * sz} chips but the "
+                    f"gang needs {total} — refusing to preempt for it"
+                )
+        workloads = self._preemption_workloads()
+        plan = None
+        plan_slice = None
+        best_rank = None
+        for sid in slice_ids:
+            # blocked = unhealthy chips PLUS terminating victims' chips:
+            # the latter are ledger-free but physically held, and no
+            # eviction can free them sooner — a plan over them would
+            # reserve with zero victims and bind ungated onto chips a
+            # dying container still owns
+            ss = snap.slice(sid)
+            cand = policy.find_preemption_plan(
+                [w for w in workloads if w.slice_id == sid],
+                ss.mesh,
+                ss.unhealthy | ss.terminating,
+                total,
+                pod.group.shape,
+                pod.priority,
+                broken=ss.broken,
+            )
+            if cand is None:
+                continue
+            rank = (cand.cost_priority_sum, cand.victim_count, sid)
+            if best_rank is None or rank < best_rank:
+                best_rank, plan, plan_slice = rank, cand, sid
+        if plan is None:
+            if pod.group.allow_dcn and pod.group.shape is None:
+                split = self._plan_split_preemption(
+                    workloads, total, count, pod.priority,
+                )
+                if split is not None:
+                    victims = [w for p in split.values() for w in p.victims]
+                    log.warning(
+                        "gang %s/%s plans to preempt %d workload(s) for a "
+                        "DCN-split %d-chip reservation over %s (deferred "
+                        "to first bind)",
+                        pod.namespace, pod.group.name, len(victims), total,
+                        sorted(split),
+                    )
+                    if self.trace is not None:
+                        self.trace.span(
+                            "preemption_plan", pod.key(),
+                            gang=f"{pod.namespace}/{pod.group.name}",
+                            victims=len(victims), slices=sorted(split),
+                        )
+                    self._emit_event(
+                        "PreemptionPlanned",
+                        f"gang/{pod.namespace}/{pod.group.name}",
+                        f"{len(victims)} victim workload(s) planned for a "
+                        f"DCN-split {total}-chip reservation "
+                        f"(deferred to first bind)",
+                    )
+                    return self.gang.reserve_exact_split(
+                        pod, count,
+                        {sid: p.coords for sid, p in split.items()},
+                        pending_victims=victims,
+                    )
+            raise GangError(
+                f"gang {pod.namespace}/{pod.group.name}: no victim set opens "
+                f"a contiguous {total}-chip slice at priority {pod.priority} "
+                f"in any of {len(slice_ids)} ICI slices"
+            )
+        log.warning(
+            "gang %s/%s plans to preempt %d workloads (priority sum %d) "
+            "for a %d-chip slice in %s (deferred to first bind)",
+            pod.namespace, pod.group.name,
+            plan.victim_count, plan.cost_priority_sum, total, plan_slice,
+        )
+        if self.trace is not None:
+            self.trace.span(
+                "preemption_plan", pod.key(),
+                gang=f"{pod.namespace}/{pod.group.name}",
+                victims=plan.victim_count,
+                cost_priority_sum=plan.cost_priority_sum,
+                slices=[plan_slice],
+            )
+        self._emit_event(
+            "PreemptionPlanned",
+            f"gang/{pod.namespace}/{pod.group.name}",
+            f"{plan.victim_count} victim workload(s), priority sum "
+            f"{plan.cost_priority_sum}, for a {total}-chip slice in "
+            f"{plan_slice} (deferred to first bind)",
+        )
+        return self.gang.reserve_exact(
+            pod, count, plan.coords, slice_id=plan_slice,
+            pending_victims=plan.victims,
+        )
+
+    def _execute_pending_preemption(
+        self, res: GangReservation, view: NodeView, device_ids: list[str]
+    ) -> None:
+        """Phase two of preemption, at the gang's first bind: the planned
+        victims actually lose their chips. Runs under the decision lock
+        (handle()), so exactly one member executes the plan.
+
+        Evictions are irreversible, so they run only after this member's
+        commit is certain to succeed: every minted id must be on a healthy
+        chip and held by nobody — or by a declared victim about to be
+        evicted. A failed pre-check raises WITHOUT touching the victims
+        (the reservation stays pending; a sick slice is the sweep's job).
+
+        Execution does NOT let this bind proceed: a 2xx Eviction only
+        starts graceful termination, and on a single-owner TPU runtime a
+        gang pod started while its victim's containers still hold the
+        chips crash-loops for the whole grace period. The victims are
+        registered as terminating (gating every member bind + masking
+        their chips) and this bind fails retryably; binds resume once the
+        eviction executor / lifecycle watch confirms the pod objects gone
+        (the recorded ``victim_gone`` decision). kube-scheduler's own
+        preemption waits for victim deletion the same way."""
+        victims = self.gang.peek_pending_victims(res)
+        if not victims:
+            return
+        victim_pods = self._victim_pod_keys(victims)
+        holders = {
+            did: a.pod_key
+            for a in self.state.allocations()
+            if a.node_name == view.info.name
+            for did in a.device_ids
+        }
+        for did in device_ids:
+            index, _ = parse_device_id(did)
+            if view.chip(index).health is not Health.HEALTHY:
+                raise ExtenderError(
+                    f"{did}: chip unhealthy; preemption not executed "
+                    "(reservation will be swept)"
+                )
+            holder = holders.get(did)
+            if holder is not None and holder not in victim_pods:
+                raise ExtenderError(
+                    f"{did}: held by non-victim {holder}; preemption not "
+                    "executed, scheduler will re-run the cycle"
+                )
+        victims = self.gang.take_pending_victims(res)
+        evicted_pods, held = self._apply_victims(victims)
+        self.preemptions += evicted_pods
+        log.warning(
+            "gang %s/%s executes deferred preemption at first bind: "
+            "%d workload(s) / %d pod(s) evicted",
+            res.namespace, res.group.name, len(victims), evicted_pods,
+        )
+        self._emit_event(
+            "PreemptionExecuted",
+            f"gang/{res.namespace}/{res.group.name}",
+            f"{len(victims)} workload(s) / {evicted_pods} pod(s) evicted "
+            f"at the gang's first bind",
+        )
+        if held:
+            self.gang.register_terminating(res, held)
+            raise ExtenderError(
+                f"gang {res.namespace}/{res.group.name}: preemption "
+                f"executed; waiting for {len(held)} victim pod(s) to "
+                "finish terminating — scheduler will re-run the cycle"
+            )
+
+    def _victim_pod_keys(self, victims) -> set[str]:
+        """Every pod a victim-workload list would evict: the workloads'
+        own pods plus, for gang victims, their reservations' assigned
+        members. One definition shared by the PDB precheck and the
+        execution pre-validation — they must never test different sets."""
+        victim_pods: set[str] = set()
+        for w in victims:
+            victim_pods.update(w.pod_keys)
+            if w.gang_key is not None:
+                vres = self.gang.reservation(*w.gang_key)
+                if vres is not None:
+                    victim_pods.update(vres.assigned)
+        return victim_pods
+
+    def _apply_victims(self, victims) -> tuple[int, dict]:
+        """Evict a victim set: gangs dissolve wholesale (once, even when a
+        DCN-spanning gang appears as several per-slice workloads), plain
+        pods release + queue for eviction. Victims that vanished between
+        plan and execution (released naturally) are skipped. Returns
+        (pods evicted, evicted pod -> (slice, coords still physically
+        held) — the termination gate's input)."""
+        held: dict[str, tuple[str, list[TopologyCoord]]] = {}
+
+        def note_held(pk: str) -> None:
+            alloc = self.state.allocation(pk)
+            if alloc is None:
+                return
+            sid = self.state.slice_of_node(alloc.node_name)
+            if sid is not None:
+                held[pk] = (sid, [TopologyCoord.of(c) for c in alloc.coords])
+
+        evicted_pods = 0
+        dissolved: set[tuple[str, str]] = set()
+        for victim in victims:
+            if victim.gang_key is not None:
+                if victim.gang_key in dissolved:
+                    continue
+                dissolved.add(victim.gang_key)
+                vres = self.gang.reservation(*victim.gang_key)
+                if vres is not None:
+                    for pk in list(vres.assigned):
+                        note_held(pk)
+                gone = self.gang.dissolve(victim.gang_key)
+                evicted_pods += len(gone)
+            else:
+                for pk in victim.pod_keys:
+                    note_held(pk)
+                    if self.state.release(pk) is not None:
+                        self.pending_evictions.append(pk)
+                        evicted_pods += 1
+                        self._emit_event(
+                            "VictimEvicted", f"pod/{pk}",
+                            "released and queued for eviction "
+                            "(preempted by a higher-priority gang)",
+                        )
+                    else:
+                        held.pop(pk, None)  # vanished between plan and now
+        return evicted_pods, held
+
+    def _plan_split_preemption(
+        self, workloads: list[policy.Workload], total: int,
+        chips_per_pod: int, priority: int,
+    ) -> Optional[dict[str, policy.PreemptionPlan]]:
+        """Preemption for a DCN-split gang: one cost-optimal box per slice
+        (greedy over slices by free capacity, largest feasible volume
+        first — the preemption mirror of GangManager._plan_dcn_split).
+        Returns slice -> plan covering exactly ``total`` chips, or None."""
+        snap = self.snapshots.current()
+        order = sorted(
+            snap.slice_ids(),
+            key=lambda s: (snap.slice(s).utilization, s),
+        )
+        parts: dict[str, policy.PreemptionPlan] = {}
+        remaining = total
+        for sid in order:
+            if remaining == 0:
+                break
+            ss = snap.slice(sid)
+            mesh = ss.mesh
+            in_slice = [w for w in workloads if w.slice_id == sid]
+            # same blocked-set rule as the single-slice path: chips a
+            # terminating victim still physically holds are unopenable
+            unhealthy = ss.unhealthy | ss.terminating
+            broken = ss.broken
+            max_vol = min(
+                remaining,
+                ((mesh.num_chips - len(unhealthy)) // chips_per_pod)
+                * chips_per_pod,
+            )
+            vol = max_vol
+            while vol >= chips_per_pod:
+                cand = policy.find_preemption_plan(
+                    in_slice, mesh, unhealthy, vol, None, priority,
+                    broken=broken,
+                )
+                if cand is not None:
+                    parts[sid] = cand
+                    remaining -= vol
+                    break
+                vol -= chips_per_pod
+        return parts if remaining == 0 else None
+
+    def _preemption_workloads(self) -> list[policy.Workload]:
+        """Current workloads at preemption granularity: whole gangs (with
+        their reserved-but-unassigned chips) and free-standing pods."""
+        out: list[policy.Workload] = []
+        gang_pods: set[str] = set()
+        for res in self.gang.snapshot():
+            members = sorted(res.assigned)
+            gang_pods.update(members)
+            prios = [self.state.priority_of(k) for k in members]
+            # Blocking priority covers members NOT yet bound: the
+            # reservation records its gang's priority, so a freshly
+            # reserving prio-100 gang is never the cheap victim of a
+            # prio-1 preemptor (priority inversion). Cost likewise counts
+            # unarrived members at the reservation's priority.
+            unarrived = max(0, res.group.min_member - len(members))
+            priority = max([res.priority, *prios])
+            cost = sum(prios) + res.priority * unarrived
+            # one Workload per slice the gang touches (the planner works
+            # slice-by-slice); evicting ANY part dissolves the whole gang,
+            # so each part carries the gang's full eviction cost
+            for sid, coords in res.slice_coords.items():
+                chips = set(coords)
+                for k in members:
+                    entry = res.assigned.get(k)  # may race with on_release
+                    if entry is not None and entry[0] == sid:
+                        chips.update(entry[1])
+                out.append(policy.Workload(
+                    id=f"gang:{res.namespace}/{res.group.name}@{sid}",
+                    priority=priority,
+                    cost=cost,
+                    coords=frozenset(chips),
+                    pod_keys=tuple(members),
+                    gang_key=res.key,
+                    slice_id=sid,
+                ))
+        for alloc in self.state.allocations():
+            if alloc.pod_key in gang_pods:
+                continue
+            sid = self.state.slice_of_node(alloc.node_name)
+            if sid is None:
+                # node view gone (deleted mid-teardown): its chips are not
+                # in any slice's occupied set either, so skipping keeps the
+                # planner's view consistent — guessing a slice would plant
+                # these coords in the wrong coordinate space
+                continue
+            prio = self.state.priority_of(alloc.pod_key)
+            out.append(policy.Workload(
+                id=alloc.pod_key,
+                priority=prio,
+                cost=prio,
+                coords=frozenset(TopologyCoord.of(c) for c in alloc.coords),
+                pod_keys=(alloc.pod_key,),
+                slice_id=sid,
+            ))
+        return out
 
     def _node_feasibility(
         self,
@@ -581,6 +958,16 @@ class Extender:
                 if not self.gang.assignable(res, count):
                     res = None  # overflow replica: normal placement
             if res is not None:
+                terminating = self.gang.terminating_victims_of(res)
+                if terminating:
+                    # preemption executed but victims still hold the chips:
+                    # no member may start until their pod objects are gone
+                    raise ExtenderError(
+                        f"{key}: gang waiting for {len(terminating)} "
+                        "preemption victim(s) to finish terminating; "
+                        "scheduler will re-run the cycle"
+                    )
+            if res is not None:
                 try:
                     plan = self.gang.plan_for_bind(res, pod, node_name)
                 except GangError as e:
@@ -592,6 +979,13 @@ class Extender:
                     f"{key}: node {node_name} can no longer fit {count} x {resource}"
                 )
             device_ids = self._mint_device_ids(view, resource, plan)
+            if res is not None:
+                # two-phase preemption: the first member to bind executes
+                # the eviction plan recorded at filter time — but only
+                # after this member's commit is pre-validated, so a bind
+                # that would fail anyway (chip went unhealthy, chip taken
+                # by a non-victim) never costs the victims their chips
+                self._execute_pending_preemption(res, view, device_ids)
             env: dict[str, str] = {}
             if res is not None:
                 # gang context for the in-pod runtime (rides the alloc
@@ -631,6 +1025,7 @@ class Extender:
                     )
             with self._pending_lock:
                 self._pending.pop(key, None)
+            self.binds_total += 1
             log.info("bound %s -> %s %s", key, node_name, device_ids)
             return alloc
         finally:
@@ -675,6 +1070,8 @@ class Extender:
         Schema errors raise ``kube.KubeSchemaError`` before any mutation;
         the HTTP layer maps them to 400 without recording.
         """
+        if kind == "bind":
+            return self._handle_bind(body)
         with self._decision_lock:
             if kind == "filter":
                 pod, nodes, names = kube.parse_extender_args(body)
@@ -706,19 +1103,6 @@ class Extender:
                     log.warning("prioritize failed: %s", e)
                     scores = {}
                 response = kube.host_priority_list(scores)
-            elif kind == "bind":
-                name, ns, uid, node = kube.parse_binding_args(body)
-                try:
-                    alloc = self.bind(name, ns, uid, node)
-                    # the alloc annotation rides back to the
-                    # harness/apiserver-writer
-                    response = kube.binding_result()
-                    response["Annotations"] = {
-                        codec.ANNO_ALLOC: codec.encode_alloc(alloc)
-                    }
-                except (ExtenderError, GangError, StateError,
-                        codec.CodecError) as e:
-                    response = kube.binding_result(str(e))
             elif kind == "release":
                 pod_key = body["pod_key"]
                 self.state.release(pod_key)
@@ -769,6 +1153,78 @@ class Extender:
                 self.trace.record(kind, body, response)
             return response
 
+    def _handle_bind(self, body: Any) -> Any:
+        """The bind decision: the PDB precheck of a pending preemption
+        plan runs first, OUTSIDE the decision lock (it may ask the
+        apiserver); the ledger mutation and its trace record run under
+        the lock as one step."""
+        name, ns, uid, node = kube.parse_binding_args(body)
+        key = f"{ns}/{name}"
+        blocked = self._precheck_preemption(key)
+        if blocked:
+            # refused BEFORE any mutation, so nothing is recorded in the
+            # trace (same contract as schema errors): the plan stays
+            # pending and the reservation TTLs out if the PDB never lifts
+            # — no victim is half-evicted, no gang half-binds
+            return kube.binding_result(
+                f"{key}: preemption plan refused — PodDisruptionBudget "
+                f"blocks eviction of {sorted(blocked)[:3]}"
+            )
+        with self._decision_lock:
+            try:
+                alloc = self.bind(name, ns, uid, node)
+                # the alloc annotation rides back to the
+                # harness/apiserver-writer
+                response: Any = kube.binding_result()
+                response["Annotations"] = {
+                    codec.ANNO_ALLOC: codec.encode_alloc(alloc)
+                }
+            except (ExtenderError, GangError, StateError,
+                    codec.CodecError) as e:
+                response = kube.binding_result(str(e))
+            if self.trace is not None:
+                self.trace.record("bind", body, response)
+            return response
+
+    def _precheck_preemption(self, pod_key: str) -> list[str]:
+        """PDB dry-run for the eviction plan a bind for ``pod_key`` would
+        execute: the victim pod keys a PodDisruptionBudget blocks right
+        now ([] = proceed). No precheck wired (or an errored dry-run)
+        means proceed — the executor's forever-retry then covers the
+        raced case."""
+        if self.evict_precheck is None:
+            return []
+        with self._pending_lock:
+            entry = self._pending.get(pod_key)
+        if entry is None or entry[0].group is None:
+            return []
+        pod = entry[0]
+        res = self.gang.reservation(pod.namespace, pod.group.name)
+        if res is None:
+            return []
+        try:
+            ask = self.device_request(pod)
+        except ExtenderError:
+            return []  # bind() will surface the real error
+        # mirror bind()'s routing: an overflow replica of a full gang
+        # binds as a normal pod and executes no preemption — its bind
+        # must not be refused for a PDB that only blocks the gang's plan
+        if ask is None or not self.gang.assignable(res, ask[1]):
+            return []
+        victim_pods = self._victim_pod_keys(
+            self.gang.peek_pending_victims(res)
+        )
+        blocked = []
+        for vk in victim_pods:
+            try:
+                if self.evict_precheck(vk) is False:
+                    blocked.append(vk)
+            except Exception as e:
+                # cannot determine (old apiserver, transient error):
+                # proceed — refusing would wedge preemption on noise
+                log.warning("eviction precheck for %s failed: %s", vk, e)
+        return blocked
+
     # -- restart story -------------------------------------------------------
     def rebuild_from_pods(self, pods: list[dict[str, str]]) -> int:
         """Reconstruct ledger AND gang reservations from pod annotations
@@ -808,9 +1264,9 @@ _ROUTES = {"/filter": "filter", "/prioritize": "prioritize", "/bind": "bind"}
 
 
 class _WebhookHandler(BaseHTTPRequestHandler):
-    """POST /filter, /prioritize, /bind and GET /healthz, with the JSON
-    bodies of the reference's aiohttp app: a body that is not JSON, or a
-    schema error, is HTTP 400 and records nothing."""
+    """POST /filter, /prioritize, /bind and GET /healthz, /metrics, with
+    the bodies of the reference's aiohttp app: a body that is not JSON, or
+    a schema error, is HTTP 400 and records nothing."""
 
     protocol_version = "HTTP/1.1"  # keep-alive, as kube-scheduler uses
 
@@ -844,26 +1300,38 @@ class _WebhookHandler(BaseHTTPRequestHandler):
         self._reply(200, json.dumps(response).encode())
 
     def do_GET(self) -> None:  # noqa: N802
-        if self.path != "/healthz":
-            self._text(404, "not found")
-            return
         ext = self.server.extender
-        self._reply(200, json.dumps(
-            {"ok": True, "nodes": list(ext.state.node_names())}).encode())
+        if self.path == "/healthz":
+            self._reply(200, json.dumps(
+                {"ok": True, "nodes": list(ext.state.node_names())}).encode())
+        elif self.path == "/metrics":
+            from tpukube_torch.metrics import render_extender_metrics
+
+            text = render_extender_metrics(
+                ext, evictions=self.server.evictions,
+                lifecycle=self.server.lifecycle)
+            self._reply(200, text.encode(), "text/plain; version=0.0.4")
+        else:
+            self._text(404, "not found")
 
     def log_message(self, format: str, *args: Any) -> None:
         log.debug("%s %s", self.address_string(), format % args)
 
 
-def serve(extender: Extender, host: str = "127.0.0.1",
-          port: int = 0) -> ThreadingHTTPServer:
+def serve(extender: Extender, host: str = "127.0.0.1", port: int = 0,
+          evictions=None, lifecycle=None) -> ThreadingHTTPServer:
     """Serve ``extender``'s webhooks on ``host:port`` (0 = a free port;
-    read it from ``server.server_address``) from a daemon thread. Stop
-    with ``server.shutdown(); server.server_close()``."""
+    read it from ``server.server_address``) from a daemon thread. Pass the
+    daemon's ``EvictionExecutor`` and ``PodLifecycleReleaseLoop``
+    (``tpukube_torch.apiserver``) to export their counters on /metrics.
+    Stop with ``server.shutdown(); server.server_close()``."""
     server = ThreadingHTTPServer((host, port), _WebhookHandler)
     server.daemon_threads = True
     server.extender = extender
-    threading.Thread(target=server.serve_forever, daemon=True,
+    server.evictions = evictions
+    server.lifecycle = lifecycle
+    # a short poll interval: shutdown() waits out one poll
+    threading.Thread(target=server.serve_forever, args=(0.05,), daemon=True,
                      name="tpukube-extender-http").start()
     return server
 

@@ -20,13 +20,17 @@ All-or-nothing placement of N-pod job groups onto one contiguous box:
      cycle re-reserves from scratch on healthy, fully-linked chips.
   5. ``allow_dcn`` gangs that fit no single slice split into one
      contiguous box per slice.
+  6. Preemption (the extender plans it with ``sched/policy.py``):
+     ``reserve_exact*`` records the chosen box with its victims pending;
+     the first bind claims them (``take_pending_victims``), gang victims
+     ``dissolve`` whole, and ``register_terminating`` gates every member
+     bind until each victim's pod object is confirmed gone.
 
 Linearizability: one lock orders all reservation mutations; binds
 re-validate against the reservation under that lock (optimistic callers
 simply retry the cycle, same as ledger bind races).
 
-Preemption (the victim bookkeeping, ``dissolve``, ``reserve_exact*``) and
-the journal's checkpoint/replay hooks are not ported yet.
+The journal's checkpoint/replay hooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from tpukube_torch.core.types import PodGroup, PodInfo, TopologyCoord
+from tpukube_torch.obs.registry import Histogram
 from tpukube_torch.sched import slicefit
 from tpukube_torch.sched.snapshot import SnapshotCache, SnapshotDelta, sweep_for
 from tpukube_torch.sched.state import ClusterState, StateError
@@ -69,7 +74,7 @@ class GangReservation:
     # slice id -> reserved chips in that slice (coords are slice-local)
     slice_coords: dict[str, set[TopologyCoord]]
     chips_per_pod: int
-    priority: int = 0  # the reserving pods' priority
+    priority: int = 0  # the reserving pods' priority (preemption blocking)
     created: float = field(default_factory=time.monotonic)
     # pod_key -> (slice id, that member's chips)
     assigned: dict[str, tuple[str, list[TopologyCoord]]] = field(
@@ -83,6 +88,19 @@ class GangReservation:
     )
     committed: bool = False
     commit_latency: Optional[float] = None
+    # Two-phase preemption: the victim workloads this reservation plans to
+    # evict, planned at /filter but EXECUTED only at the gang's first
+    # /bind (extender._execute_pending_preemption). Until then the victims
+    # keep running on the reserved chips; a reservation that TTLs out
+    # unbound never evicts anyone. None once executed (or when the
+    # reservation needed no preemption).
+    pending_victims: Optional[list] = None
+    # Executed-but-unconfirmed victims: a 2xx on the Eviction subresource
+    # only STARTS graceful termination, so the victim physically holds its
+    # chips until its pod object is gone. Member binds are gated on this
+    # set being empty (extender.bind); the EvictionExecutor / lifecycle
+    # watch clears entries through the recorded ``victim_gone`` decision.
+    terminating_victims: set[str] = field(default_factory=set)
 
     def record_assignment(
         self, pod_key: str, slice_id: str, coords: list[TopologyCoord]
@@ -161,6 +179,11 @@ class GangManager:
         self._reservations: dict[tuple[str, str], GangReservation] = {}
         # reservation-created -> committed durations (north-star p50 feed)
         self.commit_latencies: deque[float] = deque(maxlen=self.LATENCY_WINDOW)
+        # same durations as monotonic histogram buckets (the _bucket
+        # series on /metrics are counters: cumulative since process
+        # start, never windowed — aggregatable across scrapes/instances)
+        self.commit_hist = Histogram("gang_schedule_latency_seconds",
+                                     bucket_only=True)
         self.rollbacks = 0  # TTL/fault rollbacks observed (metrics/tests)
         # Cluster-wide eviction bus, owned by the Extender (which also feeds
         # it preemption victims); gang rollback/dissolve appends rolled-back
@@ -287,7 +310,16 @@ class GangManager:
             for key, res in list(self._reservations.items()):
                 if res.committed:
                     continue
-                expired = now - res.created > self._ttl
+                # TTL-exempt while executed victims are still terminating:
+                # those evictions are irreversible, so rolling the
+                # reservation back would not un-evict anyone — it would
+                # only let the gang re-reserve the victims' (ledger-free,
+                # still physically held) chips and bind onto them, the
+                # exact overlap the termination gate closes. The eviction
+                # executor retries/confirms forever, so this state always
+                # resolves (or pages the operator via /metrics).
+                expired = (now - res.created > self._ttl
+                           and not res.terminating_victims)
                 sick = any(
                     coords & unhealthy.get(sid, set())
                     for sid, coords in res.slice_coords.items()
@@ -481,6 +513,36 @@ class GangManager:
                 vol -= chips_per_pod
         return parts if remaining == 0 else None
 
+    def dissolve(self, key: tuple[str, str]) -> list[str]:
+        """Evict a whole gang (preemption victim): release every member's
+        allocation, queue their evictions, drop the reservation. Gangs die
+        all-or-nothing exactly as they are born. Returns evicted pod keys."""
+        with self._lock:
+            # look up before popping: the no-such-gang path mutates
+            # nothing and owes no epoch bump
+            res = self._reservations.get(key)
+            if res is None:
+                return []
+            self._reservations.pop(key, None)
+            self._epoch += 1
+            self._note_delta_locked(slices=res.slice_coords,
+                                    why=f"dissolve {key}")
+            evicted = []
+            for pod_key in list(res.assigned):
+                self._evict_and_mask_locked(pod_key,
+                                            res.assigned.get(pod_key))
+                evicted.append(pod_key)
+            log.warning(
+                "gang %s/%s dissolved by preemption (%d members evicted)",
+                key[0], key[1], len(evicted),
+            )
+            self._emit(
+                "GangDissolved", key,
+                f"preempted; {len(evicted)} member(s) evicted",
+                warning=True,
+            )
+            return evicted
+
     def snapshot(self) -> list[GangReservation]:
         """Stable copy of live reservations (the preemption planner's view)."""
         with self._lock:
@@ -641,38 +703,218 @@ class GangManager:
                 best = (sb.sort_key, box_set)
         return best[1] if best is not None else None
 
+    def reserve_exact(
+        self, pod: PodInfo, chips_per_pod: int, coords: list[TopologyCoord],
+        slice_id: str, pending_victims: Optional[list] = None,
+    ) -> GangReservation:
+        """Reserve a specific chip set (the preemption path: policy already
+        chose the box and its victims). ``pending_victims`` defers the
+        evictions to the gang's first bind (two-phase preemption). Raises
+        if any non-victim chip was taken since planning — the scheduler
+        retries."""
+        return self.reserve_exact_split(
+            pod, chips_per_pod, {slice_id: list(coords)},
+            pending_victims=pending_victims,
+        )
+
+    def reserve_exact_split(
+        self, pod: PodInfo, chips_per_pod: int,
+        parts: dict[str, list[TopologyCoord]],
+        pending_victims: Optional[list] = None,
+    ) -> GangReservation:
+        """Reserve specific per-slice chip sets (single- or multi-slice
+        preemption). ``pending_victims`` (policy.Workload list) records the
+        eviction plan WITHOUT executing it: their chips may legitimately
+        still be occupied, and stay so until the gang's first bind. Raises
+        if any chip outside the victim set is occupied — the scheduler
+        retries."""
+        assert pod.group is not None
+        victim_held: dict[str, set[TopologyCoord]] = {}
+        for w in pending_victims or ():
+            victim_held.setdefault(w.slice_id, set()).update(w.coords)
+        with self._lock:
+            key = (pod.namespace, pod.group.name)
+            existing = self._reservations.get(key)
+            if existing is not None:
+                return existing  # lost a benign race with a sibling member
+            expected = pod.group.min_member * chips_per_pod
+            got = sum(len(cs) for cs in parts.values())
+            if got != expected:
+                raise GangError(
+                    f"gang {key}: preemption opened {got} chips but "
+                    f"the gang needs {expected}"
+                )
+            victim_gangs = {
+                w.gang_key for w in pending_victims or () if w.gang_key
+            }
+            snap = self.snapshots.current()
+            for slice_id, coords in parts.items():
+                try:
+                    ss = snap.slice(slice_id)
+                except KeyError:
+                    raise GangError(
+                        f"gang {key}: unknown slice {slice_id!r}"
+                    ) from None
+                # victim-held chips may legitimately still be OCCUPIED
+                # (their eviction is deferred), but another reservation's
+                # coords always clash — only reservations that are
+                # themselves declared victims (dissolved at execution)
+                # are exempt
+                reserved: set[TopologyCoord] = set()
+                for other in self._reservations.values():
+                    if other.key not in victim_gangs:
+                        reserved |= other.unassigned_in(slice_id)
+                occupied = (
+                    ss.occupied - victim_held.get(slice_id, set())
+                ) | reserved
+                # terminating victims' chips are ledger-free (their
+                # eviction already released them) but physically held
+                # until the pod object is gone — a preemption-opened box
+                # overlapping them would bind members onto chips a dying
+                # container still owns, with zero victims to gate on
+                occupied |= ss.terminating
+                clash = [c for c in coords if c in occupied]
+                if clash:
+                    raise GangError(
+                        f"gang {key}: preempted box re-occupied at "
+                        f"{clash[:3]} in {slice_id}; retry"
+                    )
+                if slicefit.coords_break_link(set(coords), ss.broken):
+                    raise GangError(
+                        f"gang {key}: preempted box in {slice_id} spans a "
+                        f"downed ICI link; retry"
+                    )
+            res = GangReservation(
+                group=pod.group,
+                namespace=pod.namespace,
+                slice_coords={s: set(cs) for s, cs in parts.items()},
+                chips_per_pod=chips_per_pod,
+                priority=pod.priority,
+                created=self._clock.monotonic(),
+                pending_victims=(
+                    list(pending_victims) if pending_victims else None
+                ),
+            )
+            self._reservations[key] = res
+            self._epoch += 1
+            self._note_delta_locked(slices=parts, why=f"reserve-exact {key}")
+            log.info(
+                "gang %s/%s reserved %d chips over %d slice(s) via preemption"
+                " (%d victim workload(s) pending first bind)",
+                key[0], key[1], res.total_chips(), len(parts),
+                len(pending_victims or ()),
+            )
+            self._emit(
+                "GangReserved", key,
+                f"{res.total_chips()} chips over {len(parts)} slice(s) "
+                f"via preemption "
+                f"({len(pending_victims or ())} victim(s) pending)",
+            )
+            return res
+
+    def peek_pending_victims(self, res: GangReservation) -> list:
+        """The deferred eviction plan, without claiming it (the extender
+        pre-validates the bind against it before executing)."""
+        with self._lock:
+            if self._reservations.get(res.key) is not res:
+                return []
+            return list(res.pending_victims or [])
+
+    def take_pending_victims(self, res: GangReservation) -> list:
+        """Atomically claim a reservation's deferred eviction plan (empty
+        if already executed, or if the reservation was replaced). The
+        caller — extender bind, under the decision lock — executes it."""
+        with self._lock:
+            if self._reservations.get(res.key) is not res:
+                return []
+            victims = res.pending_victims or []
+            res.pending_victims = None
+            return list(victims)
+
+    def register_terminating(
+        self, res: GangReservation,
+        held: dict[str, tuple[str, list[TopologyCoord]]],
+    ) -> None:
+        """Record executed evictions awaiting confirmed termination:
+        ``held`` maps each evicted pod to the (slice, coords) its
+        containers still physically hold. Gates the gang's member binds
+        AND masks the chips from every other placement until
+        on_victim_gone confirms the pod object is gone."""
+        if not held:
+            return
+        with self._lock:
+            for pod_key, (sid, coords) in held.items():
+                res.terminating_victims.add(pod_key)
+                if coords:
+                    self._terminating_coords[pod_key] = (
+                        sid, frozenset(coords)
+                    )
+            self._epoch += 1
+            self._note_delta_locked(
+                slices={sid for sid, _ in held.values()},
+                why=f"register-terminating {res.key}",
+            )
+
     def on_victim_gone(self, pod_key: str) -> bool:
-        """An evicted member's pod object is confirmed gone (the recorded
-        ``victim_gone`` decision): unmask its chips. Returns True if
-        anything was tracking the pod."""
+        """A terminating eviction victim's pod object is confirmed gone
+        (EvictionExecutor / lifecycle watch, via the recorded
+        ``victim_gone`` decision): unmask its chips and unblock any gang
+        waiting on it. Returns True if anything was tracking the pod."""
         with self._lock:
             # membership first, pop only on a hit: the unknown-pod path
             # mutates nothing and owes no bump
             entry = self._terminating_coords.get(pod_key)
-            if entry is None:
+            hit = entry is not None
+            gated = False
+            for res in self._reservations.values():
+                if pod_key in res.terminating_victims:
+                    res.terminating_victims.discard(pod_key)
+                    gated = True
+                    if not res.terminating_victims:
+                        log.info(
+                            "gang %s/%s: all preemption victims terminated; "
+                            "member binds may proceed",
+                            res.namespace, res.group.name,
+                        )
+            if not hit and not gated:
                 return False
-            self._terminating_coords.pop(pod_key, None)
-            if self._events is not None:
-                try:
-                    self._events.emit(
-                        "VictimGone", obj=f"pod/{pod_key}",
-                        message="eviction victim's pod object "
-                                "confirmed gone; its chips are "
-                                "placeable again",
-                    )
-                except Exception:
-                    log.exception("event emit failed: VictimGone %s",
-                                  pod_key)
-            # the unmasked chips are placeable again: invalidate
-            self._epoch += 1
-            self._note_delta_locked(slices=(entry[0],),
-                                    why=f"victim-gone {pod_key}")
+            if hit:
+                self._terminating_coords.pop(pod_key, None)
+                if self._events is not None:
+                    try:
+                        self._events.emit(
+                            "VictimGone", obj=f"pod/{pod_key}",
+                            message="eviction victim's pod object "
+                                    "confirmed gone; its chips are "
+                                    "placeable again",
+                        )
+                    except Exception:
+                        log.exception("event emit failed: VictimGone %s",
+                                      pod_key)
+                # the unmasked chips are placeable again: invalidate
+                self._epoch += 1
+                self._note_delta_locked(slices=(entry[0],),
+                                        why=f"victim-gone {pod_key}")
             return True
 
+    def terminating_victims_of(self, res: GangReservation) -> set[str]:
+        """Victims whose termination still gates this gang's binds."""
+        with self._lock:
+            return set(res.terminating_victims)
+
     def terminating_count(self) -> int:
-        """Evicted-but-unconfirmed pods cluster-wide."""
+        """Evicted-but-unconfirmed victims cluster-wide (metrics)."""
         with self._lock:
             return len(self._terminating_coords)
+
+    def terminating_pod_keys(self) -> list[str]:
+        """Every pod key any terminating bookkeeping still tracks —
+        coord masks AND reservation bind gates."""
+        with self._lock:
+            keys = set(self._terminating_coords)
+            for res in self._reservations.values():
+                keys |= res.terminating_victims
+            return sorted(keys)
 
     def terminating_coords(self, slice_id: str) -> set[TopologyCoord]:
         """Chips of evicted-but-still-terminating pods in one slice:
@@ -825,6 +1067,7 @@ class GangManager:
                 res.committed = True
                 res.commit_latency = self._clock.monotonic() - res.created
                 self.commit_latencies.append(res.commit_latency)
+                self.commit_hist.observe(res.commit_latency)
                 log.info(
                     "gang %s/%s COMMITTED: %d members in %.3fs",
                     res.namespace, res.group.name,

@@ -1,29 +1,33 @@
 """SimCluster — plays apiserver + kube-scheduler against the port's extender.
 
-The port's own copy of ``tpukube/sim/harness.py``'s in-process mode: node
-objects are minted from ``MeshSpec`` geometry and annotated with the node
-agent's codec, pods are kube-scheduler's JSON, and every webhook
-(filter -> prioritize -> pick max -> bind) goes straight into
-``Extender.handle`` — the reference's ``in_process=True`` path, the same
-decisions minus sockets (``tpukube_torch.sched.extender.serve`` is the
-HTTP server). ``execute_allocation`` then runs the bound pod's Allocate on
-a sim-backend ``GpuDeviceManager`` of the bound node and returns the
-container env, which is what the reference's gRPC Allocate returns.
+The port's own copy of ``tpukube/sim/harness.py``: node objects are minted
+from ``MeshSpec`` geometry and annotated with the node agent's codec, pods
+are kube-scheduler's JSON, and every webhook (filter -> prioritize -> pick
+max -> bind) goes straight into ``Extender.handle`` — the reference's
+``in_process=True`` path, the same decisions minus sockets. Inside a
+``with`` block (or after :meth:`SimCluster.start`) the extender's HTTP
+app also serves on ``base_url`` (``tpukube_torch.sched.extender.serve``),
+so ``GET {base_url}/metrics`` reads the live daemon's exposition.
+``execute_allocation`` runs the bound pod's Allocate on a sim-backend
+``GpuDeviceManager`` of the bound node and returns the container env,
+which is what the reference's gRPC Allocate returns.
 
 An HGX fleet is ``MeshSpec((8, H, 1), (8, 1, 1))``: H hosts of 8 GPUs
 along y (``TPUKUBE_SIM_MESH_DIMS=8,H,1``, ``TPUKUBE_SIM_HOST_BLOCK=8,1,1``).
 
-The sim's pod store stands in for the apiserver: an eviction deletes the
-pod object and confirms it gone at once (``victim_gone``), and a deleted or
-finished pod's chips are released through the recorded ``release``
-decision. The gRPC device-plugin stack, the eviction executor's retries
-and the lifecycle loop's watch are not ported yet.
+The sim's pod store stands in for the apiserver, and the extender is wired
+as a daemon is (``_wire_extender``): the ``EvictionExecutor`` deletes
+evicted pods from the store and confirms them gone (``victim_gone``), the
+``PodLifecycleReleaseLoop`` releases a deleted or finished pod's chips
+through the recorded ``release`` decision, and the PDB precheck asks the
+store (which has no PDBs). The gRPC device-plugin stack is not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
+from tpukube_torch.apiserver import EvictionExecutor, PodLifecycleReleaseLoop
 from tpukube_torch.core import codec
 from tpukube_torch.core.clock import SYSTEM
 from tpukube_torch.core.config import GpuKubeConfig, load_config
@@ -37,10 +41,37 @@ from tpukube_torch.core.types import (
     canonical_link,
 )
 from tpukube_torch.sched import kube
-from tpukube_torch.sched.extender import Extender
+from tpukube_torch.sched.extender import Extender, serve
 
-# pod phases after which a pod's containers hold no devices
-TERMINAL_PHASES = ("Succeeded", "Failed")
+
+class _PodStoreApi:
+    """The apiserver surface EvictionExecutor and PodLifecycleReleaseLoop
+    act through, over the harness's in-memory pod store (no PDBs in the
+    sim: every eviction is accepted and deletes at once)."""
+
+    def __init__(self, pods: dict[str, dict[str, Any]]) -> None:
+        self._pods = pods
+
+    def evict_pod(
+        self, namespace: str, name: str, dry_run: bool = False
+    ) -> bool:
+        if dry_run:
+            return True  # no PDBs in the sim
+        pod = self._pods.pop(f"{namespace}/{name}", None)
+        if pod is not None:
+            pod["metadata"].get("annotations", {}).pop(codec.ANNO_ALLOC, None)
+            pod["spec"].pop("nodeName", None)
+        return True
+
+    def get_pod(self, namespace: str, name: str) -> Optional[dict[str, Any]]:
+        return self._pods.get(f"{namespace}/{name}")
+
+    def list_pods(self, node_name: Optional[str] = None) -> list[dict[str, Any]]:
+        return [
+            p for p in list(self._pods.values())
+            if node_name is None
+            or p.get("spec", {}).get("nodeName") == node_name
+        ]
 
 
 class SimCluster:
@@ -95,6 +126,8 @@ class SimCluster:
                 )
         self.extender = Extender(self.config, clock=self.clock)
         self.pods: dict[str, dict[str, Any]] = {}  # key -> pod object
+        self._wire_extender(_PodStoreApi(self.pods))
+        self._http = None  # the extender's HTTP server while started
         # node objects cached per node (schedule() resends every node on
         # every webhook); fault injection invalidates the touched node
         self._node_obj_cache: dict[str, dict[str, Any]] = {}
@@ -104,14 +137,60 @@ class SimCluster:
         self._synced_objs: list[dict[str, Any]] = []
         self._synced_names: list[str] = []
 
+    def _wire_extender(self, store_api: _PodStoreApi) -> None:
+        """Attach the effectors a real extender daemon wires (eviction
+        executor, lifecycle release loop, PDB precheck) over the pod
+        store, stepped deterministically by this harness instead of run
+        as threads."""
+        # drained inline by schedule(); not started as a thread
+        self._evictions = EvictionExecutor(
+            self.extender, store_api, clock=self.clock
+        )
+        # stepped by delete_pod/complete_pod — the sim has no manual
+        # extender.release side channel
+        self._lifecycle = PodLifecycleReleaseLoop(
+            self.extender, store_api, use_watch=False,
+            evictions=self._evictions,
+        )
+        # PDB precheck for preemption plans, the dry-run shape a real
+        # daemon wires (trivially true here: the sim has no PDBs)
+        self.extender.evict_precheck = (
+            lambda pod_key: store_api.evict_pod(
+                *pod_key.split("/", 1), dry_run=True
+            )
+        )
+
     # -- lifecycle ---------------------------------------------------------
+    @property
+    def base_url(self) -> str:
+        """Where the extender's HTTP app serves while started."""
+        if self._http is None:
+            raise RuntimeError("SimCluster is not serving: start() it, or "
+                               "use it as a context manager")
+        host, port = self._http.server_address[:2]
+        return f"http://{host}:{port}"
+
+    def start(self) -> None:
+        """Serve the extender's HTTP app (webhooks, /healthz, /metrics
+        with the executor's and lifecycle loop's counters) on 127.0.0.1."""
+        if self._http is None:
+            self._http = serve(self.extender, "127.0.0.1", 0,
+                               evictions=self._evictions,
+                               lifecycle=self._lifecycle)
+
     def stop(self) -> None:
-        """Close the trace and event sinks (their drain threads)."""
+        """Stop serving, then close the trace and event sinks (their
+        drain threads)."""
+        if self._http is not None:
+            self._http.shutdown()
+            self._http.server_close()
+            self._http = None
         if self.extender.trace is not None:
             self.extender.trace.close()
         self.extender.events.close()
 
     def __enter__(self) -> "SimCluster":
+        self.start()
         return self
 
     def __exit__(self, *exc) -> None:
@@ -197,29 +276,23 @@ class SimCluster:
             raise RuntimeError(f"HTTP 400 from {path}: {e}")
 
     def drain_evictions(self) -> list[str]:
-        """Delete the pods the gang layer rolled back (all-or-nothing: a
-        half-assembled gang's members must not keep running) and confirm
-        each gone through the recorded ``victim_gone`` decision, which
-        unmasks its chips. Returns the confirmed pod keys, sorted."""
-        q = self.extender.pending_evictions
-        keys = [q.popleft() for _ in range(len(q))]
-        for key in keys:
-            pod = self.pods.pop(key, None)
-            if pod is not None:
-                pod["metadata"].get("annotations", {}).pop(
-                    codec.ANNO_ALLOC, None)
-                pod["spec"].pop("nodeName", None)
-        done = sorted(set(keys))
-        for key in done:
-            self.extender.handle("victim_gone", {"pod_key": key})
-        return done
+        """Delete the pods the extender evicted (gang rollback, preemption)
+        through the same :class:`~tpukube_torch.apiserver.EvictionExecutor`
+        a real cluster runs, pointed at this harness's pod store. Returns
+        the pod keys confirmed gone."""
+        return self._evictions.drain()
 
     def schedule(
         self, pod: dict[str, Any], retries: int = 8
     ) -> tuple[str, AllocResult]:
         """One scheduling cycle for one pod, with kube-scheduler's requeue
-        semantics: a lost bind race re-runs the whole cycle. Evictions
-        drain at the top of every cycle. Raises on failure."""
+        semantics: a lost bind race re-runs the whole cycle. Raises on
+        failure.
+
+        Evictions drain at the top of EVERY cycle: a gang's first bind
+        executes its preemption plan and fails retryably until the victims
+        are confirmed gone, so the retry must run the executor (as a real
+        daemon's eviction loop would, concurrently) to make progress."""
         last_err = ""
         for _ in range(retries):
             self.drain_evictions()
@@ -258,33 +331,23 @@ class SimCluster:
             return best, alloc
         raise RuntimeError(f"bind error after {retries} cycles: {last_err}")
 
-    def _release_gone(self) -> None:
-        """The lifecycle loop's resync over the pod store: terminal-phase
-        pods and allocations whose pod object is gone are released."""
-        ext = self.extender
-        for key, pod in list(self.pods.items()):
-            if ((pod.get("status") or {}).get("phase") in TERMINAL_PHASES
-                    and ext.state.allocation(key) is not None):
-                ext.handle("release", {"pod_key": key})
-        for alloc in ext.state.allocations():
-            if alloc.pod_key not in self.pods:
-                ext.handle("release", {"pod_key": alloc.pod_key})
-
     def delete_pod(self, name: str, namespace: str = "default") -> None:
-        """Remove the pod object; its chips are released as a real
-        cluster's lifecycle loop would, through a recorded release."""
+        """Remove the pod object, then let the lifecycle release loop
+        observe the absence — the path a real cluster takes (DELETED
+        event → recorded release decision), not a manual release call."""
         self.pods.pop(f"{namespace}/{name}", None)
-        self._release_gone()
+        self._lifecycle.check_once()
 
     def complete_pod(self, name: str, namespace: str = "default",
                      phase: str = "Succeeded") -> None:
-        """Mark a pod's containers finished (terminal phase); the object
-        lingers, and its chips are freed from the phase alone."""
+        """Mark a pod's containers finished (terminal phase). The object
+        lingers — exactly how a completed Job pod looks on a real cluster
+        — and the lifecycle loop frees its chips from the phase alone."""
         pod = self.pods.get(f"{namespace}/{name}")
         if pod is None:
             raise KeyError(f"no pod {namespace}/{name}")
         pod.setdefault("status", {})["phase"] = phase
-        self._release_gone()
+        self._lifecycle.check_once()
 
     # -- fault injection ------------------------------------------------------
     def inject_fault(self, node_name: str, chip_index: int,

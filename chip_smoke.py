@@ -8,19 +8,36 @@ Drives the port's main path the way a cluster does, on the card:
 1. prints the card's name and power limit (nvidia-smi);
 2. node agent: GpuDeviceManager on the real backend builds the NVML
    discovery shim (g++) and finds the card through NVML; its SM count,
-   memory, health and probe are held against what CUDA reports;
+   memory, health and probe are held against what CUDA reports. Its
+   device plugin (``DevicePluginServer``) registers with the in-process
+   kubelet peer, which moves the v1beta1 bytes of the port's codec
+   without sockets (the machine has no grpcio): Register must carry
+   ``v1beta1``, ``qiniu.com/tpu`` and GetPreferredAllocation, the first
+   ListAndWatch must list exactly NVML's GPUs, each Healthy as the probe
+   says, and one ``HealthWatcher`` poll over the XID probe must push no
+   transition;
 3. placement: the node agent annotates its node (``codec.annotate_node``);
    the port's scheduler extender serves its webhooks on 127.0.0.1 over
    HTTP, and a ``qiniu.com/tpu: 1`` pod goes through ``/filter`` ->
    ``/prioritize`` -> ``/bind`` as kube-scheduler sends them: it must bind
    ``tpu-0`` on this node, and a second such pod must be unschedulable
-   while the first is bound; the bound ids go to ``allocate_env``, and the
-   alloc's env merged with the Allocate env is the env of every pod below
-   (serving, train, ResNet, dryrun);
+   while the first is bound. The bound ids go into the plugin's intents:
+   GetPreferredAllocation must answer ``tpu-0`` from the intent, the
+   kubelet's Allocate of them must return ``allocate_env``'s env and mark
+   the intent satisfied, and an Allocate of ``tpu-99`` must be refused
+   with INVALID_ARGUMENT; both round trips are timed (median of 100). The
+   alloc's env merged with the AllocateResponse's is the env of every pod
+   below (serving, train, ResNet, dryrun); every card pod's env comes
+   from the plugin's Allocate;
 4. pod: ``python -m tpukube_torch.graft`` runs as a child process with that
    env, checks it got the allocated GPU (UUID), builds Llama-3-8B at full
    width and depth from a seed, serves 3 forward requests (B=2, S=2048),
-   and checks shape, finiteness, loss, causality and card-vs-CPU parity;
+   and checks shape, finiteness, loss, causality and card-vs-CPU parity.
+   Meanwhile a ``HealthSampler`` on the node agent samples NVML telemetry
+   (one sample must show memory in use above the idle reading); then the
+   plugin's ``/metrics`` page must count its Allocates, list every GPU
+   Healthy and carry one telemetry series per GPU, and the ``plugin:``
+   line prints the timings and readings;
 5. training pod: ``python -m tpukube_torch.graft --train``, a child in the
    same env after the serving pod exits: a world-1 NCCL group, the
    ``DeviceMesh(("dp", "tp"))`` of the env, Llama-3-8B at full width and
@@ -35,10 +52,11 @@ Drives the port's main path the way a cluster does, on the card:
 7. ``python -m tpukube_torch.graft --dryrun``: ``dryrun_multichip`` over
    every visible GPU, NCCL;
 8. vGPU (BASELINE config 3, two inference pods sharing one card under a
-   hard memory quota): a second node agent with two shares per GPU must
-   advertise exactly ``tpu-0-frac0of2`` and ``tpu-0-frac1of2`` as
-   ``qiniu.com/vtpu``, prefer both for a pod of 2, mint each share's env
-   (half the memory, fraction 0.5000, half the SMs) and refuse a third;
+   hard memory quota): a second node agent with two shares per GPU, whose
+   plugin must advertise exactly ``tpu-0-frac0of2`` and ``tpu-0-frac1of2``
+   as ``qiniu.com/vtpu`` on ListAndWatch, prefer both for a pod of 2,
+   answer each share's Allocate (half the memory, fraction 0.5000, half
+   the SMs) and refuse a third with INVALID_ARGUMENT;
    two ``qiniu.com/vtpu: 1`` pods are placed through the extender (over
    HTTP, on the node the share agent annotates) and must bind
    ``tpu-0-frac0of2`` and ``tpu-0-frac1of2``, and a third must be
@@ -57,8 +75,8 @@ Drives the port's main path the way a cluster does, on the card:
    contiguous along y. Each gang's per-member schedule-cycle p50 and p99,
    its commit latency and the utilization are printed, as host CPU times;
 10. the scheduled pod: member 0 of the 16-member gang, its env the
-   extender's gang keys merged with the node agent's Allocate on the sim
-   node, runs ``python -m tpukube_torch.graft --scheduled`` on the card,
+   extender's gang keys merged with the Allocate of the sim node's plugin
+   (``SimCluster`` over the in-process transport), runs ``python -m tpukube_torch.graft --scheduled`` on the card,
    which holds the env against the bind and serves one Llama-3-8B request
    (B=2, S=2048) after the UUID check;
 11. config 5 (BASELINE: burst inference pods, then a high-priority training
@@ -78,7 +96,8 @@ Drives the port's main path the way a cluster does, on the card:
       through a fake apiserver whose eviction SIGTERMs the child (the
       kubelet's part), and the pod object goes only once the process has
       exited; the gang's bind must then land ``tpu-0``, never while the
-      victim lives, and its env runs the ``--train`` pod (as step 5); NVML
+      victim lives, and its env (the plugin's Allocate, as the burst
+      pod's) runs the ``--train`` pod (as step 5); NVML
       memory in use is read at idle, while the victim serves and at the
       bind;
 12. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
@@ -87,8 +106,9 @@ Drives the port's main path the way a cluster does, on the card:
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
-NCCL init, a child's exit, a check) exits non-zero and prints no result;
-without CUDA it exits non-zero at once.
+NCCL init, a child's exit, a check) exits non-zero and prints no result,
+and so does a run that imported ``grpc`` or ``google.protobuf``; without
+CUDA it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -97,10 +117,12 @@ import contextlib
 import json
 import os
 import queue
+import statistics
 import subprocess
 import sys
 import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 POD_TIMEOUT_S = 900
@@ -198,6 +220,165 @@ def place_pods(node: dict, pods: list, want: list, refused: dict, card: str):
     return allocs
 
 
+@contextlib.contextmanager
+def node_agent(env: dict):
+    """The node agent on the card: a real-backend ``GpuDeviceManager``
+    (``env`` over the config's defaults), its ``DevicePluginServer`` and
+    ``HealthWatcher``, registered with the in-process kubelet peer (the
+    GPU machine has no grpcio: the same v1beta1 bytes cross without
+    sockets). Yields them, with the ms from Register to the kubelet's
+    first ListAndWatch list, once that list holds every device."""
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.device import GpuDeviceManager
+    from tpukube_torch.plugin import DevicePluginServer, HealthWatcher, InProcessKubelet
+
+    cfg = load_config(env={"TPUKUBE_BACKEND": "real", **env})
+    with GpuDeviceManager(cfg) as mgr, InProcessKubelet() as kubelet:
+        server = DevicePluginServer(cfg, mgr)
+        watcher = HealthWatcher(mgr, server, poll_seconds=3600.0)
+        watcher.start()
+        try:
+            t = time.perf_counter()
+            kubelet.register_plugin(server)
+            kubelet.wait_for_devices(server.resource_name, len(mgr.device_list()))
+            yield types.SimpleNamespace(
+                mgr=mgr, kubelet=kubelet, server=server, watcher=watcher,
+                register_ms=(time.perf_counter() - t) * 1e3)
+        finally:
+            watcher.stop()
+
+
+def allocate(agent, alloc) -> dict:
+    """A bound pod's container env, as the kubelet hands it over: the
+    extender's bind puts its ids into the plugin's intents (the intent
+    watcher's part on a real node), the kubelet's Allocate of those ids
+    answers with the plugin's env, and the alloc's own keys (a gang's)
+    lie under it."""
+    agent.server.intents.put(alloc.pod_key, alloc.device_ids)
+    return {**alloc.env,
+            **agent.kubelet.allocate(agent.server.resource_name, alloc.device_ids)}
+
+
+def refused(agent, device_ids: list) -> str:
+    """The plugin's refusal of an Allocate of ``device_ids`` (its message),
+    or "" when it answered with an env or refused with another code."""
+    from tpukube_torch.plugin import PluginRpcError
+
+    try:
+        agent.kubelet.allocate(agent.server.resource_name, device_ids)
+    except PluginRpcError as e:
+        return e.message if e.code == "INVALID_ARGUMENT" else ""
+    return ""
+
+
+def median_us(fn, rounds: int = 100) -> float:
+    """Median host-clock µs of ``rounds`` calls of ``fn``."""
+    times = []
+    for _ in range(rounds):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e6
+
+
+def plugin_phase(agent, chips: list, bound, card: str):
+    """The device plugin on the card (module docstring, steps 2-3): its
+    registration and first device list, the planned Allocate of the
+    serving pod's bound ids, a refused Allocate. Returns (the pod's env,
+    the plugin line's timings), or None when a check failed."""
+    from tpukube_torch.core.types import Health
+
+    kubelet, server, mgr = agent.kubelet, agent.server, agent.mgr
+    res = server.resource_name
+    reg = kubelet.registration(res)
+    if (reg.version, reg.resource_name) != ("v1beta1", "qiniu.com/tpu") \
+            or not reg.options.get_preferred_allocation_available:
+        fail(f"Register carried {reg}")
+        return None
+    devs = kubelet.devices(res)
+    want = {c.device_id(): "Healthy" for c in chips}
+    healthy = mgr.probe() and all(h is Health.HEALTHY
+                                  for h in mgr.health_snapshot().values())
+    if devs != want or not healthy:
+        fail(f"first ListAndWatch listed {devs}, NVML has {want}, probe healthy {healthy}")
+        return None
+    if agent.watcher.check_once():
+        fail(f"the health watch pushed a transition on a healthy card: "
+             f"{mgr.health_snapshot()} {mgr.probe_report()}")
+        return None
+    spans = []
+    server.span_sink = lambda name, pod_key, **fields: spans.append((name, pod_key))
+    server.intents.put(bound.pod_key, bound.device_ids)
+    ids = sorted(devs)
+    planned = server.intents.preferred(ids, [], 1)
+    pref = kubelet.preferred(res, ids, 1)
+    if planned != ["tpu-0"] or pref != ["tpu-0"]:
+        fail(f"GetPreferredAllocation answered {pref} (the intent: {planned})")
+        return None
+    penv = kubelet.allocate(res, ["tpu-0"])
+    direct = mgr.allocate_env(["tpu-0"])  # the one direct call: equality only
+    if penv != direct:
+        fail(f"the plugin's Allocate env {penv} is not the device manager's {direct}")
+        return None
+    if (spans[:1] != [("intent_match", bound.pod_key)] or server.divergences
+            or server.intents.depth()):
+        fail(f"the intent was not satisfied: spans {spans}, divergences "
+             f"{server.divergences}, pending {server.intents.snapshot()}")
+        return None
+    why = refused(agent, ["tpu-99"])
+    if not why:
+        fail("Allocate of tpu-99 was not refused with INVALID_ARGUMENT")
+        return None
+    times = {
+        "register_to_first_list_ms": agent.register_ms,
+        "preferred_us_median": median_us(lambda: kubelet.preferred(res, ids, 1)),
+        "allocate_us_median": median_us(lambda: kubelet.allocate(res, ["tpu-0"])),
+    }
+    print(f"device plugin: Register {reg.version} {reg.resource_name} -> first "
+          f"ListAndWatch {devs} in {agent.register_ms:.3f} ms; GetPreferredAllocation "
+          f"answered {pref} from {bound.pod_key}'s intent; Allocate env equals "
+          f"allocate_env; tpu-99 refused ({why}) [{card}]", flush=True)
+    return {**bound.env, **penv}, times
+
+
+def sampled(sampler, fn):
+    """``fn()`` while a thread steps ``sampler`` every TELEMETRY_PERIOD_S.
+    Returns (its result, GPU 0's NVML memory in use at each sample)."""
+    used, done = [], threading.Event()
+
+    def loop() -> None:
+        while not done.wait(TELEMETRY_PERIOD_S):
+            sampler.check_once()
+            used.append(sampler.latest()[0].hbm_used_bytes)
+
+    thread = threading.Thread(target=loop, daemon=True)
+    thread.start()
+    try:
+        return fn(), used
+    finally:
+        done.set()
+        thread.join()
+
+
+def plugin_metrics_ok(agent, sampler, n_gpus: int) -> bool:
+    """The plugin's /metrics page after the serving pod (module docstring,
+    step 4): its Allocates counted, every GPU Healthy, one telemetry
+    series per GPU."""
+    from tpukube_torch.metrics import render_plugin_metrics
+
+    m = metric_lines(render_plugin_metrics(agent.server, health=agent.watcher,
+                                           sampler=sampler))
+    per_gpu = [f'tpukube_chip_{family}{{chip="tpu-{i}"}}' for i in range(n_gpus)
+               for family in ("healthy", "duty_cycle_percent", "hbm_used_bytes",
+                              "hbm_total_bytes", "ici_link_errors_total")]
+    missing = [k for k in per_gpu if k not in m]
+    if (m.get("tpukube_plugin_allocations_total", 0) < 1 or missing
+            or m.get('tpukube_plugin_devices{health="Healthy"}') != n_gpus):
+        fail(f"plugin /metrics: {m}; missing {missing}")
+        return False
+    return True
+
+
 def config4_phase(card: str):
     """Config 4 on a simulated HGX fleet (module docstring, step 9).
     Returns (member 0's alloc, its env) of the 16-member gang, or None
@@ -211,7 +392,9 @@ def config4_phase(card: str):
     for hosts, members, util in ((4, 16, 0.75), (16, 64, 0.5625)):
         cfg = load_config(env={"TPUKUBE_SIM_MESH_DIMS": f"8,{hosts},1",
                                "TPUKUBE_SIM_HOST_BLOCK": "8,1,1"})
-        with SimCluster(cfg) as c:
+        # member 0's Allocate runs through the sim node's plugin stack, in
+        # process: the GPU machine has no grpcio
+        with SimCluster(cfg, transport="inprocess") as c:
             for i in range(2):
                 c.schedule(c.make_pod(f"bg-{i}", tpu=4))
             group = PodGroup("llama-8b", min_member=members)
@@ -400,7 +583,6 @@ def preempt_on_card(card: str, c0):
     from tpukube_torch.core import codec
     from tpukube_torch.core.config import load_config
     from tpukube_torch.core.types import PodGroup
-    from tpukube_torch.device import GpuDeviceManager
     from tpukube_torch.sched import client
     from tpukube_torch.sched.extender import Extender, serve
     from tpukube_torch.sched.kube import pod_object
@@ -428,7 +610,9 @@ def preempt_on_card(card: str, c0):
     port = server.server_address[1]
     burst_proc = None
     try:
-        with GpuDeviceManager(load_config(env={"TPUKUBE_BACKEND": "real"})) as mgr:
+        with node_agent({}) as agent:
+            mgr = agent.mgr
+
             def nvml_used() -> int:
                 return mgr.telemetry_snapshot()[0].hbm_used_bytes
 
@@ -444,7 +628,7 @@ def preempt_on_card(card: str, c0):
             burst["spec"]["nodeName"] = host
             api.upsert_pod(burst)
             api.graceful.add(bkey)  # terminates as the kubelet lets it
-            benv = {**alloc.env, **mgr.allocate_env(alloc.device_ids)}
+            benv = allocate(agent, alloc)
             burst_proc = subprocess.Popen(
                 [sys.executable, "-m", "tpukube_torch.graft", "--requests",
                  str(BURST_REQUESTS), "--batch", "1"],
@@ -533,7 +717,7 @@ def preempt_on_card(card: str, c0):
                 f"the gang's bind {used['bind']} bytes [{card}]",
                 flush=True,
             )
-            genv = {**galloc.env, **mgr.allocate_env(galloc.device_ids)}
+            genv = allocate(agent, galloc)
         tr = run_pod(["--train"], genv, "train")
         if tr is None:
             return None
@@ -648,9 +832,6 @@ def run_shared(envs: list, guard: str, mgr) -> tuple:
 def vgpu_phase(card: str, c0, solo: dict) -> int:
     """BASELINE config 3 on the card (module docstring, step 8); 0 or the
     exit code of the failed check."""
-    from tpukube_torch.core.config import load_config
-    from tpukube_torch.core.types import Health
-    from tpukube_torch.device import DeviceError, GpuDeviceManager
     from tpukube_torch.device.gpu import (
         ENV_HBM_LIMIT,
         ENV_KUBE_CORE_IDS,
@@ -658,32 +839,33 @@ def vgpu_phase(card: str, c0, solo: dict) -> int:
         ENV_MPS_THREAD_PERCENTAGE,
     )
     from tpukube_torch.native import cudaguard
+    from tpukube_torch.sched.kube import pod_object
 
     mps = mps_daemon_running()
     print(f"vGPU: MPS control daemon running: {mps}"
           + ("" if mps else " (the SM split below is advertised, not enforced)"),
           flush=True)
-    cfg = load_config(env={"TPUKUBE_BACKEND": "real", "TPUKUBE_SHARES_PER_CHIP": "2"})
-    with GpuDeviceManager(cfg) as mgr:
-        devices = mgr.device_list()
+    with node_agent({"TPUKUBE_SHARES_PER_CHIP": "2"}) as agent:
+        mgr, kubelet = agent.mgr, agent.kubelet
+        res = agent.server.resource_name
         ids = ["tpu-0-frac0of2", "tpu-0-frac1of2"]
-        if devices != [(d, Health.HEALTHY) for d in ids]:
-            return fail(f"vGPU device list {devices}")
-        if mgr.resource_name != "qiniu.com/vtpu":
-            return fail(f"vGPU resource {mgr.resource_name}")
-        picked = mgr.preferred_allocation(ids, [], 2)
+        devices = kubelet.devices(res)
+        if res != "qiniu.com/vtpu" or kubelet.registration(res).resource_name != res:
+            return fail(f"vGPU resource {res}")
+        if devices != {d: "Healthy" for d in ids}:
+            return fail(f"vGPU ListAndWatch listed {devices}")
+        picked = kubelet.preferred(res, ids, 2)
         if sorted(picked) != ids:
-            return fail(f"preferred_allocation picked {picked}")
+            return fail(f"GetPreferredAllocation picked {picked}")
         quota = c0.hbm_bytes // 2
         cps = c0.num_cores // 2
-        from tpukube_torch.sched.kube import pod_object
 
         allocs = place_pods(node_object(mgr),
                             [pod_object(f"shared-{k}", vtpu=1) for k in range(2)],
                             [[d] for d in ids], pod_object("shared-2", vtpu=1), card)
         if allocs is None:
             return 1
-        envs = [{**a.env, **mgr.allocate_env(a.device_ids)} for a in allocs]
+        envs = [allocate(agent, a) for a in allocs]
         for k, env in enumerate(envs):
             sms = "0:" + "+".join(str(c) for c in range(k * cps, (k + 1) * cps))
             want = {ENV_HBM_LIMIT: str(quota), ENV_MEM_FRACTION: "0.5000",
@@ -694,11 +876,10 @@ def vgpu_phase(card: str, c0, solo: dict) -> int:
                 return fail(f"share {k} env {got}, want {want}")
             print(f"vGPU allocate env, share {k}: " + json.dumps(env, sort_keys=True),
                   flush=True)
-        try:
-            mgr.allocate_env(["tpu-0-frac2of2"])
-            return fail("a third share of the card was allocated")
-        except DeviceError as e:
-            print(f"vGPU: third share refused: {e}", flush=True)
+        why = refused(agent, ["tpu-0-frac2of2"])
+        if not why:
+            return fail("a third share of the card was not refused with INVALID_ARGUMENT")
+        print(f"vGPU: third share refused by the plugin: {why}", flush=True)
 
         guard = cudaguard.library_path()
         # share 0's env without its fraction: with it, PyTorch's caching
@@ -768,10 +949,9 @@ def main() -> int:
         return fail("torch.cuda.is_available() is false")
 
     from tpukube_torch.core import codec
-    from tpukube_torch.core.config import load_config
     from tpukube_torch.core.types import Health
-    from tpukube_torch.device import GpuDeviceManager
     from tpukube_torch.graft import ENV_ALLOC
+    from tpukube_torch.obs.health import HealthSampler
     from tpukube_torch.sched.kube import pod_object
 
     card = subprocess.run(
@@ -780,10 +960,11 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    # -- node agent -------------------------------------------------------
+    # -- node agent, its device plugin --------------------------------------
     props = torch.cuda.get_device_properties(0)
     # the real backend's default health watch: NVML XID events + liveness
-    with GpuDeviceManager(load_config(env={"TPUKUBE_BACKEND": "real"})) as mgr:
+    with node_agent({}) as agent:
+        mgr = agent.mgr
         if mgr.inventory_source() != "nvml":
             return fail(f"inventory source {mgr.inventory_source()!r}")
         chips = mgr.chips()
@@ -800,18 +981,35 @@ def main() -> int:
         print(f"node agent: {len(chips)} GPU(s) via {mgr.inventory_source()}; "
               f"tpu-0 = {c0.chip_id}, {c0.num_cores} SMs, {c0.hbm_bytes} bytes",
               flush=True)
-        # -- placement, then Allocate of the bound ids ----------------------
+        # -- placement, then the plugin's Allocate of the bound ids ---------
         allocs = place_pods(node_object(mgr), [pod_object("serve-0", tpu=1)],
                             [["tpu-0"]], pod_object("serve-1", tpu=1), card)
         if allocs is None:
             return 1
-        env = {**allocs[0].env, **mgr.allocate_env(allocs[0].device_ids)}
-    print("allocate env: " + json.dumps(env, sort_keys=True), flush=True)
+        planned = plugin_phase(agent, chips, allocs[0], card)
+        if planned is None:
+            return 1
+        env, times = planned
+        print("allocate env: " + json.dumps(env, sort_keys=True), flush=True)
 
-    # -- pod ---------------------------------------------------------------
-    pod = run_pod([], env, "pod")
-    if pod is None:
-        return 1
+        # -- pod, while the node agent samples telemetry --------------------
+        sampler = HealthSampler(mgr, poll_seconds=TELEMETRY_PERIOD_S)
+        sampler.check_once()
+        idle = sampler.latest()[0].hbm_used_bytes
+        pod, used = sampled(sampler, lambda: run_pod([], env, "pod"))
+        if pod is None:
+            return 1
+        if not any(u > idle for u in used):
+            return fail(f"no telemetry sample above the idle {idle} bytes: {used}")
+        if not plugin_metrics_ok(agent, sampler, len(chips)):
+            return 1
+        print("plugin: " + json.dumps({
+            **times, "rounds": 100, "devices": agent.kubelet.devices(agent.server.resource_name),
+            "sampler": {"samples": sampler.samples, "during_pod": len(used),
+                        "nvml_used_idle_bytes": idle, "nvml_used_peak_bytes": max(used),
+                        "above_idle": sum(u > idle for u in used)},
+            "card": card,
+        }, sort_keys=True), flush=True)
     if pod["uuid"] != c0.chip_id or pod["device"] != props.name:
         return fail(f"pod ran on {pod['device']} {pod['uuid']}, allocated {c0.chip_id}")
     print("pod: " + json.dumps(pod, sort_keys=True), flush=True)
@@ -970,6 +1168,11 @@ def main() -> int:
         f"{gloo['leg2']['loss']:.4f} on the port-minted DCN gang env",
         flush=True,
     )
+    # nothing on the card path loaded the gRPC stack
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))
+    if loaded:
+        return fail(f"the card path imported {loaded}")
     print(f"chip_smoke: whole run {time.monotonic() - t_start:.1f} s [{card}]",
           flush=True)
 

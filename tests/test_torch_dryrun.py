@@ -22,6 +22,7 @@ from tpukube_torch.workload.meshenv import (
     mesh_axes_from_box,
     mesh_shape_from_alloc_env,
 )
+from test_torch_tp import mesh_rank
 from test_torch_train import port_env
 from torch_refnative import use_private_tpuinfo
 
@@ -112,6 +113,26 @@ def test_mesh_policy_matches_reference(env, n, tp):
     ref_names, ref_shape, ref_pe = _ref_mesh(env, n, tp)
     assert (names, shape) == (ref_names, ref_shape)
     assert pe.spans_dcn == ref_pe.spans_dcn
+
+
+PAIR_ENV = {**BOX_ENV, "TPU_VISIBLE_DEVICES": "0,1", "TPU_KUBE_DEVICE_IDS": "tpu-0,tpu-1",
+            "TPU_KUBE_CHIP_COORDS": "0,0,0;1,0,0"}
+
+
+def test_mesh_of_a_box_smaller_than_the_world_matches_reference():
+    # a 2-chip box on 4 ranks: the mesh takes the first dp·tp ranks, as the
+    # reference's takes the first dp·tp of 4 devices; ranks 2 and 3 call
+    # it too (it is collective) and get no coordinate
+    mesh, _ = ref.mesh_from_alloc_env(PAIR_ENV, devices=jax.devices()[:4])
+    want = [[d.id for d in row] for row in mesh.devices]
+    ranks = graft.run_ranks(mesh_rank, 4, "gloo", ({"env": port_env(PAIR_ENV), "tp": None},))
+    for r, out in enumerate(ranks):
+        assert out["axes"] == list(mesh.axis_names) == ["dp", "tp"]
+        assert out["members"] == want == [[0, 1]]
+        if r < 2:
+            assert out["coordinate"] == [0, r] and out["tp_sum"] == 1.0
+        else:
+            assert out["coordinate"] is None and out["tp_sum"] is None
 
 
 @pytest.mark.parametrize("env,n,tp", [(DCN_ENV, 7, None), (BOX_ENV, 2, 4)])

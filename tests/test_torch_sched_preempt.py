@@ -40,7 +40,7 @@ from tpukube_torch.sched.extender import Extender
 from tpukube_torch.sched.kube import pod_object
 from tpukube_torch.sim import SimCluster
 from torch_refnative import use_private_tpuinfo
-from torch_twin import REF_SIM_DEFAULTS, reference_tests, run_twin
+from torch_twin import REF_SIM_DEFAULTS, TMP_PATH, reference_tests, run_twin
 
 use_private_tpuinfo()
 
@@ -95,21 +95,19 @@ def test_reference_config6_tests_hold_on_the_port(fn):
 
 
 _REST = "RestApiServer (the Kubernetes REST channel) is not ported"
-_INTENTS = "the alloc-intent watcher and the gRPC device plugin are not ported"
+_INTENTS = "the alloc-intent watcher (AllocIntentWatcher) is not ported"
 _EFFECTOR = "the bind effector (pod_binder) is not ported"
 _REFRESH = "NodeTopologyRefreshLoop is not ported"
 APISERVER_SKIPS = {
     "test_extender_learns_topology_only_through_syncer":
-        "NodeAnnotationSyncer and the gRPC device plugin are not ported",
+        "NodeAnnotationSyncer is not ported",
     "test_syncer_tolerates_missing_and_garbage_file":
         "NodeAnnotationSyncer is not ported",
     "test_rest_apiserver_speaks_merge_patch": _REST,
     "test_rest_list_pods_paginates": _REST,
-    "test_intent_steers_preferred_allocation": _INTENTS,
     "test_intent_watcher_feeds_pod_allocs": _INTENTS,
     "test_kubelet_divergence_reconciles_extender_ledger":
-        "the reconcile loop and the gRPC device plugin are not ported",
-    "test_consumed_intent_never_reenters_and_ambiguity_refused": _INTENTS,
+        "the alloc-intent watcher and the reconcile loop are not ported",
     "test_reconcile_refuses_chips_held_by_another_pod":
         "device-id reconcile is not ported",
     "test_reconcile_updates_gang_assignment": "device-id reconcile is not ported",
@@ -120,7 +118,6 @@ APISERVER_SKIPS = {
         "(test_graceful_victims_gate_the_gang_as_the_reference)",
     "test_reconcile_loop_watch_mode_folds_report_on_event":
         "the reconcile loop and the bind effector are not ported",
-    "test_ambiguous_intents_defer_to_local_choice": _INTENTS,
     "test_bind_effector_creates_real_binding": _EFFECTOR,
     "test_bind_effector_failure_rolls_back_ledger": _EFFECTOR,
     "test_rest_bind_pod_posts_binding_subresource": _REST,
@@ -133,7 +130,7 @@ APISERVER_SKIPS = {
     "test_watch_event_semantics": _INTENTS,
     "test_watch_stop_interrupts_blocked_stream": _INTENTS,
     "test_health_transition_reannotates_node":
-        "the gRPC device plugin and the annotation syncer are not ported",
+        "NodeAnnotationSyncer is not ported",
     "test_node_refresh_loop_feeds_namescapable_cache": _REFRESH,
     "test_node_refresh_watch_mode_applies_fault_within_event": _REFRESH,
     "test_rebuild_primes_refresh_loop": _REFRESH,
@@ -145,7 +142,7 @@ APISERVER_SKIPS = {
 @pytest.mark.parametrize("fn", reference_tests(test_apiserver, APISERVER_SKIPS),
                          ids=lambda f: f.__name__)
 def test_reference_apiserver_tests_hold_on_the_port(fn):
-    run_twin(fn)
+    run_twin(fn, TMP_PATH)
 
 
 ADVICE_SKIPS = {
@@ -188,18 +185,58 @@ def test_reference_registry_tests_hold_on_the_port(name):
     run_twin(vars(test_obs)[name])
 
 
-# the reconnect backoff the watch loop paces itself with (the rest of
-# test_retry is the reference's Retrier and CircuitBreaker, not ported)
+# the reconnect backoff the watch loop paces itself with, the Retrier the
+# plugin's kubelet registration runs under, and the config's retry_* knobs
+# (the rest of test_retry is the reference's CircuitBreaker, not ported,
+# and the config tests that read its circuit_*/chaos_seed knobs)
 RETRY_TESTS = (
     "test_delay_is_exponential_and_capped",
     "test_delay_jitter_only_shrinks_and_is_seeded",
     "test_backoff_sequence_grows_and_resets",
+    "test_retrier_retries_then_succeeds",
+    "test_retrier_exhausts_max_attempts_and_journals",
+    "test_retrier_honors_overall_deadline",
+    "test_retrier_does_not_retry_non_retryable",
+    "test_retrier_custom_classifier",
 )
 
 
 @pytest.mark.parametrize("name", RETRY_TESTS)
 def test_reference_backoff_tests_hold_on_the_port(name):
     run_twin(vars(test_retry)[name])
+
+
+# test_config_rejects_bad_retry_knobs's cases of the retry_* knobs
+RETRY_KNOB_CASES = [
+    env for env in
+    test_retry.test_config_rejects_bad_retry_knobs.pytestmark[0].args[1]
+    if all(k.startswith("TPUKUBE_RETRY_") for k in env)
+]
+
+
+@pytest.mark.parametrize("env", RETRY_KNOB_CASES, ids=lambda e: ",".join(
+    f"{k}={v}" for k, v in e.items()))
+def test_reference_retry_knob_checks_hold_on_the_port(env):
+    run_twin(test_retry.test_config_rejects_bad_retry_knobs,
+             {"env": lambda g: contextlib.nullcontext(env)})
+
+
+def test_policy_from_config_reads_the_retry_knobs():
+    # test_retry's test_policy_from_config_defaults and
+    # test_config_retry_knobs_load_and_coerce, minus their circuit_* and
+    # chaos_seed knobs (the CircuitBreaker's, not ported)
+    from tpukube.core import retry as ref_retry
+    from tpukube_torch.core import retry
+
+    env = {"TPUKUBE_RETRY_MAX_ATTEMPTS": "7",
+           "TPUKUBE_RETRY_BASE_DELAY_SECONDS": "0.25",
+           "TPUKUBE_RETRY_JITTER": "0.1",
+           "TPUKUBE_RETRY_ATTEMPT_TIMEOUT_SECONDS": "2.5"}
+    for e in ({}, env):
+        got = retry.policy_from_config(load_config(env=e))
+        want = ref_retry.policy_from_config(ref_load_config(env=e))
+        assert vars(got) == vars(want)
+    assert retry.policy_from_config(load_config(env={})) == retry.RetryPolicy()
 
 
 # -- chip_smoke's config 5 (step 11a), both packages -------------------------

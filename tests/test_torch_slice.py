@@ -184,14 +184,49 @@ def test_port_pulls_in_no_control_plane_dependency():
         "tpukube_torch.sched.client, tpukube_torch.sim\n"
         "import tpukube_torch.apiserver, tpukube_torch.metrics, "
         "tpukube_torch.sched.policy, tpukube_torch.core.retry\n"
+        "import tpukube_torch.plugin, tpukube_torch.plugin.server, "
+        "tpukube_torch.plugin.proto.deviceplugin, tpukube_torch.plugin.fake_kubelet\n"
         "bad = ('yaml', 'grpc', 'google.protobuf', 'aiohttp', 'jax', 'jaxlib', 'optax', "
         "'tpukube')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in bad "
-        "or m.startswith(('jax.', 'tpukube.', 'grpc.', 'yaml.')))))\n"
+        "or m.startswith(('jax.', 'tpukube.', 'grpc.', 'yaml.', 'google.protobuf.')))))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                           capture_output=True, text=True, timeout=120)
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_plugin_loads_grpc_only_in_its_grpc_transport():
+    # the device plugin's whole in-process path (the card's: Register ->
+    # ListAndWatch -> Allocate, metrics, telemetry) loads no grpc, no
+    # protobuf, no jax and nothing of tpukube; plugin.stubs brings grpc
+    code = (
+        "import json, sys, tempfile\n"
+        "from tpukube_torch.core.config import load_config\n"
+        "from tpukube_torch.device import GpuDeviceManager\n"
+        "from tpukube_torch.metrics import render_plugin_metrics\n"
+        "from tpukube_torch.obs.health import HealthSampler\n"
+        "from tpukube_torch.plugin import DevicePluginServer, InProcessKubelet\n"
+        "cfg = load_config(env={'TPUKUBE_BACKEND': 'sim', "
+        "'TPUKUBE_DEVICE_PLUGIN_DIR': tempfile.mkdtemp()})\n"
+        "with InProcessKubelet() as k, GpuDeviceManager(cfg) as dev:\n"
+        "    s = DevicePluginServer(cfg, dev)\n"
+        "    k.register_plugin(s)\n"
+        "    k.wait_for_devices(s.resource_name, 8)\n"
+        "    env = k.allocate(s.resource_name, ['tpu-0'])\n"
+        "    sampler = HealthSampler(dev, poll_seconds=999)\n"
+        "    sampler.check_once()\n"
+        "    render_plugin_metrics(s, sampler=sampler)\n"
+        "def bad():\n"
+        "    return sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('grpc', 'jax', 'tpukube') or m.startswith('google.protobuf'))\n"
+        "before = bad()\n"
+        "import tpukube_torch.plugin.stubs\n"
+        "print(json.dumps([env['CUDA_VISIBLE_DEVICES'], before, 'grpc' in bad()]))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                          capture_output=True, text=True, timeout=120)
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == ["0", [], True]
 
 
 def test_scheduler_is_host_code_without_torch():

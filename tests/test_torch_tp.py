@@ -294,3 +294,17 @@ def resnet_rank(case: dict) -> dict:
         out["pod"] = train_resnet(cfg, mesh, seed=0, steps=3, batch=8,
                                   parity_batch=4, parity_size=cfg.image_size)
     return out if dist.get_rank() == 0 else None
+
+
+def mesh_rank(case: dict) -> dict:
+    """The mesh ``mesh_from_alloc_env`` builds on this rank, and the sum of
+    the ranks of its ``tp`` group where the rank holds a place in it."""
+    mesh, _ = mesh_from_alloc_env(case["env"], dist.get_world_size(), case["tp"])
+    coord = mesh.get_coordinate()
+    out = {"axes": list(mesh.mesh_dim_names), "members": mesh.mesh.tolist(),
+           "coordinate": None if coord is None else list(coord), "tp_sum": None}
+    if coord is not None:
+        t = torch.tensor([float(dist.get_rank())])
+        dist.all_reduce(t, group=mesh.get_group("tp"))
+        out["tp_sum"] = t.item()
+    return out

@@ -8,13 +8,15 @@ in-process, ``Extender.handle`` without HTTP), and for the port's run every
 class, function and module of ``tpukube.*`` becomes its namesake in
 ``tpukube_torch.*``. For the length of the port's run, ``sys.modules``
 maps every ``tpukube.*`` module to a stand-in that hands out the port's
-namesakes, so an import in the test's body reaches the port too; a name
-the port lacks fails the test, and so does building the reference's
-sim, extender, cluster state or gang manager. The test's own assertions
-then run on both sides, and the two decision logs (pod, node, device ids,
-coords, env, or the error) must be equal. The port's config gets the
-reference's sim defaults (mesh, HBM, cores per chip), so both sides mint
-the same fleet.
+namesakes (``TpuDeviceManager`` is ``GpuDeviceManager``,
+``tpukube.device.tpu`` is ``tpukube_torch.device.gpu``), so an import in
+the test's body reaches the port too; a name the port lacks fails the
+test, and so does building the reference's sim, extender, cluster state,
+gang manager, device manager, device-plugin server or fake kubelet. The
+test's own assertions then run on both sides, and the two decision logs
+(pod, node, device ids, coords, env, or the error) must be equal. The
+port's config gets the reference's sim defaults (sim backend, mesh, HBM,
+cores per chip), so both sides mint the same fleet.
 """
 
 from __future__ import annotations
@@ -22,10 +24,15 @@ from __future__ import annotations
 import contextlib
 import importlib
 import inspect
+import pathlib
 import sys
+import tempfile
 import types
 from typing import Any, Callable, Optional
 
+from tpukube.device import TpuDeviceManager as RefDeviceManager
+from tpukube.plugin import DevicePluginServer as RefPluginServer
+from tpukube.plugin import FakeKubelet as RefFakeKubelet
 from tpukube.sched.extender import Extender as RefExtender
 from tpukube.sched.gang import GangManager as RefGangManager
 from tpukube.sched.state import ClusterState as RefClusterState
@@ -36,6 +43,7 @@ from tpukube_torch.sim import SimCluster as PortSim
 # the reference's sim defaults (tpukube/core/config.py), given to both
 # sides so the port mints the same fleet as the reference
 REF_SIM_DEFAULTS = {
+    "TPUKUBE_BACKEND": "sim",
     "TPUKUBE_SIM_MESH_DIMS": "4,4,4",
     "TPUKUBE_SIM_HOST_BLOCK": "2,2,1",
     "TPUKUBE_HBM_BYTES_PER_CHIP": str(95 * 1024**3),
@@ -111,8 +119,15 @@ class PortLacks(LookupError):
     """A reference name with no namesake in the port."""
 
 
+# reference modules whose port has another name, and reference names
+# whose namesake in the port has another name
+MODULE_ALIASES = {"tpukube.device.tpu": "tpukube_torch.device.gpu"}
+NAME_ALIASES = {"TpuKubeConfig": "GpuKubeConfig",
+                "TpuDeviceManager": "GpuDeviceManager"}
+
+
 def _port_module(ref_name: str) -> types.ModuleType:
-    name = "tpukube_torch" + ref_name[len("tpukube"):]
+    name = MODULE_ALIASES.get(ref_name, "tpukube_torch" + ref_name[len("tpukube"):])
     try:
         return importlib.import_module(name)
     except ModuleNotFoundError as e:
@@ -134,11 +149,12 @@ def _port_value(name: str, val: Any) -> Any:
         return val
     mod = getattr(val, "__module__", None)
     if isinstance(mod, str) and mod.startswith("tpukube.") and hasattr(val, "__name__"):
-        alias = {"TpuKubeConfig": "GpuKubeConfig"}.get(val.__name__, val.__name__)
+        alias = NAME_ALIASES.get(val.__name__, val.__name__)
+        port_mod = _port_module(mod)
         try:
-            return getattr(_port_module(mod), alias)
+            return getattr(port_mod, alias)
         except AttributeError:
-            raise PortLacks(f"the port has no tpukube_torch{mod[7:]}.{alias}") from None
+            raise PortLacks(f"the port has no {port_mod.__name__}.{alias}") from None
     return val
 
 
@@ -184,10 +200,12 @@ def _refuse(self, *args, **kw):
 @contextlib.contextmanager
 def _port_run():
     """Imports of ``tpukube.*`` reach the port, and the reference's
-    scheduler objects cannot be built, until the block exits."""
+    scheduler and node-agent objects cannot be built, until the block
+    exits."""
     refs = {n: m for n, m in sys.modules.items()
             if n == "tpukube" or n.startswith("tpukube.")}
-    guarded = (RefSim, RefExtender, RefClusterState, RefGangManager)
+    guarded = (RefSim, RefExtender, RefClusterState, RefGangManager,
+               RefDeviceManager, RefPluginServer, RefFakeKubelet)
     inits = [cls.__dict__["__init__"] for cls in guarded]
     sys.modules.update({n: _PortModule(m) for n, m in refs.items()})
     for cls in guarded:
@@ -223,6 +241,16 @@ def _rebind(fn: Callable, port: bool, log: list,
                                          val.__defaults__, val.__closure__)
     return types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__,
                               fn.__closure__)
+
+
+@contextlib.contextmanager
+def _tmp_path():
+    with tempfile.TemporaryDirectory() as td:
+        yield pathlib.Path(td)
+
+
+# pytest's tmp_path, as a twin fixture: a fresh directory for each side
+TMP_PATH = {"tmp_path": lambda g: _tmp_path()}
 
 
 def _call(fn: Callable, fixtures: dict[str, Callable]) -> None:

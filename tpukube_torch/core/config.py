@@ -1,9 +1,9 @@
 """Configuration of the port's node agent and scheduler extender.
 
 Its own copy of the fields of ``tpukube/core/config.py`` that the device
-manager and the extender's default path read, with the same names, the
-same ``TPUKUBE_<FIELD>`` environment overlay and the same defaults, and
-no YAML file (the machines the port runs on have no YAML parser). The
+manager, the device plugin and the extender's default path read, with
+the same names, the same ``TPUKUBE_<FIELD>`` environment overlay and the
+same defaults, and no YAML file (the machines the port runs on have no YAML parser). The
 default backend is ``"real"`` (NVML): a node agent runs against its GPUs
 unless asked for the sim.
 
@@ -51,6 +51,22 @@ class GpuKubeConfig:
     hbm_bytes_per_chip: int = DEFAULT_HBM_BYTES
     cores_per_chip: int = DEFAULT_SMS
 
+    # node agent / device plugin (deviceplugin/v1beta1 over unix sockets)
+    device_plugin_dir: str = "/var/lib/kubelet/device-plugins"
+    kubelet_socket: str = "kubelet.sock"  # within device_plugin_dir
+    plugin_socket: str = "tpukube.sock"  # within device_plugin_dir
+    health_poll_seconds: float = 5.0
+
+    # the retry policy (core/retry.py) of the seams a Retrier is wired
+    # into: the plugin's kubelet registration
+    retry_max_attempts: int = 5
+    retry_base_delay_seconds: float = 0.1
+    retry_max_delay_seconds: float = 5.0
+    retry_jitter: float = 0.5  # fraction of each delay randomized away
+    retry_deadline_seconds: float = 30.0  # overall wall budget (0 = none)
+    # per-attempt transport-timeout cap (0 = the transport's own default)
+    retry_attempt_timeout_seconds: float = 0.0
+
     # scheduler extender
     extender_host: str = "0.0.0.0"
     extender_port: int = 12345
@@ -93,6 +109,12 @@ class GpuKubeConfig:
             host_block=self.sim_host_block,
             torus=self.sim_torus,
         )
+
+    def plugin_socket_path(self) -> str:
+        return os.path.join(self.device_plugin_dir, self.plugin_socket)
+
+    def kubelet_socket_path(self) -> str:
+        return os.path.join(self.device_plugin_dir, self.kubelet_socket)
 
 
 _TUPLE_FIELDS = {"sim_mesh_dims", "sim_host_block", "sim_torus"}
@@ -158,7 +180,7 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> GpuKubeConfig:
         raise ValueError("slice_id must be non-empty")
     if not 0 < cfg.extender_port < 65536:
         raise ValueError(f"extender_port {cfg.extender_port} out of range")
-    if cfg.reservation_ttl_seconds <= 0:
+    if cfg.health_poll_seconds <= 0 or cfg.reservation_ttl_seconds <= 0:
         raise ValueError("poll/ttl intervals must be positive")
     if cfg.score_mode not in ("topology", "binpack", "spread"):
         raise ValueError(f"unknown score_mode {cfg.score_mode!r}")
@@ -167,6 +189,23 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> GpuKubeConfig:
         raise ValueError(
             "trace_sink_max_bytes, events_capacity, and "
             "events_sink_max_bytes must be >= 0"
+        )
+    if cfg.retry_max_attempts < 1:
+        raise ValueError("retry_max_attempts must be >= 1")
+    if cfg.retry_base_delay_seconds <= 0 or cfg.retry_max_delay_seconds <= 0:
+        raise ValueError("retry delays must be positive")
+    if cfg.retry_max_delay_seconds < cfg.retry_base_delay_seconds:
+        raise ValueError(
+            "retry_max_delay_seconds must be >= retry_base_delay_seconds"
+        )
+    if not 0.0 <= cfg.retry_jitter < 1.0:
+        raise ValueError("retry_jitter must be in [0, 1)")
+    if cfg.retry_deadline_seconds < 0:
+        raise ValueError("retry_deadline_seconds must be >= 0 (0 = none)")
+    if cfg.retry_attempt_timeout_seconds < 0:
+        raise ValueError(
+            "retry_attempt_timeout_seconds must be >= 0 (0 = transport "
+            "default)"
         )
     if not 0.0 <= cfg.snapshot_audit_rate <= 1.0:
         raise ValueError(

@@ -152,6 +152,13 @@ class GpuDeviceManager:
         """Where the inventory came from: "sim" or "nvml"."""
         return self._gi.source()
 
+    def link_fault_snapshot(self) -> list:
+        """Downed links visible to this node (node_info's badLinks),
+        canonical pairs, sorted — the health watcher diffs this so link
+        faults re-annotate the node just like GPU faults. Only the sim
+        injects link faults, so on the real backend this is []."""
+        return sorted(self.node_info().bad_links)
+
     def probe(self) -> bool:
         """Run the backend's health probe (NVML XID events and liveness;
         no-op True on sim); chips() and health_snapshot() reflect the

@@ -520,7 +520,8 @@ def _mint_dcn_gang_env() -> dict:
         "dcn-a": MeshSpec((2, 1, 1), (2, 1, 1)),
         "dcn-b": MeshSpec((2, 1, 1), (2, 1, 1)),
     }
-    with SimCluster(load_config(env={}), slices=slices) as c:
+    # the node agent's Allocate in process: the GPU machine has no grpcio
+    with SimCluster(load_config(env={}), slices=slices, transport="inprocess") as c:
         group = PodGroup("dry", min_member=4, allow_dcn=True)
         allocs = [
             c.schedule(c.make_pod(f"dry-{i}", tpu=1, group=group))[1]

@@ -68,6 +68,10 @@ def _bucket_label(bound: float) -> str:
 class Metric:
     """Base: a named family with a ``# TYPE`` line and samples.
 
+    ``emit_type=False`` suppresses the TYPE line (the reference's legacy
+    quirk: ``tpukube_plugin_resource_info`` rides under the previous
+    family's header, and the page keeps that byte for byte).
+
     ``help_text`` opts a family into a ``# HELP`` line before its TYPE.
     Off by default: the pre-registry renderers never emitted HELP and
     the byte-identical goldens must survive; new telemetry/event series
@@ -76,8 +80,10 @@ class Metric:
 
     kind = "untyped"
 
-    def __init__(self, name: str, help_text: Optional[str] = None):
+    def __init__(self, name: str, emit_type: bool = True,
+                 help_text: Optional[str] = None):
         self.name = name
+        self.emit_type = emit_type
         self.help_text = help_text
         self._lock = threading.Lock()
 
@@ -89,7 +95,8 @@ class Metric:
         if self.help_text:
             out.append(f"# HELP {self.name} "
                        f"{escape_help_text(self.help_text)}\n")
-        out.append(f"# TYPE {self.name} {self.kind}\n")
+        if self.emit_type:
+            out.append(f"# TYPE {self.name} {self.kind}\n")
         for name, labels, value in self.samples():
             out.append(format_sample(name, value, labels))
         return "".join(out)
@@ -130,8 +137,8 @@ class _LabeledMetric(Metric):
     in creation order."""
 
     def __init__(self, name: str, fn: Optional[Callable[[], float]] = None,
-                 help_text: Optional[str] = None):
-        super().__init__(name, help_text=help_text)
+                 emit_type: bool = True, help_text: Optional[str] = None):
+        super().__init__(name, emit_type=emit_type, help_text=help_text)
         self._self_child = _ValueChild(fn)
         # label-tuple -> child, insertion-ordered (emission order)
         self._children: dict[tuple[tuple[str, str], ...], _ValueChild] = {}

@@ -8,9 +8,12 @@ max -> bind) goes straight into ``Extender.handle`` — the reference's
 ``with`` block (or after :meth:`SimCluster.start`) the extender's HTTP
 app also serves on ``base_url`` (``tpukube_torch.sched.extender.serve``),
 so ``GET {base_url}/metrics`` reads the live daemon's exposition.
-``execute_allocation`` runs the bound pod's Allocate on a sim-backend
-``GpuDeviceManager`` of the bound node and returns the container env,
-which is what the reference's gRPC Allocate returns.
+``execute_allocation`` runs the bound pod's Allocate through the device
+plugin stack of the bound node (``tpukube_torch.plugin``: kubelet peer,
+sim-backend ``GpuDeviceManager``, ``DevicePluginServer``) over the
+transport named at construction: ``"grpc"`` (unix sockets, as the
+reference) or ``"inprocess"`` (the same v1beta1 bytes without grpcio,
+for the GPU machine).
 
 An HGX fleet is ``MeshSpec((8, H, 1), (8, 1, 1))``: H hosts of 8 GPUs
 along y (``TPUKUBE_SIM_MESH_DIMS=8,H,1``, ``TPUKUBE_SIM_HOST_BLOCK=8,1,1``).
@@ -20,7 +23,7 @@ as a daemon is (``_wire_extender``): the ``EvictionExecutor`` deletes
 evicted pods from the store and confirms them gone (``victim_gone``), the
 ``PodLifecycleReleaseLoop`` releases a deleted or finished pod's chips
 through the recorded ``release`` decision, and the PDB precheck asks the
-store (which has no PDBs). The gRPC device-plugin stack is not ported yet.
+store (which has no PDBs).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from tpukube_torch.core.types import (
     PodGroup,
     canonical_link,
 )
+from tpukube_torch.plugin.fake_kubelet import TRANSPORTS
 from tpukube_torch.sched import kube
 from tpukube_torch.sched.extender import Extender, serve
 
@@ -85,12 +89,18 @@ class SimCluster:
         vtpu_shares: int = 2,
         slices: Optional[dict[str, MeshSpec]] = None,
         clock=None,
+        transport: str = "grpc",
     ):
         """Single-slice by default (``mesh``, else the config's sim mesh);
         pass ``slices`` (slice id -> MeshSpec) for a multi-slice cluster —
         node names are then prefixed "<slice>-host-i-j-k" so they stay
         unique cluster-wide. ``clock`` (core/clock.py) threads an
-        injectable — typically a FakeClock — through the gang TTLs."""
+        injectable — typically a FakeClock — through the gang TTLs.
+        ``transport`` is the device plugin's, for ``execute_allocation``:
+        "grpc" or "inprocess"."""
+        if transport not in TRANSPORTS:
+            raise ValueError(f"unknown plugin transport {transport!r}")
+        self.transport = transport
         self.config = config or load_config(env={})
         self.clock = clock if clock is not None else SYSTEM
         if slices is not None and mesh is not None:
@@ -388,33 +398,65 @@ class SimCluster:
                 info.bad_links.append(link)
             self._invalidate_node(name)
 
-    # -- node-agent composition ---------------------------------------------
-    def execute_allocation(self, alloc: AllocResult) -> dict[str, str]:
-        """The bound pod's Allocate on its node: a sim-backend
-        ``GpuDeviceManager`` for the bound node (the node's block of the
-        mesh, its slice, HBM and sharing mode) answers ``allocate_env``
-        for the bound device ids — the env the container receives."""
+    # -- node-agent composition (config 2's fan-out leg) --------------------
+    def execute_allocation(self, alloc: AllocResult,
+                           restart_agent: bool = False) -> dict[str, str]:
+        """Run the bound pod's Allocate through the device-plugin stack of
+        the target node — kubelet peer, sim-backend ``GpuDeviceManager``
+        (the node's block of the mesh, its slice, memory and sharing
+        mode), ``DevicePluginServer`` — over ``self.transport``, returning
+        the env the container would receive.
+
+        ``restart_agent=True`` cold-starts the node agent between
+        registration and Allocate: the server stops, and a fresh one is
+        fed the intent and registers anew (over gRPC on a rebound socket)
+        — a restarted agent must still serve the extender's planned
+        intent."""
+        import tempfile
+
         from tpukube_torch.device import GpuDeviceManager
+        from tpukube_torch.plugin import DevicePluginServer, make_kubelet
 
         info = self.nodes[alloc.node_name]
         mesh = self.slices[info.slice_id]
         origin = min(c.coord for c in info.chips)
-        cfg = load_config(env={
-            "TPUKUBE_BACKEND": "sim",
-            "TPUKUBE_SIM_MESH_DIMS": ",".join(str(d) for d in mesh.dims),
-            "TPUKUBE_SIM_HOST_BLOCK": ",".join(
-                str(d) for d in mesh.host_block
-            ),
-            "TPUKUBE_SIM_TORUS": ",".join(
-                str(t).lower() for t in mesh.torus
-            ),
-            "TPUKUBE_SIM_HOST_ORIGIN": ",".join(str(v) for v in origin),
-            "TPUKUBE_SLICE_ID": info.slice_id,
-            "TPUKUBE_HBM_BYTES_PER_CHIP": str(self.config.hbm_bytes_per_chip),
-            "TPUKUBE_SHARES_PER_CHIP": str(info.shares_per_chip),
-        })
-        with GpuDeviceManager(cfg, host=alloc.node_name) as device:
-            return device.allocate_env(alloc.device_ids)
+        with tempfile.TemporaryDirectory() as td:
+            cfg = load_config(env={
+                "TPUKUBE_BACKEND": "sim",
+                "TPUKUBE_DEVICE_PLUGIN_DIR": td,
+                "TPUKUBE_SIM_MESH_DIMS": ",".join(str(d) for d in mesh.dims),
+                "TPUKUBE_SIM_HOST_BLOCK": ",".join(
+                    str(d) for d in mesh.host_block
+                ),
+                "TPUKUBE_SIM_TORUS": ",".join(
+                    str(t).lower() for t in mesh.torus
+                ),
+                "TPUKUBE_SIM_HOST_ORIGIN": ",".join(str(v) for v in origin),
+                "TPUKUBE_SLICE_ID": info.slice_id,
+                "TPUKUBE_HBM_BYTES_PER_CHIP": str(self.config.hbm_bytes_per_chip),
+                "TPUKUBE_SHARES_PER_CHIP": str(info.shares_per_chip),
+            })
+            with GpuDeviceManager(cfg, host=alloc.node_name) as device, \
+                    make_kubelet(self.transport, td) as kubelet:
+                server = DevicePluginServer(cfg, device)
+                self._plan_and_register(kubelet, server, device, alloc)
+                if restart_agent:
+                    server.stop()
+                    server = DevicePluginServer(cfg, device)
+                    self._plan_and_register(kubelet, server, device, alloc)
+                return kubelet.allocate(server.resource_name, alloc.device_ids)
+
+    def _plan_and_register(self, kubelet, server, device,
+                           alloc: AllocResult) -> None:
+        """The node agent's part before Allocate: the planned intent put
+        into the server (the intent watcher's job on a real node), its
+        allocate/intent-match spans routed into the extender's decision
+        trace, then Register and the kubelet's first device list."""
+        if self.extender.trace is not None:
+            server.span_sink = self.extender.trace.span
+        server.intents.put(alloc.pod_key, list(alloc.device_ids))
+        kubelet.register_plugin(server)
+        kubelet.wait_for_devices(server.resource_name, len(device.device_list()))
 
     # -- metrics ------------------------------------------------------------
     def utilization(self) -> float:

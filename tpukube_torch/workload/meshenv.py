@@ -14,6 +14,7 @@ backend (NCCL → ``cuda``, gloo → ``cpu``).
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Mapping, Optional, Sequence
@@ -211,13 +212,20 @@ def mesh_from_alloc_env(env: Optional[Mapping[str, str]] = None,
                         world_size: Optional[int] = None,
                         tp: Optional[int] = None) -> tuple[DeviceMesh, PodGpuEnv]:
     """One-call consumer: env → (DeviceMesh, PodGpuEnv) over the default
-    process group (``world_size`` defaults to its size). Collective."""
+    process group (``world_size`` defaults to its size). Collective: every
+    rank of the group calls it.
+
+    Where the group has more ranks than the gang's box has chips, the
+    mesh takes the first dp·tp ranks, as the reference takes the first
+    dp·tp devices. A rank past them gets the same mesh back, but holds no
+    place in it: ``mesh.get_coordinate()`` is None, it is in none of the
+    mesh's groups, and it must sit out the step (its caller checks)."""
     if world_size is None:
         world_size = dist.get_world_size()
     names, sizes, pe = mesh_shape_from_alloc_env(env, world_size, tp)
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    mesh = init_device_mesh(device_type, sizes, mesh_dim_names=names)
-    return mesh, pe
+    ranks = torch.arange(math.prod(sizes)).reshape(sizes)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=names), pe
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:

@@ -100,15 +100,59 @@ Drives the port's main path the way a cluster does, on the card:
       pod's) runs the ``--train`` pod (as step 5); NVML
       memory in use is read at idle, while the victim serves and at the
       bind;
-12. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+12. the Kubernetes REST channel: every effect below crosses HTTP to the
+   stand-in apiserver ``tpukube_torch.sim.kube_rest`` (a ``FakeApiServer``
+   on 127.0.0.1, bearer token) through ``RestApiServer`` and the loops of
+   ``tpukube_torch.apiserver``, all in watch mode:
+   a. the stand-in holds this machine's Node object (no topology yet) and a
+      pending ``qiniu.com/tpu: 1`` pod ``default/rest-0``;
+   b. the node agent (real backend) publishes its annotation file
+      atomically; ``NodeAnnotationSyncer`` merge-patches it onto the Node;
+   c. the extender learns the node only through
+      ``NodeTopologyRefreshLoop``'s node watch (its webhooks get node names
+      only, as a nodeCacheCapable extender's do); file write -> applied, ms;
+   d. ``sched/client.py`` runs the cycle over HTTP with
+      ``extender.binder = pod_binder(api)``: the stand-in's pod must end
+      bound to this node with the alloc annotation, through
+      ``POST .../binding``;
+   e. ``AllocIntentWatcher`` (this node's field selector) must put
+      ``default/rest-0 -> [tpu-0]`` into the plugin's intents (bind response
+      -> intent, ms); GetPreferredAllocation answers from it, the kubelet's
+      Allocate gives the env, and ``--scheduled`` runs with it as a child:
+      the env held against the alloc annotation, one Llama-3-8B request
+      (B=2, S=2048) after the UUID check;
+   f. the pod is marked ``Succeeded`` in the stand-in (the kubelet's part);
+      ``PodLifecycleReleaseLoop``, a child of a ``PodInformer`` on the pod
+      watch, must release ``tpu-0`` (phase -> release, ms); the pod is
+      deleted through ``RestApiServer.delete_pod``, and a second pod must
+      bind ``tpu-0``;
+   g. a two-share node agent (sim backend): the extender plans
+      ``frac0of2``, the kubelet's Allocate takes ``frac1of2``, the plugin's
+      ``alloc_divergence_reporter`` writes the alloc-actual annotation over
+      REST, and ``AllocReconcileLoop`` must fold it into the ledger, clear
+      it and rewrite the alloc annotation; the extender's ``/metrics``
+      counts the reconcile and both node refreshes, the plugin's page the
+      intent-watch events;
+   h. config 5 through the channel (host work, ``rest_fleet``): 16 Node
+      objects learned by the refresh loop, 80 burst pods, then the
+      64-member priority-100 gang, which must preempt and commit on 8 whole
+      hosts, contiguous along y; every bind a Binding POST, every victim an
+      Eviction POST from the ``EvictionExecutor``, confirmed by the
+      lifecycle loop's DELETED events; the gang's pods deleted over REST
+      and released by the lifecycle loop; a paged pod list;
+   i. one ``rest:`` line: the times above (medians where they repeat), the
+      gang's commit with the REST effector beside step 11a's, the
+      stand-in's request counts by route (each route must be used);
+13. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-13. prints the kernels line: the JAX package has no Pallas kernel, so the
+14. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
-NCCL init, a child's exit, a check) exits non-zero and prints no result,
-and so does a run that imported ``grpc`` or ``google.protobuf``; without
-CUDA it exits non-zero at once.
+NCCL init, a child's exit, a check, any error of the REST channel) exits
+non-zero and prints no result, and so does a run that imported ``grpc``,
+``google.protobuf``, ``yaml`` or ``aiohttp``; without CUDA it exits
+non-zero at once.
 """
 
 from __future__ import annotations
@@ -519,9 +563,9 @@ def metric_lines(text: str) -> dict:
             for line in text.splitlines() if line and not line.startswith("#")}
 
 
-def config5_phase(card: str) -> bool:
+def config5_phase(card: str):
     """Config 5 on a simulated HGX fleet (module docstring, step 11a);
-    False when a check failed."""
+    its run, or None when a check failed."""
     from tpukube_torch.core.config import load_config
     from tpukube_torch.core.types import PodGroup
     from tpukube_torch.obs.registry import quantile
@@ -552,7 +596,7 @@ def config5_phase(card: str) -> bool:
     if bad:
         fail(f"config 5: {bad}; nodes {nodes}, rows {ys}, utilization "
              f"{r['utilization']}, refused {r['refused']!r}")
-        return False
+        return None
     cyc = r["cycles"]
     print(
         f"config 5, {CONFIG5_GANG}-member priority-100 gang on 8,16,1 after "
@@ -570,7 +614,7 @@ def config5_phase(card: str) -> bool:
         f"extender) [{card}]",
         flush=True,
     )
-    return True
+    return r
 
 
 def preempt_on_card(card: str, c0):
@@ -732,6 +776,580 @@ def preempt_on_card(card: str, c0):
             burst_proc.wait()
         server.shutdown()
         server.server_close()
+
+
+# -- the Kubernetes REST channel (step 12) ------------------------------------
+
+REST_TOKEN = "chip-smoke-token"  # the stand-in's bearer token
+REST_POLL_S = 0.05  # the syncer's file poll and every loop's resync pacing
+REST_WAIT_S = 30.0  # how long any one REST effect may take to show
+# every route RestApiServer speaks; each must be used at the stand-in
+REST_ROUTES = ("nodes.list", "nodes.watch", "nodes.get", "nodes.patch",
+               "pods.list", "pods.watch", "pods.get", "pods.patch",
+               "pods.delete", "pods.binding", "pods.eviction")
+
+
+def port_pkg() -> types.SimpleNamespace:
+    """The port's modules the REST steps run on (the tests pass the
+    reference's namesakes to hold them against it)."""
+    from tpukube_torch import apiserver, metrics
+    from tpukube_torch.core import codec
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.types import PodGroup
+    from tpukube_torch.sched.extender import Extender, serve
+    from tpukube_torch.sim import SimCluster
+
+    return types.SimpleNamespace(
+        api=apiserver, metrics=metrics, codec=codec, load_config=load_config,
+        PodGroup=PodGroup, Extender=Extender, SimCluster=SimCluster, sim_kw={},
+        serve=serve, rest_api=apiserver.rest_apiserver_from_config)
+
+
+def wait_for(what: str, cond, timeout: float = REST_WAIT_S) -> float:
+    """Spin until ``cond()`` holds; the host-clock time it first held.
+    Raises RuntimeError after ``timeout`` seconds."""
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"REST channel: {what} did not happen in {timeout} s")
+        time.sleep(0.0005)
+    return time.perf_counter()
+
+
+class RestTimer:
+    """Host-clock round trips of the REST channel's Binding POSTs (each
+    ``RestApiServer._request`` on a ``/binding`` path) and of the whole
+    bind effector (``pod_binder``: GET, annotation PATCH, Binding POST)."""
+
+    def __init__(self, api) -> None:
+        self.binding_ms: list = []
+        self.effector_ms: list = []
+        request = api._request
+
+        def timed(method, path, *args, **kw):
+            t = time.perf_counter()
+            try:
+                return request(method, path, *args, **kw)
+            finally:
+                if method == "POST" and path.endswith("/binding"):
+                    self.binding_ms.append((time.perf_counter() - t) * 1e3)
+
+        api._request = timed
+
+    def binder(self, bind):
+        def timed(alloc) -> None:
+            t = time.perf_counter()
+            try:
+                bind(alloc)
+            finally:
+                self.effector_ms.append((time.perf_counter() - t) * 1e3)
+        return timed
+
+
+@contextlib.contextmanager
+def rest_loops(pkg, ext, api, node_name=None):
+    """A daemon's loops over ``api``, all in watch mode, for the block:
+    the node-topology refresh loop; the lifecycle release loop and the
+    reconcile loop as children of one PodInformer (one pod stream); the
+    eviction executor, confirmed by the lifecycle loop's DELETED events;
+    the bind effector. Yields them."""
+    a = pkg.api
+    refresh = a.NodeTopologyRefreshLoop(ext, api, poll_seconds=REST_POLL_S)
+    execu = a.EvictionExecutor(ext, api, poll_seconds=3600.0)
+    lifecycle = a.PodLifecycleReleaseLoop(ext, api, poll_seconds=REST_POLL_S,
+                                          evictions=execu)
+    reconcile = a.AllocReconcileLoop(ext, api, poll_seconds=REST_POLL_S)
+    informer = a.PodInformer(api, [lifecycle, reconcile], poll_seconds=REST_POLL_S)
+    timer = RestTimer(api)
+    ext.binder = timer.binder(a.pod_binder(api))
+    # the channel's retry/circuit layer rides on the extender, as a
+    # daemon wires it, so /metrics exports tpukube_retry_*/circuit_*
+    ext.api_retrier, ext.api_circuit = api.retrier, api.circuit
+    refresh.start()
+    informer.start()
+    try:
+        wait_for("the pod informer's stream", informer.stream_connected)
+        wait_for("the node watch", refresh.stream_connected)
+        yield types.SimpleNamespace(refresh=refresh, execu=execu,
+                                    lifecycle=lifecycle, reconcile=reconcile,
+                                    informer=informer, timer=timer)
+        streams_held(refresh, informer)
+        if execu.failures or execu.blocked:
+            raise RuntimeError(f"REST channel: {execu.failures} eviction(s) "
+                               f"failed, {execu.blocked} blocked")
+        channel_clean(api)
+    finally:
+        informer.stop()
+        refresh.stop()
+
+
+def channel_clean(api) -> None:
+    """Raise unless the channel's requests all went through first time:
+    a retried request (a transport error or a 5xx) or a circuit that
+    opened is an error of the REST channel, even when a retry hid it."""
+    stats, circuit = api.retrier.stats, api.circuit
+    if not stats.attempts or stats.retries or stats.exhausted or circuit.opens \
+            or circuit.state_code():
+        raise RuntimeError(
+            f"REST channel: {stats.attempts} attempts, {stats.retries} retried, "
+            f"{stats.exhausted} exhausted; circuit opened {circuit.opens} times, "
+            f"state {circuit.state()}")
+
+
+def streams_held(*loops) -> None:
+    """Raise unless every watch loop kept its first stream: a reconnect
+    means a stream failed (or ended) and events were read from a resync."""
+    broken = {lp.watch_status()["name"]: lp.watch_status() for lp in loops
+              if lp.reconnects or lp.watch_status()["reconnect_failures"]}
+    if broken:
+        raise RuntimeError(f"REST channel: watch streams broke: {broken}")
+
+
+def write_annotation(path: str, codec, mgr) -> None:
+    """The node agent's annotation file, published atomically (a temp file
+    in the same directory, then a rename), as the reference's plugin
+    daemon writes it for the syncer sidecar."""
+    import tempfile
+
+    payload = json.dumps(codec.annotate_node(mgr.node_info(), mgr.mesh))
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(payload + "\n")
+        os.replace(tmp, path)
+    except BaseException:
+        with contextlib.suppress(OSError):
+            os.unlink(tmp)
+        raise
+
+
+def rest_pod_life(pkg, card_agent, share_agent, run_child=None) -> dict:
+    """Steps 12a-g: one card pod's life and one kubelet divergence, every
+    effect through ``pkg``'s REST channel (``RestApiServer`` over the
+    stand-in apiserver ``tpukube_torch.sim.kube_rest``) and its loops.
+    ``card_agent()`` enters the card's node agent (mgr, server, kubelet),
+    ``share_agent()`` a two-share node agent, one after the other (the
+    discovery shim serves one manager at a time); ``run_child(env)`` runs
+    the bound pod and returns its report (None: no child). Returns the
+    decisions and the host-clock times; raises RuntimeError when a check
+    fails. Package-agnostic, so the tests hold the port's loops against
+    the reference's."""
+    import tempfile
+    import urllib.request
+
+    from tpukube_torch.graft import ENV_ALLOC
+    from tpukube_torch.sched import client
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sim.kube_rest import KubeRestServer
+
+    a, codec = pkg.api, pkg.codec
+    out: dict = {}
+    with KubeRestServer(token=REST_TOKEN) as kube, \
+            tempfile.TemporaryDirectory() as td:
+        cfg = pkg.load_config(env={})
+        api = pkg.rest_api(cfg, kube.base_url, token=REST_TOKEN)
+        ext = pkg.Extender(cfg)
+        anno_path = os.path.join(td, "anno.json")
+        with rest_loops(pkg, ext, api) as loops, contextlib.ExitStack() as stack:
+            server = pkg.serve(ext, evictions=loops.execu, lifecycle=loops.lifecycle,
+                               reconcile=loops.reconcile, node_refresh=loops.refresh)
+            stack.callback(server.server_close)
+            stack.callback(server.shutdown)
+            port = server.server_address[1]
+            with card_agent() as agent:
+                node = agent.mgr.host
+                res = agent.server.resource_name
+                # a. the Node object (no topology yet) and a pending pod
+                kube.store.patch_node_annotations(node, {})
+                kube.store.upsert_pod(pod_object("rest-0", tpu=1))
+                intents = a.AllocIntentWatcher(api, node, agent.server,
+                                               poll_seconds=REST_POLL_S)
+                syncer = a.NodeAnnotationSyncer(api, node, anno_path,
+                                                poll_seconds=REST_POLL_S)
+                with contextlib.ExitStack() as loops_of_node:
+                    intents.start()
+                    loops_of_node.callback(intents.stop)
+                    syncer.start()
+                    loops_of_node.callback(syncer.stop)
+                    wait_for("the intent watch", intents.stream_connected)
+                    # b/c. the agent's annotation file -> the syncer's PATCH
+                    # -> the refresh loop's node watch -> the node cache
+                    t = time.perf_counter()
+                    write_annotation(anno_path, codec, agent.mgr)
+                    t_topo = wait_for("node topology",
+                                      lambda: ext.state.node(node) is not None)
+                    out["file_to_topology_ms"] = (t_topo - t) * 1e3
+                    if codec.ANNO_NODE_TOPOLOGY not in api.get_node_annotations(node):
+                        raise RuntimeError(f"node {node} carries no topology annotation")
+                    # d. kube-scheduler's cycle over HTTP, names only; the
+                    # bind effector creates the Binding over REST
+                    host, alloc, ms = client.place(port, pod_object("rest-0", tpu=1),
+                                                   [node])
+                    t_bound = time.perf_counter()
+                    # e. the intent arrives through the watch (the clock
+                    # stops at the first look that finds it)
+                    t_intent = wait_for("rest-0's intent", lambda: agent.server.intents
+                                        .snapshot().get("default/rest-0")
+                                        == alloc.device_ids)
+                    out["bind_to_intent_ms"] = (t_intent - t_bound) * 1e3
+                    stored = api.get_pod("default", "rest-0")
+                    payload = (stored["metadata"].get("annotations") or {}).get(
+                        codec.ANNO_ALLOC)
+                    if (host != node or stored["spec"].get("nodeName") != node
+                            or payload is None or codec.decode_alloc(payload)
+                            .device_ids != alloc.device_ids):
+                        raise RuntimeError(f"rest-0 bound {alloc.device_ids} on "
+                                           f"{host}; the apiserver holds {stored}")
+                    out["bind"] = [host, alloc.device_ids]
+                    out["webhook_ms"] = ms
+                    # the kubelet's GetPreferredAllocation and Allocate
+                    # answer from the intent
+                    ids = sorted(agent.kubelet.devices(res))
+                    out["preferred"] = agent.kubelet.preferred(res, ids, 1)
+                    penv = agent.kubelet.allocate(res, alloc.device_ids)
+                    if (out["preferred"] != alloc.device_ids
+                            or agent.server.intents.depth() or agent.server.divergences):
+                        raise RuntimeError(f"preferred {out['preferred']}, intents "
+                                           f"{agent.server.intents.snapshot()}")
+                    if run_child is not None:
+                        out["child"] = run_child({**alloc.env, **penv,
+                                                  ENV_ALLOC: payload})
+                    # f. the kubelet reports the pod Succeeded; the lifecycle
+                    # loop releases it from the pod stream; the pod is deleted
+                    # and a second pod takes the same GPU
+                    done = dict(kube.store.get_pod("default", "rest-0"))
+                    done["status"] = {"phase": "Succeeded"}
+                    t = time.perf_counter()
+                    kube.store.upsert_pod(done)
+                    t_rel = wait_for("rest-0's release", lambda: ext.state.allocation(
+                        "default/rest-0") is None)
+                    out["phase_to_release_ms"] = (t_rel - t) * 1e3
+                    api.delete_pod("default", "rest-0")
+                    kube.store.upsert_pod(pod_object("rest-1", tpu=1))
+                    _, alloc1, _ = client.place(port, pod_object("rest-1", tpu=1), [node])
+                    out["second_bind"] = alloc1.device_ids
+                    if alloc1.device_ids != alloc.device_ids:
+                        raise RuntimeError(f"rest-1 bound {alloc1.device_ids}")
+                    out["released"] = loops.lifecycle.released
+                    out["intent_watch_events"] = metric_lines(
+                        pkg.metrics.render_plugin_metrics(
+                            agent.server, intent_watch=intents)).get(
+                        "tpukube_plugin_intent_watch_events_total")
+                    streams_held(intents)
+            # g. divergence on a two-share node: planned frac0of2, the
+            # kubelet takes frac1of2, the plugin reports it over REST and
+            # the reconcile loop folds it into the ledger
+            with share_agent() as share:
+                snode = share.mgr.host
+                sres = share.server.resource_name
+                share.server.set_alloc_reporter(a.alloc_divergence_reporter(api))
+                api.patch_node_annotations(
+                    snode, codec.annotate_node(share.mgr.node_info(), share.mgr.mesh))
+                wait_for("the share node's topology",
+                         lambda: ext.state.node(snode) is not None)
+                shared = a.AllocIntentWatcher(api, snode, share.server,
+                                              poll_seconds=REST_POLL_S)
+                shared.start()
+                try:
+                    wait_for("the share node's intent watch", shared.stream_connected)
+                    kube.store.upsert_pod(pod_object("div-0", vtpu=1))
+                    _, dalloc, _ = client.place(port, pod_object("div-0", vtpu=1),
+                                                [snode])
+                    wait_for("div-0's intent", lambda: share.server.intents.snapshot()
+                             .get("default/div-0") == dalloc.device_ids)
+                    taken = [d for d in sorted(share.kubelet.devices(sres))
+                             if d not in dalloc.device_ids][:1]
+                    share.kubelet.allocate(sres, taken)
+                    wait_for("the reconcile of div-0", lambda: ext.state.allocation(
+                        "default/div-0").device_ids == taken)
+                    annos = wait_for_annotations(kube, api, "div-0", codec, taken, a)
+                    wait_for("the reconcile count",
+                             lambda: loops.reconcile.reconciled == 1)
+                    streams_held(shared)
+                finally:
+                    shared.stop()
+                out["divergence"] = {
+                    "planned": dalloc.device_ids, "kubelet": taken,
+                    "ledger": ext.state.allocation("default/div-0").device_ids,
+                    "annotation": codec.decode_alloc(annos[codec.ANNO_ALLOC]).device_ids,
+                    "reconciled": loops.reconcile.reconciled,
+                    "divergences": share.server.divergences,
+                }
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                        timeout=10) as r:
+                page = metric_lines(r.read().decode())
+            out["metrics"] = {k: page.get(k) for k in (
+                "tpukube_reconciles_total", "tpukube_node_refreshes_total",
+                "tpukube_lifecycle_releases_total", "tpukube_binds_total",
+                'tpukube_retry_attempts_total{op="apiserver"}',
+                'tpukube_retry_retries_total{op="apiserver"}',
+                'tpukube_circuit_state{circuit="apiserver"}')}
+            out["binding_post_ms"] = list(loops.timer.binding_ms)
+            out["effector_ms"] = list(loops.timer.effector_ms)
+        out["routes"] = dict(kube.requests)
+    return out
+
+
+def wait_for_annotations(kube, api, name: str, codec, taken: list, a) -> dict:
+    """The pod's annotations, read over REST once the stand-in's store
+    shows the reconcile loop's work done: its alloc-actual report cleared
+    and its alloc annotation rewritten to ``taken``. (The wait reads the
+    store, so the count of GETs at the stand-in does not hang on timing.)"""
+    def done() -> bool:
+        got = kube.store.get_pod("default", name)["metadata"].get("annotations") or {}
+        return (a.ANNO_ALLOC_ACTUAL not in got and codec.ANNO_ALLOC in got
+                and codec.decode_alloc(got[codec.ANNO_ALLOC]).device_ids == taken)
+
+    wait_for(f"{name}'s rewritten alloc annotation", done)
+    return api.get_pod("default", name)["metadata"].get("annotations") or {}
+
+
+def rest_fleet(pkg) -> dict:
+    """Step 12h: config 5 through ``pkg``'s REST channel. The HGX fleet
+    ``8,16,1`` / ``8,1,1`` as 16 Node objects on the stand-in apiserver,
+    learned by the refresh loop's node watch; 80 priority-0 burst pods,
+    then the 64-member priority-100 gang, which preempts. Every bind is a
+    Binding POST (``pod_binder``), every victim an Eviction POST
+    (``EvictionExecutor`` through ``RestApiServer.evict_pod``), confirmed
+    by the lifecycle loop's DELETED events on the pod stream; at the end
+    the gang's pods are deleted over REST and the lifecycle loop releases
+    them. Webhooks go in process (names only). Returns what happened; the
+    caller judges it. Package-agnostic, so the tests hold the port's run
+    against the reference's."""
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sim.kube_rest import KubeRestServer
+
+    a, codec = pkg.api, pkg.codec
+    cfg = pkg.load_config(env=CONFIG5_ENV)
+    with pkg.SimCluster(cfg, **pkg.sim_kw) as c:
+        nodes = c.node_objects()
+        hosts = {n: sorted(tuple(ch.coord) for ch in info.chips)
+                 for n, info in c.nodes.items()}
+    with KubeRestServer(token=REST_TOKEN) as kube:
+        api = pkg.rest_api(cfg, kube.base_url, token=REST_TOKEN)
+        ext = pkg.Extender(cfg)
+        ext.evict_precheck = lambda key: api.evict_pod(*key.split("/", 1), dry_run=True)
+        for obj in nodes:  # the node agents' syncers
+            api.patch_node_annotations(obj["metadata"]["name"],
+                                       obj["metadata"]["annotations"])
+        with rest_loops(pkg, ext, api) as loops:
+            wait_for("16 nodes", lambda: len(ext.state.node_names()) == len(nodes))
+            names = sorted(ext.state.node_names())
+
+            def schedule(pod) -> tuple:
+                kube.store.upsert_pod(pod)
+                meta = pod["metadata"]
+                deadline = time.perf_counter() + REST_WAIT_S
+                while True:
+                    loops.execu.drain()
+                    fres = ext.handle("filter", {"Pod": pod, "NodeNames": names})
+                    if fres.get("Error") or not fres["NodeNames"]:
+                        raise RuntimeError(f"{meta['name']}: {fres}")
+                    pres = ext.handle("prioritize", {"Pod": pod,
+                                                     "NodeNames": fres["NodeNames"]})
+                    scores = {e["Host"]: e["Score"] for e in pres}
+                    best = max(sorted(scores), key=lambda h: scores[h])
+                    bres = ext.handle("bind", {
+                        "PodName": meta["name"], "PodNamespace": meta["namespace"],
+                        "PodUID": meta["uid"], "Node": best})
+                    if not bres.get("Error"):
+                        return best, codec.decode_alloc(
+                            bres["Annotations"][codec.ANNO_ALLOC])
+                    if time.perf_counter() > deadline:
+                        raise RuntimeError(f"{meta['name']}: {bres['Error']}")
+                    time.sleep(0.001)
+
+            burst = [schedule(pod_object(f"infer-{i}", tpu=1))
+                     for i in range(CONFIG5_BURST)]
+            util_burst = ext.state.utilization()
+            group = pkg.PodGroup("llama-train", min_member=CONFIG5_GANG)
+            gang = [schedule(pod_object(f"train-{i}", tpu=1, priority=100,
+                                        annotations=codec.pod_group_annotations(group)))
+                    for i in range(CONFIG5_GANG)]
+            res = ext.gang.reservation("default", "llama-train")
+            victims = sorted(al.pod_key for _, al in burst
+                             if ext.state.allocation(al.pod_key) is None)
+            wait_for("every victim confirmed gone",
+                     lambda: loops.execu.depth() == 0 and all(
+                         kube.store.get_pod(*k.split("/", 1)) is None for k in victims))
+            util = ext.state.utilization()
+            bound = {p["metadata"]["name"]: p["spec"].get("nodeName")
+                     for p in kube.store.list_pods()}
+            # a paged LIST: 128 pods in pages of 50
+            api.LIST_PAGE_LIMIT = 50
+            pages = kube.requests["pods.list"]
+            listed = sorted(p["metadata"]["name"] for p in api.list_pods())
+            listed_ok = (listed == sorted(bound)
+                         and kube.requests["pods.list"] - pages == 3)
+            for _, al in gang:
+                api.delete_pod(*al.pod_key.split("/", 1))
+            wait_for("the gang's release", lambda: all(
+                ext.state.allocation(al.pod_key) is None for _, al in gang))
+            page = pkg.metrics.render_extender_metrics(
+                ext, reconcile=loops.reconcile, evictions=loops.execu,
+                node_refresh=loops.refresh, lifecycle=loops.lifecycle)
+            binding_ms, effector_ms = loops.timer.binding_ms, loops.timer.effector_ms
+        evicted = [k for kind, k in kube.store.patch_log if kind == "evict"]
+        return {
+            "burst": [(n, al.device_ids, [tuple(x) for x in al.coords]) for n, al in burst],
+            "gang": [(n, al.device_ids, [tuple(x) for x in al.coords]) for n, al in gang],
+            "util_burst": util_burst,
+            "utilization": util,
+            "util_after_release": ext.state.utilization(),
+            "committed": res is not None and res.committed,
+            "commit_latency": res.commit_latency if res is not None else None,
+            "victims": victims,
+            "evicted": sorted(evicted),
+            "binding_posts": kube.requests["pods.binding"],
+            "bound": bound,
+            "preemptions": ext.preemptions,
+            "released": loops.lifecycle.released,
+            "refreshed": loops.refresh.refreshed,
+            "metrics": page,
+            "binding_post_ms": binding_ms,
+            "effector_ms": effector_ms,
+            "routes": dict(kube.requests),
+            "listed": listed_ok,
+            "hosts": hosts,
+        }
+
+
+SHARE_NODE_ENV = {  # step 12g's two-share node agent, on the sim backend
+    "TPUKUBE_BACKEND": "sim", "TPUKUBE_SHARES_PER_CHIP": "2",
+    "TPUKUBE_SIM_MESH_DIMS": "1,1,1", "TPUKUBE_SIM_HOST_BLOCK": "1,1,1",
+    "TPUKUBE_SIM_HOST_ORIGIN": "0,0,0", "TPUKUBE_SLICE_ID": "share-slice",
+}
+
+
+@contextlib.contextmanager
+def share_agent():
+    """Step 12g's two-share node agent ``share-node`` (sim backend): its
+    device plugin registered with the in-process kubelet peer."""
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.device import GpuDeviceManager
+    from tpukube_torch.plugin import DevicePluginServer, InProcessKubelet
+
+    cfg = load_config(env=SHARE_NODE_ENV)
+    with GpuDeviceManager(cfg, host="share-node") as mgr, InProcessKubelet() as kubelet:
+        server = DevicePluginServer(cfg, mgr)
+        kubelet.register_plugin(server)
+        kubelet.wait_for_devices(server.resource_name, len(mgr.device_list()))
+        yield types.SimpleNamespace(mgr=mgr, kubelet=kubelet, server=server)
+
+
+def rest_phase(card: str, c0, r5: dict):
+    """Step 12 on the card: one Llama-3-8B pod's life and a divergence
+    through the REST channel (``rest_pod_life``), then config 5 through it
+    (``rest_fleet``). Returns the ``rest:`` line's object, or None when a
+    check failed."""
+    from tpukube_torch.obs.registry import quantile
+
+    def child(env: dict):
+        sp = run_pod(["--scheduled"], env, "scheduled")
+        if sp is None:
+            raise RuntimeError("the rest-0 pod failed")
+        return sp
+
+    pkg = port_pkg()
+    try:
+        life = rest_pod_life(pkg, lambda: node_agent({}), share_agent,
+                             run_child=child)
+        fleet = rest_fleet(pkg)
+    except RuntimeError as e:
+        fail(str(e))
+        return None
+    sp = life["child"]
+    checked = sp["scheduled"]
+    if (sp["uuid"] != c0.chip_id or checked["pod"] != "default/rest-0"
+            or checked["device_ids"] != ["tpu-0"] or life["bind"][1] != ["tpu-0"]):
+        fail(f"rest-0: {checked} on {sp['uuid']}, bound {life['bind']}")
+        return None
+    print("rest pod: " + json.dumps(sp, sort_keys=True), flush=True)
+    div = life["divergence"]
+    m = life["metrics"]
+    if (div["planned"] != ["tpu-0-frac0of2"] or div["kubelet"] != ["tpu-0-frac1of2"]
+            or div["ledger"] != div["kubelet"] or div["annotation"] != div["kubelet"]
+            or div["reconciled"] != 1 or div["divergences"] != 1
+            or m["tpukube_reconciles_total"] != 1
+            or m["tpukube_node_refreshes_total"] != 2
+            or m["tpukube_lifecycle_releases_total"] != life["released"]
+            or life["released"] != 1
+            or not m['tpukube_retry_attempts_total{op="apiserver"}']
+            or m['tpukube_retry_retries_total{op="apiserver"}'] != 0
+            or m['tpukube_circuit_state{circuit="apiserver"}'] != 0
+            or not life["intent_watch_events"]):
+        fail(f"REST divergence/metrics: {div}; {m}; intent watch events "
+             f"{life['intent_watch_events']}")
+        return None
+    coords = {co for _, _, cs in fleet["gang"] for co in cs}
+    nodes = sorted({n for n, _, _ in fleet["gang"]})
+    ys = sorted({co[1] for co in coords})
+    fm = metric_lines(fleet["metrics"])
+    n_binds = CONFIG5_BURST + CONFIG5_GANG
+    checks = {
+        "committed": fleet["committed"],
+        "64 GPUs on 8 whole hosts": len(coords) == CONFIG5_GANG and len(nodes) == 8
+        and all(set(fleet["hosts"][n]) <= coords for n in nodes),
+        "contiguous along y": ys == list(range(ys[0], ys[0] + len(ys))),
+        "victims evicted over REST": bool(fleet["victims"])
+        and fleet["evicted"] == fleet["victims"] == sorted(
+            set(fleet["victims"])) and fleet["preemptions"] == len(fleet["victims"]),
+        "one Binding POST per bind": fleet["binding_posts"] == n_binds
+        == len(fleet["binding_post_ms"]),
+        "binds visible at the apiserver": all(
+            fleet["bound"][f"train-{i}"] == fleet["gang"][i][0]
+            for i in range(CONFIG5_GANG)),
+        "utilization after the preemption": fleet["utilization"]
+        == (CONFIG5_BURST - len(fleet["victims"]) + CONFIG5_GANG) / 128,
+        "the gang released by the lifecycle loop": fleet["released"] == CONFIG5_GANG
+        and fleet["util_after_release"]
+        == (CONFIG5_BURST - len(fleet["victims"])) / 128,
+        "/metrics node refreshes 16": fm.get("tpukube_node_refreshes_total") == 16,
+        "/metrics evictions": fm.get("tpukube_evictions_total") == len(fleet["victims"]),
+        "/metrics lifecycle releases": fm.get("tpukube_lifecycle_releases_total")
+        == CONFIG5_GANG,
+        "paged pod list": fleet["listed"],
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    routes = {r: life["routes"].get(r, 0) + fleet["routes"].get(r, 0)
+              for r in REST_ROUTES}
+    unused = [r for r, n in routes.items() if n <= 0]
+    if bad or unused:
+        fail(f"config 5 over REST: {bad}; routes never used {unused}; nodes "
+             f"{nodes}, rows {ys}")
+        return None
+    posts = life["binding_post_ms"] + fleet["binding_post_ms"]
+    effector = life["effector_ms"] + fleet["effector_ms"]
+    print(
+        f"REST channel: rest-0 placed by the refresh loop's topology "
+        f"({life['file_to_topology_ms']:.3f} ms from the annotation file), bound "
+        f"{life['bind'][1]} on {life['bind'][0]} through POST .../binding, its "
+        f"intent watched in {life['bind_to_intent_ms']:.3f} ms, served Llama-3-8B "
+        f"B={sp['batch']} S={sp['seq']} ({sp['forward_ms_median']:.3f} ms), released "
+        f"{life['phase_to_release_ms']:.3f} ms after Succeeded; divergence "
+        f"{div['planned']} -> {div['kubelet']} reconciled; config 5 over REST: "
+        f"{CONFIG5_GANG}-member gang committed on {nodes[0]}..{nodes[-1]} after "
+        f"{len(fleet['victims'])} evictions, commit latency "
+        f"{fleet['commit_latency'] * 1e3:.3f} ms (in process, step 11a: "
+        f"{r5['commit_latency'] * 1e3:.3f} ms); Binding POST median "
+        f"{quantile(posts, 0.5):.3f} ms over {len(posts)} (host CPU times) [{card}]",
+        flush=True,
+    )
+    return {
+        "file_to_topology_ms": life["file_to_topology_ms"],
+        "bind_to_intent_ms": life["bind_to_intent_ms"],
+        "phase_to_release_ms": life["phase_to_release_ms"],
+        "binding_post_ms_median": statistics.median(posts),
+        "binding_posts": len(posts),
+        "bind_effector_ms_median": statistics.median(effector),
+        "gang_commit_ms_rest": fleet["commit_latency"] * 1e3,
+        "gang_commit_ms_in_process": r5["commit_latency"] * 1e3,
+        "gang_cycle_p50_ms_in_process": quantile(r5["cycles"], 0.5) * 1e3,
+        "evictions": len(fleet["evicted"]),
+        "webhook_ms": life["webhook_ms"],
+        "routes": routes,
+        "card": card,
+    }
 
 
 def mps_daemon_running() -> bool:
@@ -1131,7 +1749,8 @@ def main() -> int:
     )
 
     # -- config 5: preemption on an HGX fleet, then one on the card ----------
-    if not config5_phase(card):
+    r5 = config5_phase(card)
+    if r5 is None:
         return 1
     tr5 = preempt_on_card(card, c0)
     if tr5 is None:
@@ -1145,6 +1764,12 @@ def main() -> int:
         f"{tr5['parity_loss']:.5f} vs {tr5['parity_ref_loss']:.5f} [{card}]",
         flush=True,
     )
+
+    # -- the Kubernetes REST channel: one card pod's life, then config 5 ----
+    rest = rest_phase(card, c0, r5)
+    if rest is None:
+        return 1
+    print("rest: " + json.dumps(rest, sort_keys=True), flush=True)
 
     # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
     proc = subprocess.run(
@@ -1168,9 +1793,10 @@ def main() -> int:
         f"{gloo['leg2']['loss']:.4f} on the port-minted DCN gang env",
         flush=True,
     )
-    # nothing on the card path loaded the gRPC stack
+    # nothing on the card path loaded the gRPC stack, a YAML parser or aiohttp
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))
+                    if m.split(".")[0] in ("grpc", "yaml", "aiohttp")
+                    or m.startswith("google.protobuf"))
     if loaded:
         return fail(f"the card path imported {loaded}")
     print(f"chip_smoke: whole run {time.monotonic() - t_start:.1f} s [{card}]",

@@ -239,6 +239,22 @@ def test_scheduled_pod_env_holds_against_its_bind():
     assert checked["coords"] == [list(c) for c in alloc.coords]
 
 
+def test_scheduled_env_of_a_pod_outside_a_gang_holds():
+    # a plain pod's alloc carries no gang keys; its env reads the
+    # one-slice defaults, and a gang key it does not have is refused
+    with SimCluster(load_config(env={"TPUKUBE_SIM_MESH_DIMS": "8,1,1",
+                                     "TPUKUBE_SIM_HOST_BLOCK": "8,1,1"})) as c:
+        _, alloc = c.schedule(c.make_pod("plain-0", tpu=1))
+        env = {**alloc.env, **c.execute_allocation(alloc)}
+    assert alloc.env == {}
+    checked = graft.check_scheduled_env(PodGpuEnv.from_env(env), codec.encode_alloc(alloc))
+    assert checked["gang"] == ["1", "", "0"]
+    env["TPU_KUBE_GANG_NUM_SLICES"] = "2"
+    env["TPU_KUBE_GANG_SLICES"] = "slice-0,slice-1"
+    with pytest.raises(RuntimeError, match="gang keys"):
+        graft.check_scheduled_env(PodGpuEnv.from_env(env), codec.encode_alloc(alloc))
+
+
 @pytest.mark.parametrize("key,value,match", [
     ("TPU_KUBE_CHIP_COORDS", "7,3,0", "coords"),
     ("TPU_KUBE_GANG_NUM_SLICES", "2", "gang keys"),

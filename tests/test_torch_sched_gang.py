@@ -22,8 +22,6 @@ use_private_tpuinfo()
 
 DCN_SKIPS = {
     "test_mesh_from_alloc_env_builds_dcn_mesh": "a workload test (twin in test_torch_dryrun)",
-    "test_dcn_gang_env_projected_as_per_key_annotations":
-        "needs the apiserver bind effector, not ported yet",
 }
 
 

@@ -94,65 +94,26 @@ def test_reference_config6_tests_hold_on_the_port(fn):
     run_twin(fn, {"churned": _module_fixture(test_config6, "churned")})
 
 
-_REST = "RestApiServer (the Kubernetes REST channel) is not ported"
-_INTENTS = "the alloc-intent watcher (AllocIntentWatcher) is not ported"
-_EFFECTOR = "the bind effector (pod_binder) is not ported"
-_REFRESH = "NodeTopologyRefreshLoop is not ported"
 APISERVER_SKIPS = {
-    "test_extender_learns_topology_only_through_syncer":
-        "NodeAnnotationSyncer is not ported",
-    "test_syncer_tolerates_missing_and_garbage_file":
-        "NodeAnnotationSyncer is not ported",
-    "test_rest_apiserver_speaks_merge_patch": _REST,
-    "test_rest_list_pods_paginates": _REST,
-    "test_intent_watcher_feeds_pod_allocs": _INTENTS,
-    "test_kubelet_divergence_reconciles_extender_ledger":
-        "the alloc-intent watcher and the reconcile loop are not ported",
-    "test_reconcile_refuses_chips_held_by_another_pod":
-        "device-id reconcile is not ported",
-    "test_reconcile_updates_gang_assignment": "device-id reconcile is not ported",
-    "test_rest_eviction_subresource": _REST,
     "test_gang_bind_waits_for_graceful_victim_termination":
-        "reads /state/gangs (gang_snapshot) and trace replay, not ported; "
-        "its sequence is held against the reference here "
+        "reads /state/gangs (gang_snapshot), not ported; its sequence is "
+        "held against the reference here "
         "(test_graceful_victims_gate_the_gang_as_the_reference)",
-    "test_reconcile_loop_watch_mode_folds_report_on_event":
-        "the reconcile loop and the bind effector are not ported",
-    "test_bind_effector_creates_real_binding": _EFFECTOR,
-    "test_bind_effector_failure_rolls_back_ledger": _EFFECTOR,
-    "test_rest_bind_pod_posts_binding_subresource": _REST,
-    "test_bind_effector_failure_uncommits_quorum": _EFFECTOR,
-    "test_lifecycle_watch_mode_releases_on_delete":
-        _EFFECTOR + "; the watch mode is held against the reference here "
-        "(test_lifecycle_watch_releases_on_delete_as_the_reference)",
-    "test_rest_watch_pods_streams_events": _REST,
-    "test_intent_watcher_watch_mode": _INTENTS,
-    "test_watch_event_semantics": _INTENTS,
-    "test_watch_stop_interrupts_blocked_stream": _INTENTS,
-    "test_health_transition_reannotates_node":
-        "NodeAnnotationSyncer is not ported",
-    "test_node_refresh_loop_feeds_namescapable_cache": _REFRESH,
-    "test_node_refresh_watch_mode_applies_fault_within_event": _REFRESH,
-    "test_rebuild_primes_refresh_loop": _REFRESH,
-    "test_concurrent_binds_with_flaky_binder": _EFFECTOR,
-    "test_intent_watcher_watch_mode_over_fake_api": _INTENTS,
 }
 
 
 @pytest.mark.parametrize("fn", reference_tests(test_apiserver, APISERVER_SKIPS),
                          ids=lambda f: f.__name__)
 def test_reference_apiserver_tests_hold_on_the_port(fn):
-    run_twin(fn, TMP_PATH)
+    # threads race each other's binds there: compare the chips taken
+    run_twin(fn, TMP_PATH,
+             ordered=fn.__name__ != "test_concurrent_binds_with_flaky_binder")
 
 
-ADVICE_SKIPS = {
-    "test_watch_alive_consults_informer_host_stream":
-        "PodInformer (the shared pod informer) is not ported",
-}
+ADVICE_SKIPS: dict[str, str] = {}
 MULTISLICE_SKIPS = {
     "test_snapshot_reports_slices":
         "reads /state/topology (topology_snapshot), not ported",
-    "test_replay_determinism_with_multislice_gang": "trace replay is not ported",
 }
 
 
@@ -185,10 +146,12 @@ def test_reference_registry_tests_hold_on_the_port(name):
     run_twin(vars(test_obs)[name])
 
 
-# the reconnect backoff the watch loop paces itself with, the Retrier the
-# plugin's kubelet registration runs under, and the config's retry_* knobs
-# (the rest of test_retry is the reference's CircuitBreaker, not ported,
-# and the config tests that read its circuit_*/chaos_seed knobs)
+# test_retry's tests of the reconnect backoff, the Retrier, the
+# CircuitBreaker, the REST channel's transport timeout and the config's
+# retry_*/circuit_* knobs. Left out: test_policy_from_config_defaults and
+# test_config_retry_knobs_load_and_coerce, which also read chaos_seed (the
+# chaos scenarios' seed; chaos is not ported) — their retry and circuit
+# knobs are held in test_policy_from_config_reads_the_retry_knobs below.
 RETRY_TESTS = (
     "test_delay_is_exponential_and_capped",
     "test_delay_jitter_only_shrinks_and_is_seeded",
@@ -198,6 +161,17 @@ RETRY_TESTS = (
     "test_retrier_honors_overall_deadline",
     "test_retrier_does_not_retry_non_retryable",
     "test_retrier_custom_classifier",
+    "test_breaker_opens_after_consecutive_failures",
+    "test_breaker_half_open_probe_closes_on_success",
+    "test_breaker_half_open_probe_failure_reopens",
+    "test_breaker_disabled_at_zero_threshold",
+    "test_breaker_state_codes",
+    "test_retrier_with_circuit_fails_fast_once_open",
+    "test_retrier_non_retryable_answers_do_not_trip_circuit",
+    "test_aborted_probe_releases_the_half_open_slot",
+    "test_retrier_aborted_probe_releases_the_slot",
+    "test_breaker_call_wrapper_counts_outcomes",
+    "test_attempt_timeout_caps_rest_transport_timeout",
 )
 
 
@@ -206,11 +180,12 @@ def test_reference_backoff_tests_hold_on_the_port(name):
     run_twin(vars(test_retry)[name])
 
 
-# test_config_rejects_bad_retry_knobs's cases of the retry_* knobs
+# test_config_rejects_bad_retry_knobs's cases of the retry_* and circuit_*
+# knobs (its chaos_seed case is left out: chaos is not ported)
 RETRY_KNOB_CASES = [
     env for env in
     test_retry.test_config_rejects_bad_retry_knobs.pytestmark[0].args[1]
-    if all(k.startswith("TPUKUBE_RETRY_") for k in env)
+    if all(k.startswith(("TPUKUBE_RETRY_", "TPUKUBE_CIRCUIT_")) for k in env)
 ]
 
 
@@ -223,20 +198,29 @@ def test_reference_retry_knob_checks_hold_on_the_port(env):
 
 def test_policy_from_config_reads_the_retry_knobs():
     # test_retry's test_policy_from_config_defaults and
-    # test_config_retry_knobs_load_and_coerce, minus their circuit_* and
-    # chaos_seed knobs (the CircuitBreaker's, not ported)
+    # test_config_retry_knobs_load_and_coerce, minus their chaos_seed knob
     from tpukube.core import retry as ref_retry
     from tpukube_torch.core import retry
 
     env = {"TPUKUBE_RETRY_MAX_ATTEMPTS": "7",
            "TPUKUBE_RETRY_BASE_DELAY_SECONDS": "0.25",
            "TPUKUBE_RETRY_JITTER": "0.1",
-           "TPUKUBE_RETRY_ATTEMPT_TIMEOUT_SECONDS": "2.5"}
+           "TPUKUBE_RETRY_ATTEMPT_TIMEOUT_SECONDS": "2.5",
+           "TPUKUBE_CIRCUIT_FAILURE_THRESHOLD": "4",
+           "TPUKUBE_CIRCUIT_RESET_SECONDS": "12",
+           "TPUKUBE_CIRCUIT_HALF_OPEN_PROBES": "2"}
+    knobs = ("circuit_failure_threshold", "circuit_reset_seconds",
+             "circuit_half_open_probes")
     for e in ({}, env):
-        got = retry.policy_from_config(load_config(env=e))
-        want = ref_retry.policy_from_config(ref_load_config(env=e))
+        cfg, ref_cfg = load_config(env=e), ref_load_config(env=e)
+        got = retry.policy_from_config(cfg)
+        want = ref_retry.policy_from_config(ref_cfg)
         assert vars(got) == vars(want)
+        assert ([getattr(cfg, k) for k in knobs]
+                == [getattr(ref_cfg, k) for k in knobs])
     assert retry.policy_from_config(load_config(env={})) == retry.RetryPolicy()
+    assert load_config(env={}).circuit_failure_threshold == 0  # shipped off
+    assert load_config(env=env).circuit_reset_seconds == 12.0
 
 
 # -- chip_smoke's config 5 (step 11a), both packages -------------------------

@@ -164,7 +164,8 @@ def test_port_imports_no_jax_and_nothing_of_tpukube():
     assert len(paths) > 10
     for new in ("workload/tp.py", "workload/train.py", "workload/resnet.py",
                 "native/cudaguard.py", "obs/health.py", "apiserver.py",
-                "metrics.py", "sched/policy.py", "core/retry.py"):
+                "metrics.py", "sched/policy.py", "core/retry.py",
+                "sim/kube_rest.py"):
         assert os.path.join(REPO, "tpukube_torch", *new.split("/")) in paths
     for p in paths:
         for mod in _import_targets(p):
@@ -184,6 +185,7 @@ def test_port_pulls_in_no_control_plane_dependency():
         "tpukube_torch.sched.client, tpukube_torch.sim\n"
         "import tpukube_torch.apiserver, tpukube_torch.metrics, "
         "tpukube_torch.sched.policy, tpukube_torch.core.retry\n"
+        "import tpukube_torch.sim.kube_rest\n"
         "import tpukube_torch.plugin, tpukube_torch.plugin.server, "
         "tpukube_torch.plugin.proto.deviceplugin, tpukube_torch.plugin.fake_kubelet\n"
         "bad = ('yaml', 'grpc', 'google.protobuf', 'aiohttp', 'jax', 'jaxlib', 'optax', "
@@ -236,9 +238,11 @@ def test_scheduler_is_host_code_without_torch():
         "import tpukube_torch.sched.extender, tpukube_torch.sched.client, "
         "tpukube_torch.sim, tpukube_torch.trace, tpukube_torch.obs.events, "
         "tpukube_torch.core.clock, tpukube_torch.apiserver, tpukube_torch.metrics, "
-        "tpukube_torch.sched.policy, tpukube_torch.core.retry\n"
+        "tpukube_torch.sched.policy, tpukube_torch.core.retry, "
+        "tpukube_torch.sim.kube_rest\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('torch', 'jax', 'tpukube', 'aiohttp', 'grpc', 'yaml'))))\n"
+        "('torch', 'jax', 'tpukube', 'aiohttp', 'grpc', 'yaml') "
+        "or m.startswith('google.protobuf'))))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                           capture_output=True, text=True, timeout=120)

@@ -58,7 +58,7 @@ class GpuKubeConfig:
     health_poll_seconds: float = 5.0
 
     # the retry policy (core/retry.py) of the seams a Retrier is wired
-    # into: the plugin's kubelet registration
+    # into: the plugin's kubelet registration, the REST channel's requests
     retry_max_attempts: int = 5
     retry_base_delay_seconds: float = 0.1
     retry_max_delay_seconds: float = 5.0
@@ -66,6 +66,13 @@ class GpuKubeConfig:
     retry_deadline_seconds: float = 30.0  # overall wall budget (0 = none)
     # per-attempt transport-timeout cap (0 = the transport's own default)
     retry_attempt_timeout_seconds: float = 0.0
+    # apiserver circuit breaker (core/retry.py CircuitBreaker):
+    # failure_threshold consecutive transport/5xx failures open the
+    # circuit; requests then fail fast for reset_seconds before
+    # half-open probing. 0 disables the breaker (the default).
+    circuit_failure_threshold: int = 0
+    circuit_reset_seconds: float = 30.0
+    circuit_half_open_probes: int = 1
 
     # scheduler extender
     extender_host: str = "0.0.0.0"
@@ -207,6 +214,14 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> GpuKubeConfig:
             "retry_attempt_timeout_seconds must be >= 0 (0 = transport "
             "default)"
         )
+    if cfg.circuit_failure_threshold < 0:
+        raise ValueError(
+            "circuit_failure_threshold must be >= 0 (0 = disabled)"
+        )
+    if cfg.circuit_reset_seconds <= 0:
+        raise ValueError("circuit_reset_seconds must be positive")
+    if cfg.circuit_half_open_probes < 1:
+        raise ValueError("circuit_half_open_probes must be >= 1")
     if not 0.0 <= cfg.snapshot_audit_rate <= 1.0:
         raise ValueError(
             "snapshot_audit_rate must be in [0, 1] (0 = audit off)"

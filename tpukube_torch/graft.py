@@ -779,8 +779,11 @@ def check_scheduled_env(pe: PodGpuEnv, alloc_payload: str) -> dict:
         raise RuntimeError(f"coords {pe.coords} outside mesh {pe.mesh_dims}")
     gang = (str(pe.gang_num_slices), ",".join(pe.gang_slices),
             str(pe.gang_slice_index))
-    want = (alloc.env.get(ENV_GANG_NUM_SLICES), alloc.env.get(ENV_GANG_SLICES),
-            alloc.env.get(ENV_GANG_SLICE_INDEX))
+    # a pod outside any gang carries no gang keys: its env reads the
+    # one-slice defaults (PodGpuEnv's)
+    want = (alloc.env.get(ENV_GANG_NUM_SLICES, "1"),
+            alloc.env.get(ENV_GANG_SLICES, ""),
+            alloc.env.get(ENV_GANG_SLICE_INDEX, "0"))
     if gang != want:
         raise RuntimeError(f"env gang keys {gang}, bound {want}")
     return {"pod": alloc.pod_key, "node": alloc.node_name,

@@ -3,7 +3,9 @@
 ``build_extender_registry``/``render_extender_metrics`` (``serve`` in
 ``tpukube_torch.sched.extender`` answers ``GET /metrics`` with it) and
 ``build_plugin_registry``/``render_plugin_metrics`` for the device
-plugin (``tpukube_torch.plugin.server``).
+plugin (``tpukube_torch.plugin.server``), and
+``build_syncer_registry``/``render_syncer_metrics`` for the node
+annotation syncer (``tpukube_torch.apiserver.NodeAnnotationSyncer``).
 
 Extender series, under the reference's names and types:
   tpu_chip_utilization_percent            — north star #1
@@ -16,8 +18,14 @@ Extender series, under the reference's names and types:
   and with an eviction executor: tpukube_evictions_total,
   tpukube_evictions_blocked_total, tpukube_eviction_failures_total,
   tpukube_eviction_oldest_age_seconds;
+  with a reconcile loop: tpukube_reconciles_total;
+  with a node-topology refresh loop: tpukube_node_refreshes_total;
   with a lifecycle loop: tpukube_lifecycle_releases_total;
-  tpukube_events_total{reason}.
+  tpukube_events_total{reason};
+  with the apiserver channel's Retrier / CircuitBreaker attached
+  (``extender.api_retrier``/``api_circuit``):
+  tpukube_retry_{attempts,retries,exhausted}_total{op},
+  tpukube_circuit_state{circuit} and tpukube_circuit_opens_total{circuit}.
 
 Plugin series: tpukube_plugin_allocations_total,
 tpukube_plugin_devices{health}, tpukube_plugin_resource_info{resource},
@@ -29,15 +37,17 @@ tpukube_retry_{attempts,retries,exhausted}_total{op}; with a telemetry
 sampler one series per GPU of tpukube_chip_{healthy,duty_cycle_percent,
 hbm_used_bytes,hbm_total_bytes,ici_link_errors_total,
 health_transitions_total}, tpukube_node_chips{state} and
-tpukube_telemetry_samples_total; tpukube_events_total{reason}.
+tpukube_telemetry_samples_total; with an alloc-intent watcher
+tpukube_plugin_intent_watch_events_total; tpukube_events_total{reason}.
+
+Syncer series: tpukube_syncer_syncs_total.
 
 Absent, because the port lacks their source (each listed in ROADMAP.md,
-none faked): the reconcile and node-refresh counters (their loops), the
-plugin's intent-watch counter (the alloc-intent watcher), the
-scheduling-snapshot cache stats and per-slice fragmentation (the cache's
-``stats()``/``observe()``), the bulk-ingest and incremental-resync series,
-and the journal, batch-cycle, tenancy, decision-provenance, capacity,
-drain, autoscaler, circuit and degraded-mode sections.
+none faked): the scheduling-snapshot cache stats and per-slice
+fragmentation (the cache's ``stats()``/``observe()``), the bulk-ingest and
+incremental-resync series, and the journal, batch-cycle, tenancy,
+decision-provenance, capacity, drain, autoscaler and degraded-mode
+sections.
 """
 
 from __future__ import annotations
@@ -45,13 +55,15 @@ from __future__ import annotations
 from tpukube_torch.obs.registry import Registry, format_sample as _fmt  # noqa: F401
 
 __all__ = ["build_extender_registry", "render_extender_metrics",
-           "build_plugin_registry", "render_plugin_metrics"]
+           "build_plugin_registry", "render_plugin_metrics",
+           "build_syncer_registry", "render_syncer_metrics"]
 
 
-def build_extender_registry(extender, evictions=None,
-                            lifecycle=None) -> Registry:
+def build_extender_registry(extender, reconcile=None, evictions=None,
+                            node_refresh=None, lifecycle=None) -> Registry:
     """Registry for an Extender (tpukube_torch.sched.extender); pass the
-    daemon's EvictionExecutor / PodLifecycleReleaseLoop to export their
+    daemon's AllocReconcileLoop / EvictionExecutor /
+    NodeTopologyRefreshLoop / PodLifecycleReleaseLoop to export their
     counters (a flat releases counter under churn means the release
     watch is dead and chips are leaking)."""
     reg = Registry()
@@ -112,19 +124,35 @@ def build_extender_registry(extender, evictions=None,
         # no executor: the queue depth is still the operator's
         # double-allocation early-warning
         pending.set_function(lambda: len(extender.pending_evictions))
+    if reconcile is not None:
+        reg.counter("tpukube_reconciles_total",
+                    fn=lambda: reconcile.reconciled)
+    if node_refresh is not None:
+        reg.counter("tpukube_node_refreshes_total",
+                    fn=lambda: node_refresh.refreshed)
     if lifecycle is not None:
         reg.counter("tpukube_lifecycle_releases_total",
                     fn=lambda: lifecycle.released)
     events = getattr(extender, "events", None)
     if events is not None:
         _add_events_counter(reg, events)
+    # the apiserver channel's retry/circuit layer: series render only
+    # when a daemon wired the channel objects — sim extenders keep the
+    # default exposition
+    _add_retry_metrics(
+        reg,
+        retriers=[getattr(extender, "api_retrier", None)],
+        circuits=[getattr(extender, "api_circuit", None)],
+    )
     return reg
 
 
-def render_extender_metrics(extender, evictions=None, lifecycle=None) -> str:
+def render_extender_metrics(extender, reconcile=None, evictions=None,
+                            node_refresh=None, lifecycle=None) -> str:
     """Prometheus text for an Extender — see build_extender_registry."""
     return build_extender_registry(
-        extender, evictions=evictions, lifecycle=lifecycle,
+        extender, reconcile=reconcile, evictions=evictions,
+        node_refresh=node_refresh, lifecycle=lifecycle,
     ).render()
 
 
@@ -200,10 +228,12 @@ def build_plugin_registry(server, health=None, kubelet_watch=None,
     return reg
 
 
-def _add_retry_metrics(reg: Registry, retriers=()) -> None:
-    """Retry families (core/retry.py), one child per named Retrier (the
-    reference's circuit families wait for its CircuitBreaker)."""
+def _add_retry_metrics(reg: Registry, retriers=(), circuits=()) -> None:
+    """Retry/circuit families (core/retry.py), one child per named
+    Retrier/CircuitBreaker — shared by the extender's and the plugin's
+    builders so the series shapes can never drift apart."""
     retriers = [r for r in retriers if r is not None]
+    circuits = [c for c in circuits if c is not None]
     if retriers:
         attempts = reg.counter(
             "tpukube_retry_attempts_total",
@@ -224,6 +254,19 @@ def _add_retry_metrics(reg: Registry, retriers=()) -> None:
                 lambda r=r: r.stats.retries)
             exhausted.labels(op=r.name).set_function(
                 lambda r=r: r.stats.exhausted)
+    if circuits:
+        state = reg.gauge(
+            "tpukube_circuit_state",
+            help_text="Breaker state: 0 closed, 1 half-open, 2 open.")
+        opens = reg.counter(
+            "tpukube_circuit_opens_total",
+            help_text="Times the breaker tripped open (CircuitOpen "
+                      "events).")
+        for c in circuits:
+            state.labels(circuit=c.name).set_function(
+                lambda c=c: c.state_code())
+            opens.labels(circuit=c.name).set_function(
+                lambda c=c: c.opens)
 
 
 def _add_telemetry_metrics(reg: Registry, sampler) -> None:
@@ -299,3 +342,14 @@ def render_plugin_metrics(server, health=None, kubelet_watch=None,
         server, health=health, kubelet_watch=kubelet_watch,
         intent_watch=intent_watch, sampler=sampler, events=events,
     ).render()
+
+
+def build_syncer_registry(syncer) -> Registry:
+    reg = Registry()
+    reg.counter("tpukube_syncer_syncs_total", fn=lambda: syncer.syncs)
+    return reg
+
+
+def render_syncer_metrics(syncer) -> str:
+    """Prometheus text for a NodeAnnotationSyncer sidecar."""
+    return build_syncer_registry(syncer).render()

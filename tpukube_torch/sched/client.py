@@ -31,18 +31,23 @@ def post(port: int, path: str, body: Any, host: str = "127.0.0.1") -> Any:
     return json.loads(raw)
 
 
-def filter_nodes(port: int, pod: dict, nodes: list[dict]) -> dict:
-    """The ExtenderFilterResult for ``pod`` over the node objects."""
+def filter_nodes(port: int, pod: dict, nodes: list) -> dict:
+    """The ExtenderFilterResult for ``pod`` over ``nodes``: the node
+    objects, or their names only (what kube-scheduler sends a
+    nodeCacheCapable extender, which knows the nodes from the apiserver)."""
+    if nodes and all(isinstance(n, str) for n in nodes):
+        return post(port, "/filter", {"Pod": pod, "NodeNames": list(nodes)})
     return post(port, "/filter", {"Pod": pod, "Nodes": {"Items": nodes}})
 
 
 def place(port: int, pod: dict,
-          nodes: list[dict]) -> tuple[str, AllocResult, dict[str, float]]:
-    """One scheduling cycle for ``pod`` over the node objects: the feasible
-    nodes, their scores, the bind of the best (ties go to the first name,
-    as the sim's scheduler breaks them). Returns (node, the bound alloc,
-    each webhook's round trip in ms on the host clock). Raises when the
-    pod is unschedulable or the bind fails."""
+          nodes: list) -> tuple[str, AllocResult, dict[str, float]]:
+    """One scheduling cycle for ``pod`` over ``nodes`` (objects or names,
+    as :func:`filter_nodes`): the feasible nodes, their scores, the bind of
+    the best (ties go to the first name, as the sim's scheduler breaks
+    them). Returns (node, the bound alloc, each webhook's round trip in ms
+    on the host clock). Raises when the pod is unschedulable or the bind
+    fails."""
     ms: dict[str, float] = {}
     t = time.perf_counter()
     fres = filter_nodes(port, pod, nodes)

@@ -6,7 +6,12 @@ accounting per node, or the gang's reservation), /prioritize (topology
 score: how snugly the pod's GPUs pack against walls and allocations), and
 /bind (slicefit plans concrete GPUs, the ledger commits them, and the
 pod's ``alloc`` annotation carries the result). ``Extender.handle`` is
-the one decision path: mutation and trace record under one lock.
+the one decision path: mutation and trace record under one lock. With a
+``binder`` (``tpukube_torch.apiserver.pod_binder``), a successful /bind
+also creates the pod's Binding through the apiserver, outside the lock; a
+failed Binding undoes the ledger commit (and a gang's quorum commit) for
+the scheduler's retry. The recorded ``reconcile`` decision folds a
+kubelet's divergent device choice into the ledger.
 
 A gang with priority > 0 that finds no contiguous slice preempts
 (``sched/policy.py``), in two phases: /filter records the cheapest victim
@@ -17,17 +22,19 @@ gone (the recorded ``victim_gone`` decision, sent by the eviction executor
 of ``tpukube_torch.apiserver``). ``evict_precheck``, when wired, refuses a
 bind whose plan a PodDisruptionBudget would block, before any eviction.
 
-The extender is a pure function of (pod, node annotations, ledger): no
-apiserver connection exists here. :func:`serve` answers the webhooks over
-the standard library's ``http.server`` (the machines the port runs on have
-no aiohttp), with the reference's JSON bodies; a schema error is HTTP 400.
+The extender's decisions are a pure function of (pod, node annotations,
+ledger); the apiserver is reached only through the ``binder`` and
+``evict_precheck`` callables a daemon wires in. :func:`serve` answers the
+webhooks over the standard library's ``http.server`` (the machines the
+port runs on have no aiohttp), with the reference's JSON bodies; a schema
+error is HTTP 400.
 It also answers ``GET /healthz`` and ``GET /metrics``
 (``tpukube_torch.metrics``).
 
 Not ported yet (each refused or absent, none faked): the journal, the
-batch cycle, tenancy (with its preemption victim bias), capacity, drain,
-autoscale, decision provenance, the shard router, the bind effector,
-device-id reconcile, and the other HTTP routes.
+batch cycle (with ``admit``, which only feeds it), tenancy
+(with its preemption victim bias), capacity, drain, autoscale, decision
+provenance, degraded mode, the shard router, and the other HTTP routes.
 """
 
 from __future__ import annotations
@@ -174,6 +181,24 @@ class Extender:
             self.webhook_hist.labels(handler=handler)
         self.preemptions = 0   # victims evicted for higher-priority gangs
         self.binds_total = 0   # successful binds (metrics counter)
+        # The bind EFFECTOR: with bindVerb configured, kube-scheduler
+        # delegates the binding itself to the extender — returning success
+        # without creating the Binding object leaves the pod Pending
+        # forever on a real cluster. A daemon wires
+        # apiserver.pod_binder(api) here; None in sim (the harness plays
+        # the apiserver and applies the response's annotations itself).
+        # The call runs OUTSIDE the decision lock (_handle_bind) so
+        # apiserver latency never stalls filter/prioritize.
+        self.binder = None
+        # pod_key -> (reservation, this-bind-committed-the-gang), written
+        # by bind() when a binder is set, consumed by _handle_bind's
+        # effector undo
+        self._bind_gang_info: dict[str, tuple[Any, bool]] = {}
+        # the apiserver channel's Retrier/CircuitBreaker, attached by a
+        # daemon purely so /metrics can export their counters
+        # (tpukube_retry_* / tpukube_circuit_*); None in sim
+        self.api_retrier = None
+        self.api_circuit = None
         # The PDB PRECHECK: a callable pod_key -> Optional[bool] (True =
         # evictable now, False = a PodDisruptionBudget blocks it, None =
         # cannot determine). Consulted by _handle_bind BEFORE a gang's
@@ -1023,6 +1048,11 @@ class Extender:
                         members=len(res.assigned),
                         latency_s=res.commit_latency,
                     )
+                if self.binder is not None:
+                    # _handle_bind's effector undo needs to know whether
+                    # THIS bind committed the gang (keyed, since other
+                    # binds may interleave once the decision lock drops)
+                    self._bind_gang_info[key] = (res, committed_now)
             with self._pending_lock:
                 self._pending.pop(key, None)
             self.binds_total += 1
@@ -1117,6 +1147,12 @@ class Extender:
                 response = {
                     "cleared": self.gang.on_victim_gone(body["pod_key"])
                 }
+            elif kind == "reconcile":
+                response = {
+                    "changed": self._reconcile_devices(
+                        body["pod_key"], list(body["devices"])
+                    )
+                }
             elif kind == "upsert_node":
                 # out-of-band node-annotation refresh (nodeCacheCapable
                 # mode: webhooks carry names only, so topology updates
@@ -1154,10 +1190,16 @@ class Extender:
             return response
 
     def _handle_bind(self, body: Any) -> Any:
-        """The bind decision: the PDB precheck of a pending preemption
-        plan runs first, OUTSIDE the decision lock (it may ask the
-        apiserver); the ledger mutation and its trace record run under
-        the lock as one step."""
+        """The bind decision, split around the external effector: the PDB
+        precheck of a pending preemption plan runs first, OUTSIDE the
+        decision lock (it may ask the apiserver); the ledger mutation and
+        its trace record run under the lock as one step; the binder's
+        apiserver I/O (annotation PATCH + Binding POST) runs OUTSIDE it
+        again, so one apiserver hiccup cannot stall every concurrent
+        filter/prioritize. A failed effector undoes through a regular
+        recorded ``release`` decision — the trace then replays as (bind
+        ok, release), which IS the ledger's true history; only the wire
+        response reports the failure to the scheduler for a retry."""
         name, ns, uid, node = kube.parse_binding_args(body)
         key = f"{ns}/{name}"
         blocked = self._precheck_preemption(key)
@@ -1170,9 +1212,15 @@ class Extender:
                 f"{key}: preemption plan refused — PodDisruptionBudget "
                 f"blocks eviction of {sorted(blocked)[:3]}"
             )
+        alloc = None
+        gang_info = None
         with self._decision_lock:
             try:
                 alloc = self.bind(name, ns, uid, node)
+                # consume THIS bind's gang marker under the same lock; a
+                # FAILED bind must not pop (the key may belong to another
+                # in-flight bind's pending effector)
+                gang_info = self._bind_gang_info.pop(key, None)
                 # the alloc annotation rides back to the
                 # harness/apiserver-writer
                 response: Any = kube.binding_result()
@@ -1181,10 +1229,42 @@ class Extender:
                 }
             except (ExtenderError, GangError, StateError,
                     codec.CodecError) as e:
+                # an errored response must NEVER run the effector, even
+                # when bind() itself succeeded and a later step threw —
+                # the scheduler will retry a bind we told it failed
+                alloc = None
                 response = kube.binding_result(str(e))
             if self.trace is not None:
                 self.trace.record("bind", body, response)
+        if alloc is None or self.binder is None:
             return response
+        try:
+            self.binder(alloc)
+        except Exception as e:
+            # the Binding POST/annotation PATCH failed: the pod is NOT
+            # bound on the cluster (annotation-first ordering guarantees
+            # partial failures leave it Pending), so the ledger must not
+            # claim it is. Preemption evictions already executed stand:
+            # the victims were released either way.
+            log.error("bind effector for %s failed: %s", key, e)
+            self._emit_event(
+                "BindFailed", f"pod/{key}",
+                f"apiserver bind failed after a successful ledger "
+                f"commit; undone for retry: {e}",
+            )
+            with self._decision_lock:
+                # undo atomically w.r.t. other binds (which also hold the
+                # decision lock): a sibling member interleaving between
+                # the uncommit and the release could otherwise re-commit
+                # a quorum that counts this phantom member
+                if gang_info is not None and gang_info[1]:
+                    # this very bind committed the gang: the quorum never
+                    # truly assembled — revert flag + latency sample
+                    self.gang.undo_commit(gang_info[0])
+                self.handle("release", {"pod_key": key})
+                self.binds_total -= 1  # the bind did not survive
+            return kube.binding_result(f"{key}: apiserver bind failed: {e}")
+        return response
 
     def _precheck_preemption(self, pod_key: str) -> list[str]:
         """PDB dry-run for the eviction plan a bind for ``pod_key`` would
@@ -1224,6 +1304,73 @@ class Extender:
                 # proceed — refusing would wedge preemption on noise
                 log.warning("eviction precheck for %s failed: %s", vk, e)
         return blocked
+
+    def _reconcile_devices(self, pod_key: str, device_ids: list[str]) -> bool:
+        """Fold the kubelet's ACTUAL device choice into the ledger when it
+        diverged from the plan (reported through the pod's ``alloc-actual``
+        annotation — apiserver.AllocReconcileLoop drives this as a recorded
+        ``reconcile`` decision). The container is already running on those
+        chips, so reality wins: the planned allocation is released, the
+        actual one committed, and gang bookkeeping follows. Returns True if
+        the ledger changed."""
+        alloc = self.state.allocation(pod_key)
+        if alloc is None:
+            log.warning("reconcile for %s: no allocation in ledger", pod_key)
+            return False
+        if sorted(alloc.device_ids) == sorted(device_ids):
+            return False
+        view = self.state.node(alloc.node_name)
+        if view is None:
+            log.warning("reconcile for %s: node %s unknown",
+                        pod_key, alloc.node_name)
+            return False
+        try:
+            coords = sorted({
+                view.chip(parse_device_id(did)[0]).coord
+                for did in device_ids
+            })
+        except (ValueError, KeyError) as e:
+            log.warning("reconcile for %s: bad actual ids %s: %s",
+                        pod_key, device_ids, e)
+            return False
+        # A report naming chips the ledger shows held by ANOTHER pod is
+        # wrong (stale, or a misattributed divergence after an agent
+        # restart) — refuse rather than evict a running pod's entry.
+        held_by_others = [
+            did for did in device_ids
+            if did in view.used_ids and did not in alloc.device_ids
+        ]
+        if held_by_others:
+            log.warning(
+                "reconcile for %s refused: %s already held by other pods",
+                pod_key, held_by_others,
+            )
+            return False
+        self.state.release(pod_key)
+        actual = AllocResult(
+            pod_key=pod_key,
+            node_name=alloc.node_name,
+            device_ids=sorted(device_ids),
+            coords=coords,
+            env=alloc.env,
+            priority=alloc.priority,
+            uid=alloc.uid,
+        )
+        try:
+            self.state.commit(actual)
+        except StateError:
+            # never leave the pod ledger-less: restore the planned entry
+            self.state.commit(alloc)
+            log.warning("reconcile for %s: commit of %s failed; restored "
+                        "planned allocation", pod_key, sorted(device_ids))
+            return False
+        self.gang.reassign(pod_key, coords)
+        log.warning(
+            "reconciled %s on %s: kubelet allocated %s (planned %s)",
+            pod_key, alloc.node_name, sorted(device_ids),
+            sorted(alloc.device_ids),
+        )
+        return True
 
     # -- restart story -------------------------------------------------------
     def rebuild_from_pods(self, pods: list[dict[str, str]]) -> int:
@@ -1308,7 +1455,9 @@ class _WebhookHandler(BaseHTTPRequestHandler):
             from tpukube_torch.metrics import render_extender_metrics
 
             text = render_extender_metrics(
-                ext, evictions=self.server.evictions,
+                ext, reconcile=self.server.reconcile,
+                evictions=self.server.evictions,
+                node_refresh=self.server.node_refresh,
                 lifecycle=self.server.lifecycle)
             self._reply(200, text.encode(), "text/plain; version=0.0.4")
         else:
@@ -1319,10 +1468,12 @@ class _WebhookHandler(BaseHTTPRequestHandler):
 
 
 def serve(extender: Extender, host: str = "127.0.0.1", port: int = 0,
-          evictions=None, lifecycle=None) -> ThreadingHTTPServer:
+          evictions=None, lifecycle=None, reconcile=None,
+          node_refresh=None) -> ThreadingHTTPServer:
     """Serve ``extender``'s webhooks on ``host:port`` (0 = a free port;
     read it from ``server.server_address``) from a daemon thread. Pass the
-    daemon's ``EvictionExecutor`` and ``PodLifecycleReleaseLoop``
+    daemon's ``EvictionExecutor``, ``PodLifecycleReleaseLoop``,
+    ``AllocReconcileLoop`` and ``NodeTopologyRefreshLoop``
     (``tpukube_torch.apiserver``) to export their counters on /metrics.
     Stop with ``server.shutdown(); server.server_close()``."""
     server = ThreadingHTTPServer((host, port), _WebhookHandler)
@@ -1330,6 +1481,8 @@ def serve(extender: Extender, host: str = "127.0.0.1", port: int = 0,
     server.extender = extender
     server.evictions = evictions
     server.lifecycle = lifecycle
+    server.reconcile = reconcile
+    server.node_refresh = node_refresh
     # a short poll interval: shutdown() waits out one poll
     threading.Thread(target=server.serve_forever, args=(0.05,), daemon=True,
                      name="tpukube-extender-http").start()

@@ -6,7 +6,9 @@ is recorded at the protocol boundary — the exact request JSON in, the
 exact response JSON out — as one event, in a bounded in-memory ring with
 an optional JSONL file sink. The trace is on by default
 (``trace_capacity`` 4096), so the default decision path records into it.
-Replay against a fresh extender, and the trace CLIs, are not ported yet.
+:func:`replay` re-runs a recorded stream against a fresh extender and
+reports every divergence. Loading a JSONL capture and the trace CLIs are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -19,14 +21,17 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Iterable, Optional
 
 # Event kinds. filter/prioritize/bind carry the webhook request/response
-# verbatim; release carries the pod key; upsert_node(s) carry node
-# annotation refreshes applied outside any webhook; victim_gone carries
-# an evicted pod's confirmed deletion (it unblocks masked chips).
-KINDS = ("filter", "prioritize", "bind", "release", "upsert_node",
-         "upsert_nodes", "victim_gone")
+# verbatim; release carries the pod key; reconcile carries a kubelet
+# device-id divergence report being folded into the ledger
+# (apiserver.AllocReconcileLoop); upsert_node(s) carry node annotation
+# refreshes applied outside any webhook (apiserver.NodeTopologyRefreshLoop);
+# victim_gone carries an evicted pod's confirmed deletion (it unblocks
+# masked chips).
+KINDS = ("filter", "prioritize", "bind", "release", "reconcile",
+         "upsert_node", "upsert_nodes", "victim_gone")
 
 # Annotation kinds: pure observability markers (gang reserve, gang
 # commit). They mutate nothing.
@@ -193,3 +198,81 @@ class DecisionTrace:
     def close(self) -> None:
         if self._sink is not None:
             self._sink.close()
+
+
+@dataclass
+class Divergence:
+    seq: int
+    kind: str
+    recorded: Any
+    replayed: Any
+
+    def __str__(self) -> str:
+        return (
+            f"divergence at seq {self.seq} ({self.kind}):\n"
+            f"  recorded: {json.dumps(self.recorded, sort_keys=True)[:400]}\n"
+            f"  replayed: {json.dumps(self.replayed, sort_keys=True)[:400]}"
+        )
+
+
+def replay(
+    events: Iterable[dict],
+    extender: Optional[Any] = None,
+    config: Optional[Any] = None,
+    stop_on_divergence: bool = True,
+) -> list[Divergence]:
+    """Re-run a recorded decision stream against a fresh Extender and
+    return every point where the replayed response differs.
+
+    An empty result proves the scheduler is a deterministic function of
+    its request stream (time-dependent behavior — gang TTL sweeps — only
+    fires on inactivity gaps longer than the TTL, which a replay never
+    reproduces, so a clean capture replays clean).
+    """
+    # local import: trace must stay importable from the extender module
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.sched.extender import Extender
+
+    if extender is None:
+        from dataclasses import replace as _dc_replace
+
+        cfg = config or load_config(env={})
+        # replay must not record (or append to the live trace/event
+        # sinks!) — the replayed extender is a scratch instance
+        extender = Extender(_dc_replace(
+            cfg, trace_capacity=0, trace_path="", events_path="",
+        ))
+    divergences: list[Divergence] = []
+
+    def _check(ev: dict, replayed: Any) -> bool:
+        if _canon(replayed) != _canon(ev["response"]):
+            divergences.append(
+                Divergence(ev["seq"], ev["kind"], ev["response"], replayed)
+            )
+            return stop_on_divergence
+        return False
+
+    for ev in events:
+        kind, req = ev["kind"], ev["request"]
+        if kind in ANNOTATION_KINDS:
+            continue  # observability markers: nothing to re-dispatch
+        if kind not in KINDS:  # newer trace format: report, don't crash
+            divergences.append(Divergence(ev.get("seq", -1), kind, ev, None))
+            if stop_on_divergence:
+                break
+            continue
+        # replay through the SAME dispatch the live daemon uses (the
+        # scratch extender has tracing disabled, so nothing re-records)
+        try:
+            replayed = extender.handle(kind, req)
+        except Exception as e:  # the replay error IS the output
+            replayed = {"replayError": f"{type(e).__name__}: {e}"}
+        if kind == "release":
+            continue  # releases have no response to compare
+        if _check(ev, replayed):
+            break
+    return divergences
+
+
+def _canon(obj: Any) -> str:
+    return json.dumps(obj, sort_keys=True)

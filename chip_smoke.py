@@ -143,9 +143,35 @@ Drives the port's main path the way a cluster does, on the card:
    i. one ``rest:`` line: the times above (medians where they repeat), the
       gang's commit with the REST effector beside step 11a's, the
       stand-in's request counts by route (each route must be used);
-13. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+13. the batch scheduling cycle (host work but d):
+   a. BASELINE scenarios 1-6 through the port's ``scenarios.run`` with the
+      in-process plugin transport, each run with batching off and then
+      with ``TPUKUBE_BATCH_ENABLED=1``: the placement keys of the two runs
+      must be equal, and scenario 5's utilization must reach the north
+      star's 95%;
+   b. scenario 10 at the reference's defaults: 1,024 nodes, 4,096 GPU
+      slots, a 256-member gang, 100,000 pods on the fake clock;
+   c. scenario 12 at the reference's defaults: 10,240 nodes, 40,960 slots,
+      a 512-member gang, 40,000 pods, with the leak check and the
+      snapshot-maintenance numbers; each drive raises on its own
+      invariants (gang uncommitted, ledger divergence, leaked
+      reservations, a pod shortfall);
+   d. one card pod from a batch plan, over the REST stand-in of step 12:
+      an extender with batching on, its ``PodInformer`` carrying the
+      lifecycle loop and a ``PodAdmissionFeed``; a pending
+      ``default/batch-0`` pod must be admitted by the feed with no webhook
+      sent and planned by ``plan_pending``; ``sched/client.py``'s webhooks
+      are answered from the plan (``tpukube_cycle_plan_hits_total`` >= 1
+      on ``/metrics``), the Binding POST binds it, the intent watch and
+      the kubelet's Allocate give the env, and ``--scheduled`` serves one
+      Llama-3-8B request (B=2, S=2048) on the card; the pod then ends and
+      is released;
+   e. one ``scenarios:`` line: per drive pods/s, wall and simulated
+      seconds, webhook p99s, the plan-hit ratio, the snapshot's
+      maintenance times (12), utilization; 13d's times; the host's CPU;
+14. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-14. prints the kernels line: the JAX package has no Pallas kernel, so the
+15. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -847,19 +873,24 @@ class RestTimer:
 
 
 @contextlib.contextmanager
-def rest_loops(pkg, ext, api, node_name=None):
+def rest_loops(pkg, ext, api, admission: bool = False):
     """A daemon's loops over ``api``, all in watch mode, for the block:
     the node-topology refresh loop; the lifecycle release loop and the
-    reconcile loop as children of one PodInformer (one pod stream); the
-    eviction executor, confirmed by the lifecycle loop's DELETED events;
-    the bind effector. Yields them."""
+    reconcile loop (and with ``admission`` the batch queue's
+    ``PodAdmissionFeed``) as children of one PodInformer (one pod
+    stream); the eviction executor, confirmed by the lifecycle loop's
+    DELETED events; the bind effector. Yields them."""
     a = pkg.api
     refresh = a.NodeTopologyRefreshLoop(ext, api, poll_seconds=REST_POLL_S)
     execu = a.EvictionExecutor(ext, api, poll_seconds=3600.0)
     lifecycle = a.PodLifecycleReleaseLoop(ext, api, poll_seconds=REST_POLL_S,
                                           evictions=execu)
     reconcile = a.AllocReconcileLoop(ext, api, poll_seconds=REST_POLL_S)
-    informer = a.PodInformer(api, [lifecycle, reconcile], poll_seconds=REST_POLL_S)
+    feed = (a.PodAdmissionFeed(ext, api, poll_seconds=REST_POLL_S)
+            if admission else None)
+    informer = a.PodInformer(
+        api, [lifecycle, reconcile] + ([feed] if feed is not None else []),
+        poll_seconds=REST_POLL_S)
     timer = RestTimer(api)
     ext.binder = timer.binder(a.pod_binder(api))
     # the channel's retry/circuit layer rides on the extender, as a
@@ -872,7 +903,7 @@ def rest_loops(pkg, ext, api, node_name=None):
         wait_for("the node watch", refresh.stream_connected)
         yield types.SimpleNamespace(refresh=refresh, execu=execu,
                                     lifecycle=lifecycle, reconcile=reconcile,
-                                    informer=informer, timer=timer)
+                                    feed=feed, informer=informer, timer=timer)
         streams_held(refresh, informer)
         if execu.failures or execu.blocked:
             raise RuntimeError(f"REST channel: {execu.failures} eviction(s) "
@@ -1030,6 +1061,10 @@ def rest_pod_life(pkg, card_agent, share_agent, run_child=None) -> dict:
                     out["second_bind"] = alloc1.device_ids
                     if alloc1.device_ids != alloc.device_ids:
                         raise RuntimeError(f"rest-1 bound {alloc1.device_ids}")
+                    # the intent watch's count is read once its last event
+                    # (rest-1's Binding) has landed, not while it races in
+                    wait_for("rest-1's intent", lambda: agent.server.intents
+                             .snapshot().get("default/rest-1") == alloc1.device_ids)
                     out["released"] = loops.lifecycle.released
                     out["intent_watch_events"] = metric_lines(
                         pkg.metrics.render_plugin_metrics(
@@ -1350,6 +1385,260 @@ def rest_phase(card: str, c0, r5: dict):
         "routes": routes,
         "card": card,
     }
+
+
+# -- the batch scheduling cycle and the scenario drives (step 13) -------------
+
+# each scenario's placement keys, equal with batching off and on (the
+# reference's tests/test_cycle.py SCENARIO_KEYS)
+SCENARIO_KEYS = {
+    1: ("node", "devices", "env_keys", "utilization_percent"),
+    2: ("placements", "utilization_percent"),
+    3: ("pods", "shared_one_chip"),
+    4: ("gang_box", "contiguous", "utilization_percent"),
+    5: ("value", "vs_baseline", "preemptions", "pods_placed"),
+    6: ("value", "waves", "wave_size", "full_utilization_percent",
+        "util_min_after_refill_percent", "lifecycle_releases"),
+}
+NORTH_STAR_UTIL = 95.0  # BASELINE's utilization target, percent
+
+
+@contextlib.contextmanager
+def scenario_env(env: dict):
+    """``env`` set in this process's environment for the block (the
+    scenarios read their knobs from it), the old values back after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def batch_pod_life(pkg, card_agent, run_child=None) -> dict:
+    """Step 13d: one card pod placed from a batch plan, every effect
+    through ``pkg``'s REST channel over the stand-in apiserver. The
+    extender runs with ``TPUKUBE_BATCH_ENABLED=1``; its PodInformer
+    carries the lifecycle loop and a ``PodAdmissionFeed``. A pending
+    ``default/batch-0`` pod created in the stand-in must be admitted by
+    the feed with no webhook sent, planned by ``plan_pending``, and its
+    /filter -> /prioritize -> /bind (``sched/client.py`` over HTTP)
+    answered from the plan; the bind effector's Binding POST, the intent
+    watch and the kubelet's Allocate give the env; ``run_child(env)``
+    runs the pod (None: no child); the pod then ends ``Succeeded`` and
+    the lifecycle loop releases it. Returns the decisions and host-clock
+    times; raises RuntimeError when a check fails. Package-agnostic, so
+    the tests hold the port's run against the reference's."""
+    import urllib.request
+
+    from tpukube_torch.graft import ENV_ALLOC
+    from tpukube_torch.sched import client
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sim.kube_rest import KubeRestServer
+
+    a, codec = pkg.api, pkg.codec
+    key = "default/batch-0"
+    out: dict = {}
+    with KubeRestServer(token=REST_TOKEN) as kube:
+        cfg = pkg.load_config(env={"TPUKUBE_BATCH_ENABLED": "1"})
+        api = pkg.rest_api(cfg, kube.base_url, token=REST_TOKEN)
+        ext = pkg.Extender(cfg)
+        with rest_loops(pkg, ext, api, admission=True) as loops, \
+                contextlib.ExitStack() as stack:
+            server = pkg.serve(ext, evictions=loops.execu, lifecycle=loops.lifecycle,
+                               reconcile=loops.reconcile, node_refresh=loops.refresh)
+            stack.callback(server.server_close)
+            stack.callback(server.shutdown)
+            port = server.server_address[1]
+            with card_agent() as agent:
+                node = agent.mgr.host
+                res = agent.server.resource_name
+                intents = a.AllocIntentWatcher(api, node, agent.server,
+                                               poll_seconds=REST_POLL_S)
+                intents.start()
+                stack.callback(intents.stop)
+                wait_for("the intent watch", intents.stream_connected)
+                api.patch_node_annotations(
+                    node, codec.annotate_node(agent.mgr.node_info(), agent.mgr.mesh))
+                wait_for("node topology", lambda: ext.state.node(node) is not None)
+                # the pending pod reaches the queue through the pod stream
+                t = time.perf_counter()
+                kube.store.upsert_pod(pod_object("batch-0", tpu=1))
+                t_adm = wait_for("batch-0's admission",
+                                 lambda: loops.feed.admitted == 1)
+                out["added_to_admitted_ms"] = (t_adm - t) * 1e3
+                if any(ext.latencies[h] for h in ext.latencies):
+                    raise RuntimeError("a webhook was answered before the plan")
+                t = time.perf_counter()
+                out["planned"] = ext.plan_pending()
+                out["admitted_to_planned_ms"] = (time.perf_counter() - t) * 1e3
+                out["planned_node"] = ext.planned_node(key)
+                if out["planned"] != 1 or out["planned_node"] != node:
+                    raise RuntimeError(f"plan_pending planned {out['planned']}, "
+                                       f"batch-0 on {out['planned_node']}")
+                # kube-scheduler's cycle over HTTP, names only: each
+                # webhook answered from the plan where it can be
+                host, alloc, ms = client.place(port, pod_object("batch-0", tpu=1),
+                                               [node])
+                t_bound = time.perf_counter()
+                out["bind"] = [host, alloc.device_ids]
+                out["webhook_ms"] = ms
+                wait_for("batch-0's intent", lambda: agent.server.intents
+                         .snapshot().get(key) == alloc.device_ids)
+                out["bind_to_intent_ms"] = (time.perf_counter() - t_bound) * 1e3
+                stored = api.get_pod("default", "batch-0")
+                payload = (stored["metadata"].get("annotations") or {}).get(
+                    codec.ANNO_ALLOC)
+                if (host != node or stored["spec"].get("nodeName") != node
+                        or payload is None
+                        or codec.decode_alloc(payload).device_ids != alloc.device_ids):
+                    raise RuntimeError(f"batch-0 bound {alloc.device_ids} on {host}; "
+                                       f"the apiserver holds {stored}")
+                ids = sorted(agent.kubelet.devices(res))
+                out["preferred"] = agent.kubelet.preferred(res, ids, 1)
+                penv = agent.kubelet.allocate(res, alloc.device_ids)
+                if out["preferred"] != alloc.device_ids or agent.server.intents.depth():
+                    raise RuntimeError(f"preferred {out['preferred']}, intents "
+                                       f"{agent.server.intents.snapshot()}")
+                if run_child is not None:
+                    out["child"] = run_child({**alloc.env, **penv, ENV_ALLOC: payload})
+                done = dict(kube.store.get_pod("default", "batch-0"))
+                done["status"] = {"phase": "Succeeded"}
+                kube.store.upsert_pod(done)
+                wait_for("batch-0's release",
+                         lambda: ext.state.allocation(key) is None)
+                streams_held(intents)
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                        timeout=10) as r:
+                page = metric_lines(r.read().decode())
+            out["metrics"] = {k: page.get(k) for k in (
+                "tpukube_cycles_total", "tpukube_cycle_pods_planned_total",
+                "tpukube_cycle_plan_hits_total", "tpukube_cycle_plan_misses_total",
+                "tpukube_cycle_assumes_total", "tpukube_binds_total",
+                "tpukube_lifecycle_releases_total")}
+            # the feed's admissions over the whole life: the bind
+            # effector's annotation PATCH (before the Binding) re-delivers
+            # the still-unbound pod after /bind consumed its plan, and the
+            # feed admits it again, as the reference's does; the queue
+            # entry leaves at the release
+            out["admitted"] = loops.feed.admitted
+            out["released"] = loops.lifecycle.released
+        out["routes"] = dict(kube.requests)
+    return out
+
+
+def host_cpu() -> str:
+    """The host's CPU model, architecture and core count (the drives are
+    host work)."""
+    import platform
+
+    model = "CPU model not reported"
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                name, _, value = line.partition(":")
+                if name.strip().lower() in ("model name", "cpu model",
+                                            "hardware") and value.strip():
+                    model = value.strip()
+                    break
+    return f"{model} ({platform.machine()}), {os.cpu_count()} cores"
+
+
+def drive_line(r: dict) -> dict:
+    """One kilonode drive's numbers for the ``scenarios:`` line."""
+    out = {k: r[k] for k in ("nodes", "chips", "pods_total", "pods_per_sec",
+                             "wall_s", "sim_seconds", "time_compression",
+                             "webhook_p99_ms", "utilization_percent")}
+    out["plan_hit_ratio"] = r["cycle"]["plan_hit_ratio"]
+    if "snapshot" in r:
+        out.update({k: r["snapshot"][k] for k in (
+            "delta_apply_p50_ms", "rebuild_p50_ms", "snapshot_ms_per_cycle")})
+    return out
+
+
+def batch_phase(card: str, c0):
+    """Step 13: the scenario drives through the port's ``scenarios.run``
+    (13a-c), then one card pod from a batch plan (13d). Returns the
+    ``scenarios:`` line's object, or None when a check failed."""
+    from tpukube_torch.sim import scenarios
+
+    t_step = time.perf_counter()
+    line: dict = {"card": card, "host": host_cpu()}
+    try:
+        # a. scenarios 1-6, batching off then on: the same placements
+        small = {}
+        for n in sorted(SCENARIO_KEYS):
+            runs = []
+            for batch in ("0", "1"):
+                with scenario_env({"TPUKUBE_BATCH_ENABLED": batch}):
+                    runs.append(scenarios.run(n))
+            legacy, batched = ({k: r[k] for k in SCENARIO_KEYS[n]} for r in runs)
+            if legacy != batched:
+                fail(f"scenario {n} placed differently with batching: "
+                     f"{legacy} vs {batched}")
+                return None
+            small[n] = {"wall_s": [r["wall_s"] for r in runs], **legacy}
+        s5 = small[5]
+        if s5["value"] < NORTH_STAR_UTIL:
+            fail(f"scenario 5 utilization {s5['value']} < {NORTH_STAR_UTIL}")
+            return None
+        print(f"scenarios 1-6 (transport inprocess), batching off and on: the "
+              f"same placements; scenario 5 utilization {s5['value']}%, "
+              f"{s5['preemptions']} preemptions, {s5['pods_placed']} pods placed "
+              f"[{card}; {line['host']}]", flush=True)
+        line["small"] = small
+        # b, c. the kilonode drives at the reference's default sizes (each
+        # raises on its own invariants)
+        for n in (10, 12):
+            r = scenarios.run(n)
+            if r["ledger_divergence"] or not r["gang_committed"]:
+                fail(f"scenario {n}: {r}")
+                return None
+            line[f"scenario_{n}"] = drive_line(r)
+            print(f"scenario {n}: {r['nodes']} nodes, {r['chips']} GPUs, "
+                  f"{r['pods_total']} pods in {r['wall_s']} s "
+                  f"({r['pods_per_sec']} pods/s, {r['sim_seconds']} simulated s); "
+                  f"cycle {json.dumps(r['cycle'], sort_keys=True)} "
+                  f"[host CPU times; {line['host']}]", flush=True)
+        # d. one card pod admitted, planned and bound from the plan
+        life = batch_pod_life(port_pkg(), lambda: node_agent({}),
+                              run_child=lambda env: run_pod(
+                                  ["--scheduled"], env, "scheduled"))
+    except RuntimeError as e:
+        fail(str(e))
+        return None
+    sp, m = life["child"], life["metrics"]
+    if sp is None:
+        return None
+    checked = sp["scheduled"]
+    if (sp["uuid"] != c0.chip_id or checked["pod"] != "default/batch-0"
+            or checked["device_ids"] != ["tpu-0"] or life["bind"][1] != ["tpu-0"]
+            or life["released"] != 1
+            or not m["tpukube_cycle_plan_hits_total"]
+            or m["tpukube_cycle_pods_planned_total"] != 1):
+        fail(f"batch-0: {checked} on {sp['uuid']}, {life}")
+        return None
+    print("batch pod: " + json.dumps(sp, sort_keys=True), flush=True)
+    line["batch_pod"] = {k: life[k] for k in (
+        "added_to_admitted_ms", "admitted_to_planned_ms", "webhook_ms",
+        "bind_to_intent_ms", "bind", "metrics", "admitted")}
+    line["batch_pod"]["forward_ms"] = sp["forward_ms_median"]
+    line["step_s"] = time.perf_counter() - t_step
+    print(
+        f"batch pod: default/batch-0 admitted by the feed "
+        f"{life['added_to_admitted_ms']:.3f} ms after ADDED, planned in "
+        f"{life['admitted_to_planned_ms']:.3f} ms, webhooks "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in life["webhook_ms"].items())
+        + f" ({m['tpukube_cycle_plan_hits_total']:.0f} plan hits), bound "
+        f"{life['bind'][1]} over REST, served Llama-3-8B B={sp['batch']} "
+        f"S={sp['seq']} ({sp['forward_ms_median']:.3f} ms) [{card}]",
+        flush=True,
+    )
+    return line
 
 
 def mps_daemon_running() -> bool:
@@ -1770,6 +2059,12 @@ def main() -> int:
     if rest is None:
         return 1
     print("rest: " + json.dumps(rest, sort_keys=True), flush=True)
+
+    # -- the batch cycle: scenarios 1-6, the kilonode drives, a card pod ----
+    drives = batch_phase(card, c0)
+    if drives is None:
+        return 1
+    print("scenarios: " + json.dumps(drives, sort_keys=True), flush=True)
 
     # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
     proc = subprocess.run(

@@ -461,10 +461,40 @@ def test_card_step_host_sequence_decides_as_the_reference():
         'tpukube_retry_attempts_total{op="apiserver"}': 21.0,
         'tpukube_retry_retries_total{op="apiserver"}': 0.0,
         'tpukube_circuit_state{circuit="apiserver"}': 0.0}
-    assert got["intent_watch_events"] >= 1
+    # rest-0's Binding, Succeeded and DELETED, then rest-1's Binding
+    assert got["intent_watch_events"] == 4
     # every route but the Eviction subresource (config 5's) is used here
     assert set(chip_smoke.REST_ROUTES) - set(got["routes"]) == {"pods.eviction"}
     for key in ("file_to_topology_ms", "bind_to_intent_ms", "phase_to_release_ms"):
+        assert 0 < got[key] < chip_smoke.REST_WAIT_S * 1e3
+
+
+def test_batch_card_step_decides_as_the_reference():
+    # chip_smoke's step 13d on the sim backend: a pending pod admitted by
+    # the informer's PodAdmissionFeed, planned, answered from the plan and
+    # bound over REST; in place of the card's child pod, the check it runs
+    # on its env (the port's run)
+    got = chip_smoke.batch_pod_life(
+        PORT, lambda: _port_agent(CARD_NODE_ENV, "host-0-0-0"),
+        run_child=_pod_check)
+    want = chip_smoke.batch_pod_life(
+        REF, lambda: _ref_agent(CARD_NODE_ENV, "host-0-0-0"))
+    for key in ("planned", "planned_node", "bind", "preferred", "metrics",
+                "admitted", "released", "routes"):
+        assert got[key] == want[key], key
+    assert got["bind"] == ["host-0-0-0", ["tpu-0"]]
+    assert got["child"]["pod"] == "default/batch-0"
+    assert got["child"]["device_ids"] == ["tpu-0"]
+    # filter and bind answered from the plan; prioritize asks for scores
+    # a driver-planned pod was not given, so the per-pod path answers it
+    assert got["metrics"] == {
+        "tpukube_cycles_total": 1.0, "tpukube_cycle_pods_planned_total": 1.0,
+        "tpukube_cycle_plan_hits_total": 2.0,
+        "tpukube_cycle_plan_misses_total": 1.0,
+        "tpukube_cycle_assumes_total": 1.0, "tpukube_binds_total": 1.0,
+        "tpukube_lifecycle_releases_total": 1.0}
+    for key in ("added_to_admitted_ms", "admitted_to_planned_ms",
+                "bind_to_intent_ms"):
         assert 0 < got[key] < chip_smoke.REST_WAIT_S * 1e3
 
 

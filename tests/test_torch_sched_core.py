@@ -173,8 +173,6 @@ def test_config_defaults_are_the_reference_s():
 
 @pytest.mark.parametrize("key,value", [
     ("TPUKUBE_JOURNAL_ENABLED", "1"),
-    ("TPUKUBE_BATCH_ENABLED", "true"),
-    ("TPUKUBE_FILTER_FROM_PLAN", "1"),
     ("TPUKUBE_DECISIONS_ENABLED", "1"),
     ("TPUKUBE_CAPACITY_ENABLED", "1"),
     ("TPUKUBE_TENANCY_ENABLED", "1"),

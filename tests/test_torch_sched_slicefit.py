@@ -24,13 +24,10 @@ SNAPSHOT_SKIPS = {
     "test_snapshot_metrics_and_statusz_render": "/metrics and /statusz wait",
     "test_observer_lookups_do_not_inflate_hit_counters": "/metrics waits",
     "test_audit_metrics_and_statusz_render": "/metrics and /statusz wait",
-    "test_audit_via_scenarios_passthrough": "drives the reference's scenarios module",
 }
 DELTA_SKIPS = {
     "test_property_random_mutations_delta_equals_cold_rebuild": "hypothesis-parametrized",
-    "test_overflow_falls_back_to_full_rebuild": "drives the reference's scenarios module",
     "test_delta_metrics_and_statusz_render_only_when_enabled": "/metrics waits",
-    "test_kilonode10k_scenario_smoke": "drives the reference's scenarios module",
 }
 FIXTURES = {"monkeypatch": lambda g: pytest.MonkeyPatch.context()}
 

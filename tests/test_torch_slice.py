@@ -239,7 +239,9 @@ def test_scheduler_is_host_code_without_torch():
         "tpukube_torch.sim, tpukube_torch.trace, tpukube_torch.obs.events, "
         "tpukube_torch.core.clock, tpukube_torch.apiserver, tpukube_torch.metrics, "
         "tpukube_torch.sched.policy, tpukube_torch.core.retry, "
-        "tpukube_torch.sim.kube_rest\n"
+        "tpukube_torch.sim.kube_rest, tpukube_torch.sched.cycle, "
+        "tpukube_torch.sim.scenarios, tpukube_torch.obs.timeline, "
+        "tpukube_torch.chaos\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'tpukube', 'aiohttp', 'grpc', 'yaml') "
         "or m.startswith('google.protobuf'))))\n"
@@ -247,6 +249,28 @@ def test_scheduler_is_host_code_without_torch():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                           capture_output=True, text=True, timeout=120)
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_scenarios_in_process_load_no_control_plane_dependency():
+    # the card's scenario drives (plugin over the in-process transport,
+    # the batch cycle, a kilonode drive) load no grpc, protobuf, yaml or
+    # aiohttp, and nothing of jax or tpukube
+    code = (
+        "import json, os, sys\n"
+        "os.environ['TPUKUBE_KILONODE_PODS'] = '300'\n"
+        "from tpukube_torch.sim import scenarios\n"
+        "os.environ['TPUKUBE_BATCH_ENABLED'] = '1'\n"
+        "out = [scenarios.run(n)['scenario'] "
+        "for n in (1, 3, 5)]\n"
+        "del os.environ['TPUKUBE_BATCH_ENABLED']\n"
+        "out.append(scenarios.run(10)['pods_total'])\n"
+        "print(json.dumps([out, sorted(m for m in sys.modules if m.split('.')[0] "
+        "in ('grpc', 'yaml', 'aiohttp', 'jax', 'tpukube') "
+        "or m.startswith('google.protobuf'))]))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                          capture_output=True, text=True, timeout=300)
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [[1, 3, 5, 300], []]
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):

@@ -63,7 +63,8 @@ def _pod_key(pod: dict) -> str:
 
 
 class _Recording:
-    """Mixin: log every schedule() outcome and utilization() reading."""
+    """Mixin: log every schedule() and schedule_pending() outcome and
+    every utilization() reading."""
 
     log: list
 
@@ -77,6 +78,17 @@ class _Recording:
                          [tuple(c) for c in alloc.coords], dict(alloc.env),
                          alloc.priority, alloc.uid))
         return node, alloc
+
+    def schedule_pending(self, pods, retries: int = 4):
+        try:
+            results = super().schedule_pending(pods, retries)
+        except RuntimeError as e:
+            self.log.append(("pending", "error", str(e)))
+            raise
+        for key, (node, alloc) in results.items():
+            self.log.append(("pending", key, node, list(alloc.device_ids),
+                             [tuple(c) for c in alloc.coords]))
+        return results
 
     def utilization(self) -> float:
         u = super().utilization()
@@ -102,11 +114,10 @@ class _RefServingRecorder(_Recording, RefSim):
 
 
 class _PortSim(PortSim):
-    """The port's SimCluster under the reference's constructor: in
-    process always, the reference's sim defaults when no config is given."""
+    """The port's SimCluster under the reference's constructor, with the
+    reference's sim defaults when no config is given."""
 
     def __init__(self, config=None, *args, **kw):
-        kw.pop("in_process", None)
         super().__init__(config if config is not None else port_load_config(),
                          *args, **kw)
 

@@ -43,14 +43,16 @@ On top of it sit the loops:
     object is gone.
   * :class:`PodInformer` — one shared pod list+watch fanned out to the
     extender's pod loops.
+  * :class:`PodAdmissionFeed` — admits informer-delivered pending pods
+    into the batch cycle's scheduling queue (``Extender.admit``).
   * :func:`rebuild_extender` — a restarted extender's ledger and gangs
     from the apiserver's live, bound pods.
 
 Not ported (ROADMAP.md): the incremental resync of the lifecycle loop
-(the alloc change log) and its batched releases, the executor's
-``Retrier`` for its GET confirms and its ``/statusz`` rendering (their
-reader, the extender daemon, is not ported), and ``PodAdmissionFeed``,
-which feeds the batch cycle's queue (it comes with the cycle).
+(the alloc change log: every resync here reads the full ledger) and its
+batched releases, the executor's ``Retrier`` for its GET confirms and its
+``/statusz`` rendering (their reader, the extender daemon, is not
+ported).
 """
 
 from __future__ import annotations
@@ -1318,6 +1320,9 @@ class PodLifecycleReleaseLoop(_WatchLoop):
         if evictions is not None:
             evictions.attach_watch_confirmer(self)
         self.released = 0  # lifecycle releases applied (tests/metrics)
+        # resyncs read: the port has no alloc change log, so every resync
+        # is a full read of the in-memory ledger
+        self.resync_full = 0
 
     def watch_alive(self) -> bool:
         """True while DELETED events can actually flow (the executor's
@@ -1369,6 +1374,13 @@ class PodLifecycleReleaseLoop(_WatchLoop):
         pods, rv = self._list_pods_rv()
         return self._resync_from(pods), rv
 
+    def resync_stats(self) -> dict[str, Any]:
+        """The resync counter (scenario results). Every resync of the
+        port is a full read of the in-memory ledger (no alloc change
+        log), so of the reference's incremental, byte and hit-ratio
+        fields only ``full`` is reported."""
+        return {"full": self.resync_full}
+
     def _resync_from(self, pods: list[dict[str, Any]]) -> bool:
         """Reconcile against an already-fetched pod list (the shared
         PodInformer fetches once for all its children)."""
@@ -1383,6 +1395,7 @@ class PodLifecycleReleaseLoop(_WatchLoop):
             if (pod.get("status") or {}).get("phase") in TERMINAL_PHASES:
                 changed |= self._release(key, "terminal phase (resync)",
                                          uid=uid)
+        self.resync_full += 1
         for alloc in self._extender.state.allocations():
             listed_uid = present.get(alloc.pod_key)
             if listed_uid is not None:
@@ -1424,6 +1437,72 @@ class PodLifecycleReleaseLoop(_WatchLoop):
             # DELETED event missed in a reconnect gap is recovered by the
             # executor's own stretched GET net, WATCH_CONFIRM_GRACE_S)
             changed |= self._release(alloc.pod_key, "pod absent (resync)")
+        return changed
+
+
+class PodAdmissionFeed(_WatchLoop):
+    """Routes informer-delivered PENDING pods into the extender's batch
+    scheduling queue (``Extender.admit``), so batching is fed by the
+    cluster and not only by webhooks or the sim's batch driver.
+
+    Without this feed the scheduling queue fills only from /filter
+    webhooks (one pod per kube-scheduler pop): an arrival storm still
+    pays a webhook round trip before a pod reaches the planner. Fed from
+    the shared :class:`PodInformer`, pending pods are admitted the moment
+    their ADDED/MODIFIED event lands, so the next cycle drains the real
+    backlog in one epoch-pinned plan and their /filter webhooks answer
+    from it.
+
+    Admission is conservative and idempotent: only unbound (no
+    ``spec.nodeName``), non-terminal pods with a GPU or GPU-share request
+    are admitted; ``Extender.admit`` is a no-op without batching and
+    dedups per pod key. DELETED events need no handling — a deleted
+    pod's queue entry is superseded at plan time and its plan expires on
+    the reservation-TTL janitor, with the lifecycle loop's recorded
+    release unwinding any assumed allocation."""
+
+    def __init__(self, extender, api, poll_seconds: float = 5.0,
+                 use_watch: bool = True) -> None:
+        super().__init__("tpukube-pod-admission", api, None,
+                         poll_seconds, use_watch)
+        self._extender = extender
+        self.admitted = 0  # pods routed into the queue (tests/metrics)
+
+    def _admit(self, pod: dict[str, Any]) -> bool:
+        from tpukube_torch.core.types import RESOURCE_TPU, RESOURCE_VTPU
+        from tpukube_torch.sched import kube
+
+        if (pod.get("spec") or {}).get("nodeName"):
+            return False  # already bound: the queue is for pending pods
+        if (pod.get("status") or {}).get("phase") in TERMINAL_PHASES:
+            return False
+        try:
+            info = kube.pod_from_k8s(pod)
+        except kube.KubeSchemaError:
+            return False  # not a schedulable pod object
+        req = info.requests()
+        if not (req.get(RESOURCE_TPU, 0) or req.get(RESOURCE_VTPU, 0)):
+            return False  # not ours to schedule
+        if not self._extender.admit(info):
+            # the pod already has a live plan (an informer
+            # re-delivery), or batching is off: nothing entered the queue
+            return False
+        self.admitted += 1
+        return True
+
+    def _apply_watch_event(self, etype: str, pod: dict[str, Any]) -> None:
+        if etype == "DELETED":
+            return
+        self._admit(pod)
+
+    def _resync(self) -> tuple[bool, Optional[str]]:
+        pods, rv = self._list_pods_rv()
+        return self._resync_from(pods), rv
+
+    def _resync_from(self, pods: list[dict[str, Any]]) -> bool:
+        changed = False
+        for pod in pods:
+            changed |= self._admit(pod)
         return changed
 
 

@@ -96,11 +96,26 @@ class GpuKubeConfig:
     # batched node upserts with lazy decode on first touch
     bulk_ingest_enabled: bool = True
 
+    # Batched scheduling cycles (sched/cycle.py SchedulingCycle): when
+    # batch_enabled is true the extender admits pending pods into a
+    # scheduling queue, plans a whole batch against one epoch-pinned
+    # snapshot per cycle, and answers /filter, /prioritize and /bind from
+    # the plan. false keeps the per-pod webhook path: nothing
+    # batch-related is constructed.
+    batch_enabled: bool = False
+    # most pods planned per cycle; the rest wait for the next cycle
+    batch_max_pods: int = 64
+    # minimum seconds between full batch replans (0 = plan on every
+    # webhook that misses the plan)
+    cycle_interval_seconds: float = 0.0
+    # answer /filter and /prioritize from the plan: the feasible set is
+    # the planned node alone (the placement is unchanged); requires
+    # batch_enabled
+    filter_from_plan: bool = False
+
     # The reference's opt-in planes, not ported yet: load_config refuses
     # a config that turns one on.
     journal_enabled: bool = False
-    batch_enabled: bool = False
-    filter_from_plan: bool = False
     planner_replicas: int = 1
     shard_transport: str = "inprocess"
     decisions_enabled: bool = False
@@ -129,8 +144,6 @@ _TUPLE_FIELDS = {"sim_mesh_dims", "sim_host_block", "sim_torus"}
 # opt-in field -> the plane it would turn on (refused until ported)
 _NOT_PORTED = {
     "journal_enabled": "the durable journal",
-    "batch_enabled": "the batch scheduling cycle",
-    "filter_from_plan": "the batch scheduling cycle",
     "decisions_enabled": "decision provenance",
     "capacity_enabled": "capacity analytics",
     "tenancy_enabled": "the tenancy plane",
@@ -225,6 +238,17 @@ def load_config(env: Optional[Mapping[str, str]] = None) -> GpuKubeConfig:
     if not 0.0 <= cfg.snapshot_audit_rate <= 1.0:
         raise ValueError(
             "snapshot_audit_rate must be in [0, 1] (0 = audit off)"
+        )
+    if cfg.batch_max_pods < 1:
+        raise ValueError("batch_max_pods must be >= 1")
+    if cfg.cycle_interval_seconds < 0:
+        raise ValueError(
+            "cycle_interval_seconds must be >= 0 (0 = plan on demand)"
+        )
+    if cfg.filter_from_plan and not cfg.batch_enabled:
+        raise ValueError(
+            "filter_from_plan requires batch_enabled — without the "
+            "batch planner there is no cycle plan to answer from"
         )
     for name, plane in _NOT_PORTED.items():
         if getattr(cfg, name):

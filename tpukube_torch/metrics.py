@@ -22,6 +22,11 @@ Extender series, under the reference's names and types:
   with a node-topology refresh loop: tpukube_node_refreshes_total;
   with a lifecycle loop: tpukube_lifecycle_releases_total;
   tpukube_events_total{reason};
+  with the batch cycle built (``batch_enabled``): tpukube_cycles_total,
+  tpukube_cycle_{pods_planned,plan_hits,plan_misses,assumes}_total,
+  tpukube_cycle_batch_size{quantile}, tpukube_cycle_wall_seconds{quantile}
+  (+ _bucket{le}), tpukube_cycle_queue_age_seconds_bucket{le},
+  tpukube_cycle_queue_depth;
   with the apiserver channel's Retrier / CircuitBreaker attached
   (``extender.api_retrier``/``api_circuit``):
   tpukube_retry_{attempts,retries,exhausted}_total{op},
@@ -45,7 +50,7 @@ Syncer series: tpukube_syncer_syncs_total.
 Absent, because the port lacks their source (each listed in ROADMAP.md,
 none faked): the scheduling-snapshot cache stats and per-slice
 fragmentation (the cache's ``stats()``/``observe()``), the bulk-ingest and
-incremental-resync series, and the journal, batch-cycle, tenancy,
+incremental-resync series, and the journal, tenancy,
 decision-provenance, capacity, drain, autoscaler and degraded-mode
 sections.
 """
@@ -136,6 +141,12 @@ def build_extender_registry(extender, reconcile=None, evictions=None,
     events = getattr(extender, "events", None)
     if events is not None:
         _add_events_counter(reg, events)
+    # batched scheduling cycles (sched/cycle.py): series render only
+    # when batch_enabled actually built a planner — the default
+    # exposition stays byte-identical with batching off
+    cycle = getattr(extender, "cycle", None)
+    if cycle is not None:
+        _add_cycle_metrics(reg, cycle)
     # the apiserver channel's retry/circuit layer: series render only
     # when a daemon wired the channel objects — sim extenders keep the
     # default exposition
@@ -154,6 +165,60 @@ def render_extender_metrics(extender, reconcile=None, evictions=None,
         extender, reconcile=reconcile, evictions=evictions,
         node_refresh=node_refresh, lifecycle=lifecycle,
     ).render()
+
+
+def _add_cycle_metrics(reg: Registry, cycle) -> None:
+    """Batched-scheduling-cycle families (sched/cycle.py): throughput
+    counters (``rate(tpukube_cycle_pods_planned_total)`` is
+    pods-scheduled/sec), the plan-hit/miss split, batch-size and
+    cycle-wall distributions. A flat hits counter with batching on means
+    webhooks are not finding their plans."""
+    reg.counter(
+        "tpukube_cycles_total",
+        fn=lambda: cycle.cycles,
+        help_text="Batch scheduling cycles run (one snapshot pin and "
+                  "one queue drain each).")
+    reg.counter(
+        "tpukube_cycle_pods_planned_total",
+        fn=lambda: cycle.pods_planned,
+        help_text="Pods planned by batch cycles; its rate is "
+                  "pods-scheduled/sec.")
+    reg.counter(
+        "tpukube_cycle_plan_hits_total",
+        fn=lambda: cycle.plan_hits,
+        help_text="Webhooks answered from the batch plan (a lookup, "
+                  "not a re-plan).")
+    reg.counter(
+        "tpukube_cycle_plan_misses_total",
+        fn=lambda: cycle.plan_misses,
+        help_text="Webhooks the plan could not answer (fresh pod, "
+                  "changed node set, deferred preemption) — the "
+                  "legacy per-pod path served them.")
+    reg.counter(
+        "tpukube_cycle_assumes_total",
+        fn=lambda: cycle.assumes,
+        help_text="Placements committed as assumed allocations at plan "
+                  "time (consumed — or undone — by /bind).")
+    reg.summary(
+        "tpukube_cycle_batch_size",
+        quantiles=(0.5, 0.99),
+        values_fn=lambda: list(cycle.batch_sizes),
+        help_text="Pods planned per cycle (recent window).")
+    reg.summary(
+        "tpukube_cycle_wall_seconds",
+        quantiles=(0.5, 0.99),
+        values_fn=lambda: list(cycle.cycle_walls),
+        help_text="Wall time per batch cycle (recent window; the "
+                  "_bucket histogram is cumulative).")
+    # the cumulative histogram the summary's window flattens
+    reg.register(cycle.cycle_hist)
+    # every planned pod's admitted-to-planned age
+    reg.register(cycle.queue_age_hist)
+    reg.gauge(
+        "tpukube_cycle_queue_depth",
+        fn=lambda: cycle.queue_depth(),
+        help_text="Pending pods admitted to the scheduling queue but "
+                  "not yet planned.")
 
 
 def _add_events_counter(reg: Registry, events) -> None:

@@ -31,10 +31,20 @@ error is HTTP 400.
 It also answers ``GET /healthz`` and ``GET /metrics``
 (``tpukube_torch.metrics``).
 
-Not ported yet (each refused or absent, none faked): the journal, the
-batch cycle (with ``admit``, which only feeds it), tenancy
-(with its preemption victim bias), capacity, drain, autoscale, decision
-provenance, degraded mode, the shard router, and the other HTTP routes.
+With ``batch_enabled`` the webhooks answer from a batch plan
+(``tpukube_torch.sched.cycle.SchedulingCycle``, ``self.cycle``): /filter
+admits the pod and plans a cycle against one pinned snapshot, committing
+each placement as an assumed allocation; /prioritize and /bind answer
+from that plan, and a bind to another node undoes the assume and binds
+the per-pod way. ``admit``/``plan_pending``/``planned_node`` feed and
+read the queue ahead of any webhook (the pod informer's
+``PodAdmissionFeed``, the sim's batch driver). Each real webhook records
+exactly one latency sample in either mode.
+
+Not ported yet (each refused or absent, none faked): the journal, tenancy
+(with its preemption victim bias and admission gate), capacity, drain,
+autoscale, decision provenance and cycle phase profiling, degraded mode,
+the shard router, and the other HTTP routes.
 """
 
 from __future__ import annotations
@@ -154,6 +164,16 @@ class Extender:
         # ClusterState.ingest_nodes — probe-validated lazy ingest, one
         # epoch/delta seam per batch. Off = per-item upserts.
         self.bulk_ingest = config.bulk_ingest_enabled
+        # Batched scheduling cycles (sched/cycle.py): with batch_enabled
+        # the webhooks answer from a per-cycle batch plan instead of
+        # re-planning per request; None (the config default) keeps the
+        # per-pod path bit-identically — nothing batch-related is
+        # constructed or consulted.
+        self.cycle = None
+        if config.batch_enabled:
+            from tpukube_torch.sched.cycle import SchedulingCycle
+
+            self.cycle = SchedulingCycle(self, config)
         # Pods seen at filter time, so /bind (which only carries names) can
         # recover the request: key -> (pod, uid, seen_monotonic).
         self._pending: dict[str, tuple[PodInfo, str, float]] = {}
@@ -179,6 +199,10 @@ class Extender:
                                       bucket_only=True)
         for handler in self.latencies:
             self.webhook_hist.labels(handler=handler)
+        # True only while the batch planner's plan-time internal calls
+        # run (under the decision lock): their filter/prioritize/bind
+        # invocations are not webhooks and must not feed the histograms
+        self._suppress_latency = False
         self.preemptions = 0   # victims evicted for higher-priority gangs
         self.binds_total = 0   # successful binds (metrics counter)
         # The bind EFFECTOR: with bindVerb configured, kube-scheduler
@@ -357,7 +381,12 @@ class Extender:
 
     def _observe_latency(self, handler: str, seconds: float) -> None:
         """One webhook latency sample: into the bounded window (quantile
-        summaries) AND the cumulative histogram (_bucket counters)."""
+        summaries) AND the cumulative histogram (_bucket counters).
+        Suppressed while the batch planner runs its plan-time internal
+        calls (SchedulingCycle._quiet) so each real webhook records
+        exactly one sample in batch mode too."""
+        if self._suppress_latency:
+            return
         self.latencies[handler].append(seconds)
         self.webhook_hist.labels(handler=handler).observe(seconds)
 
@@ -1084,9 +1113,50 @@ class Extender:
             ids.append(make_device_id(index, (k, n)))
         return ids
 
+    # -- batch-driver hooks (sched/cycle.py; sim driver + pod informer) -----
+    def admit(self, pod: PodInfo) -> bool:
+        """Admit a pending pod into the scheduling queue ahead of its
+        /filter webhook (pod-informer feed / sim batch driver). No-op
+        without batching — the webhook path needs no pre-admission.
+        Returns True when the pod actually entered the queue (False:
+        batching off, or a live plan already exists — informer
+        re-deliveries must not replan an assumed allocation)."""
+        if self.cycle is None:
+            return False
+        with self._decision_lock:
+            if self.cycle.plan_is_live(pod):
+                return False
+            self.cycle.enqueue(pod)
+            return True
+
+    def plan_pending(self) -> int:
+        """Drive batch cycles until the admitted queue drains; returns
+        pods planned. The sim batch driver's entry point — webhook
+        arrivals plan through handle('filter') instead."""
+        if self.cycle is None:
+            return 0
+        with self._decision_lock:
+            return self.cycle.run_pending()
+
+    def planned_node(self, pod_key: str) -> Optional[str]:
+        """The batch plan's predicted node for a pod (None = no live
+        plan / plan found the pod unschedulable). Drivers use it to
+        issue the /bind the plan anticipates."""
+        if self.cycle is None:
+            return None
+        with self._decision_lock:
+            return self.cycle.planned_node(pod_key)
+
     # -- pod lifecycle ------------------------------------------------------
     def release(self, pod_key: str) -> None:
         self.handle("release", {"pod_key": pod_key})
+
+    def upsert_nodes_many(self, items: list[dict[str, Any]]) -> list[Any]:
+        """Batched node ingest: one ``upsert_nodes`` decision for the
+        whole batch (the bulk cold-start path when
+        ``bulk_ingest_enabled``), per-item results positionally."""
+        return self.handle("upsert_nodes", {"items": list(items)})[
+            "results"]
 
     # -- atomic webhook dispatch --------------------------------------------
     def handle(self, kind: str, body: Any) -> Any:
@@ -1113,10 +1183,23 @@ class Extender:
                 mk = (kube.filter_result if nodes is not None
                       else kube.filter_result_names)
                 try:
-                    feasible, failed = self.filter(
-                        pod, raw_nodes=nodes, node_names=names
-                    )
-                    response: Any = mk(feasible, failed)
+                    if self.cycle is not None:
+                        # batch mode: admit + plan (one snapshot per
+                        # cycle), answer from the plan
+                        t0 = time.monotonic()
+                        try:
+                            response: Any = self.cycle.filter_response(
+                                pod, nodes, names
+                            )
+                        finally:
+                            self._observe_latency(
+                                "filter", time.monotonic() - t0
+                            )
+                    else:
+                        feasible, failed = self.filter(
+                            pod, raw_nodes=nodes, node_names=names
+                        )
+                        response = mk(feasible, failed)
                 except (ExtenderError, GangError, StateError,
                         codec.CodecError) as e:
                     response = mk([], {}, error=str(e))
@@ -1124,19 +1207,35 @@ class Extender:
                 pod, nodes, names = kube.parse_extender_args(body)
                 if nodes is None and names is None:
                     names = self.state.node_names()  # NodesCached body
-                try:
-                    scores = self.prioritize(
-                        pod, raw_nodes=nodes, node_names=names
+                scores = None
+                if self.cycle is not None:
+                    if nodes is not None:
+                        names = self._ingest_nodes(nodes)
+                        nodes = None
+                    t0 = time.monotonic()
+                    scores = self.cycle.prioritize_response(
+                        pod, list(names or [])
                     )
-                except (ExtenderError, GangError, StateError,
-                        codec.CodecError) as e:
-                    log.warning("prioritize failed: %s", e)
-                    scores = {}
+                    if scores is not None:
+                        self._observe_latency(
+                            "prioritize", time.monotonic() - t0
+                        )
+                if scores is None:
+                    try:
+                        scores = self.prioritize(
+                            pod, raw_nodes=nodes, node_names=names
+                        )
+                    except (ExtenderError, GangError, StateError,
+                            codec.CodecError) as e:
+                        log.warning("prioritize failed: %s", e)
+                        scores = {}
                 response = kube.host_priority_list(scores)
             elif kind == "release":
                 pod_key = body["pod_key"]
                 self.state.release(pod_key)
                 self.gang.on_release(pod_key)
+                if self.cycle is not None:
+                    self.cycle.on_release(pod_key)
                 with self._pending_lock:
                     self._pending.pop(pod_key, None)
                 response = None
@@ -1215,18 +1314,41 @@ class Extender:
         alloc = None
         gang_info = None
         with self._decision_lock:
+            planned = None
+            if self.cycle is not None:
+                # batch mode: consume the plan's assumed allocation (or
+                # its planned error) instead of re-planning; a miss —
+                # no plan, deferred preemption, node disagreement —
+                # falls through to the per-pod bind below
+                t0 = time.monotonic()
+                planned = self.cycle.take_for_bind(key, uid, node)
+                if planned is not None:
+                    self._observe_latency("bind", time.monotonic() - t0)
             try:
-                alloc = self.bind(name, ns, uid, node)
-                # consume THIS bind's gang marker under the same lock; a
-                # FAILED bind must not pop (the key may belong to another
-                # in-flight bind's pending effector)
-                gang_info = self._bind_gang_info.pop(key, None)
-                # the alloc annotation rides back to the
-                # harness/apiserver-writer
-                response: Any = kube.binding_result()
-                response["Annotations"] = {
-                    codec.ANNO_ALLOC: codec.encode_alloc(alloc)
-                }
+                if planned is not None:
+                    verdict, payload = planned
+                    if verdict == "ok":
+                        alloc = payload
+                        gang_info = self._bind_gang_info.pop(key, None)
+                        response: Any = kube.binding_result()
+                        response["Annotations"] = {
+                            codec.ANNO_ALLOC: codec.encode_alloc(alloc)
+                        }
+                    else:
+                        response = kube.binding_result(payload)
+                else:
+                    alloc = self.bind(name, ns, uid, node)
+                    # consume THIS bind's gang marker under the same
+                    # lock; a FAILED bind must not pop (the key may
+                    # belong to another in-flight bind's pending
+                    # effector)
+                    gang_info = self._bind_gang_info.pop(key, None)
+                    # the alloc annotation rides back to the
+                    # harness/apiserver-writer
+                    response = kube.binding_result()
+                    response["Annotations"] = {
+                        codec.ANNO_ALLOC: codec.encode_alloc(alloc)
+                    }
             except (ExtenderError, GangError, StateError,
                     codec.CodecError) as e:
                 # an errored response must NEVER run the effector, even
@@ -1234,6 +1356,10 @@ class Extender:
                 # the scheduler will retry a bind we told it failed
                 alloc = None
                 response = kube.binding_result(str(e))
+            if alloc is not None and self.cycle is not None:
+                # the pod bound (plan-served OR per-pod fallback):
+                # retire its first-admit stamp
+                self.cycle.on_bound(key)
             if self.trace is not None:
                 self.trace.record("bind", body, response)
         if alloc is None or self.binder is None:
@@ -1371,6 +1497,34 @@ class Extender:
             sorted(alloc.device_ids),
         )
         return True
+
+    def gang_snapshot(self) -> list[dict[str, Any]]:
+        """Live gang reservations as plain JSON."""
+        out = []
+        for res in self.gang.snapshot():
+            out.append({
+                "namespace": res.namespace,
+                "group": res.group.name,
+                "min_member": res.group.min_member,
+                "members_bound": len(res.assigned),
+                "committed": res.committed,
+                "priority": res.priority,
+                "spans_dcn": res.spans_dcn,
+                # why an assembling gang is not binding: victims planned
+                # (preemption not yet executed) or still terminating —
+                # both through the manager's locked accessors
+                "victims_pending": len(
+                    self.gang.peek_pending_victims(res)
+                ),
+                "victims_terminating": len(
+                    self.gang.terminating_victims_of(res)
+                ),
+                "slices": {
+                    sid: [list(c) for c in sorted(coords)]
+                    for sid, coords in sorted(res.slice_coords.items())
+                },
+            })
+        return sorted(out, key=lambda g: (g["namespace"], g["group"]))
 
     # -- restart story -------------------------------------------------------
     def rebuild_from_pods(self, pods: list[dict[str, str]]) -> int:

@@ -33,6 +33,7 @@ from __future__ import annotations
 import logging
 import random
 import threading
+import time
 from collections import deque
 from typing import Iterable, Optional
 
@@ -328,6 +329,7 @@ class SnapshotCache:
     #: degrades to a full rebuild (overflow). Entries are a few dozen
     #: bytes, so the bound is memory-cheap headroom.
     DELTA_LOG = 16384
+    DELTA_APPLY_WINDOW = 512  # delta-apply samples kept for quantiles
 
     def __init__(self, state, gang):
         self._state = state
@@ -350,6 +352,13 @@ class SnapshotCache:
         }
         self.delta_applies = 0
         self.delta_overflows = 0
+        # maintenance timers: the per-advance walls (a window for
+        # quantiles) and both kinds' cumulative totals
+        self._delta_apply_seconds: deque[float] = deque(
+            maxlen=self.DELTA_APPLY_WINDOW
+        )
+        self.delta_apply_seconds_total = 0.0
+        self.rebuild_seconds_total = 0.0
         # Audit sentinel (config ``snapshot_audit_rate``, wired by the
         # Extender): on a sampled fraction of cache HITS, rebuild the
         # snapshot from the ledger and raise SnapshotAuditError on any
@@ -548,14 +557,21 @@ class SnapshotCache:
             snap = None
             if (base is not None and self.delta_enabled
                     and base.key != key):
+                t0 = time.perf_counter()
                 snap = self._advance(base, key)
                 if snap is not None:
+                    dt = time.perf_counter() - t0
                     with self._lock:
                         self.delta_applies += 1
+                        self._delta_apply_seconds.append(dt)
+                        self.delta_apply_seconds_total += dt
             if snap is None:
+                t0 = time.perf_counter()
                 snap = self._build(key)
+                dt = time.perf_counter() - t0
                 with self._lock:
                     self.rebuilds += 1
+                    self.rebuild_seconds_total += dt
             after = self.epoch_key()
             with self._lock:
                 if after == key:
@@ -658,3 +674,10 @@ class SnapshotCache:
                 absent=frozenset(self._state.absent_coords(sid)),
             )
         return ClusterSnapshot(key=key, slices=slices)
+
+    # -- observability -----------------------------------------------------
+    def delta_apply_seconds_snapshot(self) -> list[float]:
+        """Copy of the delta-apply latency window (one sample per O(Δ)
+        advance, however many queued deltas it covered)."""
+        with self._lock:
+            return list(self._delta_apply_seconds)

@@ -7,7 +7,15 @@ max -> bind) goes straight into ``Extender.handle`` — the reference's
 ``in_process=True`` path, the same decisions minus sockets. Inside a
 ``with`` block (or after :meth:`SimCluster.start`) the extender's HTTP
 app also serves on ``base_url`` (``tpukube_torch.sched.extender.serve``),
-so ``GET {base_url}/metrics`` reads the live daemon's exposition.
+so ``GET {base_url}/metrics`` reads the live daemon's exposition, unless
+the cluster was built ``in_process=True`` (no listener at all).
+
+With ``batch_enabled``, :meth:`SimCluster.schedule_pending` is the batch
+driver: it admits many pending pods into the extender's scheduling queue,
+runs plan cycles, and sends each pod's /bind to its planned node. A
+``FakeClock`` (``clock=``) and :meth:`SimCluster.advance` compress
+simulated time (gang TTLs, plan expiry, eviction ages) into wall
+seconds.
 ``execute_allocation`` runs the bound pod's Allocate through the device
 plugin stack of the bound node (``tpukube_torch.plugin``: kubelet peer,
 sim-backend ``GpuDeviceManager``, ``DevicePluginServer``) over the
@@ -90,6 +98,8 @@ class SimCluster:
         slices: Optional[dict[str, MeshSpec]] = None,
         clock=None,
         transport: str = "grpc",
+        in_process: bool = False,
+        cached_node_body: bool = False,
     ):
         """Single-slice by default (``mesh``, else the config's sim mesh);
         pass ``slices`` (slice id -> MeshSpec) for a multi-slice cluster —
@@ -97,10 +107,17 @@ class SimCluster:
         unique cluster-wide. ``clock`` (core/clock.py) threads an
         injectable — typically a FakeClock — through the gang TTLs.
         ``transport`` is the device plugin's, for ``execute_allocation``:
-        "grpc" or "inprocess"."""
+        "grpc" or "inprocess". ``in_process=True`` starts no HTTP
+        listener (webhooks always dispatch straight into
+        ``Extender.handle``). ``cached_node_body=True``: once the
+        extender has ingested the node set, webhooks send
+        ``{"NodesCached": true}`` instead of re-listing every node name,
+        and the extender expands the candidate set from its own cache."""
         if transport not in TRANSPORTS:
             raise ValueError(f"unknown plugin transport {transport!r}")
         self.transport = transport
+        self._in_process = in_process
+        self._cached_node_body = cached_node_body
         self.config = config or load_config(env={})
         self.clock = clock if clock is not None else SYSTEM
         if slices is not None and mesh is not None:
@@ -180,9 +197,23 @@ class SimCluster:
         host, port = self._http.server_address[:2]
         return f"http://{host}:{port}"
 
+    def advance(self, seconds: float) -> None:
+        """Advance the injected fake clock (discrete-event time). Raises
+        on a real clock — a sim that thinks it is compressing time while
+        actually sleeping wall time is a silent lie."""
+        advance = getattr(self.clock, "advance", None)
+        if advance is None:
+            raise RuntimeError(
+                "advance() needs a FakeClock (pass clock=FakeClock())"
+            )
+        advance(seconds)
+
     def start(self) -> None:
         """Serve the extender's HTTP app (webhooks, /healthz, /metrics
-        with the executor's and lifecycle loop's counters) on 127.0.0.1."""
+        with the executor's and lifecycle loop's counters) on 127.0.0.1;
+        nothing for an ``in_process`` cluster."""
+        if self._in_process:
+            return
         if self._http is None:
             self._http = serve(self.extender, "127.0.0.1", 0,
                                evictions=self._evictions,
@@ -250,6 +281,10 @@ class SimCluster:
         if len(objs) == len(synced) and all(
             a is b for a, b in zip(objs, synced)
         ):
+            if self._cached_node_body:
+                # NodesCached mode: the extender expands the candidate
+                # set from its own cache — the body names no nodes
+                return {"NodesCached": True}, None
             return {"NodeNames": self._synced_names}, None
         return {"Nodes": {"Items": objs}}, objs
 
@@ -340,6 +375,101 @@ class SimCluster:
             alloc = codec.decode_alloc(meta["annotations"][codec.ANNO_ALLOC])
             return best, alloc
         raise RuntimeError(f"bind error after {retries} cycles: {last_err}")
+
+    def schedule_pending(
+        self, pods: list[dict[str, Any]], retries: int = 4
+    ) -> dict[str, tuple[str, AllocResult]]:
+        """Batch-drive many pending pods through the scheduling-cycle
+        planner (requires ``batch_enabled``): admit them all into the
+        extender's queue, run planning cycles, then issue each pod's
+        /bind against the planned node — the protocol's one mandatory
+        per-pod step (the commitment + annotation write-back). The
+        planner already computed every pod's filter/prioritize answer;
+        pods whose plan failed (lost races, victims terminating) requeue
+        for another round. Returns pod key -> (node, alloc); raises if
+        any pod stays unschedulable after ``retries`` rounds."""
+        ext = self.extender
+        if ext.cycle is None:
+            raise RuntimeError("schedule_pending needs batch_enabled=true")
+        self._sync_nodes()
+        results: dict[str, tuple[str, AllocResult]] = {}
+        remaining = list(pods)
+        for _ in range(retries):
+            if not remaining:
+                break
+            self.drain_evictions()
+            for obj in remaining:
+                ext.admit(kube.pod_from_k8s(obj))
+            ext.plan_pending()
+            keys = [f"{o['metadata']['namespace']}/"
+                    f"{o['metadata']['name']}" for o in remaining]
+            planned = {k: ext.planned_node(k) for k in keys}
+            still: list[dict[str, Any]] = []
+            for obj, key in zip(remaining, keys):
+                meta = obj["metadata"]
+                node = planned.get(key)
+                if node is None:
+                    still.append(obj)
+                    continue
+                bres = self._post("/bind", {
+                    "PodName": meta["name"],
+                    "PodNamespace": meta["namespace"],
+                    "PodUID": meta["uid"],
+                    "Node": node,
+                })
+                if bres.get("Error"):
+                    still.append(obj)
+                    continue
+                self._apply_bind(obj, node, bres, results)
+            remaining = still
+        if remaining:
+            names = [o["metadata"]["name"] for o in remaining[:3]]
+            raise RuntimeError(
+                f"{len(remaining)} pod(s) unschedulable after {retries} "
+                f"batch rounds (first: {names})"
+            )
+        return results
+
+    def _apply_bind(self, obj: dict[str, Any], node: str,
+                    bres: dict[str, Any],
+                    results: dict[str, tuple[str, AllocResult]]) -> None:
+        """The apiserver role for one successful bind answer: persist
+        the alloc annotation + nodeName on the pod object and record
+        the result."""
+        meta = obj["metadata"]
+        meta.setdefault("annotations", {}).update(
+            bres.get("Annotations", {})
+        )
+        obj["spec"]["nodeName"] = node
+        key = f"{meta['namespace']}/{meta['name']}"
+        results[key] = (node, codec.decode_alloc(
+            meta["annotations"][codec.ANNO_ALLOC]
+        ))
+
+    def _sync_nodes(self) -> None:
+        """Push node annotations through one recorded ``upsert_nodes``
+        decision (the nodeCacheCapable out-of-band refresh): the batch
+        driver skips /filter webhooks, which are how node topology
+        normally reaches the extender. Identity-cached like
+        ``_extender_node_args`` — an unchanged node set costs nothing."""
+        objs = self.node_objects()
+        synced = self._synced_objs
+        if len(objs) == len(synced) and all(
+            a is b for a, b in zip(objs, synced)
+        ):
+            return
+        items = [{
+            "name": obj["metadata"]["name"],
+            "annotations": obj["metadata"]["annotations"],
+        } for obj in objs]
+        answers = self.extender.upsert_nodes_many(items)
+        for item, res in zip(items, answers):
+            if isinstance(res, dict) and res.get("error"):
+                raise RuntimeError(
+                    f"node sync failed for {item['name']}: "
+                    f"{res['error']}"
+                )
+        self._commit_synced(objs)
 
     def delete_pod(self, name: str, namespace: str = "default") -> None:
         """Remove the pod object, then let the lifecycle release loop

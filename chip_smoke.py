@@ -169,9 +169,47 @@ Drives the port's main path the way a cluster does, on the card:
    e. one ``scenarios:`` line: per drive pods/s, wall and simulated
       seconds, webhook p99s, the plan-hit ratio, the snapshot's
       maintenance times (12), utilization; 13d's times; the host's CPU;
-14. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+14. the daemons as users start them (``python -m tpukube_torch.cli``,
+   children of this script), over the REST stand-in apiserver of step 12:
+   a. openssl mints a CA, a server certificate (SAN 127.0.0.1) and a client
+      certificate; a ``config.yaml`` like the deploy ConfigMap's, plus the
+      fleet's geometry, with the trace and event sinks in a temp dir;
+   b. the stand-in holds this machine's Node ``h100-0`` (no topology yet)
+      and 1,024 annotated HGX Node objects of 8 GPUs (``8,1024,1`` /
+      ``8,1,1``, scenario 10's 8,192 slots);
+   c. the ``syncer`` daemon (``--annotation-file``, ``--node``,
+      ``--kube-api``, ``--kube-token-file``, ``--poll 0.05``) patches the
+      node agent's annotation file onto the Node: file write -> PATCH, ms;
+   d. the ``extender`` daemon as deploy/extender-deployment.yaml starts it
+      (``--config``, ``--tls-cert/--tls-key/--tls-client-ca``,
+      ``--probe-port``): spawn -> the probe port's /healthz listing all
+      1,025 nodes, learned through its rebuild (bulk ingest) and node
+      watch; a client without a certificate fails its handshake; the
+      probe port serves /healthz and /metrics (``tpukube_ingest_nodes_total``
+      >= 1,025) and answers 404 on /state/topology;
+   e. ``default/daemon-0`` (``qiniu.com/tpu: 1``) through /filter ->
+      /prioritize -> /bind over mTLS (``sched/client.py`` with an
+      ``ssl.SSLContext``, kube-scheduler's ``tlsConfig``): bound to this
+      node by the daemon's Binding POST; the in-process intent watch and
+      the kubelet's Allocate give the env, and ``--scheduled`` serves one
+      Llama-3-8B request (B=2, S=2048) after the UUID check;
+   f. a 256-member gang of ``qiniu.com/tpu: 1`` pods over mTLS with
+      kube-scheduler's node names only: every member bound by the
+      daemon's Binding POSTs, placed as the in-process ``SimCluster``
+      places the same gang on the same fleet;
+   g. ``ctl topo|alloc|gangs|metrics`` over mTLS as children, each exiting
+      0; ``alloc`` lists daemon-0 on ``tpu-0`` and the 256 members,
+      ``gangs`` the committed gang; /statusz shows both watch streams held
+      and the trace's stats;
+   h. SIGTERM: exit 0, and ``ctl replay`` of its JSONL trace finds no
+      divergence; a second extender daemon rebuilds the same /state/allocs
+      and /state/gangs; a new pod cannot take ``tpu-0`` until daemon-0 is
+      ``Succeeded`` and the new daemon's lifecycle loop releases it;
+   i. ``sim 5`` as a child prints one JSON line, utilization >= 95%;
+   j. one ``daemons:`` line with the times (host clock);
+15. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-15. prints the kernels line: the JAX package has no Pallas kernel, so the
+16. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -184,15 +222,19 @@ non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import queue
+import signal
 import statistics
 import subprocess
 import sys
 import threading
 import time
 import types
+import urllib.error
+import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 POD_TIMEOUT_S = 900
@@ -258,11 +300,13 @@ def node_object(mgr) -> dict:
                          "annotations": codec.annotate_node(mgr.node_info(), mgr.mesh)}}
 
 
-def place_pods(node: dict, pods: list, want: list, refused: dict, card: str):
+def place_pods(node: dict, pods: list, want: list, refused: dict, card: str,
+               times=None):
     """Place ``pods`` in order on ``node`` through the extender over HTTP
     (each bind must name ``want[i]``'s device ids on that node), then
-    filter ``refused``, which must find no node. Returns the allocs, or
-    None when a check failed."""
+    filter ``refused``, which must find no node. Each pod's webhook round
+    trips (ms) go into ``times`` when given. Returns the allocs, or None
+    when a check failed."""
     from tpukube_torch.sched import client
 
     allocs = []
@@ -277,6 +321,8 @@ def place_pods(node: dict, pods: list, want: list, refused: dict, card: str):
             if host != node["metadata"]["name"] or alloc.device_ids != ids:
                 fail(f"pod {name} bound {alloc.device_ids} on {host}, want {ids}")
                 return None
+            if times is not None:
+                times.append(ms)
             print(f"placed {name} on {host} {alloc.device_ids} over HTTP: "
                   + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
                   + f" (host CPU round trips) [{card}]", flush=True)
@@ -291,19 +337,20 @@ def place_pods(node: dict, pods: list, want: list, refused: dict, card: str):
 
 
 @contextlib.contextmanager
-def node_agent(env: dict):
+def node_agent(env: dict, host=None):
     """The node agent on the card: a real-backend ``GpuDeviceManager``
-    (``env`` over the config's defaults), its ``DevicePluginServer`` and
-    ``HealthWatcher``, registered with the in-process kubelet peer (the
-    GPU machine has no grpcio: the same v1beta1 bytes cross without
-    sockets). Yields them, with the ms from Register to the kubelet's
-    first ListAndWatch list, once that list holds every device."""
+    (``env`` over the config's defaults; ``host`` names its node), its
+    ``DevicePluginServer`` and ``HealthWatcher``, registered with the
+    in-process kubelet peer (the GPU machine has no grpcio: the same
+    v1beta1 bytes cross without sockets). Yields them, with the ms from
+    Register to the kubelet's first ListAndWatch list, once that list
+    holds every device."""
     from tpukube_torch.core.config import load_config
     from tpukube_torch.device import GpuDeviceManager
     from tpukube_torch.plugin import DevicePluginServer, HealthWatcher, InProcessKubelet
 
     cfg = load_config(env={"TPUKUBE_BACKEND": "real", **env})
-    with GpuDeviceManager(cfg) as mgr, InProcessKubelet() as kubelet:
+    with GpuDeviceManager(cfg, host=host) as mgr, InProcessKubelet() as kubelet:
         server = DevicePluginServer(cfg, mgr)
         watcher = HealthWatcher(mgr, server, poll_seconds=3600.0)
         watcher.start()
@@ -1641,6 +1688,439 @@ def batch_phase(card: str, c0):
     return line
 
 
+# -- the daemons as users start them (step 14) --------------------------------
+
+DAEMON_HOSTS = 1024  # scenario 10's node count: 8,192 GPU slots
+DAEMON_GANG = 256    # scenario 10's gang size
+DAEMON_NODE = "h100-0"  # this machine's Node object
+DAEMON_WAIT_S = 60.0  # how long a daemon child may take to show one effect
+# the deploy ConfigMap's config.yaml (deploy/extender-deployment.yaml),
+# plus the fleet's geometry, the loops' pacing and the capture sinks
+DAEMON_CONFIG = """\
+resource_tpu: qiniu.com/tpu
+resource_vtpu: qiniu.com/vtpu
+extender_port: 12345
+score_mode: topology
+reservation_ttl_seconds: 30.0
+trace_capacity: 4096
+slice_id: hgx
+sim_mesh_dims: [8, {hosts}, 1]
+sim_host_block: [8, 1, 1]
+health_poll_seconds: {poll}
+trace_path: {trace}
+events_path: {events}
+"""
+
+
+def mint_pki(d: str) -> dict:
+    """A CA, a server certificate (SAN 127.0.0.1) and a client certificate,
+    with openssl, as cert-manager would issue them into the deploy/
+    secrets. Returns their paths."""
+    def o(*cmd) -> None:
+        subprocess.run(cmd, check=True, capture_output=True, cwd=d, timeout=60)
+
+    o("openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+      "-keyout", "ca.key", "-out", "ca.crt", "-days", "2",
+      "-subj", "/CN=tpukube-smoke-ca")
+    for name, cn, ext in (
+        ("server", "localhost", "subjectAltName=IP:127.0.0.1,DNS:localhost"),
+        ("client", "kube-scheduler", "extendedKeyUsage=clientAuth"),
+    ):
+        with open(os.path.join(d, f"{name}.ext"), "w") as f:
+            f.write(ext + "\n")
+        o("openssl", "req", "-newkey", "rsa:2048", "-nodes",
+          "-keyout", f"{name}.key", "-out", f"{name}.csr", "-subj", f"/CN={cn}")
+        o("openssl", "x509", "-req", "-in", f"{name}.csr", "-CA", "ca.crt",
+          "-CAkey", "ca.key", "-CAcreateserial", "-out", f"{name}.crt",
+          "-days", "2", "-extfile", f"{name}.ext")
+    return {k: os.path.join(d, v) for k, v in (
+        ("ca", "ca.crt"), ("cert", "server.crt"), ("key", "server.key"),
+        ("client_cert", "client.crt"), ("client_key", "client.key"))}
+
+
+class Children:
+    """The step's daemon children (``python -m tpukube_torch.cli ...``):
+    each one's stderr goes to a file of its own; ``close()`` kills any
+    still running."""
+
+    def __init__(self, d: str) -> None:
+        self._d = d
+        self._procs: list = []
+
+    def spawn(self, name: str, args: list) -> subprocess.Popen:
+        err = open(os.path.join(self._d, f"{name}-{len(self._procs)}.err"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpukube_torch.cli", *args], cwd=ROOT,
+            env=pod_env({}), stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+        proc.err_path = err.name
+        err.close()
+        self._procs.append(proc)
+        return proc
+
+    def run(self, name: str, args: list) -> tuple:
+        """Run a tool child to its end: (exit code, stdout)."""
+        proc = self.spawn(name, args)
+        try:
+            out, _ = proc.communicate(timeout=DAEMON_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise RuntimeError(f"{name} {args} outlived {DAEMON_WAIT_S} s")
+        return proc.returncode, out
+
+    @staticmethod
+    def tail(proc) -> str:
+        with open(proc.err_path) as f:
+            return f.read()[-3000:]
+
+    def stop(self, proc) -> tuple:
+        """SIGTERM, then the exit code and the seconds the exit took."""
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=DAEMON_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise RuntimeError(f"a daemon outlived SIGTERM by {DAEMON_WAIT_S} s")
+        return rc, time.perf_counter() - t
+
+    def close(self) -> None:
+        for proc in self._procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+
+
+def https_get(url: str, ctx=None, raw: bool = False):
+    with urllib.request.urlopen(url, timeout=30, context=ctx) as r:
+        body = r.read()
+    return body if raw else json.loads(body)
+
+
+def daemon_wait(what: str, cond, proc=None) -> float:
+    """``wait_for`` with the daemon child's stderr in the error, and its
+    death an immediate failure."""
+    def check() -> bool:
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"{what}: the daemon exited {proc.returncode}: "
+                               f"{Children.tail(proc)}")
+        with contextlib.suppress(OSError):
+            return bool(cond())
+        return False
+
+    return wait_for(what, check, timeout=DAEMON_WAIT_S)
+
+
+def daemon_life(card_agent, run_child=None, hosts: int = DAEMON_HOSTS,
+                gang: int = DAEMON_GANG) -> dict:
+    """Step 14: the port's daemons started as the manifests start them,
+    over the REST stand-in apiserver (a-i of the module docstring).
+    ``card_agent()`` enters this machine's node agent (its node named
+    ``DAEMON_NODE``); ``run_child(env)`` runs the card pod (None: no
+    child). Returns the decisions and host-clock times; raises
+    RuntimeError when a check fails. The tests run it at a small fleet."""
+    import ssl
+    import tempfile
+
+    from tpukube_torch.apiserver import AllocIntentWatcher, rest_apiserver_from_config
+    from tpukube_torch.core import codec
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.types import PodGroup
+    from tpukube_torch.graft import ENV_ALLOC
+    from tpukube_torch.sched import client
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sim import SimCluster
+    from tpukube_torch.sim.harness import _free_port
+    from tpukube_torch.sim.kube_rest import KubeRestServer
+
+    out: dict = {"hosts": hosts + 1, "gang_size": gang}
+    t_step = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td, \
+            KubeRestServer(token=REST_TOKEN) as kube, \
+            contextlib.ExitStack() as stack:
+        kids = Children(td)
+        stack.callback(kids.close)
+        # a. the PKI, the config file, the apiserver token
+        pki = mint_pki(td)
+        mtls = ssl.create_default_context(cafile=pki["ca"])
+        mtls.load_cert_chain(pki["client_cert"], pki["client_key"])
+        anon = ssl.create_default_context(cafile=pki["ca"])
+        cfg_path = os.path.join(td, "config.yaml")
+        trace_path = os.path.join(td, "trace.jsonl")
+        with open(cfg_path, "w") as f:
+            f.write(DAEMON_CONFIG.format(
+                hosts=hosts, poll=REST_POLL_S, trace=trace_path,
+                events=os.path.join(td, "events.jsonl")))
+        token_path = os.path.join(td, "token")
+        with open(token_path, "w") as f:
+            f.write(REST_TOKEN + "\n")
+        # the in-process sims of the same config keep no capture: the
+        # sinks are the daemon's
+        cfg = dataclasses.replace(load_config(yaml_path=cfg_path, env={}),
+                                  trace_path="", events_path="")
+        # b. the fleet's Node objects, and this machine's with no topology
+        with SimCluster(cfg, in_process=True) as sim:
+            fleet = sim.node_objects()
+        for obj in fleet:
+            kube.store.patch_node_annotations(obj["metadata"]["name"],
+                                              obj["metadata"]["annotations"])
+        kube.store.patch_node_annotations(DAEMON_NODE, {})
+        names = sorted([o["metadata"]["name"] for o in fleet] + [DAEMON_NODE])
+        api = rest_apiserver_from_config(load_config(env={}), kube.base_url,
+                                         token=REST_TOKEN)
+        kube_args = ["--kube-api", kube.base_url, "--kube-token-file", token_path]
+        with card_agent() as agent:
+            node = agent.mgr.host
+            if node != DAEMON_NODE:
+                raise RuntimeError(f"the node agent names its node {node}")
+            # c. the syncer daemon: the node agent's file -> the Node PATCH
+            anno_path = os.path.join(td, "anno.json")
+            sync_metrics = _free_port()
+            syncer = kids.spawn("syncer", [
+                "syncer", "--annotation-file", anno_path, "--node", node,
+                "--poll", str(REST_POLL_S), "--metrics-port", str(sync_metrics),
+                *kube_args])
+            daemon_wait("the syncer's /metrics", lambda: https_get(
+                f"http://127.0.0.1:{sync_metrics}/metrics", raw=True), syncer)
+            t = time.perf_counter()
+            write_annotation(anno_path, codec, agent.mgr)
+            t_patch = daemon_wait("the syncer's Node PATCH", lambda: (
+                codec.ANNO_NODE_TOPOLOGY in kube.store.get_node_annotations(node)),
+                syncer)
+            out["file_to_patch_ms"] = (t_patch - t) * 1e3
+            # d. the extender daemon, as deploy/extender-deployment.yaml
+            # starts it, learning the fleet through its rebuild (bulk
+            # ingest) and its node watch
+            port, probe = _free_port(), _free_port()
+            ext_args = [
+                "extender", "--config", cfg_path, "--host", "127.0.0.1",
+                "--port", str(port), "--tls-cert", pki["cert"],
+                "--tls-key", pki["key"], "--tls-client-ca", pki["ca"],
+                "--probe-port", str(probe), *kube_args]
+            base = f"https://127.0.0.1:{port}"
+            probe_base = f"http://127.0.0.1:{probe}"
+
+            def start_extender(name: str):
+                t0 = time.perf_counter()
+                proc = kids.spawn(name, ext_args)
+                t_ready = daemon_wait(f"{name} ready at {len(names)} nodes", lambda: len(
+                    https_get(f"{probe_base}/healthz")["nodes"]) == len(names), proc)
+                return proc, (t_ready - t0) * 1e3
+
+            ext1, out["spawn_to_ready_ms"] = start_extender("extender")
+            try:
+                https_get(f"{base}/healthz", anon)
+                raise RuntimeError("a client without a certificate was served")
+            except (ssl.SSLError, OSError):
+                pass
+            page = metric_lines(https_get(f"{probe_base}/metrics", raw=True).decode())
+            try:
+                https_get(f"{probe_base}/state/topology")
+                raise RuntimeError("the probe port served /state/topology")
+            except urllib.error.HTTPError as e:
+                if e.code != 404:
+                    raise
+            out["ingest_nodes_total"] = page.get("tpukube_ingest_nodes_total")
+            if (out["ingest_nodes_total"] or 0) < len(names):
+                raise RuntimeError(f"ingest counted {out['ingest_nodes_total']}")
+            topo_raw = https_get(f"{base}/state/topology", mtls, raw=True)
+            out["topology_bytes"] = len(topo_raw)
+            card = [n for n in json.loads(topo_raw)["nodes"] if n["name"] == node]
+            if not card or len(card[0]["chips"]) != len(agent.mgr.device_list()):
+                raise RuntimeError(f"the card's node in /state/topology: {card}")
+            # e. one card pod placed by the daemon over mTLS, pinned to
+            # this machine's node (as its nodeSelector would pin it)
+            intents = AllocIntentWatcher(api, node, agent.server,
+                                         poll_seconds=REST_POLL_S)
+            intents.start()
+            stack.callback(intents.stop)
+            wait_for("the intent watch", intents.stream_connected)
+            kube.store.upsert_pod(pod_object("daemon-0", tpu=1))
+            host, alloc, ms = client.place(port, pod_object("daemon-0", tpu=1),
+                                           [node], ssl_context=mtls)
+            t_bound = time.perf_counter()
+            t_intent = wait_for("daemon-0's intent", lambda: agent.server.intents
+                                .snapshot().get("default/daemon-0") == alloc.device_ids)
+            out["bind_to_intent_ms"] = (t_intent - t_bound) * 1e3
+            out["webhook_mtls_ms"] = ms
+            stored = kube.store.get_pod("default", "daemon-0")
+            payload = (stored["metadata"].get("annotations") or {}).get(codec.ANNO_ALLOC)
+            if (host != node or stored["spec"].get("nodeName") != node
+                    or alloc.device_ids != ["tpu-0"] or payload is None):
+                raise RuntimeError(f"daemon-0 bound {alloc.device_ids} on {host}; "
+                                   f"the apiserver holds {stored}")
+            out["bind"] = [host, alloc.device_ids]
+            res = agent.server.resource_name
+            out["preferred"] = agent.kubelet.preferred(
+                res, sorted(agent.kubelet.devices(res)), 1)
+            penv = agent.kubelet.allocate(res, alloc.device_ids)
+            if out["preferred"] != alloc.device_ids:
+                raise RuntimeError(f"preferred {out['preferred']}")
+            if run_child is not None:
+                out["child"] = run_child({**alloc.env, **penv, ENV_ALLOC: payload})
+            # f. a fleet-sized gang through the daemon, names only, beside
+            # the in-process port's placement of the same gang
+            group = PodGroup("fleet-train", min_member=gang)
+            annos = codec.pod_group_annotations(group)
+            t = time.perf_counter()
+            placed = []
+            for i in range(gang):
+                pod = pod_object(f"train-{i}", tpu=1, annotations=annos)
+                kube.store.upsert_pod(pod)
+                h, a, _ = client.place(port, pod, names, ssl_context=mtls)
+                placed.append((h, a.device_ids))
+            out["gang_wall_s"] = time.perf_counter() - t
+            bound = {p["metadata"]["name"]: p["spec"].get("nodeName")
+                     for p in kube.store.list_pods()}
+            if any(bound.get(f"train-{i}") != placed[i][0] for i in range(gang)):
+                raise RuntimeError("a gang member is not bound where /bind said")
+            with SimCluster(cfg, in_process=True) as sim:
+                t = time.perf_counter()
+                want = []
+                for i in range(gang):
+                    h, a = sim.schedule(sim.make_pod(f"train-{i}", tpu=1, group=group))
+                    want.append((h, a.device_ids))
+                out["gang_in_process_wall_s"] = time.perf_counter() - t
+                out["gang_in_process_commit_ms"] = sim.extender.gang.reservation(
+                    "default", "fleet-train").commit_latency * 1e3
+            if placed != want:
+                raise RuntimeError("the daemon placed the gang otherwise than the "
+                                   "in-process port")
+            page = metric_lines(https_get(f"{probe_base}/metrics", raw=True).decode())
+            out["gang_commit_ms"] = page["gang_schedule_latency_seconds_sum"] * 1e3
+            # g. ctl as children, over mTLS; /statusz with the client cert
+            tls = ["--server", base, "--cacert", pki["ca"], "--cert",
+                   pki["client_cert"], "--key", pki["client_key"]]
+            ctl = {cmd: kids.spawn(f"ctl-{cmd}", ["ctl", *tls, cmd])
+                   for cmd in ("topo", "alloc", "gangs", "metrics")}
+            ctl_out = {}
+            for cmd, proc in ctl.items():
+                text, _ = proc.communicate(timeout=DAEMON_WAIT_S)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"ctl {cmd} exited {proc.returncode}: "
+                                       f"{Children.tail(proc)}")
+                ctl_out[cmd] = text
+            alloc_lines = ctl_out["alloc"].splitlines()
+            if (not any(ln.startswith("default/daemon-0 ") and ln.endswith(" tpu-0")
+                        for ln in alloc_lines) or len(alloc_lines) != gang + 1
+                    or f"committed  {gang}/{gang} bound" not in ctl_out["gangs"]):
+                raise RuntimeError(f"ctl alloc/gangs: {ctl_out['gangs']}")
+            statusz = https_get(f"{base}/statusz", mtls)
+            for watch in ("pod_watch", "node_watch"):
+                w = statusz[watch]
+                if not (w["configured"] and w["thread_alive"]
+                        and w["stream_connected"] and not w["reconnects"]):
+                    raise RuntimeError(f"/statusz {watch}: {w}")
+            out["statusz_trace"] = statusz["trace"]
+            out["statusz_ingest"] = {k: statusz["ingest"][k] for k in (
+                "nodes_total", "batches", "seconds_total")}
+            allocs_before = https_get(f"{base}/state/allocs", mtls)
+            gangs_before = https_get(f"{base}/state/gangs", mtls)
+            # h. SIGTERM, the trace replayed, a second daemon rebuilt
+            rc, out["sigterm_to_exit_s"] = kids.stop(ext1)
+            if rc != 0:
+                raise RuntimeError(f"the extender exited {rc} on SIGTERM: "
+                                   f"{Children.tail(ext1)}")
+            rc, text = kids.run("ctl-replay", ["ctl", "replay", trace_path,
+                                               "--config", cfg_path])
+            if rc != 0 or ", 0 divergences" not in text:
+                raise RuntimeError(f"ctl replay exited {rc}: {text[-2000:]}")
+            out["replay"] = text.strip()
+            ext2, out["restart_to_ready_ms"] = start_extender("extender-restarted")
+            allocs_after = https_get(f"{base}/state/allocs", mtls)
+            gangs_after = https_get(f"{base}/state/gangs", mtls)
+            key = ("pod", "node", "devices", "priority")
+            if ([{k: a[k] for k in key} for a in allocs_after]
+                    != [{k: a[k] for k in key} for a in allocs_before]):
+                raise RuntimeError("the restarted daemon rebuilt other allocations")
+            gkey = ("namespace", "group", "committed", "members_bound", "slices")
+            if ([{k: g[k] for k in gkey} for g in gangs_after]
+                    != [{k: g[k] for k in gkey} for g in gangs_before]
+                    or not gangs_after or not gangs_after[0]["committed"]):
+                raise RuntimeError(f"the restarted daemon's gangs: {gangs_after}")
+            out["rebuilt_allocations"] = len(allocs_after)
+            # a new pod cannot take tpu-0 while daemon-0 lives; released by
+            # the new daemon's lifecycle loop, it can
+            kube.store.upsert_pod(pod_object("daemon-1", tpu=1))
+            fres = client.filter_nodes(port, pod_object("daemon-1", tpu=1), [node],
+                                       ssl_context=mtls)
+            if fres["NodeNames"] or fres.get("Error"):
+                raise RuntimeError(f"daemon-1 was schedulable on {node}: {fres}")
+            done = dict(kube.store.get_pod("default", "daemon-0"))
+            done["status"] = {"phase": "Succeeded"}
+            t = time.perf_counter()
+            kube.store.upsert_pod(done)
+            t_rel = daemon_wait("daemon-0's release", lambda: "default/daemon-0" not in {
+                a["pod"] for a in https_get(f"{base}/state/allocs", mtls)}, ext2)
+            out["phase_to_release_ms"] = (t_rel - t) * 1e3
+            _, alloc1, _ = client.place(port, pod_object("daemon-1", tpu=1), [node],
+                                        ssl_context=mtls)
+            if alloc1.device_ids != ["tpu-0"]:
+                raise RuntimeError(f"daemon-1 bound {alloc1.device_ids}")
+            out["second_bind"] = alloc1.device_ids
+            for proc in (ext2, syncer):
+                rc, _ = kids.stop(proc)
+                if rc != 0:
+                    raise RuntimeError(f"a daemon exited {rc} on SIGTERM: "
+                                       f"{Children.tail(proc)}")
+        # i. the scenario runner as a child
+        rc, text = kids.run("sim", ["sim", "5"])
+        lines = text.strip().splitlines()
+        if rc != 0 or len(lines) != 1:
+            raise RuntimeError(f"sim 5 exited {rc}: {text[-2000:]}")
+        out["sim5_value"] = json.loads(lines[0])["value"]
+        if out["sim5_value"] < NORTH_STAR_UTIL:
+            raise RuntimeError(f"sim 5 utilization {out['sim5_value']}%")
+        out["routes"] = dict(kube.requests)
+    out["step_s"] = time.perf_counter() - t_step
+    return out
+
+
+def daemon_phase(card: str, c0, plain_ms: dict):
+    """Step 14 on the card (``daemon_life`` with the card's node agent and
+    a ``--scheduled`` pod); ``plain_ms`` is step 3's webhook round trips
+    over plain HTTP. Returns the ``daemons:`` line's object, or None when
+    a check failed."""
+    try:
+        life = daemon_life(lambda: node_agent({}, host=DAEMON_NODE),
+                           run_child=lambda env: run_pod(["--scheduled"], env,
+                                                         "scheduled"))
+    except (RuntimeError, subprocess.SubprocessError, OSError) as e:
+        fail(f"daemons: {e}")
+        return None
+    sp = life.pop("child")
+    if sp is None:
+        return None
+    checked = sp["scheduled"]
+    if (sp["uuid"] != c0.chip_id or checked["pod"] != "default/daemon-0"
+            or checked["device_ids"] != ["tpu-0"]):
+        fail(f"daemon-0: {checked} on {sp['uuid']}")
+        return None
+    print("daemon pod: " + json.dumps(sp, sort_keys=True), flush=True)
+    line = {"card": card, "host": host_cpu(), "webhook_plain_ms": plain_ms,
+            "forward_ms": sp["forward_ms_median"], **life}
+    print(
+        f"daemons: extender ready at {life['hosts']} nodes "
+        f"{life['spawn_to_ready_ms']:.1f} ms after spawn; file -> Node PATCH "
+        f"{life['file_to_patch_ms']:.1f} ms; webhooks over mTLS "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in life["webhook_mtls_ms"].items())
+        + " (plain HTTP, step 3: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in plain_ms.items())
+        + f"); bind -> intent {life['bind_to_intent_ms']:.1f} ms; "
+        f"{life['gang_size']}-member gang through the daemon in "
+        f"{life['gang_wall_s']:.2f} s (commit {life['gang_commit_ms']:.1f} ms; "
+        f"in process {life['gang_in_process_wall_s']:.2f} s, commit "
+        f"{life['gang_in_process_commit_ms']:.1f} ms); SIGTERM -> exit "
+        f"{life['sigterm_to_exit_s']:.2f} s; restart rebuilt "
+        f"{life['rebuilt_allocations']} allocations, ready in "
+        f"{life['restart_to_ready_ms']:.1f} ms; /state/topology "
+        f"{life['topology_bytes']} bytes; step {life['step_s']:.1f} s "
+        f"[host CPU times; {line['host']}; {card}]",
+        flush=True,
+    )
+    return line
+
+
 def mps_daemon_running() -> bool:
     """Whether an MPS control daemon runs on this machine: without one,
     CUDA_MPS_ACTIVE_THREAD_PERCENTAGE binds nothing."""
@@ -1889,8 +2369,10 @@ def main() -> int:
               f"tpu-0 = {c0.chip_id}, {c0.num_cores} SMs, {c0.hbm_bytes} bytes",
               flush=True)
         # -- placement, then the plugin's Allocate of the bound ids ---------
+        step3_ms: list = []
         allocs = place_pods(node_object(mgr), [pod_object("serve-0", tpu=1)],
-                            [["tpu-0"]], pod_object("serve-1", tpu=1), card)
+                            [["tpu-0"]], pod_object("serve-1", tpu=1), card,
+                            times=step3_ms)
         if allocs is None:
             return 1
         planned = plugin_phase(agent, chips, allocs[0], card)
@@ -2065,6 +2547,12 @@ def main() -> int:
     if drives is None:
         return 1
     print("scenarios: " + json.dumps(drives, sort_keys=True), flush=True)
+
+    # -- the daemons as users start them: syncer and extender children ------
+    daemons = daemon_phase(card, c0, step3_ms[0])
+    if daemons is None:
+        return 1
+    print("daemons: " + json.dumps(daemons, sort_keys=True), flush=True)
 
     # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
     proc = subprocess.run(

@@ -28,9 +28,6 @@ CYCLE_SKIPS = {
         "drives scenarios 8 and 9: the chaos harness is not ported",
     "test_chaos_batch_burst_converges_clean":
         "drives ChaosSimCluster: the chaos harness is not ported",
-    "test_cycle_metrics_and_statusz_render_only_when_batching":
-        "reads /statusz, which is not ported; its /metrics half is held "
-        "below (test_cycle_families_render_only_when_batching)",
 }
 # the reference's parametrized test, once per scenario
 SCENARIO_TEST = "test_scenario_placements_bit_identical_with_batching"

@@ -15,10 +15,10 @@ reference's (tpukube/plugin/):
 - the in-process transport (the card's) against the gRPC one: the same
   requests give the same responses.
 
-Left out, with the reason: test_telemetry.py's
-test_plugin_statusz_telemetry_section (the node agent's /statusz, not
-ported) and tests/test_plugin_daemon.py (the CLI's main_plugin, not
-ported)."""
+test_telemetry.py's test_plugin_statusz_telemetry_section is twinned in
+tests/test_torch_cli.py, and tests/test_plugin_daemon.py's daemon is
+held in tests/test_torch_auth.py (``python -m tpukube_torch.cli
+plugin``)."""
 
 import contextlib
 import re

@@ -25,7 +25,7 @@ from tpukube.core.types import AllocResult as RefAllocResult
 from tpukube.core.types import TopologyCoord as RefCoord
 from tpukube.device import TpuDeviceManager
 from tpukube.sched.extender import Extender as RefExtender
-from tpukube.sched.extender import make_app as ref_make_app
+from tpukube.obs.timeline import merged_chrome_trace as ref_merged
 from tpukube_torch.core import codec
 from tpukube_torch.core.clock import FakeClock
 from tpukube_torch.core.config import load_config
@@ -75,13 +75,13 @@ def _imports_what_the_port_lacks():
 
 
 def _uses_a_global_the_port_lacks():
-    assert ref_make_app.__name__ == "make_app"
+    assert ref_merged([]) is not None
 
 
 @pytest.mark.parametrize("fn,error,match", [
     (_builds_a_reference_extender, AssertionError, "built the reference's Extender"),
     (_imports_what_the_port_lacks, ImportError, "no module tpukube_torch.sched.journal"),
-    (_uses_a_global_the_port_lacks, AssertionError, "no tpukube_torch.sched.extender.make_app"),
+    (_uses_a_global_the_port_lacks, AssertionError, "no tpukube_torch.obs.timeline.merged_chrome_trace"),
 ])
 def test_twin_port_run_cannot_fall_back_to_the_reference(fn, error, match):
     with pytest.raises(error, match=match):

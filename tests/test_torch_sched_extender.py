@@ -153,7 +153,12 @@ def test_http_server_answers_as_handle_does():
             assert in_process.binds_total == over_http.binds_total == 1
             assert "tpukube_binds_total 1\n" in text
             assert "tpu_chip_utilization_percent 12.5\n" in text
-            assert _get(port, "/statusz")[0] == 404
+            status, raw = _get(port, "/statusz")
+            assert status == 200
+            doc = json.loads(raw)
+            assert doc["component"] == "extender"
+            assert doc["ledger"]["allocations"] == 1
+            assert _get(port, "/no-such-route")[0] == 404
         finally:
             server.shutdown()
             server.server_close()

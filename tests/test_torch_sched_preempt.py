@@ -88,12 +88,7 @@ def test_reference_config6_tests_hold_on_the_port(fn):
     run_twin(fn, {"churned": _module_fixture(test_config6, "churned")})
 
 
-APISERVER_SKIPS = {
-    "test_gang_bind_waits_for_graceful_victim_termination":
-        "reads /state/gangs (gang_snapshot), not ported; its sequence is "
-        "held against the reference here "
-        "(test_graceful_victims_gate_the_gang_as_the_reference)",
-}
+APISERVER_SKIPS: dict[str, str] = {}
 
 
 @pytest.mark.parametrize("fn", reference_tests(test_apiserver, APISERVER_SKIPS),
@@ -105,10 +100,7 @@ def test_reference_apiserver_tests_hold_on_the_port(fn):
 
 
 ADVICE_SKIPS: dict[str, str] = {}
-MULTISLICE_SKIPS = {
-    "test_snapshot_reports_slices":
-        "reads /state/topology (topology_snapshot), not ported",
-}
+MULTISLICE_SKIPS: dict[str, str] = {}
 
 
 @pytest.mark.parametrize(
@@ -125,10 +117,9 @@ def test_reference_termination_and_multislice_tests_hold_on_the_port(fn):
 # the registry's own tests, the extender exposition's golden page, scenario
 # 5's phase stats and the 16-pod gang's span chains. Left out:
 # test_bench_process_stats_and_churn_phases, which imports the reference's
-# bench.py (the port has no bench harness yet), and
-# test_timeline_tolerates_span_only_pods, which ends in the reference's
-# tpukube-obs CLI (not ported); its timeline half is held in
-# test_timeline_of_a_torn_capture_matches_the_reference below
+# bench.py (the port has no bench harness yet).
+# test_timeline_tolerates_span_only_pods, which ends in ``obs timeline``,
+# is twinned in tests/test_torch_cli.py
 OBS_TESTS = (
     "test_registry_counter_gauge_labels_and_order",
     "test_registry_label_escaping",
@@ -295,16 +286,11 @@ def _page(text: str) -> tuple[dict, dict]:
     return types_, chip_smoke.metric_lines(text)
 
 
-# reference families with no source in the port (ROADMAP.md): the snapshot
-# cache's stats, per-slice fragmentation, bulk ingest, incremental resync
+# reference families with no source in the port (ROADMAP.md): the
+# incremental resync log's
 REFERENCE_ONLY = {
-    "tpukube_snapshot_rebuilds_total", "tpukube_snapshot_hits_total",
-    "tpukube_snapshot_rebuild_seconds", "tpukube_snapshot_delta_applies_total",
-    "tpukube_snapshot_delta_overflows_total",
-    "tpukube_snapshot_delta_apply_seconds", "tpukube_slice_fragmentation",
-    "tpukube_slice_largest_free_box_chips", "tpukube_ingest_nodes_total",
-    "tpukube_ingest_seconds", "tpukube_resync_full_total",
-    "tpukube_resync_incremental_total", "tpukube_resync_bytes_total",
+    "tpukube_resync_full_total", "tpukube_resync_incremental_total",
+    "tpukube_resync_bytes_total",
 }
 
 

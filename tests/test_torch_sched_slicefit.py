@@ -20,14 +20,9 @@ from torch_twin import reference_tests, run_twin
 
 use_private_tpuinfo()
 
-SNAPSHOT_SKIPS = {
-    "test_snapshot_metrics_and_statusz_render": "/metrics and /statusz wait",
-    "test_observer_lookups_do_not_inflate_hit_counters": "/metrics waits",
-    "test_audit_metrics_and_statusz_render": "/metrics and /statusz wait",
-}
+SNAPSHOT_SKIPS: dict[str, str] = {}
 DELTA_SKIPS = {
     "test_property_random_mutations_delta_equals_cold_rebuild": "hypothesis-parametrized",
-    "test_delta_metrics_and_statusz_render_only_when_enabled": "/metrics waits",
 }
 FIXTURES = {"monkeypatch": lambda g: pytest.MonkeyPatch.context()}
 

@@ -53,8 +53,8 @@ REF_SIM_DEFAULTS = {
 
 def port_load_config(yaml_path: Optional[str] = None,
                      env: Optional[dict] = None):
-    assert yaml_path is None, "the port reads no YAML"
-    return port_config.load_config(env={**REF_SIM_DEFAULTS, **(env or {})})
+    return port_config.load_config(
+        yaml_path=yaml_path, env={**REF_SIM_DEFAULTS, **(env or {})})
 
 
 def _pod_key(pod: dict) -> str:

@@ -8,7 +8,10 @@ driver quota guard (``native``, ``obs``), the device manager's Allocate env
 for whole GPUs and vGPU shares (``device``), and the in-pod workloads that
 consume that env (``workload``, ``graft``): the Llama decoder served and
 trained dp×tp over a ``DeviceMesh``, the ResNet trained data-parallel, and
-two serving pods sharing one GPU under their quotas; and the scheduler
-extender that places pods and gangs before they are allocated (``sched``,
-``sim``: host code, no torch).
+two serving pods sharing one GPU under their quotas; the scheduler
+extender that places pods and gangs before they are allocated, with its
+whole HTTP surface, the Kubernetes REST channel and its loops, and the
+batch cycle (``sched``, ``sim``, ``apiserver``: host code, no torch); and
+the daemons and tools as users start them (``python -m tpukube_torch.cli
+plugin|syncer|extender|sim|ctl|obs``).
 """

@@ -50,9 +50,7 @@ On top of it sit the loops:
 
 Not ported (ROADMAP.md): the incremental resync of the lifecycle loop
 (the alloc change log: every resync here reads the full ledger) and its
-batched releases, the executor's ``Retrier`` for its GET confirms and its
-``/statusz`` rendering (their reader, the extender daemon, is not
-ported).
+batched releases, and the executor's ``Retrier`` for its GET confirms.
 """
 
 from __future__ import annotations
@@ -857,6 +855,7 @@ def rest_apiserver_from_config(
     token: Optional[str] = None,
     token_path: Optional[str] = None,
     ca_path: Optional[str] = None,
+    journal=None,
 ) -> RestApiServer:
     """A daemon's REST channel, built as the reference's CLI builds it
     (``tpukube/cli.py``, ``_make_apiserver``): every unary request runs
@@ -865,16 +864,18 @@ def rest_apiserver_from_config(
     ``circuit_*`` knobs (off when ``circuit_failure_threshold`` is 0).
     Both ride on the returned server as ``api.retrier``/``api.circuit``;
     a daemon hands them to its extender (``api_retrier``/``api_circuit``)
-    so ``/metrics`` exports ``tpukube_retry_*``/``tpukube_circuit_*``."""
+    so ``/metrics`` exports ``tpukube_retry_*``/``tpukube_circuit_*``.
+    ``journal`` (an EventJournal) receives their RetryExhausted,
+    CircuitOpen and CircuitClosed events."""
     circuit = retry.CircuitBreaker(
         failure_threshold=cfg.circuit_failure_threshold,
         reset_seconds=cfg.circuit_reset_seconds,
         half_open_probes=cfg.circuit_half_open_probes,
-        name="apiserver",
+        name="apiserver", journal=journal,
     )
     retrier = retry.Retrier(
         retry.policy_from_config(cfg), name="apiserver",
-        retryable=transient_api_error,
+        retryable=transient_api_error, journal=journal,
     )
     return RestApiServer(base_url=base_url, token=token, token_path=token_path,
                          ca_path=ca_path, retrier=retrier, circuit=circuit)
@@ -1666,19 +1667,29 @@ def rebuild_extender(extender, api, refresh=None) -> int:
     Pass the daemon's NodeTopologyRefreshLoop as ``refresh`` to prime it
     with the payloads applied here — its first poll then dispatches
     nothing the rebuild already did.
+    With bulk ingest on (the default) the node list goes in as ONE
+    recorded ``upsert_nodes`` decision, the daemon's cold start at fleet
+    scale; the reference records one ``upsert_node`` per node. Both leave
+    the same ledger (the bulk-ingest parity tests) and both replay.
     Returns the number of allocations restored."""
+    nodes = []
     for obj in api.list_nodes():
         meta = obj.get("metadata") or {}
         name = meta.get("name")
-        if not name:
-            continue
-        annotations = dict(meta.get("annotations") or {})
-        # recorded upsert_node decisions, not bare state mutation: a
-        # names-mode capture that starts right after rebuild must replay
-        # with the same node state the live extender had
-        out = extender.handle(
+        if name:
+            nodes.append((name, dict(meta.get("annotations") or {})))
+    # recorded decisions, not bare state mutation: a names-mode capture
+    # that starts right after rebuild must replay with the same node
+    # state the live extender had
+    if getattr(extender, "bulk_ingest", False):
+        results = extender.handle("upsert_nodes", {"items": [
+            {"name": name, "annotations": annotations}
+            for name, annotations in nodes]})["results"]
+    else:
+        results = [extender.handle(
             "upsert_node", {"name": name, "annotations": annotations},
-        )
+        ) for name, annotations in nodes]
+    for (name, annotations), out in zip(nodes, results):
         if out.get("error"):
             log.error("rebuild: node %s annotation rejected: %s",
                       name, out["error"])
@@ -1962,6 +1973,31 @@ class EvictionExecutor(_PollLoop):
                 return 0.0
             now = self._clock.monotonic() if now is None else now
             return max(0.0, now - min(self._pending_since.values()))
+
+    def pending_snapshot(
+        self, now: Optional[float] = None
+    ) -> list[dict[str, Any]]:
+        """Every unconfirmed eviction with its state and age (seconds
+        since first drain attempt; None before the first attempt): the
+        /statusz rendering of the queue the depth gauge only counts."""
+        now = self._clock.monotonic() if now is None else now
+        with self._state_lock:
+            out = []
+            for pod_key in list(self._extender.pending_evictions):
+                since = self._pending_since.get(pod_key)
+                out.append({
+                    "pod": pod_key, "state": "queued",
+                    "age_seconds": (round(now - since, 3)
+                                    if since is not None else None),
+                })
+            for pod_key in sorted(self._terminating):
+                since = self._pending_since.get(pod_key)
+                out.append({
+                    "pod": pod_key, "state": "terminating",
+                    "age_seconds": (round(now - since, 3)
+                                    if since is not None else None),
+                })
+            return out
 
     def _confirmed(self, pod_key: str) -> None:
         """Bookkeeping for a victim whose pod object is gone (call with

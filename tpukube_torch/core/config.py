@@ -2,20 +2,31 @@
 
 Its own copy of the fields of ``tpukube/core/config.py`` that the device
 manager, the device plugin and the extender's default path read, with
-the same names, the same ``TPUKUBE_<FIELD>`` environment overlay and the
-same defaults, and no YAML file (the machines the port runs on have no YAML parser). The
-default backend is ``"real"`` (NVML): a node agent runs against its GPUs
-unless asked for the sim.
+the same names, the same config file and ``TPUKUBE_<FIELD>`` environment
+overlay, and the same defaults. The default backend is ``"real"``
+(NVML): a node agent runs against its GPUs unless asked for the sim.
+
+The machines the port runs on have no YAML parser, so :func:`read_yaml`
+reads the subset of YAML a deploy ConfigMap's ``config.yaml`` uses: a
+flat mapping of ``key: scalar`` lines with comments and blank lines, and
+one-line flow sequences (``[8, 1, 1]``) of ints or bools for the tuple
+fields. Scalars resolve as PyYAML's ``safe_load`` resolves them (YAML
+1.1: ints in their decimal, octal, hex, binary and base-60 forms, floats
+with a dot, ``yes/no/on/off/true/false``, quoted and plain strings).
+Anything else (nesting, block lists, anchors, tags, block scalars,
+several documents, a null) raises ValueError naming the line.
 
 The reference's opt-in planes are not ported yet: a config that turns one
-on is refused by :func:`load_config` rather than silently ignored.
+on, or a file that sets one of their keys, is refused by
+:func:`load_config` rather than silently ignored.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass, fields, replace
-from typing import Mapping, Optional
+from typing import Any, Mapping, Optional
 
 from tpukube_torch.core.mesh import MeshSpec
 
@@ -158,31 +169,293 @@ _NOT_PORTED = {
 _RESYNC_LOG_KEY = ENV_PREFIX + "GENERATION_LOG_CAPACITY"
 
 
-def _coerce(name: str, raw: str, current):
+# keys of the reference's config whose planes the port has not ported: a
+# config file that sets one is refused, naming the plane (ROADMAP.md
+# Queue 1 item of each)
+_UNPORTED_KEY_PREFIXES = {
+    "journal_": "the durable journal (Queue 1, item 1)",
+    "checkpoint_": "the durable journal (Queue 1, item 1)",
+    "tenancy_": "the tenancy plane (Queue 1, item 2)",
+    "capacity_": "capacity analytics (Queue 1, item 3)",
+    "drain_": "drain (Queue 1, item 3)",
+    "autoscale_": "the autoscaler (Queue 1, item 3)",
+    "decisions_": "decision provenance (Queue 1, item 4)",
+    "wire_": "the shard router's wire codec (Queue 1, item 5)",
+}
+_UNPORTED_KEYS = {
+    "chaos_seed": "chaos (Queue 1, item 3)",
+    "generation_log_capacity": "the incremental resync log (Queue 1, item 5)",
+    "libtpu_path": "the TPU backend (the port's real backend is NVML: "
+                   "nvml_path)",
+    "real_torus": "the TPU backend (an NVLink domain has no torus)",
+}
+
+
+def _coerce(name: str, raw: Any, current):
+    """A field's value from a string (the environment, a plain YAML
+    string) or from an already-typed YAML value, as the reference
+    coerces both."""
     if name in _TUPLE_FIELDS:
-        parts = [p for p in raw.replace("x", ",").split(",") if p != ""]
+        if isinstance(raw, str):
+            raw = [p for p in raw.replace("x", ",").split(",") if p != ""]
+        elif not isinstance(raw, (list, tuple)):
+            raise ValueError(f"config {name}: need 3 values, got {raw!r}")
         if isinstance(current[0], bool):
-            vals = tuple(p.lower() in ("1", "true", "yes") for p in parts)
+            vals = tuple(
+                v if isinstance(v, bool)
+                else str(v).lower() in ("1", "true", "yes")
+                for v in raw
+            )
         else:
-            vals = tuple(int(p) for p in parts)
+            vals = tuple(int(v) for v in raw)
         if len(vals) != 3:
             raise ValueError(f"config {name}: need 3 values, got {vals!r}")
         return vals
-    if isinstance(current, bool):
-        return raw.lower() in ("1", "true", "yes")
-    return type(current)(raw)
+    if isinstance(raw, (list, tuple)):
+        raise ValueError(f"config {name}: a sequence for a scalar field")
+    t = type(current)
+    if t is bool:
+        return raw if isinstance(raw, bool) else str(raw).lower() in (
+            "1", "true", "yes")
+    return t(raw)
 
 
-def load_config(env: Optional[Mapping[str, str]] = None) -> GpuKubeConfig:
-    """defaults < env (TPUKUBE_<UPPER_FIELD_NAME>)."""
+# PyYAML's YAML 1.1 implicit resolvers (yaml/resolver.py), keyed as it
+# keys them by the scalar's first character, in its order
+_Y_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|"
+                     r"FALSE|on|On|ON|off|Off|OFF)$")
+_Y_FLOAT = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+                    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+                    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+                    |[-+]?\.(?:inf|Inf|INF)
+                    |\.(?:nan|NaN|NAN))$""", re.X)
+_Y_INT = re.compile(r"""^(?:[-+]?0b[0-1_]+
+                    |[-+]?0[0-7_]+
+                    |[-+]?(?:0|[1-9][0-9_]*)
+                    |[-+]?0x[0-9a-fA-F_]+
+                    |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""", re.X)
+_Y_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_Y_TIMESTAMP = re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?")
+_Y_RESOLVERS = (
+    ("bool", _Y_BOOL, "yYnNtTfFoO"),
+    ("float", _Y_FLOAT, "-+0123456789."),
+    ("int", _Y_INT, "-+0123456789"),
+    ("merge", re.compile(r"^(?:<<)$"), "<"),
+    ("null", _Y_NULL, "~nN"),
+    ("timestamp", _Y_TIMESTAMP, "0123456789"),
+    ("value", re.compile(r"^(?:=)$"), "="),
+)
+_Y_KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*):(?:[ \t]+(.*))?$")
+_Y_ESCAPES = {"0": "\0", "t": "\t", "n": "\n", "r": "\r", '"': '"',
+              "/": "/", "\\": "\\", " ": " "}
+
+
+def _y_base60(value: str, digit) -> Any:
+    total = 0 * digit("0")
+    base = 1
+    for part in reversed(value.split(":")):
+        total += digit(part) * base
+        base *= 60
+    return total
+
+
+def _y_int(text: str) -> int:
+    value = text.replace("_", "")
+    sign = -1 if value[0] == "-" else 1
+    if value[0] in "+-":
+        value = value[1:]
+    if value == "0":
+        return 0
+    if value.startswith("0b"):
+        return sign * int(value[2:], 2)
+    if value.startswith("0x"):
+        return sign * int(value[2:], 16)
+    if value[0] == "0":
+        return sign * int(value, 8)
+    if ":" in value:
+        return sign * _y_base60(value, int)
+    return sign * int(value)
+
+
+def _y_float(text: str) -> float:
+    value = text.replace("_", "").lower()
+    sign = -1 if value[0] == "-" else 1
+    if value[0] in "+-":
+        value = value[1:]
+    if value == ".inf":
+        return sign * float("inf")
+    if value == ".nan":
+        return float("nan")
+    if ":" in value:
+        return sign * _y_base60(value, float)
+    return sign * float(value)
+
+
+def _y_plain(text: str, where: str) -> Any:
+    """A plain scalar, resolved as PyYAML's safe_load resolves it."""
+    for kind, pattern, first in _Y_RESOLVERS:
+        if text[:1] not in first and not (kind == "null" and not text):
+            continue
+        if not pattern.match(text):
+            continue
+        if kind == "bool":
+            return text.lower() in ("yes", "true", "on")
+        if kind == "float":
+            return _y_float(text)
+        if kind == "int":
+            try:
+                return _y_int(text)
+            except ValueError:
+                raise ValueError(f"{where}: bad integer {text!r}") from None
+        raise ValueError(f"{where}: a YAML {kind} ({text!r}) is not a "
+                         f"config value")
+    return text
+
+
+def _y_quoted(text: str, where: str) -> tuple[str, str]:
+    """A quoted scalar at the start of ``text``: (its value, the rest of
+    the line after the closing quote)."""
+    quote, out, i = text[0], [], 1
+    while i < len(text):
+        ch = text[i]
+        if quote == "'" and ch == "'":
+            if text[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), text[i + 1:]
+        if quote == '"' and ch == '"':
+            return "".join(out), text[i + 1:]
+        if quote == '"' and ch == "\\":
+            esc = text[i + 1:i + 2]
+            width = {"x": 2, "u": 4, "U": 8}.get(esc)
+            if width is not None:
+                digits = text[i + 2:i + 2 + width]
+                if len(digits) != width or not re.fullmatch(
+                        r"[0-9A-Fa-f]+", digits):
+                    raise ValueError(f"{where}: bad escape \\{esc}{digits}")
+                out.append(chr(int(digits, 16)))
+                i += 2 + width
+                continue
+            if esc not in _Y_ESCAPES:
+                raise ValueError(f"{where}: unsupported escape \\{esc}")
+            out.append(_Y_ESCAPES[esc])
+            i += 2
+            continue
+        out.append(ch)
+        i += 1
+    raise ValueError(f"{where}: unterminated {quote}-quoted string "
+                     f"(multi-line scalars are not supported)")
+
+
+def _y_strip_comment(rest: str, where: str) -> None:
+    rest = rest.strip()
+    if rest and not rest.startswith("#"):
+        raise ValueError(f"{where}: unexpected text {rest!r} after a value")
+
+
+def _y_value(text: str, where: str) -> Any:
+    """The value half of a ``key: value`` line (leading space gone)."""
+    if text[:1] in ("'", '"'):
+        value, rest = _y_quoted(text, where)
+        _y_strip_comment(rest, where)
+        return value
+    if text[:1] == "[":
+        close = text.find("]")
+        if close < 0:
+            raise ValueError(f"{where}: a flow sequence must close on its "
+                             f"line")
+        _y_strip_comment(text[close + 1:], where)
+        inner = text[1:close]
+        if any(c in inner for c in "[]{}'\"#"):
+            raise ValueError(f"{where}: only flow sequences of plain ints "
+                             f"or bools are supported")
+        items = [p.strip() for p in inner.split(",")] if inner.strip() else []
+        values = [_y_plain(p, where) for p in items]
+        if any(not isinstance(v, (int, bool)) for v in values):
+            raise ValueError(f"{where}: only flow sequences of ints or "
+                             f"bools are supported, got {values!r}")
+        return values
+    # a comment starts at a '#' after whitespace (or at the value's start)
+    m = re.search(r"(?:^|[ \t])#", text)
+    plain = (text[:m.start()] if m else text).strip()
+    if plain[:1] and plain[:1] in "{&*!|>%@`-?:,]}" and not (
+            plain[:1] in "-?:" and len(plain) > 1 and plain[1] not in " \t"):
+        raise ValueError(f"{where}: {plain[:1]!r} starts a YAML form the "
+                         f"config reader does not support (nesting, block "
+                         f"lists, anchors, aliases, tags, block scalars)")
+    if ": " in plain or plain.endswith(":") or ":\t" in plain:
+        raise ValueError(f"{where}: nested mappings are not supported")
+    return _y_plain(plain, where)
+
+
+def read_yaml(path: str) -> dict[str, Any]:
+    """The flat ``key: value`` mapping of a config file in the YAML
+    subset above (an empty file is the empty mapping; a key given twice
+    keeps its last value, as ``safe_load`` does)."""
+    with open(path, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    doc: dict[str, Any] = {}
+    started = False
+    for n, line in enumerate(lines, 1):
+        where = f"{path}:{n}"
+        stripped = line.strip()
+        if not stripped or stripped.startswith("#"):
+            continue
+        if line.rstrip() == "---" or line.startswith("--- "):
+            if started or line.strip() != "---":
+                raise ValueError(f"{where}: several documents (or content "
+                                 f"after ---) are not supported")
+            started = True
+            continue
+        started = True
+        if line[0] in " \t":
+            raise ValueError(f"{where}: indented line: nesting and "
+                             f"multi-line values are not supported")
+        if line.startswith(("- ", "...", "%")) or line == "-":
+            raise ValueError(f"{where}: block lists, document ends and "
+                             f"directives are not supported")
+        m = _Y_KEY.match(line.rstrip())
+        if m is None:
+            raise ValueError(f"{where}: top level must be a mapping of "
+                             f"'key: value' lines")
+        key, text = m.group(1), (m.group(2) or "")
+        if not text.strip() or text.strip().startswith("#"):
+            raise ValueError(f"{where}: {key} has no value (a YAML null is "
+                             f"not a config value)")
+        doc[key] = _y_value(text, where)
+    return doc
+
+
+def _file_updates(path: str) -> dict[str, Any]:
+    known = {f_.name for f_ in fields(GpuKubeConfig)}
+    updates = {}
+    for key, value in read_yaml(path).items():
+        if key not in known:
+            plane = _UNPORTED_KEYS.get(key) or next(
+                (p for pre, p in _UNPORTED_KEY_PREFIXES.items()
+                 if key.startswith(pre)), None)
+            if plane is not None:
+                raise ValueError(f"{path}: config key {key!r}: {plane} is "
+                                 f"not ported yet")
+            raise ValueError(f"{path}: unknown config key {key!r}")
+        updates[key] = value
+    return updates
+
+
+def load_config(yaml_path: Optional[str] = None,
+                env: Optional[Mapping[str, str]] = None) -> GpuKubeConfig:
+    """defaults < the config file (:func:`read_yaml`) < env
+    (TPUKUBE_<UPPER_FIELD_NAME>)."""
     cfg = GpuKubeConfig()
+    updates: dict[str, Any] = _file_updates(yaml_path) if yaml_path else {}
     env = os.environ if env is None else env
-    updates = {
-        f_.name: _coerce(f_.name, env[ENV_PREFIX + f_.name.upper()],
-                         getattr(cfg, f_.name))
-        for f_ in fields(cfg)
-        if ENV_PREFIX + f_.name.upper() in env
-    }
+    for f_ in fields(cfg):
+        env_key = ENV_PREFIX + f_.name.upper()
+        if env_key in env:
+            updates[f_.name] = env[env_key]
+    for k, v in list(updates.items()):
+        updates[k] = _coerce(k, v, getattr(cfg, k))
     cfg = replace(cfg, **updates)
     if cfg.shares_per_chip < 1:
         raise ValueError("shares_per_chip must be >= 1")

@@ -47,21 +47,40 @@ tpukube_plugin_intent_watch_events_total; tpukube_events_total{reason}.
 
 Syncer series: tpukube_syncer_syncs_total.
 
+The extender's page also carries the scheduling-snapshot cache's
+families (tpukube_snapshot_{rebuilds,hits}_total,
+tpukube_snapshot_rebuild_seconds{quantile}, with delta maintenance on
+tpukube_snapshot_delta_{applies,overflows}_total and
+tpukube_snapshot_delta_apply_seconds, with the audit sentinel on
+tpukube_snapshot_audit_{checks,divergence}_total), per-slice
+tpukube_slice_fragmentation and tpukube_slice_largest_free_box_chips; with
+bulk ingest on tpukube_ingest_nodes_total and
+tpukube_ingest_seconds{quantile}; with a degraded gate wired
+tpukube_degraded_mode.
+
 Absent, because the port lacks their source (each listed in ROADMAP.md,
-none faked): the scheduling-snapshot cache stats and per-slice
-fragmentation (the cache's ``stats()``/``observe()``), the bulk-ingest and
-incremental-resync series, and the journal, tenancy,
-decision-provenance, capacity, drain, autoscaler and degraded-mode
-sections.
+none faked): the incremental-resync series, and the journal, tenancy,
+decision-provenance, capacity, drain and autoscaler sections.
+
+:class:`MetricsServer` serves a page (and optionally a /statusz
+document) for the plugin and syncer daemons.
 """
 
 from __future__ import annotations
 
-from tpukube_torch.obs.registry import Registry, format_sample as _fmt  # noqa: F401
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, Optional
+
+from tpukube_torch.obs.registry import Registry, quantile  # noqa: F401
+from tpukube_torch.obs.registry import format_sample as _fmt  # noqa: F401
+from tpukube_torch.obs.statusz import device_health_counts
 
 __all__ = ["build_extender_registry", "render_extender_metrics",
            "build_plugin_registry", "render_plugin_metrics",
-           "build_syncer_registry", "render_syncer_metrics"]
+           "build_syncer_registry", "render_syncer_metrics",
+           "MetricsServer"]
 
 
 def build_extender_registry(extender, reconcile=None, evictions=None,
@@ -141,6 +160,24 @@ def build_extender_registry(extender, reconcile=None, evictions=None,
     events = getattr(extender, "events", None)
     if events is not None:
         _add_events_counter(reg, events)
+    # epoch-cached scheduling snapshot: cache effectiveness counters and
+    # the per-slice fragmentation numbers the cache makes cheap to serve
+    _add_snapshot_metrics(reg, extender.snapshots)
+    # bulk cold-start ingestion: series render only while it is on
+    if extender.bulk_ingest:
+        st = extender.state
+        reg.counter(
+            "tpukube_ingest_nodes_total",
+            fn=lambda: st.ingest_nodes_total,
+            help_text="Nodes ingested through the bulk cold-start "
+                      "fast path (handle('upsert_nodes')).")
+        reg.summary(
+            "tpukube_ingest_seconds",
+            quantiles=(0.5, 0.99),
+            values_fn=st.ingest_seconds_snapshot,
+            help_text="Wall time per bulk-ingest batch (probe + "
+                      "seeding; the deferred decode drains on the "
+                      "background warmer).")
     # batched scheduling cycles (sched/cycle.py): series render only
     # when batch_enabled actually built a planner — the default
     # exposition stays byte-identical with batching off
@@ -155,7 +192,92 @@ def build_extender_registry(extender, reconcile=None, evictions=None,
         retriers=[getattr(extender, "api_retrier", None)],
         circuits=[getattr(extender, "api_circuit", None)],
     )
+    if extender.degraded_gate is not None:
+        reg.gauge(
+            "tpukube_degraded_mode",
+            fn=lambda: 1.0 if extender._degraded_reason() else 0.0,
+            help_text="1 while the extender fails filter/bind safe "
+                      "because its apiserver circuit is open.")
     return reg
+
+
+def _add_snapshot_metrics(reg: Registry, snapshots) -> None:
+    """Scheduling-snapshot cache families (sched/snapshot.py). A flat
+    hits counter under webhook load means every cycle is rebuilding (an
+    epoch bump on a read path, or a mutation storm)."""
+    reg.counter(
+        "tpukube_snapshot_rebuilds_total",
+        fn=lambda: snapshots.rebuilds,
+        help_text="Scheduling-snapshot rebuilds (one per ledger/"
+                  "reservation epoch actually consulted).")
+    reg.counter(
+        "tpukube_snapshot_hits_total",
+        fn=lambda: snapshots.hits,
+        help_text="Snapshot lookups answered from the epoch cache "
+                  "without re-deriving grids from the ledger.")
+    reg.summary(
+        "tpukube_snapshot_rebuild_seconds",
+        quantiles=(0.5, 0.99),
+        values_fn=snapshots.rebuild_seconds_snapshot,
+        help_text="Wall time of snapshot rebuilds (coord-set capture; "
+                  "sweep tables build lazily on first query).")
+    if snapshots.delta_enabled:
+        # incremental-maintenance series render only while it is on
+        reg.counter(
+            "tpukube_snapshot_delta_applies_total",
+            fn=lambda: snapshots.delta_applies,
+            help_text="Snapshot advances served by applying the queued "
+                      "SnapshotDeltas (O(Δ)) instead of rebuilding "
+                      "O(chips) from the ledger.")
+        reg.counter(
+            "tpukube_snapshot_delta_overflows_total",
+            fn=lambda: snapshots.delta_overflows,
+            help_text="Advances the delta log could not cover (bound "
+                      "overflow or an unnoted bump) — each fell back "
+                      "to a full rebuild. A growing rate means the log "
+                      "bound trails the batch depth.")
+        reg.summary(
+            "tpukube_snapshot_delta_apply_seconds",
+            quantiles=(0.5, 0.99),
+            values_fn=snapshots.delta_apply_seconds_snapshot,
+            help_text="Wall time of O(Δ) delta advances (one sample "
+                      "per advance, covering every queued delta).")
+    if snapshots.audit_rate > 0.0:
+        reg.counter(
+            "tpukube_snapshot_audit_checks_total",
+            fn=lambda: snapshots.audit_checks,
+            help_text="Sampled cache-hit audits: snapshot rebuilt from "
+                      "the ledger and compared against the cache.")
+        reg.counter(
+            "tpukube_snapshot_audit_divergence_total",
+            fn=lambda: snapshots.audit_divergences,
+            help_text="Audits that found the cached snapshot diverging "
+                      "from the ledger — a mutation path missing an "
+                      "epoch bump. Any nonzero value is a bug.")
+
+    # every read below goes through observe(): a scrape must not count
+    # its own lookups as cache hits
+    def _slice_fn(sid: str, compute):
+        def get() -> float:
+            ss = snapshots.observe().slices.get(sid)
+            return float(compute(ss)) if ss is not None else 0.0
+        return get
+
+    frag = reg.gauge(
+        "tpukube_slice_fragmentation",
+        help_text="Free-space fragmentation per ICI slice: 1 - "
+                  "(largest free box)/(free chips); 0 = one perfect "
+                  "box, -> 1 as free space shatters.")
+    largest = reg.gauge(
+        "tpukube_slice_largest_free_box_chips",
+        help_text="Volume of the largest fully-free contiguous box "
+                  "per ICI slice — the biggest gang that could still "
+                  "land without preemption.")
+    for sid in snapshots.observe().slice_ids():
+        frag.labels(slice=sid).set_function(
+            _slice_fn(sid, lambda ss: ss.fragmentation()))
+        largest.labels(slice=sid).set_function(
+            _slice_fn(sid, lambda ss: ss.largest_free_box()))
 
 
 def render_extender_metrics(extender, reconcile=None, evictions=None,
@@ -231,18 +353,6 @@ def _add_events_counter(reg: Registry, events) -> None:
     for reason in sorted(events.counts_by_reason()):
         counter.labels(reason=reason).set_function(
             lambda r=reason: events.counts_by_reason().get(r, 0))
-
-
-def device_health_counts(device) -> tuple[int, int]:
-    """(healthy, unhealthy) over a device manager's current device list —
-    the port's copy of ``tpukube/obs/statusz.py``'s one classification."""
-    healthy = unhealthy = 0
-    for _, h in device.device_list():
-        if h.value == "Healthy":
-            healthy += 1
-        else:
-            unhealthy += 1
-    return healthy, unhealthy
 
 
 def build_plugin_registry(server, health=None, kubelet_watch=None,
@@ -418,3 +528,61 @@ def build_syncer_registry(syncer) -> Registry:
 def render_syncer_metrics(syncer) -> str:
     """Prometheus text for a NodeAnnotationSyncer sidecar."""
     return build_syncer_registry(syncer).render()
+
+
+class MetricsServer:
+    """Minimal threaded HTTP server for the node agent and the syncer:
+    /metrics always, /statusz when a ``statusz`` document callback is
+    wired (the plugin daemon passes ``obs.statusz.plugin_statusz``)."""
+
+    def __init__(self, render: Callable[[], str], host: str = "127.0.0.1",
+                 port: int = 0,
+                 statusz: Optional[Callable[[], Any]] = None):
+        render_fn = render
+        statusz_fn = statusz
+
+        class Handler(BaseHTTPRequestHandler):
+            def _reply(self, body: bytes, content_type: str) -> None:
+                self.send_response(200)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802  (http.server API)
+                if self.path == "/metrics":
+                    self._reply(
+                        render_fn().encode(),
+                        "text/plain; version=0.0.4; charset=utf-8",
+                    )
+                elif self.path == "/statusz" and statusz_fn is not None:
+                    self._reply(
+                        json.dumps(statusz_fn(), sort_keys=True).encode(),
+                        "application/json",
+                    )
+                else:
+                    self.send_error(404)
+
+            def log_message(self, *args):  # no per-request stderr lines
+                pass
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True,
+            name="tpukube-metrics",
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None

@@ -6,14 +6,16 @@ VictimGone, ...) emitted at the gang manager's seams, held in a bounded
 ring and optionally streamed to a JSONL sink. On by default
 (``events_capacity`` 4096). Dedup follows the K8s model: an event with the
 same (reason, object, message) as a live ring entry bumps that entry's
-``count`` and ``last_ts`` instead of appending. The ``/events`` route and
-the CLI are not ported yet; ``counts_by_reason`` feeds the extender's
-``/metrics``.
+``count`` and ``last_ts`` instead of appending. ``counts_by_reason`` feeds
+the extender's ``/metrics``, ``events``/``stats`` its ``/events`` route
+and ``/statusz``, and :func:`load`/:func:`format_event` the
+``python -m tpukube_torch.cli obs events`` query of a JSONL sink.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 from collections import deque
@@ -123,6 +125,21 @@ class EventJournal:
         with self._lock:
             return dict(self._by_reason)
 
+    def stats(self) -> dict[str, Any]:
+        sink_bytes, rotations = (
+            self._sink.stats() if self._sink is not None else (None, 0)
+        )
+        with self._lock:
+            return {
+                "enabled": self.capacity > 0,
+                "capacity": self.capacity,
+                "events": len(self._ring),
+                "total_emitted": sum(self._by_reason.values()),
+                "sink_path": self.path,
+                "sink_bytes": sink_bytes,
+                "sink_rotations": rotations,
+            }
+
     def close(self) -> None:
         if self._sink is not None:
             self._sink.close()
@@ -159,3 +176,25 @@ def filter_events(events: Iterable[dict[str, Any]],
             continue
         out.append(ev)
     return out
+
+
+def load(path: str) -> list[dict[str, Any]]:
+    """Read a JSONL event sink back into a list ([] for a missing file),
+    through the trace module's torn-line-tolerant loader."""
+    if not os.path.exists(path):
+        return []
+    from tpukube_torch.trace import load as _load_jsonl
+
+    return _load_jsonl(path)
+
+
+def format_event(ev: dict[str, Any]) -> str:
+    """One human line per event (``obs events``' default output)."""
+    ts = time.strftime("%H:%M:%S", time.localtime(ev.get("last_ts", 0)))
+    count = ev.get("count", 1)
+    suffix = f" (x{count})" if count > 1 else ""
+    node = f" [{ev['node']}]" if ev.get("node") else ""
+    replica = f" @{ev['replica']}" if ev.get("replica") else ""
+    return (f"{ts} {ev.get('type', NORMAL):7s} {ev.get('reason', '?'):20s} "
+            f"{ev.get('object', ''):32s} {ev.get('message', '')}"
+            f"{suffix}{node}{replica}")

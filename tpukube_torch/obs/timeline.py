@@ -16,13 +16,15 @@ the event that ends it and SPANS the time since the pod's previous
 event — so a wide "bind" slice literally is the wait between filter and
 bind, the quantity an incident investigation needs.
 
-Left out until their readers are ported: ``merged_chrome_trace`` and
-``_span_bounds`` (the federated, sharded captures of the shard router)
-and ``dump_chrome_trace`` (the ``tpukube-obs timeline`` CLI).
+``dump_chrome_trace`` writes the trace for ``python -m tpukube_torch.cli
+obs timeline``. Left out until their reader is ported:
+``merged_chrome_trace`` and ``_span_bounds`` (the federated, sharded
+captures of the shard router).
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Iterable, Optional
 
 from tpukube_torch.obs.registry import quantile
@@ -187,3 +189,7 @@ def phase_stats(events: Iterable[dict]) -> dict[str, dict[str, Any]]:
         }
     return out
 
+
+def dump_chrome_trace(events: Iterable[dict], fp) -> None:
+    json.dump(chrome_trace(events), fp, sort_keys=True)
+    fp.write("\n")

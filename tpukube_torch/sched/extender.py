@@ -24,12 +24,10 @@ bind whose plan a PodDisruptionBudget would block, before any eviction.
 
 The extender's decisions are a pure function of (pod, node annotations,
 ledger); the apiserver is reached only through the ``binder`` and
-``evict_precheck`` callables a daemon wires in. :func:`serve` answers the
-webhooks over the standard library's ``http.server`` (the machines the
-port runs on have no aiohttp), with the reference's JSON bodies; a schema
-error is HTTP 400.
-It also answers ``GET /healthz`` and ``GET /metrics``
-(``tpukube_torch.metrics``).
+``evict_precheck`` callables a daemon wires in. The HTTP layer is the
+standard library's ``http.server`` (the machines the port runs on have
+no aiohttp), with the reference's JSON bodies; a schema error is HTTP
+400.
 
 With ``batch_enabled`` the webhooks answer from a batch plan
 (``tpukube_torch.sched.cycle.SchedulingCycle``, ``self.cycle``): /filter
@@ -41,21 +39,36 @@ read the queue ahead of any webhook (the pod informer's
 ``PodAdmissionFeed``, the sim's batch driver). Each real webhook records
 exactly one latency sample in either mode.
 
+While ``degraded_gate`` names a reason (the daemon wires it to the
+apiserver circuit), /filter and /bind fail safe before any mutation.
+
+The HTTP surface (:func:`make_app`, :func:`run_server`, :func:`serve`):
+the webhooks, ``GET /healthz``, ``/metrics``
+(``tpukube_torch.metrics``), ``/state/topology|allocs|gangs``,
+``/trace?since=``, ``/events?reason=&pod=&node=&since=`` and ``/statusz``
+(``tpukube_torch.obs.statusz``), behind an optional bearer token and
+TLS; :func:`make_probe_app` is the plain-HTTP listener for /healthz and
+/metrics only. ``python -m tpukube_torch.cli extender`` is the daemon.
+
 Not ported yet (each refused or absent, none faked): the journal, tenancy
 (with its preemption victim bias and admission gate), capacity, drain,
-autoscale, decision provenance and cycle phase profiling, degraded mode,
-the shard router, and the other HTTP routes.
+autoscale, decision provenance and cycle phase profiling (``/explain``
+and ``/capacity*`` answer 404 naming the plane), and the shard router.
 """
 
 from __future__ import annotations
 
+import hmac
 import json
 import logging
+import ssl
+import sys
 import threading
 import time
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
+from urllib.parse import parse_qsl, urlsplit
 
 import numpy as np
 
@@ -233,6 +246,15 @@ class Extender:
         # and is NOT part of the recorded decision — a refused precheck
         # leaves no state to replay.
         self.evict_precheck = None
+        # Degraded mode: a callable returning a human reason while the
+        # apiserver circuit is open (None = healthy). While degraded,
+        # /filter and /bind FAIL SAFE (no feasibility answer, no
+        # preemption plan, no bind): an extender that cannot reach the
+        # apiserver cannot effect or verify any decision it makes; the
+        # scheduler retries once the circuit half-opens. The CLI wires
+        # this to the channel's CircuitBreaker; None disables the gate.
+        # It must only read memory: it is consulted on every webhook.
+        self.degraded_gate = None
 
     def _emit_event(self, reason: str, obj: str, message: str,
                     warning: bool = True) -> None:
@@ -244,6 +266,18 @@ class Extender:
             )
         except Exception:
             log.exception("event emit failed: %s %s", reason, obj)
+
+    def _degraded_reason(self) -> Optional[str]:
+        """The degraded gate's answer, never letting a broken gate break
+        scheduling (a gate failure reads as healthy)."""
+        gate = self.degraded_gate
+        if gate is None:
+            return None
+        try:
+            return gate()
+        except Exception:
+            log.exception("degraded gate failed; treating as healthy")
+            return None
 
     def _remember(self, pod: PodInfo) -> None:
         now = self.clock.monotonic()
@@ -296,6 +330,7 @@ class Extender:
             for res in self.state.ingest_nodes(items):
                 if isinstance(res, dict) and res.get("error"):
                     raise StateError(res["error"])
+            self.state.maybe_start_warmer()
             return names
         for obj in raw_nodes:
             name, annotations = kube.node_name_and_annotations(obj)
@@ -1172,6 +1207,21 @@ class Extender:
         """
         if kind == "bind":
             return self._handle_bind(body)
+        if kind == "filter":
+            reason = self._degraded_reason()
+            if reason is not None:
+                # fail safe BEFORE any mutation or trace record (the
+                # schema-error contract): no reservation is created, no
+                # preemption planned, and the refusal replays as nothing
+                # because it changed nothing
+                pod, nodes, names = kube.parse_extender_args(body)
+                mk = (kube.filter_result if nodes is not None
+                      else kube.filter_result_names)
+                self._emit_event(
+                    "DegradedMode", "extender/filter",
+                    f"failing filter requests safe: {reason}",
+                )
+                return mk([], {}, error=f"degraded mode: {reason}")
         with self._decision_lock:
             if kind == "filter":
                 pod, nodes, names = kube.parse_extender_args(body)
@@ -1269,6 +1319,8 @@ class Extender:
                 items = list(body.get("items") or [])
                 if self.bulk_ingest:
                     results = self.state.ingest_nodes(items)
+                    # drain the deferred decodes off the serving path
+                    self.state.maybe_start_warmer()
                 else:
                     results = []
                     for item in items:
@@ -1301,6 +1353,16 @@ class Extender:
         response reports the failure to the scheduler for a retry."""
         name, ns, uid, node = kube.parse_binding_args(body)
         key = f"{ns}/{name}"
+        degraded = self._degraded_reason()
+        if degraded is not None:
+            # the filter's fail-safe contract: refused before any
+            # mutation, nothing recorded; a bind the effector could not
+            # deliver must not touch the ledger or run a preemption plan
+            self._emit_event(
+                "DegradedMode", "extender/bind",
+                f"failing bind requests safe: {degraded}",
+            )
+            return kube.binding_result(f"{key}: degraded mode: {degraded}")
         blocked = self._precheck_preemption(key)
         if blocked:
             # refused BEFORE any mutation, so nothing is recorded in the
@@ -1498,8 +1560,107 @@ class Extender:
         )
         return True
 
+    # -- inspection (ctl and the /state routes) ------------------------------
+    def topology_snapshot(self) -> dict[str, Any]:
+        """Cluster topology and occupancy as plain JSON (``ctl topo``).
+        Per-slice sections carry the slice-local coord sets; the
+        top-level fields aggregate across slices (mesh_dims is the sole
+        slice's dims on a single-slice cluster, null otherwise)."""
+        snap = self.snapshots.current()
+        slice_ids = snap.slice_ids()
+        per_slice: dict[str, dict[str, Any]] = {}
+        for sid in slice_ids:
+            ss = snap.slice(sid)
+            per_slice[sid] = {
+                "occupied": ss.occupied,
+                "reserved": ss.reserved,
+                "unhealthy": ss.unhealthy,
+                "broken": sorted(ss.broken),
+            }
+        nodes = []
+        for name in self.state.node_names():
+            view = self.state.node(name)
+            if view is None:
+                continue
+            s = per_slice[view.info.slice_id]
+            chips = []
+            for chip in view.info.chips:
+                status = (
+                    "unhealthy" if chip.coord in s["unhealthy"]
+                    else "allocated" if chip.coord in s["occupied"]
+                    else "reserved" if chip.coord in s["reserved"]
+                    else "free"
+                )
+                chips.append({
+                    "index": chip.index,
+                    "coord": list(chip.coord),
+                    "status": status,
+                    "used_shares": view.used_share_count(chip.index),
+                    "shares": view.shares_per_chip,
+                })
+            nodes.append({
+                "name": name, "slice": view.info.slice_id, "chips": chips,
+                # table-fallback nodes (static memory/SM guesses) show
+                # at a glance in ``ctl topo``
+                "source": view.info.source,
+            })
+        return {
+            "mesh_dims": (
+                list(snap.slice(slice_ids[0]).mesh.dims)
+                if len(slice_ids) == 1 else None
+            ),
+            "utilization_percent": round(100.0 * self.state.utilization(), 2),
+            "chips_total": sum(len(n["chips"]) for n in nodes),
+            "chips_allocated": sum(len(s["occupied"])
+                                   for s in per_slice.values()),
+            "chips_reserved_unbound": sum(
+                len(s["reserved"] - s["occupied"]) for s in per_slice.values()
+            ),
+            "chips_unhealthy": sum(
+                len(s["unhealthy"]) for s in per_slice.values()
+            ),
+            "links_down": [
+                [list(a), list(b)]
+                for s in per_slice.values() for a, b in s["broken"]
+            ],
+            "slices": [
+                {
+                    "id": sid,
+                    "mesh_dims": list(snap.slice(sid).mesh.dims),
+                    "utilization_percent": round(
+                        100.0 * snap.slice(sid).utilization, 2
+                    ),
+                    # how shattered the slice's free space is, and the
+                    # biggest gang box it could still take
+                    "fragmentation": round(
+                        snap.slice(sid).fragmentation(), 4
+                    ),
+                    "largest_free_box_chips": snap.slice(
+                        sid).largest_free_box(),
+                    "links_down": [
+                        [list(a), list(b)] for a, b in per_slice[sid]["broken"]
+                    ],
+                }
+                for sid in slice_ids
+            ],
+            "nodes": nodes,
+        }
+
+    def alloc_snapshot(self) -> list[dict[str, Any]]:
+        """Committed allocations as plain JSON (``ctl alloc``)."""
+        return [
+            {
+                "pod": a.pod_key,
+                "node": a.node_name,
+                "devices": list(a.device_ids),
+                "coords": [list(c) for c in a.coords],
+                "priority": a.priority,
+            }
+            for a in sorted(self.state.allocations(), key=lambda a: a.pod_key)
+        ]
+
     def gang_snapshot(self) -> list[dict[str, Any]]:
-        """Live gang reservations as plain JSON."""
+        """Live gang reservations as plain JSON (``ctl gangs``)."""
         out = []
         for res in self.gang.snapshot():
             out.append({
@@ -1559,34 +1720,187 @@ class Extender:
         return len(restored)
 
 
-# -- webhook server (standard library) ----------------------------------------
+# -- HTTP application (standard library) -------------------------------------
 
 _ROUTES = {"/filter": "filter", "/prioritize": "prioritize", "/bind": "bind"}
+_PROBE_ROUTES = ("/healthz", "/metrics")
+_GET_ROUTES = _PROBE_ROUTES + (
+    "/state/topology", "/state/allocs", "/state/gangs", "/trace", "/events",
+    "/explain", "/capacity", "/capacity/probe", "/statusz")
+# routes of planes the port has not ported: 404, as the reference answers
+# them with the plane off (ROADMAP.md Queue 1 item of each)
+_UNPORTED_ROUTES = {
+    "/explain": "decision provenance is not ported yet "
+                "(ROADMAP.md Queue 1, item 4)",
+    "/capacity": "capacity analytics is not ported yet "
+                 "(ROADMAP.md Queue 1, item 3)",
+    "/capacity/probe": "capacity analytics is not ported yet "
+                       "(ROADMAP.md Queue 1, item 3)",
+}
 
 
-class _WebhookHandler(BaseHTTPRequestHandler):
-    """POST /filter, /prioritize, /bind and GET /healthz, /metrics, with
-    the bodies of the reference's aiohttp app: a body that is not JSON, or
-    a schema error, is HTTP 400 and records nothing."""
+class App:
+    """The extender's HTTP application: its routes and what they read.
+
+    ``reconcile``/``evictions``/``node_refresh``/``lifecycle`` are the
+    daemon's loops, exported on /metrics when present; ``informer`` is
+    the shared PodInformer whose stream liveness /statusz reports (the
+    lifecycle loop stands in when the loops run standalone).
+
+    ``auth_token`` gates every route except /healthz and /metrics behind
+    ``Authorization: Bearer <token>``: /bind mutates the ledger and runs
+    preemption, /state, /trace, /events and /statusz disclose placement.
+    /healthz (kubelet probes) and /metrics (Prometheus) stay open; both
+    are read-only and disclose nothing. TLS is the transport's job
+    (:func:`run_server`'s ``ssl_context``); the token also guards plain
+    HTTP setups and backs TLS up. A probe app (``probe_only``) serves
+    /healthz and /metrics and nothing else."""
+
+    def __init__(self, extender: Extender, reconcile=None, evictions=None,
+                 node_refresh=None, lifecycle=None,
+                 auth_token: Optional[str] = None, informer=None,
+                 probe_only: bool = False) -> None:
+        self.extender = extender
+        self.reconcile = reconcile
+        self.evictions = evictions
+        self.node_refresh = node_refresh
+        self.lifecycle = lifecycle
+        self.informer = informer
+        self.probe_only = probe_only
+        self._expected = (f"Bearer {auth_token}".encode()
+                          if auth_token else None)
+
+    def authorized(self, path: str, header: Optional[str]) -> bool:
+        if self._expected is None or path in _PROBE_ROUTES:
+            return True
+        # constant-time compare on BYTES: the str overload raises on
+        # non-ASCII input, and a crafted header must get a 401, not a 500
+        got = (header or "").encode("utf-8", "surrogateescape")
+        return hmac.compare_digest(got, self._expected)
+
+    def get(self, path: str, query: dict[str, str]) -> tuple[int, Any]:
+        """(status, JSON-able body, or str for text/plain) of a GET."""
+        ext = self.extender
+        if self.probe_only and path not in _PROBE_ROUTES:
+            return 404, "not found"
+        if path == "/healthz":
+            return 200, {"ok": True, "nodes": list(ext.state.node_names())}
+        if path == "/metrics":
+            from tpukube_torch.metrics import render_extender_metrics
+
+            return 200, render_extender_metrics(
+                ext, reconcile=self.reconcile, evictions=self.evictions,
+                node_refresh=self.node_refresh, lifecycle=self.lifecycle)
+        if path == "/state/topology":
+            return 200, ext.topology_snapshot()
+        if path == "/state/allocs":
+            return 200, ext.alloc_snapshot()
+        if path == "/state/gangs":
+            return 200, ext.gang_snapshot()
+        if path == "/trace":
+            if ext.trace is None:
+                return 404, "tracing disabled (set trace_capacity)"
+            try:
+                since = int(query.get("since", 0))
+            except ValueError:
+                return 400, "since must be an integer"
+            return 200, ext.trace.events(since_seq=since)
+        if path == "/events":
+            since: Optional[float] = None
+            if query.get("since"):
+                try:
+                    since = float(query["since"])
+                except ValueError:
+                    return 400, "since must be a unix ts"
+            return 200, ext.events.events(
+                reason=query.get("reason") or None,
+                pod=query.get("pod") or None,
+                node=query.get("node") or None,
+                since=since,
+            )
+        if path == "/statusz":
+            from tpukube_torch.obs.statusz import extender_statusz
+
+            return 200, extender_statusz(
+                ext, evictions=self.evictions, informer=self.informer,
+                node_refresh=self.node_refresh, lifecycle=self.lifecycle,
+                reconcile=self.reconcile)
+        if path in _UNPORTED_ROUTES:
+            return 404, _UNPORTED_ROUTES[path]
+        return 404, "not found"
+
+
+def make_app(extender: Extender, reconcile=None, evictions=None,
+             node_refresh=None, lifecycle=None,
+             auth_token: Optional[str] = None, informer=None) -> App:
+    """The extender's whole HTTP surface (see :class:`App`)."""
+    return App(extender, reconcile=reconcile, evictions=evictions,
+               node_refresh=node_refresh, lifecycle=lifecycle,
+               auth_token=auth_token, informer=informer)
+
+
+def make_probe_app(extender: Extender, reconcile=None, evictions=None,
+                   node_refresh=None, lifecycle=None) -> App:
+    """/healthz and /metrics ONLY: the mTLS deployment's second listener.
+
+    With a client CA the main port refuses every peer without a CA-signed
+    client certificate at the handshake, and kubelet's httpGet probes and
+    Prometheus scrapes cannot present one. This app serves the two
+    read-only routes over the separate ``--probe-port`` while /bind,
+    /state and /trace stay behind mTLS."""
+    return App(extender, reconcile=reconcile, evictions=evictions,
+               node_refresh=node_refresh, lifecycle=lifecycle,
+               probe_only=True)
+
+
+class _Handler(BaseHTTPRequestHandler):
+    """One connection's requests against ``server.app``, with the bodies
+    of the reference's aiohttp app: a body that is not JSON, or a schema
+    error, is HTTP 400 and records nothing."""
 
     protocol_version = "HTTP/1.1"  # keep-alive, as kube-scheduler uses
+    # headers and body go out in two writes: with Nagle on, the body
+    # waits for the peer's delayed ACK (~40 ms a response over TLS)
+    disable_nagle_algorithm = True
 
     def _reply(self, status: int, payload: bytes,
-               content_type: str = "application/json") -> None:
+               content_type: str = "application/json",
+               headers: Optional[dict[str, str]] = None) -> None:
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(payload)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(payload)
 
-    def _text(self, status: int, text: str) -> None:
-        self._reply(status, text.encode(), "text/plain; charset=utf-8")
+    def _text(self, status: int, text: str, **kw: Any) -> None:
+        self._reply(status, text.encode(), "text/plain; charset=utf-8", **kw)
+
+    def _route(self) -> Optional[tuple[str, dict[str, str]]]:
+        """(path, query) once the request is authorized; None after the
+        401 went out."""
+        parts = urlsplit(self.path)
+        if not self.server.app.authorized(
+                parts.path, self.headers.get("Authorization")):
+            self._text(401, "missing or invalid bearer token",
+                       headers={"WWW-Authenticate": "Bearer"})
+            return None
+        return parts.path, dict(parse_qsl(parts.query))
 
     def do_POST(self) -> None:  # noqa: N802 (http.server's name)
         raw = self.rfile.read(int(self.headers.get("Content-Length") or 0))
-        kind = _ROUTES.get(self.path)
+        routed = self._route()
+        if routed is None:
+            return
+        path, _ = routed
+        app = self.server.app
+        kind = None if app.probe_only else _ROUTES.get(path)
         if kind is None:
-            self._text(404, "not found")
+            if not app.probe_only and path in _GET_ROUTES:
+                self._text(405, "method not allowed")
+            else:
+                self._text(404, "not found")
             return
         try:
             body = json.loads(raw)
@@ -1594,79 +1908,122 @@ class _WebhookHandler(BaseHTTPRequestHandler):
             self._text(400, f"bad JSON: {e}")
             return
         try:
-            response = self.server.extender.handle(kind, body)
+            response = app.extender.handle(kind, body)
         except kube.KubeSchemaError as e:
             self._text(400, str(e))
             return
         self._reply(200, json.dumps(response).encode())
 
     def do_GET(self) -> None:  # noqa: N802
-        ext = self.server.extender
-        if self.path == "/healthz":
-            self._reply(200, json.dumps(
-                {"ok": True, "nodes": list(ext.state.node_names())}).encode())
-        elif self.path == "/metrics":
-            from tpukube_torch.metrics import render_extender_metrics
-
-            text = render_extender_metrics(
-                ext, reconcile=self.server.reconcile,
-                evictions=self.server.evictions,
-                node_refresh=self.server.node_refresh,
-                lifecycle=self.server.lifecycle)
-            self._reply(200, text.encode(), "text/plain; version=0.0.4")
+        routed = self._route()
+        if routed is None:
+            return
+        path, query = routed
+        app = self.server.app
+        if path in _ROUTES and not app.probe_only:
+            self._text(405, "method not allowed")
+            return
+        status, body = app.get(path, query)
+        if path == "/metrics" and status == 200:
+            self._reply(200, body.encode(), "text/plain; version=0.0.4")
+        elif isinstance(body, str):
+            self._text(status, body)
         else:
-            self._text(404, "not found")
+            self._reply(status, json.dumps(body).encode())
 
     def log_message(self, format: str, *args: Any) -> None:
         log.debug("%s %s", self.address_string(), format % args)
 
 
-def serve(extender: Extender, host: str = "127.0.0.1", port: int = 0,
-          evictions=None, lifecycle=None, reconcile=None,
-          node_refresh=None) -> ThreadingHTTPServer:
-    """Serve ``extender``'s webhooks on ``host:port`` (0 = a free port;
-    read it from ``server.server_address``) from a daemon thread. Pass the
-    daemon's ``EvictionExecutor``, ``PodLifecycleReleaseLoop``,
-    ``AllocReconcileLoop`` and ``NodeTopologyRefreshLoop``
-    (``tpukube_torch.apiserver``) to export their counters on /metrics.
-    Stop with ``server.shutdown(); server.server_close()``."""
-    server = ThreadingHTTPServer((host, port), _WebhookHandler)
-    server.daemon_threads = True
-    server.extender = extender
-    server.evictions = evictions
-    server.lifecycle = lifecycle
-    server.reconcile = reconcile
-    server.node_refresh = node_refresh
+class Server(ThreadingHTTPServer):
+    """``http.server`` for the extender's app, one thread per connection.
+
+    With ``ssl_context`` each connection's TLS handshake runs in its own
+    thread, under ``HANDSHAKE_TIMEOUT_S``, never in ``accept()``: a
+    client that stalls in its handshake holds only its own thread. A
+    peer the context refuses (no client certificate where one is
+    required, a certificate of another CA) fails its handshake, is
+    logged at INFO without a traceback, and the server goes on serving."""
+
+    daemon_threads = True
+    HANDSHAKE_TIMEOUT_S = 10.0
+
+    def __init__(self, address: tuple[str, int], app: App,
+                 ssl_context: Optional[ssl.SSLContext] = None) -> None:
+        self.app = app
+        self.ssl_context = ssl_context
+        super().__init__(address, _Handler)
+
+    def finish_request(self, request, client_address) -> None:
+        if self.ssl_context is None:
+            super().finish_request(request, client_address)
+            return
+        request.settimeout(self.HANDSHAKE_TIMEOUT_S)
+        try:
+            conn = self.ssl_context.wrap_socket(
+                request, server_side=True, do_handshake_on_connect=False)
+        except OSError as e:
+            log.info("TLS from %s refused: %s", client_address[0], e)
+            return
+        try:
+            try:
+                conn.do_handshake()
+            except OSError as e:  # ssl.SSLError, a reset, a timeout
+                log.info("TLS handshake from %s refused: %s",
+                         client_address[0], e)
+                return
+            conn.settimeout(None)
+            self.RequestHandlerClass(conn, client_address, self)
+        finally:
+            self.shutdown_request(conn)
+
+    def handle_error(self, request, client_address) -> None:
+        # a peer that drops its connection is not the server's error
+        err = sys.exc_info()[1]
+        if isinstance(err, OSError):
+            log.debug("connection from %s: %s", client_address[0], err)
+            return
+        super().handle_error(request, client_address)
+
+
+def run_server(app: App, host: str = "127.0.0.1", port: int = 0,
+               ssl_context: Optional[ssl.SSLContext] = None) -> Server:
+    """Serve ``app`` on ``host:port`` (0 = a free port; read it from
+    ``server.server_address``) from a daemon thread, over TLS when
+    ``ssl_context`` is given. Stop with ``server.shutdown();
+    server.server_close()`` from another thread than the serving one."""
+    server = Server((host, port), app, ssl_context=ssl_context)
     # a short poll interval: shutdown() waits out one poll
     threading.Thread(target=server.serve_forever, args=(0.05,), daemon=True,
                      name="tpukube-extender-http").start()
     return server
 
 
-def main(argv: Optional[list[str]] = None) -> None:
-    """Run the extender daemon on ``extender_host:extender_port`` (the
-    ``TPUKUBE_*`` environment overlay) until interrupted."""
-    import argparse
+def run_probe_server(app: App, host: str, port: int):
+    """Serve a probe app (:func:`make_probe_app`) over plain HTTP from a
+    daemon thread; returns its stop() callable."""
+    server = run_server(app, host, port)
 
-    from tpukube_torch.core.config import load_config
-
-    ap = argparse.ArgumentParser(description=main.__doc__)
-    ap.add_argument("--host", default=None)
-    ap.add_argument("--port", type=int, default=None)
-    args = ap.parse_args(argv)
-    cfg = load_config()
-    server = serve(Extender(cfg), args.host or cfg.extender_host,
-                   cfg.extender_port if args.port is None else args.port)
-    host, port = server.server_address[:2]
-    print(f"tpukube_torch extender on http://{host}:{port}", flush=True)
-    try:
-        threading.Event().wait()
-    except KeyboardInterrupt:
-        pass
-    finally:
+    def stop() -> None:
         server.shutdown()
         server.server_close()
 
+    return stop
 
-if __name__ == "__main__":
-    main()
+
+def serve(extender: Extender, host: str = "127.0.0.1", port: int = 0,
+          evictions=None, lifecycle=None, reconcile=None,
+          node_refresh=None, auth_token: Optional[str] = None,
+          informer=None,
+          ssl_context: Optional[ssl.SSLContext] = None) -> Server:
+    """Serve ``extender``'s whole HTTP surface (:func:`make_app`, then
+    :func:`run_server`). Pass the daemon's ``EvictionExecutor``,
+    ``PodLifecycleReleaseLoop``, ``AllocReconcileLoop``,
+    ``NodeTopologyRefreshLoop`` and ``PodInformer``
+    (``tpukube_torch.apiserver``) to export their counters on /metrics
+    and their streams on /statusz."""
+    return run_server(
+        make_app(extender, reconcile=reconcile, evictions=evictions,
+                 node_refresh=node_refresh, lifecycle=lifecycle,
+                 auth_token=auth_token, informer=informer),
+        host, port, ssl_context=ssl_context)

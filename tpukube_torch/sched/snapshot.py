@@ -35,7 +35,7 @@ import random
 import threading
 import time
 from collections import deque
-from typing import Iterable, Optional
+from typing import Any, Iterable, Optional
 
 from tpukube_torch.core.mesh import MeshSpec
 from tpukube_torch.core.types import Link, TopologyCoord
@@ -253,12 +253,16 @@ class SliceSnapshot:
 class ClusterSnapshot:
     """Per-slice snapshots under one (ledger epoch, gang epoch) key."""
 
-    __slots__ = ("key", "slices")
+    __slots__ = ("key", "slices", "build_seconds")
 
     def __init__(self, key: tuple[int, int],
-                 slices: dict[str, SliceSnapshot]):
+                 slices: dict[str, SliceSnapshot],
+                 build_seconds: float = 0.0):
         self.key = key
         self.slices = slices
+        # wall time of the full rebuild that produced this snapshot (0
+        # for a delta advance)
+        self.build_seconds = build_seconds
 
     def slice_ids(self) -> list[str]:
         return sorted(self.slices)
@@ -330,6 +334,7 @@ class SnapshotCache:
     #: bytes, so the bound is memory-cheap headroom.
     DELTA_LOG = 16384
     DELTA_APPLY_WINDOW = 512  # delta-apply samples kept for quantiles
+    REBUILD_WINDOW = 512  # rebuild-latency samples kept for quantiles
 
     def __init__(self, state, gang):
         self._state = state
@@ -339,6 +344,9 @@ class SnapshotCache:
         # gang/ledger locks
         self._lock = threading.Lock()
         self._snap: Optional[ClusterSnapshot] = None
+        # bumped whenever a new snapshot is installed (the /statusz
+        # "generation")
+        self._snap_gen = 0
         self.rebuilds = 0
         self.hits = 0
         # Incremental maintenance: bump seams note() typed
@@ -359,6 +367,9 @@ class SnapshotCache:
         )
         self.delta_apply_seconds_total = 0.0
         self.rebuild_seconds_total = 0.0
+        self._rebuild_seconds: deque[float] = deque(
+            maxlen=self.REBUILD_WINDOW
+        )
         # Audit sentinel (config ``snapshot_audit_rate``, wired by the
         # Extender): on a sampled fraction of cache HITS, rebuild the
         # snapshot from the ledger and raise SnapshotAuditError on any
@@ -383,6 +394,7 @@ class SnapshotCache:
         delta log cannot advance from nothing."""
         with self._lock:
             self._snap = None
+            self._snap_gen += 1
 
     # -- the delta log -------------------------------------------------------
     def note(self, delta: SnapshotDelta) -> None:
@@ -538,19 +550,33 @@ class SnapshotCache:
         A lookup from outside that lock can race a mutation; a build
         that fails the re-check is served to that one caller uncached,
         and the next lookup rebuilds clean."""
+        return self._lookup(count_hit=True)
+
+    def observe(self) -> ClusterSnapshot:
+        """Cache lookup for observability readers (metrics/statusz).
+        Never counts a hit: scrape traffic counted as hits would mask the
+        "flat hits counter under webhook load" diagnostic the counters
+        exist for. A rebuild it performs is still real work (one the next
+        scheduling lookup then inherits) and counts."""
+        return self._lookup(count_hit=False)
+
+    def _lookup(self, count_hit: bool) -> ClusterSnapshot:
         key = self.epoch_key()
         with self._lock:
             snap = self._snap
             if snap is not None and snap.key == key:
-                self.hits += 1
+                if count_hit:
+                    self.hits += 1
                 hit: Optional[ClusterSnapshot] = snap
             else:
                 hit = None
             base = snap  # delta-advance base (None = cold start)
         if hit is not None:
-            if self.audit_rate > 0.0:
+            if count_hit and self.audit_rate > 0.0:
                 # audit OUTSIDE the leaf mutex: the rebuild takes the
-                # gang/ledger locks, which must never nest inside it
+                # gang/ledger locks, which must never nest inside it.
+                # Only counted (scheduling) hits are audited: observer
+                # scrapes may race mutations and would false-positive.
                 self._maybe_audit(hit)
             return hit
         for _ in range(3):
@@ -568,14 +594,16 @@ class SnapshotCache:
             if snap is None:
                 t0 = time.perf_counter()
                 snap = self._build(key)
-                dt = time.perf_counter() - t0
+                snap.build_seconds = time.perf_counter() - t0
                 with self._lock:
                     self.rebuilds += 1
-                    self.rebuild_seconds_total += dt
+                    self._rebuild_seconds.append(snap.build_seconds)
+                    self.rebuild_seconds_total += snap.build_seconds
             after = self.epoch_key()
             with self._lock:
                 if after == key:
                     self._snap = snap
+                    self._snap_gen += 1
                     return snap
             key = after
             base = snap  # labeled for the missed key; advance from it
@@ -676,8 +704,63 @@ class SnapshotCache:
         return ClusterSnapshot(key=key, slices=slices)
 
     # -- observability -----------------------------------------------------
+    def rebuild_seconds_snapshot(self) -> list[float]:
+        """Copy of the rebuild-latency window (the /metrics summary's
+        values_fn; copied under the mutex so a concurrent rebuild cannot
+        corrupt the scrape)."""
+        with self._lock:
+            return list(self._rebuild_seconds)
+
     def delta_apply_seconds_snapshot(self) -> list[float]:
         """Copy of the delta-apply latency window (one sample per O(Δ)
         advance, however many queued deltas it covered)."""
         with self._lock:
             return list(self._delta_apply_seconds)
+
+    def stats(self) -> dict[str, Any]:
+        """The /statusz document: cache counters plus the per-slice
+        fragmentation numbers the snapshot makes cheap to serve. Reads
+        through observe(): a statusz poll must not inflate the hit
+        counters it reports."""
+        snap = self.observe()
+        with self._lock:
+            rebuilds, hits = self.rebuilds, self.hits
+            applies, overflows = self.delta_applies, self.delta_overflows
+            checks, diverged = self.audit_checks, self.audit_divergences
+            last = (self._rebuild_seconds[-1]
+                    if self._rebuild_seconds else None)
+        lookups = rebuilds + hits
+        advances = rebuilds + applies
+        return {
+            "epoch": {"ledger": snap.key[0], "gang": snap.key[1]},
+            "generation": self._snap_gen,
+            "rebuilds": rebuilds,
+            "hits": hits,
+            "audit": {
+                "rate": self.audit_rate,
+                "checks": checks,
+                "divergences": diverged,
+            },
+            "delta": {
+                "enabled": self.delta_enabled,
+                "applies": applies,
+                "overflows": overflows,
+            },
+            # of the lookups that had to move the snapshot forward, the
+            # fraction the O(delta) path served (vs full rebuilds)
+            "delta_hit_rate": (round(applies / advances, 4)
+                               if advances else None),
+            "hit_rate": round(hits / lookups, 4) if lookups else None,
+            "last_rebuild_s": (round(last, 6) if last is not None
+                               else None),
+            "slices": {
+                sid: {
+                    "fragmentation": round(ss.fragmentation(), 4),
+                    "largest_free_box": ss.largest_free_box(),
+                    "free_chips": ss.free_chips,
+                    "reserved_chips": len(ss.reserved),
+                    "links_down": len(ss.broken),
+                }
+                for sid, ss in snap.slices.items()
+            },
+        }

@@ -16,6 +16,8 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -398,6 +400,18 @@ class ClusterState:
         # aggregates, so a materialization failure is pathological (and
         # degrades that one node to 'unknown').
         self._lazy_payloads: dict[str, tuple[str, dict[str, str], str]] = {}
+        # decode-avoidance counters: a batch item whose payload matches
+        # the retained one (a webhook re-send of an unchanged fleet) is
+        # a HIT, answered without any parse; a fresh probe is a miss
+        self._decode_hits = 0
+        self._decode_misses = 0
+        # ingest counters (the /statusz "ingest" section + the
+        # tpukube_ingest_* series)
+        self.ingest_nodes_total = 0
+        self.ingest_batches = 0
+        self._ingest_seconds: deque[float] = deque(maxlen=64)
+        self.ingest_seconds_total = 0.0
+        self._warming = False
 
     def set_delta_sink(self, sink) -> None:
         """Attach the snapshot cache's delta log (None detaches)."""
@@ -760,6 +774,7 @@ class ClusterState:
         node. Items naming an already-known node with a CHANGED payload
         are routed through the legacy per-node path (its health-only
         delta and occupancy carry-over semantics own that shape)."""
+        t0 = time.perf_counter()
         results: list = [None] * len(items)
         slow: list[int] = []
         with self._lock:
@@ -789,6 +804,7 @@ class ClusterState:
                 view = nodes_get(name)
                 if view is not None:
                     if view.raw_payload == payload:
+                        self._decode_hits += 1
                         results[pos] = {"ours": True}
                     else:
                         slow.append(pos)
@@ -796,6 +812,7 @@ class ClusterState:
                 lazy = lazyp_get(name)
                 if lazy is not None:
                     if lazy[0] == payload:
+                        self._decode_hits += 1
                         results[pos] = {"ours": True}
                     else:
                         slow.append(pos)
@@ -808,10 +825,12 @@ class ClusterState:
                     # (the name-string identity trick below only
                     # covers claims within ONE item)
                     if earlier == payload:
+                        self._decode_hits += 1
                         results[pos] = {"ours": True}
                     else:
                         slow.append(pos)
                     continue
+                self._decode_misses += 1
                 try:
                     probe = _probe_node_payload(name, payload,
                                                 mesh_memo)
@@ -933,10 +952,11 @@ class ClusterState:
                 self._epoch += 1
                 self._note_delta_locked(
                     full=True, why=f"bulk ingest ({len(staged)} nodes)")
-                # the note itself no-ops without a journal; the ternary
-                # only skips building the O(batch) items list, keeping
-                # the call UNCONDITIONAL so the seam-triple pass can
-                # prove the bump/delta/journal triple on every path
+                self.ingest_nodes_total += len(staged)
+            self.ingest_batches += 1
+            dt = time.perf_counter() - t0
+            self._ingest_seconds.append(dt)
+            self.ingest_seconds_total += dt
         # known-node changed payloads run the legacy per-node path
         # OUTSIDE the batch lock hold (upsert_node re-acquires; the
         # per-node seams own health-only deltas and occupancy carry)
@@ -949,6 +969,65 @@ class ClusterState:
             except (codec.CodecError, StateError) as e:
                 results[pos] = {"error": str(e)}
         return results
+
+    def ingest_stats(self) -> dict:
+        """The /statusz "ingest" section: batch counters, decode-cache
+        hit rate, and the lazy backlog still awaiting materialization."""
+        with self._lock:
+            decode = self._decode_hits + self._decode_misses
+            last = (self._ingest_seconds[-1]
+                    if self._ingest_seconds else None)
+            return {
+                "nodes_total": self.ingest_nodes_total,
+                "batches": self.ingest_batches,
+                "seconds_total": round(self.ingest_seconds_total, 6),
+                "last_batch_s": (round(last, 6)
+                                 if last is not None else None),
+                "decode_cache_hits": self._decode_hits,
+                "decode_cache_misses": self._decode_misses,
+                "decode_cache_hit_rate": (
+                    round(self._decode_hits / decode, 4)
+                    if decode else None
+                ),
+                "lazy_pending": len(self._lazy_payloads),
+            }
+
+    def ingest_seconds_snapshot(self) -> list[float]:
+        """Copy of the per-batch ingest-wall window (the /metrics
+        summary's values_fn)."""
+        with self._lock:
+            return list(self._ingest_seconds)
+
+    def warm_pending(self, limit: int = 512) -> int:
+        """Materialize up to ``limit`` lazy nodes; returns how many
+        remain. Batched so the warmer never holds the ledger lock long."""
+        with self._lock:
+            for name in list(self._lazy_payloads)[:limit]:
+                self._view_locked(name)
+            return len(self._lazy_payloads)
+
+    def maybe_start_warmer(self) -> None:
+        """Start (at most one) background materializer draining the lazy
+        store in batches, so the serving path rarely meets a cold node
+        and the ingest does not pay the fleet's decode up front."""
+        with self._lock:
+            if self._warming or not self._lazy_payloads:
+                return
+            self._warming = True
+
+        def run() -> None:
+            try:
+                # a brief head start for the caller's epilogue: warming
+                # is strictly background work
+                time.sleep(0.05)
+                while self.warm_pending(512):
+                    pass
+            finally:
+                with self._lock:
+                    self._warming = False
+
+        threading.Thread(target=run, daemon=True,
+                         name="tpukube-ingest-warmer").start()
 
     # -- geometry mask -------------------------------------------------------
     def absent_coords(self, slice_id: Optional[str] = None):

@@ -36,6 +36,7 @@ store (which has no PDBs).
 
 from __future__ import annotations
 
+import socket
 from typing import Any, Optional
 
 from tpukube_torch.apiserver import EvictionExecutor, PodLifecycleReleaseLoop
@@ -53,7 +54,36 @@ from tpukube_torch.core.types import (
 )
 from tpukube_torch.plugin.fake_kubelet import TRANSPORTS
 from tpukube_torch.sched import kube
-from tpukube_torch.sched.extender import Extender, serve
+from tpukube_torch.sched.extender import App, Extender, run_server, serve
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _AppThread:
+    """Serves an extender app (``make_app``/``make_probe_app``) on
+    ``host:port`` between start() and stop(); ``ssl_context`` serves TLS,
+    the path the extender daemon takes with ``--tls-cert``."""
+
+    def __init__(self, app: App, host: str, port: int, ssl_context=None):
+        self._app = app
+        self._host = host
+        self._port = port
+        self._ssl = ssl_context
+        self._server = None
+
+    def start(self) -> None:
+        self._server = run_server(self._app, self._host, self._port,
+                                  ssl_context=self._ssl)
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
 
 
 class _PodStoreApi:

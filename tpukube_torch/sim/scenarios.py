@@ -10,8 +10,8 @@ result. Scenarios 10 and 12 are the kilonode churn drives:
 1,024 and 10,240 nodes on a fake clock, through the batch scheduling
 cycle (``sched/cycle.py``), each raising on its own invariants.
 
-Not ported (``run`` raises, naming the plane): scenario 7 (statusz and
-the SLO plane), 8, 9 and 13 (chaos), 11 (tenancy), 14 (the shard router)
+Not ported (``run`` raises, naming the plane): scenario 7 (the SLO
+plane), 8, 9 and 13 (chaos), 11 (tenancy), 14 (the shard router)
 and 15 (drain); each waits in ROADMAP.md Queue 1.
 """
 
@@ -68,7 +68,7 @@ _PASSTHROUGH_KEYS = (
 
 #: scenario -> the plane it needs that the port has not ported yet
 NOT_PORTED = {
-    7: "statusz and the SLO plane (ROADMAP.md Queue 1)",
+    7: "the SLO plane (ROADMAP.md Queue 1)",
     8: "the chaos harness (ROADMAP.md Queue 1)",
     9: "the chaos harness (ROADMAP.md Queue 1)",
     11: "the tenancy plane (ROADMAP.md Queue 1)",

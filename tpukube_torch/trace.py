@@ -6,9 +6,9 @@ is recorded at the protocol boundary — the exact request JSON in, the
 exact response JSON out — as one event, in a bounded in-memory ring with
 an optional JSONL file sink. The trace is on by default
 (``trace_capacity`` 4096), so the default decision path records into it.
-:func:`replay` re-runs a recorded stream against a fresh extender and
-reports every divergence. Loading a JSONL capture and the trace CLIs are
-not ported yet.
+:func:`load` reads a JSONL capture back (a torn last line is skipped),
+and :func:`replay` re-runs a recorded stream against a fresh extender and
+reports every divergence (``python -m tpukube_torch.cli ctl replay``).
 """
 
 from __future__ import annotations
@@ -71,6 +71,7 @@ class JsonlSink:
             self._bytes = os.path.getsize(path)
         except OSError:
             self._bytes = 0
+        self._rotations = 0
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="tpukube-jsonl-sink",
         )
@@ -123,9 +124,15 @@ class JsonlSink:
                                       encoding="utf-8")
                 with self._cond:
                     self._bytes = 0
+                    self._rotations += 1
             f.write(line)
             with self._cond:
                 self._bytes += nbytes
+
+    def stats(self) -> tuple[int, int]:
+        """(bytes in the live file, rotations so far)."""
+        with self._cond:
+            return self._bytes, self._rotations
 
     def close(self) -> None:
         """Flush the queue, stop the drain thread, close the file.
@@ -195,9 +202,51 @@ class DecisionTrace:
         with self._lock:
             return [e for e in self._events if e["seq"] > since_seq]
 
+    def stats(self) -> dict:
+        """Ring statistics for /statusz: occupancy, total recorded, and
+        how many events the bounded ring has already dropped (non-zero
+        means an incident capture should use a file sink)."""
+        sink_bytes, rotations = (
+            self._sink.stats() if self._sink is not None else (None, 0)
+        )
+        with self._lock:
+            return {
+                "enabled": True,
+                "capacity": self.capacity,
+                "events": len(self._events),
+                "last_seq": self._seq,
+                "dropped": max(0, self._seq - len(self._events)),
+                "sink_path": self.path or None,
+                "sink_bytes": sink_bytes,
+                "sink_rotations": rotations,
+            }
+
     def close(self) -> None:
         if self._sink is not None:
             self._sink.close()
+
+
+def load(path: str) -> list[dict]:
+    """Read a JSONL trace file back into an event list. Undecodable
+    lines are skipped (counted in a log warning): a daemon that crashed
+    mid-write leaves a torn final line, and the rest of the capture is
+    what an investigation needs."""
+    out: list[dict] = []
+    bad = 0
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                bad += 1
+    if bad:
+        logging.getLogger("tpukube_torch.trace").warning(
+            "%s: skipped %d undecodable line(s)", path, bad
+        )
+    return out
 
 
 @dataclass
@@ -207,7 +256,7 @@ class Divergence:
     recorded: Any
     replayed: Any
 
-    def __str__(self) -> str:
+    def __str__(self) -> str:  # the divergence report ``ctl replay`` prints
         return (
             f"divergence at seq {self.seq} ({self.kind}):\n"
             f"  recorded: {json.dumps(self.recorded, sort_keys=True)[:400]}\n"

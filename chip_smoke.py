@@ -207,9 +207,35 @@ Drives the port's main path the way a cluster does, on the card:
       ``Succeeded`` and the new daemon's lifecycle loop releases it;
    i. ``sim 5`` as a child prints one JSON line, utilization >= 95%;
    j. one ``daemons:`` line with the times (host clock);
-15. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+15. crash and fault recovery:
+   a. scenarios 8, 9 and 13 of the port at the reference's sizes, chaos
+      seed 1337, every snapshot lookup audited: the seeded apiserver fault
+      storm with the circuit's blackout, the extender crash mid-gang with
+      the cold restart, and 8 crash cycles at the journal's seams (clean,
+      lost tail, torn tail, corrupt tail, torn checkpoint) under the storm;
+      each with zero leaked reservations, zero ledger divergence and zero
+      audit divergences, the committed gang surviving every cycle;
+   b. a second ``extender`` daemon as step 14 starts it, over a stand-in
+      holding step 14's 1,025 Node objects, its config adding
+      ``journal_enabled``, a ``journal_path`` in the temp dir and
+      ``journal_fsync: always``: ``default/journal-0`` bound to ``tpu-0``,
+      then a 64-member gang; after the 32nd member's /bind the daemon is
+      SIGKILLed and restarted with the same config: it must recover warm
+      (/statusz ``journal.last_recovery``: a checkpoint, records replayed),
+      serve the same /state/allocs and /state/gangs, refuse ``tpu-0`` to a
+      new pod while journal-0 lives; the other 32 members bind and the
+      gang commits where the in-process ``SimCluster`` places it; the
+      journal's /metrics families are read; journal-0 ends, is released,
+      and ``default/journal-1`` bound to ``tpu-0`` runs ``--scheduled``
+      (one Llama-3-8B request, B=2, S=2048, after the UUID check); a
+      second SIGKILL, ``chaos.crash.tear_checkpoint`` on the checkpoint,
+      and the restart must take the mode the port's ``recover_extender``
+      takes on a copy of those files and serve the same allocations;
+      SIGTERM exits 0;
+   c. the ``recovery:`` and ``journal:`` lines (host clock);
+16. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-16. prints the kernels line: the JAX package has no Pallas kernel, so the
+17. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -2121,6 +2147,356 @@ def daemon_phase(card: str, c0, plain_ms: dict):
     return line
 
 
+# -- crash and fault recovery (step 15) ---------------------------------------
+
+CHAOS_SEED = "1337"  # the reference scenarios' default seed
+JOURNAL_GANG = 64  # the gang the journaled daemon is killed in the middle of
+# step 14's config plus the durable journal: fsync on every drained batch,
+# and no cadence checkpoint within the step (the one before the kill is the
+# checkpoint each recovery writes when it ends), so the WAL tail at the
+# kill holds every decision since the daemon started serving
+JOURNAL_CONFIG = DAEMON_CONFIG + """\
+journal_enabled: true
+journal_path: {wal}
+journal_fsync: always
+checkpoint_interval_seconds: 3600
+"""
+FALLBACK_LOG = "falling back to the legacy full rebuild"
+
+
+def recovery_scenarios() -> dict:
+    """Step 15a: scenarios 8, 9 and 13 of the port at the reference's sizes
+    (13 at its default 8 crash cycles), seed 1337, every snapshot lookup
+    audited. Each raises on its own invariants; the acceptance the
+    reference's tests assert is checked here too. Returns the
+    ``recovery:`` line's numbers."""
+    from tpukube_torch.sim import scenarios
+
+    with scenario_env({"TPUKUBE_CHAOS_SEED": CHAOS_SEED,
+                       "TPUKUBE_SNAPSHOT_AUDIT_RATE": "1.0"}):
+        r8, r9, r13 = (scenarios.run(n) for n in (8, 9, 13))
+    for n, r in ((8, r8), (9, r9), (13, r13)):
+        if (r["leaked_reservations"] or r["ledger_divergence"]
+                or r["snapshot_audit"]["divergences"]):
+            raise RuntimeError(f"scenario {n}: {r}")
+    if not (r8["gang_committed"] and r8["blackout_refused"]
+            and r8["circuit"]["opens"] >= 1 and not r8["evictions_pending"]
+            and r8["faults"]["injected"] > 0):
+        raise RuntimeError(f"scenario 8: {r8}")
+    if not (r9["gang_committed"] and r9["partial_gang_restored"]
+            and r9["restored"] == 4 and r9["agent_restart_allocate_ok"]):
+        raise RuntimeError(f"scenario 9: {r9}")
+    if (r13["crash_cycles"] != 8 or len(r13["recovery_modes"]) != 8
+            or r13["warm_mode"] != "warm"
+            or set(r13["seams"][:5]) != {"clean", "lost_tail", "torn_tail",
+                                         "corrupt_tail", "torn_checkpoint"}):
+        raise RuntimeError(f"scenario 13: {r13}")
+    return {
+        "wall_s": {n: r["wall_s"] for n, r in ((8, r8), (9, r9), (13, r13))},
+        "s8_faults": r8["faults"]["by_kind"],
+        "s8_circuit_opens": r8["circuit"]["opens"],
+        "s9_recovery_s": r9["recovery_s"],
+        "s13": {k: r13[k] for k in (
+            "seams", "recovery_modes", "recovery_s_p50", "recovery_s_max",
+            "warm_recovery_s", "cold_rebuild_s", "replay_speedup",
+            "pods_placed", "faults_injected", "snapshot_audit")},
+    }
+
+
+def journal_life(card_agent, run_child=None, hosts: int = DAEMON_HOSTS,
+                 gang: int = JOURNAL_GANG) -> dict:
+    """Step 15b: the extender daemon with the durable journal, killed and
+    recovered, over a REST stand-in apiserver holding step 14's fleet
+    (``hosts`` HGX Node objects and this machine's). ``card_agent()``
+    enters this machine's node agent (its node named ``DAEMON_NODE``);
+    ``run_child(env)`` runs the card pod (None: no child). Returns the
+    decisions and host-clock times; raises RuntimeError when a check
+    fails. The tests run it at a small fleet."""
+    import shutil
+    import ssl
+    import tempfile
+
+    from tpukube_torch.apiserver import AllocIntentWatcher, rest_apiserver_from_config
+    from tpukube_torch.chaos import crash
+    from tpukube_torch.core import codec
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.types import PodGroup
+    from tpukube_torch.graft import ENV_ALLOC
+    from tpukube_torch.sched import client
+    from tpukube_torch.sched.extender import Extender
+    from tpukube_torch.sched.journal import JournalError, recover_extender
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sim import SimCluster
+    from tpukube_torch.sim.harness import _free_port
+    from tpukube_torch.sim.kube_rest import KubeRestServer
+
+    out: dict = {"hosts": hosts + 1, "gang_size": gang}
+    t_step = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td, \
+            KubeRestServer(token=REST_TOKEN) as kube, \
+            contextlib.ExitStack() as stack:
+        kids = Children(td)
+        stack.callback(kids.close)
+        pki = mint_pki(td)
+        mtls = ssl.create_default_context(cafile=pki["ca"])
+        mtls.load_cert_chain(pki["client_cert"], pki["client_key"])
+        wal = os.path.join(td, "wal.jsonl")
+        cfg_path = os.path.join(td, "config.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(JOURNAL_CONFIG.format(
+                hosts=hosts, poll=REST_POLL_S, wal=wal,
+                trace=os.path.join(td, "trace.jsonl"),
+                events=os.path.join(td, "events.jsonl")))
+        token_path = os.path.join(td, "token")
+        with open(token_path, "w") as f:
+            f.write(REST_TOKEN + "\n")
+        # the in-process sims of the same config keep no capture and no
+        # journal: the files are the daemon's
+        cfg = dataclasses.replace(
+            load_config(yaml_path=cfg_path, env={}), trace_path="",
+            events_path="", journal_enabled=False, journal_path="")
+        with SimCluster(cfg, in_process=True) as sim:
+            fleet = sim.node_objects()
+        for obj in fleet:
+            kube.store.patch_node_annotations(obj["metadata"]["name"],
+                                              obj["metadata"]["annotations"])
+        names = sorted([o["metadata"]["name"] for o in fleet] + [DAEMON_NODE])
+        api = rest_apiserver_from_config(load_config(env={}), kube.base_url,
+                                         token=REST_TOKEN)
+        with card_agent() as agent:
+            node = agent.mgr.host
+            if node != DAEMON_NODE:
+                raise RuntimeError(f"the node agent names its node {node}")
+            kube.store.patch_node_annotations(node, codec.annotate_node(
+                agent.mgr.node_info(), agent.mgr.mesh))
+            port, probe = _free_port(), _free_port()
+            ext_args = [
+                "extender", "--config", cfg_path, "--host", "127.0.0.1",
+                "--port", str(port), "--tls-cert", pki["cert"],
+                "--tls-key", pki["key"], "--tls-client-ca", pki["ca"],
+                "--probe-port", str(probe), "--kube-api", kube.base_url,
+                "--kube-token-file", token_path]
+            base = f"https://127.0.0.1:{port}"
+            probe_base = f"http://127.0.0.1:{probe}"
+
+            def start_extender(name: str, t0: float):
+                proc = kids.spawn(name, ext_args)
+                t_ready = daemon_wait(f"{name} ready at {len(names)} nodes", lambda: len(
+                    https_get(f"{probe_base}/healthz")["nodes"]) == len(names), proc)
+                return proc, (t_ready - t0) * 1e3
+
+            def state() -> tuple:
+                return (https_get(f"{base}/state/allocs", mtls),
+                        https_get(f"{base}/state/gangs", mtls))
+
+            def kill(proc) -> float:
+                proc.send_signal(signal.SIGKILL)
+                proc.wait(timeout=DAEMON_WAIT_S)
+                return time.perf_counter()
+
+            def place(pod) -> tuple:
+                kube.store.upsert_pod(pod)
+                host, alloc, _ = client.place(port, pod, names, ssl_context=mtls)
+                return host, alloc.device_ids
+
+            ext, out["first_start_ms"] = start_extender("journaled",
+                                                        time.perf_counter())
+            # journal-0 on this machine's tpu-0
+            intents = AllocIntentWatcher(api, node, agent.server,
+                                         poll_seconds=REST_POLL_S)
+            intents.start()
+            stack.callback(intents.stop)
+            wait_for("the intent watch", intents.stream_connected)
+            kube.store.upsert_pod(pod_object("journal-0", tpu=1))
+            host, alloc, _ = client.place(port, pod_object("journal-0", tpu=1),
+                                          [node], ssl_context=mtls)
+            if host != node or alloc.device_ids != ["tpu-0"]:
+                raise RuntimeError(f"journal-0 bound {alloc.device_ids} on {host}")
+            # half the gang, then SIGKILL after the last of its binds
+            group = PodGroup("journal-train", min_member=gang)
+            members = [pod_object(f"jt-{i}", tpu=1,
+                                  annotations=codec.pod_group_annotations(group))
+                       for i in range(gang)]
+            t = time.perf_counter()
+            placed = [place(p) for p in members[:gang // 2]]
+            gang_s = time.perf_counter() - t
+            before = state()
+            out["killed_at"] = {"allocations": len(before[0]),
+                                "members_bound": before[1][0]["members_bound"]}
+            # a. SIGKILL; the restart recovers warm from the checkpoint its
+            # first start wrote and the WAL tail behind it
+            ext, out["kill_to_ready_ms"] = start_extender("journaled-warm",
+                                                          kill(ext))
+            recovery = https_get(f"{base}/statusz", mtls)["journal"]["last_recovery"]
+            if (FALLBACK_LOG in Children.tail(ext) or recovery is None
+                    or recovery["mode"] != "warm" or not recovery["checkpoint"]
+                    or recovery["replayed"] <= 0):
+                raise RuntimeError(f"the restart did not recover warm: {recovery}: "
+                                   f"{Children.tail(ext)}")
+            out["recovery"] = {k: recovery[k] for k in (
+                "mode", "recovery_s", "replayed", "restored_allocs",
+                "restored_gangs", "divergences")}
+            if state() != before:
+                raise RuntimeError("the recovered daemon serves other allocations "
+                                   "or gangs than before the kill")
+            # tpu-0 is refused to a new pod while journal-0 lives
+            fres = client.filter_nodes(port, pod_object("journal-1", tpu=1), [node],
+                                       ssl_context=mtls)
+            if fres["NodeNames"] or fres.get("Error"):
+                raise RuntimeError(f"journal-1 was schedulable on {node}: {fres}")
+            # the other half binds and the gang commits where the in-process
+            # port places the same gang on the same fleet
+            t = time.perf_counter()
+            placed += [place(p) for p in members[gang // 2:]]
+            out["gang_wall_s"] = gang_s + time.perf_counter() - t
+            gangs = https_get(f"{base}/state/gangs", mtls)
+            if [(g["group"], g["committed"], g["members_bound"]) for g in gangs] \
+                    != [("journal-train", True, gang)]:
+                raise RuntimeError(f"the gang after the restart: {gangs}")
+            with SimCluster(cfg, in_process=True) as sim:
+                want = [sim.schedule(sim.make_pod(f"jt-{i}", tpu=1, group=group))
+                        for i in range(gang)]
+            if placed != [(h, a.device_ids) for h, a in want]:
+                raise RuntimeError("the recovered daemon placed the gang otherwise "
+                                   "than the in-process port")
+            page = metric_lines(https_get(f"{probe_base}/metrics", raw=True).decode())
+            out["metrics"] = {k: page.get(k) for k in (
+                "tpukube_recovery_seconds_sum", "tpukube_recovery_seconds_count",
+                "tpukube_recovery_replayed_deltas_total",
+                'tpukube_checkpoint_seconds{quantile="0.5"}',
+                "tpukube_checkpoint_seconds_count",
+                "tpukube_journal_appends_total", "tpukube_journal_bytes_total")}
+            if not (page.get("tpukube_recovery_seconds_count")
+                    and page.get("tpukube_checkpoint_seconds_count")
+                    and page.get("tpukube_recovery_replayed_deltas_total", 0)
+                    == recovery["replayed"]):
+                raise RuntimeError(f"the journal's /metrics: {out['metrics']}")
+            out["wal_bytes_on_disk"] = os.path.getsize(wal)
+            # journal-0 ends; the lifecycle loop releases tpu-0 for journal-1
+            done = dict(kube.store.get_pod("default", "journal-0"))
+            done["status"] = {"phase": "Succeeded"}
+            kube.store.upsert_pod(done)
+            daemon_wait("journal-0's release", lambda: "default/journal-0" not in {
+                a["pod"] for a in https_get(f"{base}/state/allocs", mtls)}, ext)
+            kube.store.upsert_pod(pod_object("journal-1", tpu=1))
+            host, alloc1, _ = client.place(port, pod_object("journal-1", tpu=1),
+                                           [node], ssl_context=mtls)
+            if host != node or alloc1.device_ids != ["tpu-0"]:
+                raise RuntimeError(f"journal-1 bound {alloc1.device_ids} on {host}")
+            wait_for("journal-1's intent", lambda: agent.server.intents
+                     .snapshot().get("default/journal-1") == alloc1.device_ids)
+            stored = kube.store.get_pod("default", "journal-1")
+            payload = stored["metadata"]["annotations"][codec.ANNO_ALLOC]
+            penv = agent.kubelet.allocate(agent.server.resource_name,
+                                          alloc1.device_ids)
+            if run_child is not None:
+                out["child"] = run_child({**alloc1.env, **penv, ENV_ALLOC: payload})
+            # b. SIGKILL again and tear the checkpoint: the restart must
+            # take the mode the port's recover_extender takes on those
+            # files, and serve the same allocations (degraded, never wrong)
+            before = state()
+            t_kill = kill(ext)
+            if not crash.tear_checkpoint(wal + ".ckpt"):
+                raise RuntimeError("no checkpoint to tear")
+            probe_dir = os.path.join(td, "probe")
+            os.mkdir(probe_dir)
+            for fn in os.listdir(td):
+                if fn.startswith("wal.jsonl"):
+                    shutil.copy(os.path.join(td, fn), probe_dir)
+            oracle = Extender(dataclasses.replace(
+                cfg, journal_enabled=True,
+                journal_path=os.path.join(probe_dir, "wal.jsonl")))
+            try:
+                want_mode = recover_extender(oracle, api)["mode"]
+            except JournalError:
+                want_mode = "cold-fallback"
+            finally:
+                oracle.journal.crash()
+                oracle.state.retire()
+            t_spawn = time.perf_counter()
+            ext, out["torn_kill_to_ready_ms"] = start_extender("journaled-torn",
+                                                               t_kill)
+            out["torn_spawn_to_ready_ms"] = (time.perf_counter() - t_spawn) * 1e3
+            recovery = https_get(f"{base}/statusz", mtls)["journal"]["last_recovery"]
+            mode = ("cold-fallback" if FALLBACK_LOG in Children.tail(ext)
+                    else (recovery or {}).get("mode"))
+            if mode != want_mode:
+                raise RuntimeError(f"the torn-checkpoint restart took {mode}, the "
+                                   f"port's recovery takes {want_mode}")
+            out["torn_mode"] = mode
+            if state() != before:
+                raise RuntimeError("the torn-checkpoint restart serves other "
+                                   "allocations or gangs")
+            rc, _ = kids.stop(ext)
+            if rc != 0:
+                raise RuntimeError(f"the journaled daemon exited {rc} on SIGTERM: "
+                                   f"{Children.tail(ext)}")
+        out["routes"] = dict(kube.requests)
+    out["step_s"] = time.perf_counter() - t_step
+    return out
+
+
+def recovery_phase(card: str, c0, daemons: dict):
+    """Step 15 on the card: the chaos scenarios (15a), then ``journal_life``
+    with the card's node agent and a ``--scheduled`` pod (15b); prints the
+    ``recovery:`` and ``journal:`` lines. ``daemons`` is step 14's line
+    (its cold restart is printed beside the warm one). Returns the two
+    lines' objects, or None when a check failed."""
+    host = host_cpu()
+    try:
+        scen = recovery_scenarios()
+        life = journal_life(lambda: node_agent({}, host=DAEMON_NODE),
+                            run_child=lambda env: run_pod(["--scheduled"], env,
+                                                          "scheduled"))
+    except (RuntimeError, subprocess.SubprocessError, OSError) as e:
+        fail(f"recovery: {e}")
+        return None
+    s13 = scen["s13"]
+    rec_line = {"card": card, "host": host, **scen}
+    print(
+        f"recovery: scenario 8 {scen['wall_s'][8]:.2f} s, faults "
+        f"{json.dumps(scen['s8_faults'], sort_keys=True)}, circuit opened "
+        f"{scen['s8_circuit_opens']}x; scenario 9 {scen['wall_s'][9]:.2f} s; "
+        f"scenario 13 {scen['wall_s'][13]:.2f} s, seams {s13['seams']}, modes "
+        f"{s13['recovery_modes']}, recovery p50 {s13['recovery_s_p50']} s max "
+        f"{s13['recovery_s_max']} s, warm {s13['warm_recovery_s']} s vs cold "
+        f"rebuild {s13['cold_rebuild_s']} s ({s13['replay_speedup']}x) "
+        f"[host CPU times; {host}; {card}]",
+        flush=True,
+    )
+    sp = life.pop("child")
+    if sp is None:
+        return None
+    checked = sp["scheduled"]
+    if (sp["uuid"] != c0.chip_id or checked["pod"] != "default/journal-1"
+            or checked["device_ids"] != ["tpu-0"]):
+        fail(f"journal-1: {checked} on {sp['uuid']}")
+        return None
+    print("journal pod: " + json.dumps(sp, sort_keys=True), flush=True)
+    m = life["metrics"]
+    ckpt_p50 = m['tpukube_checkpoint_seconds{quantile="0.5"}']
+    line = {"card": card, "host": host, "forward_ms": sp["forward_ms_median"],
+            "cold_restart_to_ready_ms": daemons["restart_to_ready_ms"], **life}
+    print(
+        f"journal: SIGKILL mid-gang ({life['killed_at']['members_bound']}/"
+        f"{life['gang_size']} bound) -> ready {life['kill_to_ready_ms']:.1f} ms "
+        f"warm at {life['hosts']} nodes ({life['recovery']['replayed']} records "
+        f"replayed, tpukube_recovery_seconds sum "
+        f"{m['tpukube_recovery_seconds_sum']:.4f} s; step 14's cold restart "
+        f"{daemons['restart_to_ready_ms']:.1f} ms); checkpoint p50 "
+        f"{ckpt_p50:.4f} s; WAL "
+        f"{m['tpukube_journal_bytes_total']:.0f} bytes in "
+        f"{m['tpukube_journal_appends_total']:.0f} appends; "
+        f"{life['gang_size']}-member gang {life['gang_wall_s']:.2f} s with "
+        f"fsync always; torn checkpoint -> {life['torn_mode']} "
+        f"{life['torn_kill_to_ready_ms']:.1f} ms; journal-1 request "
+        f"{sp['forward_ms_median']:.3f} ms; step {life['step_s']:.1f} s "
+        f"[host CPU times; {host}; {card}]",
+        flush=True,
+    )
+    return rec_line, line
+
+
 def mps_daemon_running() -> bool:
     """Whether an MPS control daemon runs on this machine: without one,
     CUDA_MPS_ACTIVE_THREAD_PERCENTAGE binds nothing."""
@@ -2554,6 +2930,13 @@ def main() -> int:
         return 1
     print("daemons: " + json.dumps(daemons, sort_keys=True), flush=True)
 
+    # -- crash and fault recovery: chaos scenarios, the journaled daemon ----
+    recovered = recovery_phase(card, c0, daemons)
+    if recovered is None:
+        return 1
+    print("recovery: " + json.dumps(recovered[0], sort_keys=True), flush=True)
+    print("journal: " + json.dumps(recovered[1], sort_keys=True), flush=True)
+
     # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -2590,7 +2973,8 @@ def main() -> int:
         "note": "no Pallas kernel in tpukube; the port's native code is host "
                 "C++: gpuinfo (NVML discovery, XID health, telemetry) and "
                 "cudaguard (CUDA driver quota guard); the scheduler extender "
-                "is host Python (numpy)",
+                "and its durable journal (WAL, CRC, checkpoints) are host "
+                "Python (numpy)",
     }), flush=True)
     print(json.dumps({
         "ok": True,

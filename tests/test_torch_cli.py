@@ -12,10 +12,10 @@ test_cli.py's ``test_scenarios_one_through_four`` (its env-key check names
 ``TPU_VISIBLE_DEVICES``, which the port's node agent renames
 ``CUDA_VISIBLE_DEVICES``: held below with that name) and
 ``test_extender_daemon_subprocess`` (starts the reference's module: the
-port's daemon is started below); test_ingest.py's checkpoint tests (the
-journal, ROADMAP.md Queue 1 item 1) and its ``allocs_since`` and resync
-tests (the incremental resync log, item 5; the ingest halves of its two
-statusz/metrics tests are held below). test_promlint.py imports the
+port's daemon is started below); test_ingest.py's checkpoint tests
+(twinned in tests/test_torch_journal.py) and its ``allocs_since`` and
+resync tests (the incremental resync log, ROADMAP.md Queue 1 item 5; the
+ingest halves of its two statusz/metrics tests are held below). test_promlint.py imports the
 reference's SLO module (not ported, item 4): the port's pages are linted
 below with the reference's linter.
 
@@ -412,6 +412,13 @@ ACCEPTED_FILES = {
         "batch_enabled: 1\n"
     ),
     "empty": "# nothing but a comment\n\n",
+    "chaos-seed": "chaos_seed: 7\n",
+    "journal": (
+        "journal_enabled: true\n"
+        "journal_path: /var/lib/tpukube/wal.jsonl\n"
+        "checkpoint_interval_seconds: 15\n"
+        "journal_fsync: always\n"
+    ),
 }
 
 REFUSED_FILES = {
@@ -428,9 +435,8 @@ REFUSED_FILES = {
     "top-level-list": "- score_mode\n",
     "top-level-scalar": "just a string\n",
     "unknown-key": "no_such_field: 1\n",
-    "unported-journal": "journal_path: /var/lib/wal\n",
+    "journal-path-without-journal": "journal_path: /var/lib/wal\n",
     "unported-tenancy": "tenancy_quotas: a=1\n",
-    "unported-chaos": "chaos_seed: 7\n",
     "unported-resync": "generation_log_capacity: 0\n",
     "unported-plane-on": "decisions_enabled: true\n",
     "bad-int": "extender_port: twelve\n",
@@ -475,7 +481,7 @@ def test_config_file_loads_as_the_reference(tmp_path, name):
 # refuses by design
 REFERENCE_REFUSES_TOO = {
     "nested", "alias", "flow-mapping", "two-documents", "top-level-list",
-    "top-level-scalar", "unknown-key", "unported-journal",
+    "top-level-scalar", "unknown-key", "journal-path-without-journal",
     "unported-tenancy", "bad-int", "bad-range", "short-tuple",
 }
 # refusals of the reader itself, which name the file's line

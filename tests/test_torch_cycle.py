@@ -23,12 +23,6 @@ from torch_twin import reference_tests, run_twin
 
 use_private_tpuinfo()
 
-CYCLE_SKIPS = {
-    "test_chaos_scenarios_green_with_batching":
-        "drives scenarios 8 and 9: the chaos harness is not ported",
-    "test_chaos_batch_burst_converges_clean":
-        "drives ChaosSimCluster: the chaos harness is not ported",
-}
 # the reference's parametrized test, once per scenario
 SCENARIO_TEST = "test_scenario_placements_bit_identical_with_batching"
 FIXTURES = {"monkeypatch": lambda g: pytest.MonkeyPatch.context()}
@@ -36,7 +30,7 @@ FIXTURES = {"monkeypatch": lambda g: pytest.MonkeyPatch.context()}
 
 @pytest.mark.parametrize(
     "fn",
-    [f for f in reference_tests(test_cycle, CYCLE_SKIPS)
+    [f for f in reference_tests(test_cycle, {})
      if f.__name__ != SCENARIO_TEST],
     ids=lambda f: f.__name__)
 def test_reference_cycle_tests_hold_on_the_port(fn):

@@ -113,8 +113,7 @@ def test_kilonode_drive_matches_the_reference(n, knob, pods, monkeypatch):
 
 
 @pytest.mark.parametrize("n,plane", [
-    (7, "SLO"), (8, "chaos"), (9, "chaos"), (11, "tenancy"),
-    (13, "chaos"), (14, "shard router"), (15, "drain"),
+    (7, "SLO"), (11, "tenancy"), (14, "shard router"), (15, "drain"),
 ])
 def test_unported_scenario_raises_naming_its_plane(n, plane):
     with pytest.raises(NotImplementedError, match=plane):

@@ -71,7 +71,7 @@ def _builds_a_reference_extender():
 
 
 def _imports_what_the_port_lacks():
-    from tpukube.sched.journal import StateJournal  # noqa: F401
+    from tpukube.sched.shard import ShardRouter  # noqa: F401
 
 
 def _uses_a_global_the_port_lacks():
@@ -80,7 +80,7 @@ def _uses_a_global_the_port_lacks():
 
 @pytest.mark.parametrize("fn,error,match", [
     (_builds_a_reference_extender, AssertionError, "built the reference's Extender"),
-    (_imports_what_the_port_lacks, ImportError, "no module tpukube_torch.sched.journal"),
+    (_imports_what_the_port_lacks, ImportError, "no module tpukube_torch.sched.shard"),
     (_uses_a_global_the_port_lacks, AssertionError, "no tpukube_torch.obs.timeline.merged_chrome_trace"),
 ])
 def test_twin_port_run_cannot_fall_back_to_the_reference(fn, error, match):
@@ -172,7 +172,6 @@ def test_config_defaults_are_the_reference_s():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("TPUKUBE_JOURNAL_ENABLED", "1"),
     ("TPUKUBE_DECISIONS_ENABLED", "1"),
     ("TPUKUBE_CAPACITY_ENABLED", "1"),
     ("TPUKUBE_TENANCY_ENABLED", "1"),

@@ -172,10 +172,7 @@ def test_timeline_of_a_torn_capture_matches_the_reference():
 
 # test_retry's tests of the reconnect backoff, the Retrier, the
 # CircuitBreaker, the REST channel's transport timeout and the config's
-# retry_*/circuit_* knobs. Left out: test_policy_from_config_defaults and
-# test_config_retry_knobs_load_and_coerce, which also read chaos_seed (the
-# chaos scenarios' seed; chaos is not ported) — their retry and circuit
-# knobs are held in test_policy_from_config_reads_the_retry_knobs below.
+# retry_*/circuit_* knobs and chaos_seed
 RETRY_TESTS = (
     "test_delay_is_exponential_and_capped",
     "test_delay_jitter_only_shrinks_and_is_seeded",
@@ -196,6 +193,8 @@ RETRY_TESTS = (
     "test_retrier_aborted_probe_releases_the_slot",
     "test_breaker_call_wrapper_counts_outcomes",
     "test_attempt_timeout_caps_rest_transport_timeout",
+    "test_policy_from_config_defaults",
+    "test_config_retry_knobs_load_and_coerce",
 )
 
 
@@ -204,13 +203,10 @@ def test_reference_backoff_tests_hold_on_the_port(name):
     run_twin(vars(test_retry)[name])
 
 
-# test_config_rejects_bad_retry_knobs's cases of the retry_* and circuit_*
-# knobs (its chaos_seed case is left out: chaos is not ported)
-RETRY_KNOB_CASES = [
-    env for env in
-    test_retry.test_config_rejects_bad_retry_knobs.pytestmark[0].args[1]
-    if all(k.startswith(("TPUKUBE_RETRY_", "TPUKUBE_CIRCUIT_")) for k in env)
-]
+# test_config_rejects_bad_retry_knobs's cases: the retry_*, circuit_* and
+# chaos_seed knobs
+RETRY_KNOB_CASES = (
+    test_retry.test_config_rejects_bad_retry_knobs.pytestmark[0].args[1])
 
 
 @pytest.mark.parametrize("env", RETRY_KNOB_CASES, ids=lambda e: ",".join(
@@ -221,8 +217,7 @@ def test_reference_retry_knob_checks_hold_on_the_port(env):
 
 
 def test_policy_from_config_reads_the_retry_knobs():
-    # test_retry's test_policy_from_config_defaults and
-    # test_config_retry_knobs_load_and_coerce, minus their chaos_seed knob
+    # every retry/circuit/chaos knob against the reference's loader
     from tpukube.core import retry as ref_retry
     from tpukube_torch.core import retry
 
@@ -232,9 +227,10 @@ def test_policy_from_config_reads_the_retry_knobs():
            "TPUKUBE_RETRY_ATTEMPT_TIMEOUT_SECONDS": "2.5",
            "TPUKUBE_CIRCUIT_FAILURE_THRESHOLD": "4",
            "TPUKUBE_CIRCUIT_RESET_SECONDS": "12",
-           "TPUKUBE_CIRCUIT_HALF_OPEN_PROBES": "2"}
+           "TPUKUBE_CIRCUIT_HALF_OPEN_PROBES": "2",
+           "TPUKUBE_CHAOS_SEED": "99"}
     knobs = ("circuit_failure_threshold", "circuit_reset_seconds",
-             "circuit_half_open_probes")
+             "circuit_half_open_probes", "chaos_seed")
     for e in ({}, env):
         cfg, ref_cfg = load_config(env=e), ref_load_config(env=e)
         got = retry.policy_from_config(cfg)

@@ -165,7 +165,8 @@ def test_port_imports_no_jax_and_nothing_of_tpukube():
     for new in ("workload/tp.py", "workload/train.py", "workload/resnet.py",
                 "native/cudaguard.py", "obs/health.py", "apiserver.py",
                 "metrics.py", "sched/policy.py", "core/retry.py",
-                "sim/kube_rest.py"):
+                "sim/kube_rest.py", "sched/journal.py", "chaos/api.py",
+                "chaos/crash.py", "chaos/schedule.py", "chaos/cluster.py"):
         assert os.path.join(REPO, "tpukube_torch", *new.split("/")) in paths
     for p in paths:
         for mod in _import_targets(p):
@@ -241,7 +242,8 @@ def test_scheduler_is_host_code_without_torch():
         "tpukube_torch.sched.policy, tpukube_torch.core.retry, "
         "tpukube_torch.sim.kube_rest, tpukube_torch.sched.cycle, "
         "tpukube_torch.sim.scenarios, tpukube_torch.obs.timeline, "
-        "tpukube_torch.chaos\n"
+        "tpukube_torch.chaos, tpukube_torch.chaos.crash, "
+        "tpukube_torch.sched.journal\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'tpukube', 'aiohttp', 'grpc', 'yaml') "
         "or m.startswith('google.protobuf'))))\n"
@@ -260,8 +262,9 @@ def test_scenarios_in_process_load_no_control_plane_dependency():
         "os.environ['TPUKUBE_KILONODE_PODS'] = '300'\n"
         "from tpukube_torch.sim import scenarios\n"
         "os.environ['TPUKUBE_BATCH_ENABLED'] = '1'\n"
+        "os.environ['TPUKUBE_CRASH_CYCLES'] = '2'\n"
         "out = [scenarios.run(n)['scenario'] "
-        "for n in (1, 3, 5)]\n"
+        "for n in (1, 3, 5, 8, 9, 13)]\n"
         "del os.environ['TPUKUBE_BATCH_ENABLED']\n"
         "out.append(scenarios.run(10)['pods_total'])\n"
         "print(json.dumps([out, sorted(m for m in sys.modules if m.split('.')[0] "
@@ -270,7 +273,8 @@ def test_scenarios_in_process_load_no_control_plane_dependency():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                           capture_output=True, text=True, timeout=300)
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [[1, 3, 5, 300], []]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [
+        [1, 3, 5, 8, 9, 13, 300], []]
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):

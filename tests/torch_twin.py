@@ -3,8 +3,9 @@ against the reference and once against the port, with every scheduling
 decision recorded on both sides and compared.
 
 A reference test function is rebuilt with its module's globals remapped:
-``SimCluster`` becomes a recording subclass (the reference's runs
-in-process, ``Extender.handle`` without HTTP), and for the port's run every
+``SimCluster`` and ``ChaosSimCluster`` become recording subclasses (the
+reference's run in-process, ``Extender.handle`` without HTTP), and for the
+port's run every
 class, function and module of ``tpukube.*`` becomes its namesake in
 ``tpukube_torch.*``. For the length of the port's run, ``sys.modules``
 maps every ``tpukube.*`` module to a stand-in that hands out the port's
@@ -16,7 +17,9 @@ gang manager, device manager, device-plugin server or fake kubelet. The
 test's own assertions then run on both sides, and the two decision logs
 (pod, node, device ids, coords, env, or the error) must be equal. The
 port's config gets the reference's sim defaults (sim backend, mesh, HBM,
-cores per chip), so both sides mint the same fleet.
+cores per chip), so both sides mint the same fleet. A reference test
+double that stands for the apiserver, not for code under test
+(``SHARED_DOUBLES``), is handed to both runs as it is.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import tempfile
 import types
 from typing import Any, Callable, Optional
 
+from tpukube.chaos import ChaosSimCluster as RefChaosSim
 from tpukube.device import TpuDeviceManager as RefDeviceManager
 from tpukube.plugin import DevicePluginServer as RefPluginServer
 from tpukube.plugin import FakeKubelet as RefFakeKubelet
@@ -37,6 +41,8 @@ from tpukube.sched.extender import Extender as RefExtender
 from tpukube.sched.gang import GangManager as RefGangManager
 from tpukube.sched.state import ClusterState as RefClusterState
 from tpukube.sim import SimCluster as RefSim
+from tpukube.sched.shard import _ListApi as RefListApi
+from tpukube_torch.chaos import ChaosSimCluster as PortChaosSim
 from tpukube_torch.core import config as port_config
 from tpukube_torch.sim import SimCluster as PortSim
 
@@ -64,7 +70,8 @@ def _pod_key(pod: dict) -> str:
 
 class _Recording:
     """Mixin: log every schedule() and schedule_pending() outcome and
-    every utilization() reading."""
+    every utilization() reading; let the journal drain after each pod's
+    schedule, completion or deletion and before a crash."""
 
     log: list
 
@@ -74,6 +81,8 @@ class _Recording:
         except RuntimeError as e:
             self.log.append((_pod_key(pod), "error", str(e)))
             raise
+        finally:
+            self._drain_journal()
         self.log.append((_pod_key(pod), node, list(alloc.device_ids),
                          [tuple(c) for c in alloc.coords], dict(alloc.env),
                          alloc.priority, alloc.uid))
@@ -101,6 +110,29 @@ class _Recording:
             self.log.append(("evicted", sorted(done)))
         return done
 
+    def _drain_journal(self) -> None:
+        # the reference's own tests run their sim over HTTP, whose round
+        # trips let the journal's drain thread land each decision's
+        # records before the test reads the files or crashes the
+        # extender; a twin dispatches in process, so both sides let the
+        # drain catch up (a test that wants records lost drops them from
+        # the file itself)
+        journal = getattr(self.extender, "journal", None)
+        if journal is not None:
+            journal.sync()
+
+    def complete_pod(self, *args, **kw) -> None:
+        super().complete_pod(*args, **kw)
+        self._drain_journal()
+
+    def delete_pod(self, *args, **kw) -> None:
+        super().delete_pod(*args, **kw)
+        self._drain_journal()
+
+    def crash_extender(self) -> None:
+        self._drain_journal()
+        super().crash_extender()
+
 
 class _RefRecorder(_Recording, RefSim):
     def __init__(self, *args, **kw):
@@ -111,6 +143,16 @@ class _RefRecorder(_Recording, RefSim):
 class _RefServingRecorder(_Recording, RefSim):
     """The reference's SimCluster over its own HTTP app (for tests that
     scrape ``base_url``)."""
+
+
+class _RefChaosRecorder(_Recording, RefChaosSim):
+    def __init__(self, *args, **kw):
+        kw["in_process"] = True
+        super().__init__(*args, **kw)
+
+
+class _PortChaosRecorder(_Recording, PortChaosSim):
+    pass
 
 
 class _PortSim(PortSim):
@@ -124,6 +166,13 @@ class _PortSim(PortSim):
 
 class _PortRecorder(_Recording, _PortSim):
     pass
+
+
+# reference objects that stand for the apiserver, not for code under
+# test: the shard module's list-backed read surface, which the
+# reference's journal tests hand the recovery (the shard router itself
+# is not ported)
+SHARED_DOUBLES = (RefListApi,)
 
 
 class PortLacks(LookupError):
@@ -152,6 +201,8 @@ def _port_value(name: str, val: Any) -> Any:
     of the reference); raises ``PortLacks`` when the port has none."""
     if val is RefSim:
         return _PortSim
+    if any(val is d for d in SHARED_DOUBLES):
+        return val
     if name == "load_config" and getattr(val, "__module__", "") == "tpukube.core.config":
         return port_load_config
     if isinstance(val, types.ModuleType):
@@ -237,9 +288,13 @@ def _rebind(fn: Callable, port: bool, log: list,
     base = (_PortRecorder if port
             else _RefServingRecorder if serve_ref else _RefRecorder)
     sim = type("Rec", (base,), {"log": log})
+    chaos = type("ChaosRec", (_PortChaosRecorder if port
+                              else _RefChaosRecorder,), {"log": log})
     for name, val in list(g.items()):
         if val is RefSim:
             g[name] = sim
+        elif val is RefChaosSim:
+            g[name] = chaos
         elif port:
             try:
                 g[name] = _port_value(name, val)
@@ -256,7 +311,10 @@ def _rebind(fn: Callable, port: bool, log: list,
 
 @contextlib.contextmanager
 def _tmp_path():
-    with tempfile.TemporaryDirectory() as td:
+    # pytest keeps a test's tmp_path after the test; a journal a test
+    # leaves open may still be landing a checkpoint there when the
+    # directory goes, so its removal is best effort
+    with tempfile.TemporaryDirectory(ignore_cleanup_errors=True) as td:
         yield pathlib.Path(td)
 
 

@@ -50,7 +50,7 @@ On top of it sit the loops:
 
 Not ported (ROADMAP.md): the incremental resync of the lifecycle loop
 (the alloc change log: every resync here reads the full ledger) and its
-batched releases, and the executor's ``Retrier`` for its GET confirms.
+batched releases.
 """
 
 from __future__ import annotations
@@ -1708,8 +1708,9 @@ def rebuild_extender(extender, api, refresh=None) -> int:
 def live_alloc_pods(
     pods: list[dict[str, Any]],
 ) -> list[tuple[dict[str, str], Optional[Any], Optional[str]]]:
-    """The restart story's lifecycle filter (the reference's journal
-    recovery shares it; the journal is not ported). Returns
+    """The restart story's lifecycle filter, shared by the legacy full
+    rebuild above and the journal recovery's reconcile pass
+    (sched/journal.py) — they must never test different sets. Returns
     (annotations, decoded alloc or None when undecodable, pod key) for
     every pod whose alloc annotation SHOULD be restored: live, bound,
     non-terminal, annotation matching its binding and uid. Skips are
@@ -1944,6 +1945,11 @@ class EvictionExecutor(_PollLoop):
         # keys the watch has had ample time to see — O(1) confirmation
         # traffic instead of one GET per victim per poll
         self._watch_confirmer = None
+        # optional core/retry.Retrier for the per-key GET confirms: a
+        # transient apiserver blip then retries within this poll
+        # instead of gating a gang bind a whole extra interval. None
+        # (the default) keeps the poll-cadence-only behavior.
+        self.retrier: Optional[retry.Retrier] = None
         self.evicted = 0   # pods confirmed gone (tests/metrics)
         self.blocked = 0   # PDB 429s requeued (tests/metrics)
         self.failures = 0  # transport/API errors requeued (tests/metrics)
@@ -2149,7 +2155,12 @@ class EvictionExecutor(_PollLoop):
         for pod_key in tracked:
             namespace, name = pod_key.split("/", 1)
             try:
-                pod = self._api.get_pod(namespace, name)
+                if self.retrier is not None:
+                    pod = self.retrier.call(
+                        lambda ns=namespace, n=name: self._api.get_pod(ns, n)
+                    )
+                else:
+                    pod = self._api.get_pod(namespace, name)
             except Exception as e:
                 log.warning("eviction confirm of %s failed, retrying: %s",
                             pod_key, e)

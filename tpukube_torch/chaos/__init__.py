@@ -1,14 +1,42 @@
-"""The control-plane chaos package — for now only the two convergence
-checks the kilonode drives raise on (``leaked_reservations``,
-``ledger_divergence``), the port's own copies of
-``tpukube/chaos/cluster.py``'s. They inject no fault.
+"""The control-plane chaos harness — the port's own copy of
+``tpukube/chaos/``.
 
-The fault injectors (``ChaosApiServer``, ``FaultSchedule``, crash and
-maintenance schedules), ``ChaosSimCluster``, ``converge`` and
-``replica_crash_recover`` are not ported yet: they come with the chaos
-scenarios (ROADMAP.md Queue 1).
+Deterministic, seeded fault injection for the apiserver seams: API errors
+(injected 503s, transport timeouts, 410 Gone resyncs), dropped/duplicated
+watch events, torn writes (the write lands, the response is lost), slow
+responses, and process "crashes" (extender teardown + restart mid-gang,
+via the chaos cluster's crash/restart helpers and ``CrashSchedule``'s
+journal mutilations).
+
+The schedule draws every fault decision from one seeded RNG in call
+order, so a scenario replays the same fault sequence for the same seed,
+on either package. Scenarios 8, 9 and 13 drive this end to end and
+assert the recovery invariants: zero leaked gang reservations and zero
+ledger/apiserver divergence after the dust settles.
+
+Not ported yet: the maintenance and spot-churn schedules (drain, ROADMAP
+Queue 1 item 3) and ``replica_crash_recover`` (the shard router, item 5).
 """
 
-from tpukube_torch.chaos.cluster import leaked_reservations, ledger_divergence
+from tpukube_torch.apiserver import transient_api_error
+from tpukube_torch.chaos.api import ChaosApiServer
+from tpukube_torch.chaos.cluster import (
+    ChaosSimCluster,
+    converge,
+    leaked_reservations,
+    ledger_divergence,
+)
+from tpukube_torch.chaos.crash import CrashSchedule
+from tpukube_torch.chaos.schedule import ChaosSpec, FaultSchedule
 
-__all__ = ["leaked_reservations", "ledger_divergence"]
+__all__ = [
+    "ChaosApiServer",
+    "ChaosSimCluster",
+    "ChaosSpec",
+    "CrashSchedule",
+    "FaultSchedule",
+    "converge",
+    "leaked_reservations",
+    "ledger_divergence",
+    "transient_api_error",
+]

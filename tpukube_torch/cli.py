@@ -30,9 +30,14 @@ Every command takes ``--config <yaml>`` (the config file subset
 grpc, protobuf, a YAML parser, aiohttp or torch: only ``plugin`` reaches
 gRPC (the kubelet speaks it), inside its body.
 
+With ``journal_enabled`` the ``extender`` daemon recovers its ledger and
+gangs from the durable journal before serving (checkpoint + WAL tail +
+the apiserver reconcile, ``sched/journal.py``) and falls back to the
+full rebuild from the apiserver when the journal cannot produce a
+trustworthy base.
+
 Left out or refused, each naming its plane (ROADMAP.md Queue 1):
-the extender's journal recovery (``journal_enabled`` is refused by the
-config, item 1); ``shard-worker`` (the shard router, item 5); ``obs
+``shard-worker`` (the shard router, item 5); ``obs
 explain`` and ``obs slo`` (decision provenance and SLO, item 4), ``obs
 capacity`` (item 3) and ``obs timeline --merge`` (the federated
 captures, item 5) exit 2; ``sim N`` for a scenario whose plane is not
@@ -404,17 +409,70 @@ def main_extender(argv: Optional[list[str]] = None) -> int:
             rebuild_extender,
         )
 
-        # the restart story: rebuild the ledger and gang reservations
-        # BEFORE serving, or a restarted extender re-plans GPUs that
-        # already run someone's containers. (The reference's journal
-        # recovery is not ported: journal_enabled is refused.) The
-        # refresh loop is built first so the rebuild can prime it.
+        # the restart story: reconstruct the ledger and gang
+        # reservations BEFORE serving, or a restarted extender re-plans
+        # GPUs that already run someone's containers. With
+        # journal_enabled the durable journal recovers
+        # O(Δ-since-checkpoint) (checkpoint + WAL replay + apiserver
+        # reconcile); a journal that cannot produce a trustworthy base
+        # falls back to the O(fleet) rebuild on a FRESH extender —
+        # degraded, never wrong.
+        recovered = False
+        if extender.journal is not None:
+            from tpukube_torch.sched.journal import (
+                JournalError,
+                recover_extender,
+            )
+
+            try:
+                rstats = recover_extender(extender, api)
+                log.warning(
+                    "journal recovery: %d allocation(s) known after "
+                    "checkpoint+replay+reconcile (%d record(s) "
+                    "replayed, %.3fs)",
+                    len(extender.state.allocations()),
+                    rstats["replayed"], rstats["recovery_s"],
+                )
+                recovered = True
+            except JournalError as e:
+                log.error("journal recovery failed (%s); falling back "
+                          "to the legacy full rebuild", e)
+                extender.journal.crash()
+                extender = Extender(cfg)
+                api = _make_apiserver(args, cfg, journal=extender.events)
+        # nodeCacheCapable webhooks carry names only: without this loop,
+        # health/link faults would never reach the node cache (built
+        # before the rebuild so the rebuild can prime it)
         node_refresh = NodeTopologyRefreshLoop(
             extender, api, poll_seconds=cfg.health_poll_seconds)
-        restored = rebuild_extender(extender, api, refresh=node_refresh)
-        if restored:
-            log.warning("rebuilt %d allocation(s) from the apiserver",
-                        restored)
+        if recovered:
+            # prime the refresh loop with the recovered node payloads
+            # (its first poll must not re-dispatch every unchanged
+            # upsert_node decision)
+            for name in extender.state.node_names():
+                view = extender.state.node(name)
+                if view is not None:
+                    node_refresh.note_applied(name, view.raw_payload)
+        else:
+            if extender.journal is not None:
+                # detach while the O(fleet) rebuild runs: every one of
+                # its commits would otherwise serialize a WAL record
+                # the checkpoint below immediately truncates away
+                extender.state.set_journal(None)
+                extender.gang.set_journal(None)
+            restored = rebuild_extender(extender, api,
+                                        refresh=node_refresh)
+            if restored:
+                log.warning("rebuilt %d allocation(s) from the "
+                            "apiserver", restored)
+            if extender.journal is not None:
+                # fallback rebuilds still end at a durable point so the
+                # NEXT restart recovers warm
+                extender.state.set_journal(extender.journal)
+                extender.gang.set_journal(extender.journal)
+                extender.journal.write_checkpoint_sync(
+                    extender.checkpoint_doc()
+                )
         # with bindVerb delegated here, the extender must create the real
         # Binding: kube-scheduler won't
         extender.binder = pod_binder(api)
@@ -493,6 +551,10 @@ def main_extender(argv: Optional[list[str]] = None) -> int:
         if extender.trace is not None:
             extender.trace.close()
         extender.events.close()
+        if extender.journal is not None:
+            # drain the queued WAL records before exit (a SIGKILL loses
+            # them, which is what recovery's reconcile absorbs)
+            extender.journal.close()
     return 0
 
 

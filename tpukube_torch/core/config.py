@@ -84,6 +84,10 @@ class GpuKubeConfig:
     circuit_failure_threshold: int = 0
     circuit_reset_seconds: float = 30.0
     circuit_half_open_probes: int = 1
+    # chaos harness (tpukube_torch/chaos/): deterministic fault-schedule
+    # seed for the sim's chaos scenarios (8, 9, 13). 0 = chaos off; the
+    # scenario code falls back to its own fixed seed.
+    chaos_seed: int = 0
 
     # scheduler extender
     extender_host: str = "0.0.0.0"
@@ -124,9 +128,25 @@ class GpuKubeConfig:
     # batch_enabled
     filter_from_plan: bool = False
 
+    # Durable control-plane state (sched/journal.py): with
+    # journal_enabled the extender appends every ledger/gang mutation to
+    # a CRC'd JSONL write-ahead log at journal_path (written by a drain
+    # thread: the decision lock never blocks on disk) and captures a
+    # checkpoint every checkpoint_interval_seconds; a restarted extender
+    # then recovers O(changes since the checkpoint) instead of the
+    # O(fleet) rebuild from pod annotations. false constructs nothing.
+    journal_enabled: bool = False
+    journal_path: str = ""
+    # WAL size cap: at the cap the file rotates once to <path>.1 and a
+    # prompt checkpoint is requested (0 = uncapped)
+    journal_max_bytes: int = 64 * 1024**2
+    checkpoint_interval_seconds: float = 60.0
+    # "off" flushes each drain batch to the OS; "always" fsyncs every
+    # batch. Checkpoints fsync before their atomic rename either way.
+    journal_fsync: str = "off"
+
     # The reference's opt-in planes, not ported yet: load_config refuses
     # a config that turns one on.
-    journal_enabled: bool = False
     planner_replicas: int = 1
     shard_transport: str = "inprocess"
     decisions_enabled: bool = False
@@ -154,7 +174,6 @@ _TUPLE_FIELDS = {"sim_mesh_dims", "sim_host_block", "sim_torus"}
 
 # opt-in field -> the plane it would turn on (refused until ported)
 _NOT_PORTED = {
-    "journal_enabled": "the durable journal",
     "decisions_enabled": "decision provenance",
     "capacity_enabled": "capacity analytics",
     "tenancy_enabled": "the tenancy plane",
@@ -173,8 +192,6 @@ _RESYNC_LOG_KEY = ENV_PREFIX + "GENERATION_LOG_CAPACITY"
 # config file that sets one is refused, naming the plane (ROADMAP.md
 # Queue 1 item of each)
 _UNPORTED_KEY_PREFIXES = {
-    "journal_": "the durable journal (Queue 1, item 1)",
-    "checkpoint_": "the durable journal (Queue 1, item 1)",
     "tenancy_": "the tenancy plane (Queue 1, item 2)",
     "capacity_": "capacity analytics (Queue 1, item 3)",
     "drain_": "drain (Queue 1, item 3)",
@@ -183,7 +200,6 @@ _UNPORTED_KEY_PREFIXES = {
     "wire_": "the shard router's wire codec (Queue 1, item 5)",
 }
 _UNPORTED_KEYS = {
-    "chaos_seed": "chaos (Queue 1, item 3)",
     "generation_log_capacity": "the incremental resync log (Queue 1, item 5)",
     "libtpu_path": "the TPU backend (the port's real backend is NVML: "
                    "nvml_path)",
@@ -508,6 +524,8 @@ def load_config(yaml_path: Optional[str] = None,
         raise ValueError("circuit_reset_seconds must be positive")
     if cfg.circuit_half_open_probes < 1:
         raise ValueError("circuit_half_open_probes must be >= 1")
+    if cfg.chaos_seed < 0:
+        raise ValueError("chaos_seed must be >= 0 (0 = chaos off)")
     if not 0.0 <= cfg.snapshot_audit_rate <= 1.0:
         raise ValueError(
             "snapshot_audit_rate must be in [0, 1] (0 = audit off)"
@@ -523,6 +541,22 @@ def load_config(yaml_path: Optional[str] = None,
             "filter_from_plan requires batch_enabled — without the "
             "batch planner there is no cycle plan to answer from"
         )
+    if cfg.journal_enabled and not cfg.journal_path:
+        # a journal with nowhere to write would provide no durability
+        raise ValueError("journal_enabled requires journal_path")
+    if cfg.journal_path and not cfg.journal_enabled:
+        raise ValueError(
+            "journal_path is set but journal_enabled is false — "
+            "enable the journal or drop the path"
+        )
+    if cfg.journal_fsync not in ("off", "always"):
+        raise ValueError(
+            f"unknown journal_fsync {cfg.journal_fsync!r} (off | always)"
+        )
+    if cfg.journal_max_bytes < 0:
+        raise ValueError("journal_max_bytes must be >= 0 (0 = uncapped)")
+    if cfg.checkpoint_interval_seconds <= 0:
+        raise ValueError("checkpoint_interval_seconds must be positive")
     for name, plane in _NOT_PORTED.items():
         if getattr(cfg, name):
             raise ValueError(f"{name}: {plane} is not ported yet")

@@ -58,8 +58,12 @@ bulk ingest on tpukube_ingest_nodes_total and
 tpukube_ingest_seconds{quantile}; with a degraded gate wired
 tpukube_degraded_mode.
 
+With the journal on: tpukube_journal_{appends,bytes}_total,
+tpukube_checkpoint_seconds{quantile}, tpukube_recovery_seconds{quantile}
+and tpukube_recovery_replayed_deltas_total.
+
 Absent, because the port lacks their source (each listed in ROADMAP.md,
-none faked): the incremental-resync series, and the journal, tenancy,
+none faked): the incremental-resync series, and the tenancy,
 decision-provenance, capacity, drain and autoscaler sections.
 
 :class:`MetricsServer` serves a page (and optionally a /statusz
@@ -163,6 +167,11 @@ def build_extender_registry(extender, reconcile=None, evictions=None,
     # epoch-cached scheduling snapshot: cache effectiveness counters and
     # the per-slice fragmentation numbers the cache makes cheap to serve
     _add_snapshot_metrics(reg, extender.snapshots)
+    # durable-state journal (sched/journal.py): series render only when
+    # journal_enabled built a StateJournal — the exposition stays
+    # byte-identical with the journal off
+    if extender.journal is not None:
+        _add_journal_metrics(reg, extender.journal)
     # bulk cold-start ingestion: series render only while it is on
     if extender.bulk_ingest:
         st = extender.state
@@ -279,6 +288,40 @@ def _add_snapshot_metrics(reg: Registry, snapshots) -> None:
         largest.labels(slice=sid).set_function(
             _slice_fn(sid, lambda ss: ss.largest_free_box()))
 
+
+def _add_journal_metrics(reg: Registry, journal) -> None:
+    """Durable-state journal families (sched/journal.py): WAL append
+    throughput and volume, checkpoint latency, and the recovery
+    numbers operators alarm on (a recovery_seconds sample near the
+    cold-rebuild wall means the checkpoint cadence — or the WAL bound
+    — is not keeping the replay tail short)."""
+    reg.counter(
+        "tpukube_journal_appends_total",
+        fn=lambda: journal.appends,
+        help_text="WAL records appended (one per ledger/gang mutation "
+                  "seam).")
+    reg.counter(
+        "tpukube_journal_bytes_total",
+        fn=lambda: journal.bytes_total,
+        help_text="Bytes written to the WAL (pre-rotation total).")
+    reg.summary(
+        "tpukube_checkpoint_seconds",
+        quantiles=(0.5, 0.99),
+        values_fn=journal.checkpoint_seconds_snapshot,
+        help_text="Wall time of checkpoint writes (serialize + fsync + "
+                  "atomic rename, on the journal's drain thread).")
+    reg.summary(
+        "tpukube_recovery_seconds",
+        quantiles=(0.5,),
+        values_fn=journal.recovery_seconds_snapshot,
+        help_text="Wall time of journal recoveries (checkpoint load + "
+                  "WAL replay + apiserver reconcile), one sample per "
+                  "recovery this process ran.")
+    reg.counter(
+        "tpukube_recovery_replayed_deltas_total",
+        fn=lambda: journal.replayed_total,
+        help_text="WAL records replayed by recoveries — the Δ in the "
+                  "O(Δ-since-checkpoint) restart story.")
 
 def render_extender_metrics(extender, reconcile=None, evictions=None,
                             node_refresh=None, lifecycle=None) -> str:

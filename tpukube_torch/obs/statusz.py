@@ -22,7 +22,6 @@ from typing import Any
 # the reference's /statusz sections of planes not ported, as it renders
 # them with the plane off
 _RESYNC_OFF = {"enabled": False}     # incremental resync log, Queue 1 item 5
-_JOURNAL_OFF = {"enabled": False}    # journal and checkpoint, Queue 1 item 1
 _TENANTS_OFF = {"enabled": False}    # tenancy, Queue 1 item 2
 _DECISIONS_OFF = {"enabled": False}  # decision provenance, Queue 1 item 4
 # capacity, drain and autoscaler (Queue 1 item 3): the reference leaves
@@ -170,7 +169,13 @@ def extender_statusz(
         "ingest": ({"enabled": True, **state.ingest_stats()}
                    if extender.bulk_ingest else {"enabled": False}),
         "resync": _RESYNC_OFF,
-        "journal": _JOURNAL_OFF,
+        # durable-state journal (sched/journal.py): WAL position,
+        # append/checkpoint counters, and the last recovery's stats
+        # (mode "cold-fallback" means the journal could not produce a
+        # trustworthy base and the daemon rebuilt the legacy way)
+        "journal": (extender.journal.stats()
+                    if extender.journal is not None
+                    else {"enabled": False}),
         # batched scheduling cycles: queue depth, batch sizes, and the
         # plan-hit ratio
         "cycle": (extender.cycle.stats() if extender.cycle is not None

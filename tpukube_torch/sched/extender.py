@@ -50,7 +50,12 @@ the webhooks, ``GET /healthz``, ``/metrics``
 TLS; :func:`make_probe_app` is the plain-HTTP listener for /healthz and
 /metrics only. ``python -m tpukube_torch.cli extender`` is the daemon.
 
-Not ported yet (each refused or absent, none faked): the journal, tenancy
+With ``journal_enabled`` every ledger and gang mutation is written ahead to
+the durable journal (``sched/journal.py``) and ``handle`` captures a
+periodic checkpoint; ``journal.recover_extender`` restores a restarted
+daemon from them.
+
+Not ported yet (each refused or absent, none faked): tenancy
 (with its preemption victim bias and admission gate), capacity, drain,
 autoscale, decision provenance and cycle phase profiling (``/explain``
 and ``/capacity*`` answer 404 naming the plane), and the shard router.
@@ -177,6 +182,30 @@ class Extender:
         # ClusterState.ingest_nodes — probe-validated lazy ingest, one
         # epoch/delta seam per batch. Off = per-item upserts.
         self.bulk_ingest = config.bulk_ingest_enabled
+        # Durable control-plane state (sched/journal.py): with
+        # journal_enabled every ledger/gang mutation seam appends one
+        # WAL record (enqueue-only — the journal's drain thread owns the
+        # disk) and handle() captures a periodic checkpoint, so a
+        # restarted daemon recovers O(Δ-since-checkpoint) via
+        # journal.recover_extender instead of the O(fleet) cold rebuild.
+        # None (the config default) journals nothing.
+        self.journal = None
+        # per-payload node-line + per-alloc memo for checkpoint
+        # captures (steady state costs O(Δ), not O(fleet))
+        self._ckpt_cache: dict = {}
+        if config.journal_enabled:
+            from tpukube_torch.sched.journal import StateJournal
+
+            self.journal = StateJournal(
+                config.journal_path,
+                max_bytes=config.journal_max_bytes,
+                fsync=config.journal_fsync,
+                checkpoint_interval=config.checkpoint_interval_seconds,
+                events=self.events,
+                clock=self.clock,
+            )
+            self.state.set_journal(self.journal)
+            self.gang.set_journal(self.journal)
         # Batched scheduling cycles (sched/cycle.py): with batch_enabled
         # the webhooks answer from a per-cycle batch plan instead of
         # re-planning per request; None (the config default) keeps the
@@ -1338,7 +1367,63 @@ class Extender:
                 raise ValueError(f"unknown decision kind {kind!r}")
             if self.trace is not None:
                 self.trace.record(kind, body, response)
+            if self.journal is not None:
+                self._maybe_checkpoint()
             return response
+
+    def checkpoint_doc(self) -> dict:
+        """The full Checkpoint capture (ledger + gang reservations +
+        the cached scheduling snapshot + the WAL position they cover).
+        Callers hold the decision lock — or run before serving
+        (recovery) — so the capture is atomic with respect to every
+        mutation path; the build is in-memory only (node lines
+        memoized per payload; still-lazy nodes captured as byte refs
+        into the previous checkpoint file), serialization and disk
+        belong to the journal's drain thread."""
+        if self.journal is None:
+            raise RuntimeError(
+                "checkpoint capture requires the journal "
+                "(journal_enabled)")
+        state_head, node_entries = self.state.checkpoint_doc(
+            self._ckpt_cache
+        )
+        head = {
+            "v": 2,
+            "ts": time.time(),
+            "wal_seq": self.journal.seq(),
+            "state": state_head,
+            "gang": self.gang.checkpoint_doc(),
+        }
+        snap = self.snapshots.peek()
+        if snap is not None:
+            # the seedable scheduling snapshot: a warm restart installs
+            # it directly, so the first lookups HIT instead of forcing
+            # the O(chips) rebuild that would drag every lazy node in
+            snap_doc: dict[str, dict] = {}
+            for sid, ss in snap.slices.items():
+                snap_doc[sid] = {
+                    "occ": [list(c) for c in ss.occupied],
+                    "res": [list(c) for c in ss.reserved],
+                    "unh": [list(c) for c in ss.unhealthy],
+                    "term": [list(c) for c in ss.terminating],
+                    "brk": [[list(a), list(b)] for a, b in ss.broken],
+                    "used": ss.used_shares,
+                    "total": ss.total_shares,
+                }
+            head["snap"] = snap_doc
+        return {
+            "head": head,
+            "node_entries": node_entries,
+            "old_fd": self.state.lazy_fd_dup(),
+        }
+
+    def _maybe_checkpoint(self) -> None:
+        """Periodic checkpoint capture, amortized onto the decision
+        path (a time check per decision; the capture itself runs at
+        checkpoint_interval cadence or after a WAL rotation)."""
+        if not self.journal.checkpoint_due(self.clock.monotonic()):
+            return
+        self.journal.request_checkpoint(self.checkpoint_doc())
 
     def _handle_bind(self, body: Any) -> Any:
         """The bind decision, split around the external effector: the PDB
@@ -1424,6 +1509,8 @@ class Extender:
                 self.cycle.on_bound(key)
             if self.trace is not None:
                 self.trace.record("bind", body, response)
+            if self.journal is not None:
+                self._maybe_checkpoint()
         if alloc is None or self.binder is None:
             return response
         try:

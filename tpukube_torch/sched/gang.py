@@ -30,7 +30,13 @@ Linearizability: one lock orders all reservation mutations; binds
 re-validate against the reservation under that lock (optimistic callers
 simply retry the cycle, same as ledger bind races).
 
-The journal's checkpoint/replay hooks are not ported yet.
+With the durable journal on (``sched/journal.py``), every lifecycle seam
+enqueues one WAL record (``gre``, ``gdrop``, ``evict``, ``gvtaken``,
+``gterm``, ``gvgone``, ``gbound``, ``guncommit``, ``gmrel``, ``greas``)
+in the reference's order, ``checkpoint_doc``/``restore_checkpoint`` carry
+the reservations through a checkpoint, and ``apply_journal`` replays a
+record. The port has no tenancy plane: every reservation's ``tenant`` is
+the empty string, as the reference's is with tenancy off.
 """
 
 from __future__ import annotations
@@ -175,6 +181,14 @@ class GangManager:
         # structured event journal (obs/events.py), shared with the
         # owning Extender; None = no journal (standalone/unit tests)
         self._events = events
+        # durable-state journal (sched/journal.py), wired by the owning
+        # Extender when journal_enabled; None journals nothing
+        self._journal = None
+        # gre records replayed with an unexecuted pending-victim plan:
+        # finish_replay() drops whichever never saw their plan executed
+        # (gvtaken) — their reserved box may overlap victims' chips and
+        # the plan itself cannot round-trip the WAL
+        self._replay_pending: set[tuple[str, str]] = set()
         self._lock = threading.RLock()
         self._reservations: dict[tuple[str, str], GangReservation] = {}
         # reservation-created -> committed durations (north-star p50 feed)
@@ -222,6 +236,51 @@ class GangManager:
         """Monotonic mutation counter (the snapshot cache's key half)."""
         with self._lock:
             return self._epoch
+
+    def set_journal(self, journal) -> None:
+        """Attach the durable-state journal (sched/journal.py); None
+        detaches — recovery replays with the journal detached so the
+        replayed mutations are not re-recorded."""
+        with self._lock:
+            self._journal = journal
+
+    def _note_journal_locked(self, kind: str, data: dict) -> None:
+        """Enqueue one gang-lifecycle WAL record (callers hold
+        ``self._lock``; enqueue only — the journal's drain thread owns
+        the file, so the gang lock never blocks on disk)."""
+        journal = self._journal
+        if journal is not None:
+            journal.note(kind, data)
+
+    @staticmethod
+    def _res_doc(res: GangReservation) -> dict:
+        """A reservation as a plain-JSON record (WAL ``gre`` payload and
+        the Checkpoint's reservation list share this one shape; the
+        tenant is always "" — the port has no tenancy plane)."""
+        return {
+            "ns": res.namespace,
+            "g": {
+                "n": res.group.name,
+                "m": res.group.min_member,
+                "shape": (list(res.group.shape)
+                          if res.group.shape is not None else None),
+                "dcn": res.group.allow_dcn,
+            },
+            "cpp": res.chips_per_pod,
+            "prio": res.priority,
+            "tenant": "",
+            "committed": res.committed,
+            # only the FLAG survives: a deferred (unexecuted) eviction
+            # plan names live Workload objects that cannot round-trip —
+            # recovery drops such reservations (the gang re-filters and
+            # re-plans, exactly as after a legacy cold rebuild)
+            "pv": bool(res.pending_victims),
+            "sc": {sid: sorted([list(c) for c in coords])
+                   for sid, coords in res.slice_coords.items()},
+            "as": {pk: [sid, [list(c) for c in coords]]
+                   for pk, (sid, coords) in res.assigned.items()},
+            "tv": sorted(res.terminating_victims),
+        }
 
     def _note_delta_locked(self, slices=(), why: str = "") -> None:
         """Record the gang-epoch bump just taken (callers hold
@@ -369,6 +428,15 @@ class GangManager:
         # WAL: the eviction INTENT plus the terminating mask — recovery
         # re-queues the eviction (if the pod still exists) so a
         # half-died gang finishes dying across a crash
+        self._note_journal_locked("evict", {
+            "p": pod_key,
+            "sid": entry[0] if entry is not None else None,
+            "c": ([list(c) for c in entry[1]]
+                  if entry is not None else []),
+        })
+        # WAL: the eviction INTENT plus the terminating mask — recovery
+        # re-queues the eviction (if the pod still exists) so a
+        # half-died gang finishes dying across a crash
 
     def _rollback_locked(self, res: GangReservation) -> None:
         for pod_key in list(res.assigned):
@@ -377,6 +445,8 @@ class GangManager:
         self._epoch += 1
         self._note_delta_locked(slices=res.slice_coords,
                                 why=f"rollback {res.key}")
+        self._note_journal_locked(
+            "gdrop", {"ns": res.namespace, "g": res.group.name})
         self.rollbacks += 1
 
     # -- reservation -------------------------------------------------------
@@ -467,6 +537,7 @@ class GangManager:
             self._reservations[key] = res
             self._epoch += 1
             self._note_delta_locked(slices=slice_coords, why=f"reserve {key}")
+            self._note_journal_locked("gre", self._res_doc(res))
             log.info(
                 "gang %s/%s reserved %d chips over %d slice(s)",
                 key[0], key[1], res.total_chips(), len(slice_coords),
@@ -527,6 +598,7 @@ class GangManager:
             self._epoch += 1
             self._note_delta_locked(slices=res.slice_coords,
                                     why=f"dissolve {key}")
+            self._note_journal_locked("gdrop", {"ns": key[0], "g": key[1]})
             evicted = []
             for pod_key in list(res.assigned):
                 self._evict_and_mask_locked(pod_key,
@@ -656,6 +728,7 @@ class GangManager:
             self._reservations[key] = res
             self._epoch += 1
             self._note_delta_locked(slices=slice_coords, why=f"restore {key}")
+            self._note_journal_locked("gre", self._res_doc(res))
             log.info(
                 "gang %s/%s restored from pod annotations: %d members, "
                 "committed=%s", namespace, group.name, len(res.assigned),
@@ -798,6 +871,7 @@ class GangManager:
             self._reservations[key] = res
             self._epoch += 1
             self._note_delta_locked(slices=parts, why=f"reserve-exact {key}")
+            self._note_journal_locked("gre", self._res_doc(res))
             log.info(
                 "gang %s/%s reserved %d chips over %d slice(s) via preemption"
                 " (%d victim workload(s) pending first bind)",
@@ -829,6 +903,11 @@ class GangManager:
                 return []
             victims = res.pending_victims or []
             res.pending_victims = None
+            if victims:
+                # WAL: the deferred plan is now EXECUTING — a recovery
+                # no longer drops this reservation as plan-lost
+                self._note_journal_locked(
+                    "gvtaken", {"ns": res.namespace, "g": res.group.name})
             return list(victims)
 
     def register_terminating(
@@ -854,6 +933,11 @@ class GangManager:
                 slices={sid for sid, _ in held.values()},
                 why=f"register-terminating {res.key}",
             )
+            self._note_journal_locked("gterm", {
+                "ns": res.namespace, "g": res.group.name,
+                "pods": {pk: [sid, [list(c) for c in coords]]
+                         for pk, (sid, coords) in held.items()},
+            })
 
     def on_victim_gone(self, pod_key: str) -> bool:
         """A terminating eviction victim's pod object is confirmed gone
@@ -895,6 +979,10 @@ class GangManager:
                 self._epoch += 1
                 self._note_delta_locked(slices=(entry[0],),
                                         why=f"victim-gone {pod_key}")
+            # WAL: ONE record covers both the coord unmask and the
+            # bind-gate clear (a reservation can gate on a victim whose
+            # alloc carried no coords — the record must still replay)
+            self._note_journal_locked("gvgone", {"p": pod_key})
             return True
 
     def terminating_victims_of(self, res: GangReservation) -> set[str]:
@@ -1063,6 +1151,10 @@ class GangManager:
             res.record_assignment(pod_key, sid, list(coords))
             self._epoch += 1
             self._note_delta_locked(slices=(sid,), why=f"bound {pod_key}")
+            self._note_journal_locked("gbound", {
+                "ns": res.namespace, "g": res.group.name, "p": pod_key,
+                "sid": sid, "c": [list(c) for c in coords],
+            })
             if not res.committed and len(res.assigned) >= res.group.min_member:
                 res.committed = True
                 res.commit_latency = self._clock.monotonic() - res.created
@@ -1093,6 +1185,8 @@ class GangManager:
             if not res.committed:
                 return
             res.committed = False
+            self._note_journal_locked(
+                "guncommit", {"ns": res.namespace, "g": res.group.name})
             try:
                 # remove by value, not tail position: the effector runs
                 # outside the decision lock, so another gang's commit can
@@ -1139,6 +1233,7 @@ class GangManager:
                     self._epoch += 1
                     self._note_delta_locked(
                         slices=(sid,), why=f"member-release {pod_key}")
+                    self._note_journal_locked("gmrel", {"p": pod_key})
                     return
 
     def reassign(self, pod_key: str, coords: list[TopologyCoord]) -> bool:
@@ -1167,5 +1262,261 @@ class GangManager:
                     # the delta chain contiguous for this bump
                     self._note_delta_locked(
                         slices=(sid,), why=f"reassign {pod_key}")
+                    self._note_journal_locked("greas", {
+                        "p": pod_key, "c": [list(c) for c in coords],
+                    })
                     return True
         return False
+
+    # -- durable-state checkpoint + WAL replay (sched/journal.py) ------------
+    def checkpoint_doc(self) -> dict:
+        """Reservations + terminating masks as a plain-JSON Checkpoint
+        fragment (in-memory only; the journal's drain thread owns the
+        serialization and the disk)."""
+        with self._lock:
+            return {
+                "epoch": self._epoch,
+                "res": [self._res_doc(r)
+                        for r in self._reservations.values()],
+                "term": {pk: [sid, sorted(list(c) for c in coords)]
+                         for pk, (sid, coords)
+                         in self._terminating_coords.items()},
+            }
+
+    def _res_from_doc_locked(self, doc: dict) -> GangReservation:
+        """Rebuild a GangReservation from a ``_res_doc`` record
+        (callers hold ``self._lock`` and register the result; the
+        member re-assignment is a seam event, so this helper owns an
+        epoch bump of its own — the callers' registration bump then
+        covers the reservation map write). The created stamp is NOW
+        (fresh TTL — exactly the grace a legacy restore grants); an
+        unexecuted eviction plan never round-trips (see ``_res_doc``)."""
+        g = doc["g"]
+        group = PodGroup(
+            name=g["n"], min_member=int(g["m"]),
+            shape=(tuple(int(v) for v in g["shape"])
+                   if g.get("shape") else None),
+            allow_dcn=bool(g.get("dcn")),
+        )
+        res = GangReservation(
+            group=group,
+            namespace=doc["ns"],
+            slice_coords={
+                sid: {TopologyCoord(*c) for c in coords}
+                for sid, coords in doc["sc"].items()
+            },
+            chips_per_pod=int(doc["cpp"]),
+            priority=int(doc["prio"]),
+            created=self._clock.monotonic(),
+        )
+        for pk, entry in doc.get("as", {}).items():
+            res.record_assignment(
+                pk, entry[0], [TopologyCoord(*c) for c in entry[1]]
+            )
+        res.committed = bool(doc.get("committed"))
+        for pk in doc.get("tv", ()):
+            res.terminating_victims.add(pk)
+        self._epoch += 1
+        # without the delta note this bump is a GAP in the contiguous
+        # delta chain: the first post-replay lookup would fall off the
+        # O(Δ) advance into a full rebuild (no journal note: this IS
+        # replay; noting would re-record)
+        self._note_delta_locked(slices=res.slice_coords,
+                                why=f"replayed reservation {res.key}")
+        return res
+
+    def restore_checkpoint(self, doc: dict) -> int:
+        """Rebuild reservations and terminating masks VERBATIM from a
+        Checkpoint fragment onto a fresh manager (recovery's warm
+        path). A reservation checkpointed with an UNEXECUTED deferred
+        preemption plan and no bound members is dropped: the plan's
+        victim workloads cannot round-trip, so restoring the box would
+        hold chips no bind can ever open — the gang simply re-filters
+        and re-plans, exactly as after a legacy cold rebuild. Returns
+        reservations restored."""
+        restored = 0
+        with self._lock:
+            self._epoch = int(doc.get("epoch", 0))
+            touched: set[str] = set()
+            for rd in doc.get("res", ()):
+                if rd.get("pv") and not rd.get("as"):
+                    log.warning(
+                        "checkpoint restore: dropping reservation %s/%s "
+                        "with an unexecuted preemption plan (the plan "
+                        "does not survive a crash; the gang re-plans)",
+                        rd["ns"], rd["g"]["n"],
+                    )
+                    continue
+                res = self._res_from_doc_locked(rd)
+                self._reservations[res.key] = res
+                touched.update(res.slice_coords)
+                restored += 1
+            for pk, entry in doc.get("term", {}).items():
+                self._terminating_coords[pk] = (
+                    entry[0],
+                    frozenset(TopologyCoord(*c) for c in entry[1]),
+                )
+                touched.add(entry[0])
+            self._epoch += 1
+            self._note_delta_locked(slices=touched,
+                                    why="checkpoint restore")
+        return restored
+
+    def apply_journal(self, rec: dict) -> None:
+        """Apply one replayed gang-lifecycle WAL record (recovery path,
+        journal detached). Mirrors the live mutators MINUS their side
+        channels: no events, no latency samples, and no cascading
+        ledger releases — those have their own WAL records in the
+        stream, in order."""
+        kind, d = rec["k"], rec["d"]
+        with self._lock:
+            if kind == "gre":
+                res = self._res_from_doc_locked(d)
+                self._reservations[res.key] = res
+                if d.get("pv"):
+                    # deferred plan lost across the crash: candidate for
+                    # the finish_replay() drop unless a gvtaken record
+                    # later proves the plan executed
+                    self._replay_pending.add(res.key)
+                self._epoch += 1
+                self._note_delta_locked(slices=res.slice_coords,
+                                        why=f"replay gre {res.key}")
+            elif kind == "gvtaken":
+                self._replay_pending.discard((d["ns"], d["g"]))
+            elif kind == "gdrop":
+                key = (d["ns"], d["g"])
+                self._replay_pending.discard(key)
+                res = self._reservations.get(key)
+                if res is not None:
+                    self._reservations.pop(key, None)
+                    self._epoch += 1
+                    self._note_delta_locked(slices=res.slice_coords,
+                                            why=f"replay gdrop {key}")
+            elif kind == "evict":
+                # the eviction INTENT re-queues (recovery prunes pods
+                # that no longer exist); the ledger release replayed
+                # from its own record
+                self._evictions.append(d["p"])
+                if d.get("sid") is not None and d.get("c"):
+                    self._terminating_coords[d["p"]] = (
+                        d["sid"],
+                        frozenset(TopologyCoord(*c) for c in d["c"]),
+                    )
+                    self._epoch += 1
+                    self._note_delta_locked(slices=(d["sid"],),
+                                            why=f"replay evict {d['p']}")
+            elif kind == "gterm":
+                res = self._reservations.get((d["ns"], d["g"]))
+                sids: set[str] = set()
+                for pk, entry in d["pods"].items():
+                    if res is not None:
+                        res.terminating_victims.add(pk)
+                    if entry[1]:
+                        self._terminating_coords[pk] = (
+                            entry[0],
+                            frozenset(TopologyCoord(*c) for c in entry[1]),
+                        )
+                        sids.add(entry[0])
+                self._epoch += 1
+                self._note_delta_locked(slices=sids, why="replay gterm")
+            elif kind == "gvgone":
+                pk = d["p"]
+                entry = self._terminating_coords.get(pk)
+                if entry is not None:
+                    self._terminating_coords.pop(pk, None)
+                    self._epoch += 1
+                    self._note_delta_locked(slices=(entry[0],),
+                                            why=f"replay gvgone {pk}")
+                for res in self._reservations.values():
+                    res.terminating_victims.discard(pk)
+            elif kind == "gbound":
+                res = self._reservations.get((d["ns"], d["g"]))
+                if res is not None:
+                    res.record_assignment(
+                        d["p"], d["sid"],
+                        [TopologyCoord(*c) for c in d["c"]],
+                    )
+                    if (not res.committed
+                            and len(res.assigned) >= res.group.min_member):
+                        res.committed = True
+                    self._epoch += 1
+                    self._note_delta_locked(slices=(d["sid"],),
+                                            why=f"replay gbound {d['p']}")
+            elif kind == "guncommit":
+                res = self._reservations.get((d["ns"], d["g"]))
+                if res is not None:
+                    res.committed = False
+            elif kind == "gmrel":
+                pk = d["p"]
+                for res in self._reservations.values():
+                    if pk in res.assigned:
+                        sid = res.assigned[pk][0]
+                        res.drop_assignment(pk)
+                        if res.committed and not res.assigned:
+                            self._reservations.pop(res.key, None)
+                        self._epoch += 1
+                        self._note_delta_locked(
+                            slices=(sid,), why=f"replay gmrel {pk}")
+                        break
+            elif kind == "greas":
+                pk = d["p"]
+                coords = [TopologyCoord(*c) for c in d["c"]]
+                for res in self._reservations.values():
+                    entry = res.assigned.get(pk)
+                    if entry is not None:
+                        sid, old = entry
+                        res.drop_assignment(pk)
+                        pool = res.slice_coords.get(sid, set())
+                        pool.difference_update(old)
+                        pool.update(coords)
+                        res.slice_coords[sid] = pool
+                        res.record_assignment(pk, sid, list(coords))
+                        self._epoch += 1
+                        self._note_delta_locked(
+                            slices=(sid,), why=f"replay greas {pk}")
+                        break
+            else:
+                raise GangError(f"unknown gang journal record {kind!r}")
+
+    def drop_reservation(self, key: tuple[str, str]) -> bool:
+        """Forget a reservation WITHOUT evicting its members — the
+        recovery reconcile's gang normalizer: the ledger is already
+        correct, and the group re-restores from it via ``restore()``
+        (a replayed reservation whose member binds were lost with the
+        WAL tail must not shadow the rebuilt truth)."""
+        with self._lock:
+            # look up before popping: the no-such-gang path mutates
+            # nothing and owes no epoch bump
+            res = self._reservations.get(key)
+            if res is None:
+                return False
+            self._reservations.pop(key, None)
+            self._epoch += 1
+            self._note_delta_locked(slices=res.slice_coords,
+                                    why=f"drop {key}")
+            self._note_journal_locked("gdrop", {"ns": key[0],
+                                                "g": key[1]})
+            return True
+
+    def finish_replay(self) -> list[tuple[str, str]]:
+        """End-of-replay hygiene: drop reservations replayed with a
+        deferred-eviction plan that never executed (no ``gvtaken``
+        before the crash) and no bound members — their reserved box may
+        overlap victims' still-occupied chips and no bind can ever
+        execute the lost plan. The gang's next filter re-plans from
+        scratch, exactly the legacy cold-rebuild behavior. Returns the
+        dropped keys."""
+        dropped: list[tuple[str, str]] = []
+        with self._lock:
+            for key in sorted(self._replay_pending):
+                res = self._reservations.get(key)
+                if res is not None and not res.assigned:
+                    self._reservations.pop(key, None)
+                    self._epoch += 1
+                    self._note_delta_locked(
+                        slices=res.slice_coords,
+                        why=f"replay drop-pending {key}")
+                    dropped.append(key)
+            self._replay_pending.clear()
+        return dropped
+

@@ -396,6 +396,29 @@ class SnapshotCache:
             self._snap = None
             self._snap_gen += 1
 
+    def peek(self) -> Optional[ClusterSnapshot]:
+        """The cached snapshot IF it is current, else None — never
+        builds (checkpoint captures read through here: a capture must
+        not force an O(chips) rebuild just to decide whether a seedable
+        snapshot exists)."""
+        key = self.epoch_key()
+        with self._lock:
+            snap = self._snap
+            return snap if snap is not None and snap.key == key else None
+
+    def seed(self, snap: ClusterSnapshot) -> None:
+        """Install a checkpoint-restored snapshot as the cached slot
+        (journal recovery's warm path): the first lookups after a
+        restart HIT instead of forcing the O(chips) rebuild that would
+        eagerly materialize every lazily-restored node view. The caller
+        guarantees ``snap.key`` equals the current epoch key and that
+        the content matches the restored ledger — the audit sentinel
+        (``audit_now`` at recovery with ``snapshot_audit_rate`` > 0,
+        plus the sampled runtime audits) holds it to that."""
+        with self._lock:
+            self._snap = snap
+            self._snap_gen += 1
+
     # -- the delta log -------------------------------------------------------
     def note(self, delta: SnapshotDelta) -> None:
         """Record one bump's effect. Called by the seam that bumped,

@@ -15,11 +15,14 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
+
+import zlib
 
 from tpukube_torch.core import codec
 from tpukube_torch.core.mesh import MeshSpec
@@ -196,6 +199,55 @@ _PROBE_DECODER = json.JSONDecoder()
 _TUPLE_NEW = tuple.__new__
 
 
+#: Health.value -> member (enum __call__ per chip is ~10x a dict hit,
+#: and checkpoint restore runs this 40k times at 10k nodes)
+_HEALTH_BY_VALUE = {h.value: h for h in Health}
+
+
+def _node_doc(view: NodeView) -> dict:
+    """One node's checkpoint line content (sched/journal.py): the
+    DECODED view — chips, health, links, occupancy-independent facts —
+    plus the raw payload for divergence compares. Mesh lives in the
+    checkpoint head per slice, occupancy in the alloc list."""
+    info = view.info
+    return {
+        "n": info.name,
+        "slice": info.slice_id,
+        "shares": info.shares_per_chip,
+        "source": info.source,
+        "chips": [
+            [c.chip_id, c.index, list(c.coord), c.hbm_bytes,
+             c.num_cores, c.health.value]
+            for c in info.chips
+        ],
+        "bad": [[list(a), list(b)] for a, b in info.bad_links],
+        "payload": view.raw_payload,
+        "hs": view.health_summary,
+    }
+
+
+def _view_from_doc(doc: dict, mesh: MeshSpec) -> NodeView:
+    """Rebuild a NodeView from its checkpoint line (inverse of
+    ``_node_doc``; occupancy re-applies separately from the restored
+    allocations). ``mesh`` is unused today but pins the contract that
+    a node line is only meaningful under its slice's geometry."""
+    del mesh
+    chips = [
+        ChipInfo(chip_id=cid, index=i, coord=TopologyCoord(*coord),
+                 hbm_bytes=hbm, num_cores=cores,
+                 health=_HEALTH_BY_VALUE[h])
+        for cid, i, coord, hbm, cores, h in doc["chips"]
+    ]
+    info = NodeInfo(
+        name=doc["n"], chips=chips,
+        shares_per_chip=doc["shares"],
+        bad_links=[canonical_link(a, b) for a, b in doc["bad"]],
+        slice_id=doc["slice"], source=doc.get("source", ""),
+    )
+    return NodeView(info=info, raw_payload=doc["payload"],
+                    health_summary=doc.get("hs"))
+
+
 def _probe_node_payload(name: str, payload: str,
                         mesh_memo: Optional[dict] = None) -> dict:
     """Structural probe of a node-topology payload for the bulk ingest
@@ -326,6 +378,12 @@ class SliceView:
 
     mesh: MeshSpec
     host_by_coord: dict[TopologyCoord, str] = field(default_factory=dict)
+    # a checkpoint restore's lazily-parsed host map (a compact
+    # ``x,y,z=name;...`` blob): ClusterState._hosts_locked expands it on
+    # first touch. hosts_blob caches the serialized form for checkpoint
+    # captures, invalidated on any host-map mutation.
+    pending_hosts: Optional[str] = None
+    hosts_blob: Optional[str] = None
 
 
 class ClusterState:
@@ -362,12 +420,39 @@ class ClusterState:
         # rebuilding. A bump without a note degrades to a full rebuild
         # (log gap), never to a stale cache.
         self._delta_sink = None
+        # durable-state journal (sched/journal.py StateJournal, wired by
+        # the Extender when journal_enabled): mutation seams enqueue one
+        # typed WAL record each — enqueue only, the file write happens
+        # on the journal's drain thread, so this lock never blocks on
+        # disk. None (the default) journals nothing.
+        self._journal = None
+        # alloc generation: bumped on every commit/release and carried
+        # by the checkpoint head ("gen"), so a warm recovery resumes the
+        # numbering (the reference's change log that reads it is not
+        # ported)
+        self._generation = 0
         # cached sorted node-name tuple, invalidated when the node SET
         # changes (a new node registers / a checkpoint restore) — NOT on
         # occupancy or health churn. node_names() runs per batch cycle;
         # a fresh sorted list per call was O(fleet) per cycle at 10k
         # nodes.
         self._names_cache: Optional[tuple[str, ...]] = None
+        # LAZY checkpoint restore (sched/journal.py warm recovery):
+        # nodes not yet materialized live as positions into the open
+        # checkpoint file — name -> (abs offset, length, line crc,
+        # slice id, payload crc, payload len). _view_locked()
+        # materializes a view on first touch (an os.pread of one line
+        # plus one small parse), so restart-to-serving pays O(Δ), not
+        # O(fleet); a background warmer drains the rest off the hot
+        # path. _lazy_allocs indexes restored allocations by node so a
+        # materialized view recovers its occupancy.
+        self._lazy_index: dict[str, tuple] = {}
+        self._lazy_fd: Optional[int] = None
+        self._lazy_allocs: dict[str, list[AllocResult]] = {}
+        # set by retire(): the owning process is done with this ledger
+        # (sim crash/stop) — the background warmer must stop instead of
+        # materializing an orphan's fleet
+        self._retired = False
         # Per-slice occupied-coord sets, maintained INCREMENTALLY at
         # the same seams the snapshot deltas fire from (commit /
         # release / health-only re-annotation / structural upsert), so
@@ -418,6 +503,22 @@ class ClusterState:
         with self._lock:
             self._delta_sink = sink
 
+    def set_journal(self, journal) -> None:
+        """Attach the durable-state journal (None detaches — recovery
+        replays with the journal detached so replayed mutations are not
+        re-recorded)."""
+        with self._lock:
+            self._journal = journal
+
+    def _note_journal_locked(self, kind: str, data: dict) -> None:
+        """Enqueue one WAL record for the mutation just applied
+        (callers hold ``self._lock``; non-blocking — see StateJournal).
+        ``data`` must be freshly built and never mutated afterwards:
+        the journal serializes it on its drain thread."""
+        journal = self._journal
+        if journal is not None:
+            journal.note(kind, data)
+
     def _note_delta_locked(self, full: bool = False,
                     slice_id: Optional[str] = None,
                     occupied_add: tuple = (), occupied_remove: tuple = (),
@@ -447,20 +548,74 @@ class ClusterState:
         with self._lock:
             return self._epoch
 
-    # -- lazy materialization (bulk ingest) --------------------------------
+    # -- lazy materialization (checkpoint warm restore) ---------------------
     def _view_locked(self, name: str) -> Optional[NodeView]:
-        """The node's view, decoding a bulk-ingested node on first touch
-        (callers hold ``self._lock``). None for unknown nodes."""
+        """The node's view, materializing it from the open checkpoint
+        file on first touch (callers hold ``self._lock``). None for
+        unknown nodes OR for a node whose checkpoint line fails its
+        CRC — the latter degrades that one node to 'unknown' (its next
+        re-annotation re-registers it) instead of crashing recovery."""
         view = self._nodes.get(name)
         if view is not None:
             return view
         lazy = self._lazy_payloads.pop(name, None)
         if lazy is not None:
-            # decode the retained annotations on first touch — the
-            # probe already ran every validation, so failure here is
-            # pathological
+            # bulk-ingested node: decode the retained annotations on
+            # first touch — the probe already ran every validation, so
+            # failure here is pathological
             return self._materialize_payload_locked(name, *lazy)
-        return None
+        entry = self._lazy_index.pop(name, None)
+        if entry is None:
+            return None
+        off, length, crc, sid, _pcrc, _plen = entry
+        try:
+            raw = os.pread(self._lazy_fd, length, off)
+        except OSError as e:
+            log.error("lazy node %s: checkpoint read failed: %s",
+                      name, e)
+            self._names_cache = None  # the node SET just shrank
+            self._drop_lazy_fd_locked()
+            return None
+        if zlib.crc32(raw) != crc:
+            log.error("lazy node %s: checkpoint line fails its CRC; "
+                      "treating the node as unknown until it "
+                      "re-annotates", name)
+            self._names_cache = None  # the node SET just shrank
+            self._drop_lazy_fd_locked()
+            return None
+        doc = json.loads(raw.decode("utf-8"))
+        if "anno" in doc:
+            # a checkpoint line captured from a still-lazy bulk-ingest
+            # node carries the RAW annotations (never decoded by the
+            # capturing process) — decode on touch, same as the
+            # in-memory lazy store it round-tripped from
+            self._drop_lazy_fd_locked()
+            return self._materialize_payload_locked(
+                name,
+                (doc["anno"] or {}).get(codec.ANNO_NODE_TOPOLOGY, ""),
+                dict(doc["anno"] or {}), doc["slice"],
+            )
+        mesh = self._slices[sid].mesh
+        view = _view_from_doc(doc, mesh)
+        for alloc in self._lazy_allocs.pop(name, ()):
+            # re-apply the restored occupancy exactly as the eager
+            # restore would; materialization changes NOTHING observable
+            # (the same content was reachable through the lazy doc), so
+            # no epoch moves — the seeded snapshot stays valid (a cache
+            # promotion, not a mutation)
+            view.add_ids(alloc.device_ids)
+        self._nodes[name] = view
+        self._drop_lazy_fd_locked()
+        return view
+
+    def _drop_lazy_fd_locked(self) -> None:
+        """Close the checkpoint fd once nothing lazy remains."""
+        if not self._lazy_index and self._lazy_fd is not None:
+            try:
+                os.close(self._lazy_fd)
+            except OSError:
+                pass
+            self._lazy_fd = None
 
     def _materialize_payload_locked(
         self, name: str, payload: str, annotations: dict[str, str],
@@ -471,7 +626,7 @@ class ClusterState:
         popped). This is the deferred half of an ingest the probe
         already validated, so a failure here is pathological and
         degrades the node to 'unknown' (its next re-annotation
-        re-registers it)."""
+        re-registers it) exactly like a CRC-failing checkpoint line."""
         del sid
         try:
             info, _mesh = codec.decode_node_topology(payload)
@@ -499,6 +654,10 @@ class ClusterState:
                             name, e)
         view = NodeView(info=info, raw_payload=payload,
                         health_summary=summary)
+        for alloc in self._lazy_allocs.pop(name, ()):
+            # checkpoint-restored occupancy re-applies exactly as the
+            # eager restore would
+            view.add_ids(alloc.device_ids)
         # cache promotion, not a mutation: nothing observable changes,
         # so no epoch moves
         self._nodes[name] = view
@@ -507,17 +666,41 @@ class ClusterState:
     def _materialize_slice_locked(self, slice_id: Optional[str]) -> None:
         """Materialize every lazy node of one slice (None = all) ahead
         of a whole-slice scan (occupied_coords and friends)."""
-        if not self._lazy_payloads:
+        if not self._lazy_index and not self._lazy_payloads:
             return
+        for name in [
+            n for n, e in self._lazy_index.items()
+            if slice_id is None or e[3] == slice_id
+        ]:
+            self._view_locked(name)
         for name in [
             n for n, e in self._lazy_payloads.items()
             if slice_id is None or e[2] == slice_id
         ]:
             self._view_locked(name)
 
+    def retire(self) -> None:
+        """Stop background warming for good (the owner crashed or shut
+        down; an orphaned ledger must not keep materializing)."""
+        with self._lock:
+            self._retired = True
+
+    def lazy_fd_dup(self) -> Optional[int]:
+        """A dup of the open checkpoint fd while lazy nodes remain
+        (None otherwise) — checkpoint captures hand it to the journal's
+        drain thread so ``("ref", ...)`` entries stay readable even if
+        the last lazy node materializes (closing the original) before
+        the write lands. The caller owns the dup."""
+        with self._lock:
+            if self._lazy_fd is None or not self._lazy_index:
+                return None
+            return os.dup(self._lazy_fd)
+
     def payload_matches(self, name: str, payload: str) -> bool:
         """True when the node's stored topology payload equals
-        ``payload`` — WITHOUT materializing a lazy node."""
+        ``payload`` — WITHOUT materializing a lazy node (recovery's
+        reconcile compares every node; only divergent ones may cost
+        anything). Lazy checkpoint entries compare by (crc32, length)."""
         with self._lock:
             return self._payload_matches_locked(name, payload)
 
@@ -526,10 +709,58 @@ class ClusterState:
         if view is not None:
             return view.raw_payload == payload
         lazy = self._lazy_payloads.get(name)
-        return lazy is not None and lazy[0] == payload
+        if lazy is not None:
+            return lazy[0] == payload
+        entry = self._lazy_index.get(name)
+        if entry is None:
+            return False
+        raw = payload.encode("utf-8")
+        return entry[4] == zlib.crc32(raw) and entry[5] == len(raw)
+
+    def nodes_matching_payloads(
+        self, payloads: dict[str, str]
+    ) -> set[str]:
+        """The names whose stored payload equals the given one, in ONE
+        lock round-trip (the recovery reconcile compares the whole
+        fleet; 10k separate lock acquisitions were a measurable slice
+        of restart-to-serving). Lazy nodes stay lazy."""
+        with self._lock:
+            nodes = self._nodes
+            lazy = self._lazy_index
+            crc32 = zlib.crc32
+            out: set[str] = set()
+            lazy_payloads = self._lazy_payloads
+            for name, payload in payloads.items():
+                view = nodes.get(name)
+                if view is not None:
+                    if view.raw_payload == payload:
+                        out.add(name)
+                    continue
+                entry2 = lazy_payloads.get(name)
+                if entry2 is not None:
+                    if entry2[0] == payload:
+                        out.add(name)
+                    continue
+                entry = lazy.get(name)
+                if entry is None:
+                    continue
+                raw = payload.encode("utf-8")
+                if entry[4] == crc32(raw) and entry[5] == len(raw):
+                    out.add(name)
+            return out
 
     def _hosts_locked(self, sl: SliceView) -> dict[TopologyCoord, str]:
-        """The slice's coord->host map."""
+        """The slice's coord->host map, expanding a checkpoint
+        restore's compact pending blob on first touch."""
+        if sl.pending_hosts is not None:
+            blob, sl.pending_hosts = sl.pending_hosts, None
+            hosts = sl.host_by_coord
+            for part in blob.split(";"):
+                if not part:
+                    continue
+                coord, _, host = part.partition("=")
+                x, y, z = coord.split(",")
+                hosts[TopologyCoord(int(x), int(y), int(z))] = host
         return sl.host_by_coord
 
     # -- node ingestion ----------------------------------------------------
@@ -635,6 +866,7 @@ class ClusterState:
                         del hosts[chip.coord]
             for chip in info.chips:
                 hosts[chip.coord] = name
+            sl.hosts_blob = None
             self._hosts_cache.pop(info.slice_id, None)
             view = NodeView(info=info, raw_payload=payload,
                             health_summary=summary)
@@ -692,6 +924,8 @@ class ClusterState:
             # webhook resend path bump- and delta-free, and the
             # health-only path above keeps health churn O(chips/node).
             self._note_delta_locked(full=True, why=f"node {name} re-annotated")
+            self._note_journal_locked(
+                "node", {"n": name, "anno": dict(annotations)})
         return True
 
     def _apply_health_only_locked(
@@ -754,6 +988,8 @@ class ClusterState:
             total_shares_delta=total_d,
             why=f"node {name} health re-annotated",
         )
+        self._note_journal_locked(
+            "node", {"n": name, "anno": dict(annotations)})
 
     # -- bulk cold-start ingestion -------------------------------------------
     def ingest_nodes(self, items: list[dict]) -> list:
@@ -788,6 +1024,7 @@ class ClusterState:
             # hot-loop locals (this loop runs per node of the fleet)
             nodes_get = self._nodes.get
             lazyp_get = self._lazy_payloads.get
+            lazy_index = self._lazy_index
             slices_get = self._slices.get
             anno_key = codec.ANNO_NODE_TOPOLOGY
             # per-sid (live_hosts, live_get, batch_hosts, agg entry):
@@ -812,6 +1049,13 @@ class ClusterState:
                 lazy = lazyp_get(name)
                 if lazy is not None:
                     if lazy[0] == payload:
+                        self._decode_hits += 1
+                        results[pos] = {"ours": True}
+                    else:
+                        slow.append(pos)
+                    continue
+                if name in lazy_index:
+                    if self._payload_matches_locked(name, payload):
                         self._decode_hits += 1
                         results[pos] = {"ours": True}
                     else:
@@ -922,6 +1166,7 @@ class ClusterState:
                         continue
                     sl = self._slices[sid]
                     self._hosts_locked(sl).update(batch_hosts)
+                    sl.hosts_blob = None
                     self._hosts_cache.pop(sid, None)
                     a = agg[sid]
                     if sid in new_slices:
@@ -952,6 +1197,12 @@ class ClusterState:
                 self._epoch += 1
                 self._note_delta_locked(
                     full=True, why=f"bulk ingest ({len(staged)} nodes)")
+                # the note itself no-ops without a journal; the ternary
+                # only skips building the O(batch) items list
+                self._note_journal_locked("nodes", {"items": [
+                    [name, annotations]
+                    for _, name, _, annotations, _ in staged
+                ] if self._journal is not None else []})
                 self.ingest_nodes_total += len(staged)
             self.ingest_batches += 1
             dt = time.perf_counter() - t0
@@ -989,7 +1240,8 @@ class ClusterState:
                     round(self._decode_hits / decode, 4)
                     if decode else None
                 ),
-                "lazy_pending": len(self._lazy_payloads),
+                "lazy_pending": (len(self._lazy_index)
+                                 + len(self._lazy_payloads)),
             }
 
     def ingest_seconds_snapshot(self) -> list[float]:
@@ -999,19 +1251,26 @@ class ClusterState:
             return list(self._ingest_seconds)
 
     def warm_pending(self, limit: int = 512) -> int:
-        """Materialize up to ``limit`` lazy nodes; returns how many
-        remain. Batched so the warmer never holds the ledger lock long."""
+        """Materialize up to ``limit`` lazy nodes (checkpoint-restored,
+        then bulk-ingested); returns how many remain. Batched so the
+        warmer never holds the ledger lock long."""
         with self._lock:
-            for name in list(self._lazy_payloads)[:limit]:
+            if self._retired:
+                return 0
+            batch = list(self._lazy_index)[:limit]
+            if len(batch) < limit:
+                batch += list(self._lazy_payloads)[:limit - len(batch)]
+            for name in batch:
                 self._view_locked(name)
-            return len(self._lazy_payloads)
+            return len(self._lazy_index) + len(self._lazy_payloads)
 
     def maybe_start_warmer(self) -> None:
         """Start (at most one) background materializer draining the lazy
         store in batches, so the serving path rarely meets a cold node
         and the ingest does not pay the fleet's decode up front."""
         with self._lock:
-            if self._warming or not self._lazy_payloads:
+            if (self._warming or self._retired
+                    or not (self._lazy_index or self._lazy_payloads)):
                 return
             self._warming = True
 
@@ -1109,7 +1368,10 @@ class ClusterState:
             if view is not None:
                 return view.info.slice_id
             lazy = self._lazy_payloads.get(name)
-            return lazy[2] if lazy is not None else None
+            if lazy is not None:
+                return lazy[2]
+            entry = self._lazy_index.get(name)
+            return entry[3] if entry is not None else None
 
     def node(self, name: str) -> Optional[NodeView]:
         with self._lock:
@@ -1124,7 +1386,8 @@ class ClusterState:
             names = self._names_cache
             if names is None:
                 names = self._names_cache = tuple(sorted(
-                    set(self._nodes) | set(self._lazy_payloads)
+                    set(self._nodes) | set(self._lazy_index)
+                    | set(self._lazy_payloads)
                 ))
             return names
 
@@ -1446,6 +1709,7 @@ class ClusterState:
             )
             view.add_ids(adding)
             self._allocs[alloc.pod_key] = alloc
+            self._generation += 1
             self._occ_apply_locked(view.info.slice_id, add=newly_occupied)
             # all committed chips are healthy (validated above), so the
             # counted share delta is exactly the added weight
@@ -1460,6 +1724,8 @@ class ClusterState:
                 used_shares_delta=sum(pending_shares.values()),
                 why=f"commit {alloc.pod_key}",
             )
+            self._note_journal_locked(
+                "commit", {"a": codec.encode_alloc(alloc)})
 
     def release(self, pod_key: str) -> Optional[AllocResult]:
         """Pod gone (deleted/preempted): free its shares."""
@@ -1471,12 +1737,14 @@ class ClusterState:
             if alloc is None:
                 return None
             self._allocs.pop(pod_key, None)
+            self._generation += 1
             view = self._view_locked(alloc.node_name)
             if view is None:
                 # node view gone: its chips are in no slice's occupied
                 # set either — an empty delta keeps the chain whole
                 self._epoch += 1
                 self._note_delta_locked(why=f"release {pod_key} (node gone)")
+                self._note_journal_locked("release", {"p": pod_key})
                 return alloc
             # snapshot delta: shares removed from HEALTHY chips reduce
             # the slice's used count (unhealthy chips were never counted
@@ -1507,6 +1775,7 @@ class ClusterState:
                 used_shares_delta=used_delta,
                 why=f"release {pod_key}",
             )
+            self._note_journal_locked("release", {"p": pod_key})
             return alloc
 
     # -- restart story -----------------------------------------------------
@@ -1544,3 +1813,164 @@ class ClusterState:
                 continue
             restored.append((annotations, alloc))
         return restored
+
+    # -- durable-state checkpoint (sched/journal.py) -------------------------
+    def checkpoint_doc(self, cache: dict) -> tuple[dict, list]:
+        """The ledger as a Checkpoint: a HEAD fragment (slice meshes,
+        compact host blobs, alloc objects + their payload signatures)
+        plus per-node LINE entries the journal writes after the head —
+        so a warm restore parses the small head eagerly and each node
+        line lazily on first touch (``_view_locked``).
+
+        ``cache`` memoizes per-node serialized lines keyed on payload
+        identity, so steady-state captures cost O(allocs + changed
+        nodes), not O(fleet). A still-LAZY node yields a ``("ref", ...)``
+        entry naming its bytes in the PREVIOUS checkpoint file — the
+        journal's drain thread copies them verbatim (this capture runs
+        under the decision lock and must not read disk). Runs under
+        ``self._lock``; serialization of changed nodes happens here (in
+        memory), disk belongs to the drain thread."""
+        node_cache = cache.setdefault("nodes", {})
+        alloc_cache = cache.setdefault("allocs", {})
+        with self._lock:
+            entries: list[tuple] = []
+            for name, view in self._nodes.items():
+                cached = node_cache.get(name)
+                if cached is not None and cached[0] is view.raw_payload:
+                    entries.append(cached[1])
+                    continue
+                line = json.dumps(_node_doc(view),
+                                  separators=(",", ":"))
+                raw_payload = view.raw_payload.encode("utf-8")
+                entry = ("line", name, line,
+                         zlib.crc32(line.encode("utf-8")),
+                         view.info.slice_id,
+                         zlib.crc32(raw_payload), len(raw_payload))
+                node_cache[name] = (view.raw_payload, entry)
+                entries.append(entry)
+            for name, (payload, annotations, sid) in \
+                    self._lazy_payloads.items():
+                # a still-lazy bulk-ingest node rides as its RAW
+                # annotations (this capture must not decode the fleet);
+                # the loader keeps it lazy and decodes on first touch
+                cached = node_cache.get(name)
+                if cached is not None and cached[0] is payload:
+                    entries.append(cached[1])
+                    continue
+                line = json.dumps(
+                    {"n": name, "slice": sid, "anno": annotations},
+                    separators=(",", ":"))
+                raw_payload = payload.encode("utf-8")
+                entry = ("line", name, line,
+                         zlib.crc32(line.encode("utf-8")), sid,
+                         zlib.crc32(raw_payload), len(raw_payload))
+                node_cache[name] = (payload, entry)
+                entries.append(entry)
+            for name, le in self._lazy_index.items():
+                off, length, crc, sid, pcrc, plen = le
+                entries.append(("ref", name, off, length, crc, sid,
+                                pcrc, plen))
+            allocs = []
+            alloc_index: dict[str, tuple[int, int]] = {}
+            for key, alloc in self._allocs.items():
+                cached = alloc_cache.get(key)
+                if cached is None or cached[0] is not alloc:
+                    payload = codec.encode_alloc(alloc).encode("utf-8")
+                    cached = alloc_cache[key] = (
+                        alloc, codec.alloc_obj(alloc),
+                        (zlib.crc32(payload), len(payload)),
+                    )
+                allocs.append(cached[1])
+                alloc_index[key] = cached[2]
+            head = {
+                "epoch": self._epoch,
+                # the alloc generation rides the checkpoint so a warm
+                # recovery resumes the numbering (never regresses)
+                "gen": self._generation,
+                "slices": {
+                    sid: [list(sl.mesh.dims), list(sl.mesh.host_block),
+                          list(sl.mesh.torus)]
+                    for sid, sl in self._slices.items()
+                },
+                "hosts": {sid: self._hosts_blob_locked(sl)
+                          for sid, sl in self._slices.items()},
+                "allocs": allocs,
+                "alloc_index": {k: list(v)
+                                for k, v in alloc_index.items()},
+            }
+            return head, entries
+
+    def _hosts_blob_locked(self, sl: SliceView) -> str:
+        """The slice's host map as the compact checkpoint blob, cached
+        until the map mutates (a still-pending blob round-trips
+        verbatim — no expansion just to re-serialize)."""
+        if sl.pending_hosts is not None:
+            return sl.pending_hosts
+        if sl.hosts_blob is None:
+            sl.hosts_blob = ";".join(
+                f"{c[0]},{c[1]},{c[2]}={h}"
+                for c, h in sl.host_by_coord.items()
+            )
+        return sl.hosts_blob
+
+    def restore_checkpoint(self, head: dict, fd: Optional[int],
+                           node_index: dict[str, list]) -> int:
+        """Rebuild the ledger from a Checkpoint HEAD onto a fresh
+        instance (recovery's warm path): slices and allocations
+        eagerly, node views LAZILY — ``node_index`` positions each
+        node's line inside the open checkpoint file ``fd`` (ownership
+        transfers here; closed when the last lazy node materializes).
+        Unlike ``commit``, alloc application skips health validation:
+        the checkpoint recorded reality at capture time — a chip that
+        sickened later must not drop a running pod from the ledger.
+        Returns the allocations restored; raises StateError on a
+        non-fresh ledger (recovery constructs a new extender, never
+        restores over one)."""
+        with self._lock:
+            if (self._nodes or self._allocs or self._lazy_index
+                    or self._lazy_payloads):
+                raise StateError(
+                    "restore_checkpoint requires a fresh ledger"
+                )
+            self._epoch = int(head.get("epoch", 0))
+            self._generation = int(head.get("gen", 0))
+            for sid, (dims, block, torus) in head["slices"].items():
+                self._slices[sid] = SliceView(
+                    mesh=MeshSpec(
+                        dims=tuple(int(d) for d in dims),
+                        host_block=tuple(int(b) for b in block),
+                        torus=tuple(bool(t) for t in torus),
+                    ),
+                    pending_hosts=head["hosts"].get(sid, ""),
+                )
+            self._lazy_fd = fd
+            for name, entry in node_index.items():
+                off, length, crc, sid, pcrc, plen = entry
+                self._lazy_index[name] = (off, length, crc, sid,
+                                          pcrc, plen)
+            restored = 0
+            for obj in head["allocs"]:
+                try:
+                    alloc = codec.alloc_from_obj(obj)
+                except codec.CodecError as e:
+                    log.error("checkpoint restore: undecodable alloc "
+                              "(%s)", e)
+                    continue
+                if (alloc.node_name not in self._lazy_index
+                        and alloc.node_name not in self._nodes):
+                    log.error("checkpoint restore: %s names unknown node "
+                              "%s; skipped", alloc.pod_key,
+                              alloc.node_name)
+                    continue
+                self._allocs[alloc.pod_key] = alloc
+                # occupancy re-applies at materialization (the alloc
+                # list is the occupancy's single home — node lines
+                # deliberately carry none, so the per-payload line
+                # cache never goes stale under churn)
+                self._lazy_allocs.setdefault(
+                    alloc.node_name, []).append(alloc)
+                restored += 1
+            self._names_cache = None
+            self._epoch += 1
+            self._note_delta_locked(full=True, why="checkpoint restore")
+            return restored

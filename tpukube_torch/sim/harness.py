@@ -26,20 +26,35 @@ for the GPU machine).
 An HGX fleet is ``MeshSpec((8, H, 1), (8, 1, 1))``: H hosts of 8 GPUs
 along y (``TPUKUBE_SIM_MESH_DIMS=8,H,1``, ``TPUKUBE_SIM_HOST_BLOCK=8,1,1``).
 
-The sim's pod store stands in for the apiserver, and the extender is wired
-as a daemon is (``_wire_extender``): the ``EvictionExecutor`` deletes
-evicted pods from the store and confirms them gone (``victim_gone``), the
+The sim's pod store stands in for the apiserver (``_make_store_api``; the
+chaos harness wraps it in a fault injector), and the extender is wired as
+a daemon is (``_wire_extender``): the ``EvictionExecutor`` deletes evicted
+pods from the store and confirms them gone (``victim_gone``), the
 ``PodLifecycleReleaseLoop`` releases a deleted or finished pod's chips
 through the recorded ``release`` decision, and the PDB precheck asks the
 store (which has no PDBs).
+
+:meth:`SimCluster.crash_extender` kills the extender mid-flight (its
+journal loses what it had not drained) and
+:meth:`SimCluster.restart_extender` starts a fresh one the way a restarted
+daemon does: journal recovery with ``journal_enabled``
+(``sched/journal.py``, falling back to the legacy rebuild when the journal
+cannot produce a trustworthy base), else the legacy rebuild from the pod
+store.
 """
 
 from __future__ import annotations
 
+import logging
 import socket
 from typing import Any, Optional
 
-from tpukube_torch.apiserver import EvictionExecutor, PodLifecycleReleaseLoop
+from tpukube_torch.apiserver import (
+    ApiServerError,
+    EvictionExecutor,
+    PodLifecycleReleaseLoop,
+    rebuild_extender,
+)
 from tpukube_torch.core import codec
 from tpukube_torch.core.clock import SYSTEM
 from tpukube_torch.core.config import GpuKubeConfig, load_config
@@ -55,6 +70,8 @@ from tpukube_torch.core.types import (
 from tpukube_torch.plugin.fake_kubelet import TRANSPORTS
 from tpukube_torch.sched import kube
 from tpukube_torch.sched.extender import App, Extender, run_server, serve
+
+log = logging.getLogger("tpukube_torch.sim")
 
 
 def _free_port() -> int:
@@ -87,12 +104,16 @@ class _AppThread:
 
 
 class _PodStoreApi:
-    """The apiserver surface EvictionExecutor and PodLifecycleReleaseLoop
-    act through, over the harness's in-memory pod store (no PDBs in the
-    sim: every eviction is accepted and deletes at once)."""
+    """The apiserver surface EvictionExecutor, PodLifecycleReleaseLoop,
+    the bind effector and the restart rebuild act through, over the
+    harness's in-memory pod store (no PDBs in the sim: every eviction is
+    accepted and deletes at once). ``nodes_fn`` supplies Node objects for
+    ``list_nodes`` (the restart's topology source)."""
 
-    def __init__(self, pods: dict[str, dict[str, Any]]) -> None:
+    def __init__(self, pods: dict[str, dict[str, Any]],
+                 nodes_fn=None) -> None:
         self._pods = pods
+        self._nodes_fn = nodes_fn
 
     def evict_pod(
         self, namespace: str, name: str, dry_run: bool = False
@@ -114,6 +135,48 @@ class _PodStoreApi:
             if node_name is None
             or p.get("spec", {}).get("nodeName") == node_name
         ]
+
+    def list_nodes(self) -> list[dict[str, Any]]:
+        return self._nodes_fn() if self._nodes_fn is not None else []
+
+    def bind_pod(
+        self, namespace: str, name: str, node: str,
+        annotations: Optional[dict[str, str]] = None,
+    ) -> None:
+        """FakeApiServer.bind_pod semantics over the dict store:
+        conflict check first, already-bound-to-the-same-node is
+        idempotent-retry success (what makes torn bind writes safe to
+        retry), 404 when the pod is gone."""
+        key = f"{namespace}/{name}"
+        pod = self._pods.get(key)
+        if pod is None:
+            raise ApiServerError(f"pod {key} not found", code=404)
+        spec = pod.setdefault("spec", {})
+        bound_to = spec.get("nodeName")
+        if bound_to and bound_to != node:
+            raise ApiServerError(
+                f"pod {key} is already bound to {bound_to!r}, "
+                f"not {node!r}", code=409,
+            )
+        if annotations:
+            pod["metadata"].setdefault("annotations", {}).update(annotations)
+        spec["nodeName"] = node
+
+    def patch_pod_annotations(
+        self, namespace: str, name: str, annotations: dict[str, Optional[str]]
+    ) -> None:
+        """Merge-patch (None deletes), 404 on a missing pod — mirrors
+        the real channel so reconcile/divergence paths run unchanged."""
+        key = f"{namespace}/{name}"
+        pod = self._pods.get(key)
+        if pod is None:
+            raise ApiServerError(f"pod {key} not found", code=404)
+        annos = pod["metadata"].setdefault("annotations", {})
+        for k, v in annotations.items():
+            if v is None:
+                annos.pop(k, None)
+            else:
+                annos[k] = v
 
 
 class SimCluster:
@@ -183,8 +246,14 @@ class SimCluster:
                 )
         self.extender = Extender(self.config, clock=self.clock)
         self.pods: dict[str, dict[str, Any]] = {}  # key -> pod object
-        self._wire_extender(_PodStoreApi(self.pods))
+        # stats of the last restart_extender() recovery (None before)
+        self.last_recovery: Optional[dict[str, Any]] = None
+        self._store_api = self._make_store_api()
+        self._wire_extender()
         self._http = None  # the extender's HTTP server while started
+        # the port served on, kept across crash_extender() so a restart
+        # resumes serving where clients already point
+        self._serving_port: Optional[int] = None
         # node objects cached per node (schedule() resends every node on
         # every webhook); fault injection invalidates the touched node
         self._node_obj_cache: dict[str, dict[str, Any]] = {}
@@ -194,11 +263,20 @@ class SimCluster:
         self._synced_objs: list[dict[str, Any]] = []
         self._synced_names: list[str] = []
 
-    def _wire_extender(self, store_api: _PodStoreApi) -> None:
+    def _make_store_api(self):
+        """The apiserver surface the effectors run against; the chaos
+        harness overrides this to wrap it in a fault injector."""
+        return _PodStoreApi(self.pods, nodes_fn=self.node_objects)
+
+    def _wire_extender(self) -> None:
         """Attach the effectors a real extender daemon wires (eviction
-        executor, lifecycle release loop, PDB precheck) over the pod
-        store, stepped deterministically by this harness instead of run
-        as threads."""
+        executor, lifecycle release loop, PDB precheck) to
+        ``self.extender`` over the pod store, stepped deterministically
+        by this harness instead of run as threads — called at
+        construction AND after a restart_extender() cold start, exactly
+        like a fresh daemon main. The chaos harness extends this with
+        binder/retry/circuit wiring."""
+        store_api = self._store_api
         # drained inline by schedule(); not started as a thread
         self._evictions = EvictionExecutor(
             self.extender, store_api, clock=self.clock
@@ -245,20 +323,32 @@ class SimCluster:
         if self._in_process:
             return
         if self._http is None:
-            self._http = serve(self.extender, "127.0.0.1", 0,
-                               evictions=self._evictions,
-                               lifecycle=self._lifecycle)
+            self._serve()
 
-    def stop(self) -> None:
-        """Stop serving, then close the trace and event sinks (their
-        drain threads)."""
+    def _serve(self) -> None:
+        self._http = serve(self.extender, "127.0.0.1",
+                           self._serving_port or 0,
+                           evictions=self._evictions,
+                           lifecycle=self._lifecycle)
+        self._serving_port = self._http.server_address[1]
+
+    def _stop_serving(self) -> None:
         if self._http is not None:
             self._http.shutdown()
             self._http.server_close()
             self._http = None
+
+    def stop(self) -> None:
+        """Stop serving, then close the trace and event sinks and the
+        journal (their drain threads)."""
+        self._stop_serving()
         if self.extender.trace is not None:
             self.extender.trace.close()
         self.extender.events.close()
+        if self.extender.journal is not None:
+            self.extender.journal.close()
+            self.extender.state.retire()
+        self._serving_port = None
 
     def __enter__(self) -> "SimCluster":
         self.start()
@@ -266,6 +356,77 @@ class SimCluster:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+    # -- crash / cold restart (chaos scenarios 9 and 13) ----------------------
+    def crash_extender(self) -> None:
+        """Simulate extender process death mid-flight: the HTTP listener
+        disappears and every piece of in-memory scheduler state — ledger,
+        gang reservations, pending webhook context, queued evictions — is
+        gone. Nothing is flushed or unwound; that is the point."""
+        self._stop_serving()
+        if self.extender.journal is not None:
+            # a real crash loses the journal's queued-but-undrained
+            # records and flushes nothing — crash() models exactly
+            # that; retiring the ledger stops its background warmer
+            self.extender.journal.crash()
+            self.extender.state.retire()
+
+    def restart_extender(self) -> int:
+        """Cold-start a fresh extender the way a restarted daemon does:
+        new Extender, state recovered — via the durable journal
+        (checkpoint + WAL replay + O(Δ) apiserver reconcile,
+        sched/journal.py) when journal_enabled, else the legacy full
+        rebuild from the apiserver (apiserver.rebuild_extender) —
+        effectors re-wired, HTTP serving resumed on the same port if the
+        crashed one served. ``self.last_recovery`` carries the recovery
+        stats. Returns the number of allocations restored/known after
+        recovery."""
+        if self._http is not None:
+            raise RuntimeError("crash_extender() first — the old "
+                               "extender is still serving")
+        self.extender = Extender(self.config, clock=self.clock)
+        self._wire_extender()
+        if self.extender.journal is not None:
+            from tpukube_torch.sched import journal as journal_mod
+
+            try:
+                self.last_recovery = journal_mod.recover_extender(
+                    self.extender, self._store_api
+                )
+                restored = len(self.extender.state.allocations())
+            except journal_mod.JournalError as e:
+                # the journal could not produce a trustworthy base
+                # (WAL gap, undecodable checkpoint): fall back to the
+                # legacy full rebuild on a FRESH extender — the failed
+                # recovery may have half-restored state
+                log.error("journal recovery failed (%s); falling back "
+                          "to the legacy full rebuild", e)
+                self.extender.journal.crash()
+                self.extender = Extender(self.config, clock=self.clock)
+                self._wire_extender()
+                self.extender.state.set_journal(None)
+                self.extender.gang.set_journal(None)
+                restored = rebuild_extender(self.extender,
+                                            self._store_api)
+                self.extender.state.set_journal(self.extender.journal)
+                self.extender.gang.set_journal(self.extender.journal)
+                self.extender.journal.write_checkpoint_sync(
+                    self.extender.checkpoint_doc()
+                )
+                self.last_recovery = {
+                    "mode": "cold-fallback", "error": str(e),
+                    "restored_allocs": restored,
+                }
+        else:
+            restored = rebuild_extender(self.extender, self._store_api)
+            self.last_recovery = {"mode": "cold",
+                                  "restored_allocs": restored}
+        # the fresh extender has ingested nothing over the webhook
+        # channel yet: the next schedule() must send full node objects
+        self._commit_synced([])
+        if self._serving_port is not None:
+            self._serve()
+        return restored
 
     # -- kube-object minting -----------------------------------------------
     def _invalidate_node(self, name: str) -> None:

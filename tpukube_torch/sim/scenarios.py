@@ -1,5 +1,5 @@
 """Runnable BASELINE scenarios on the port — its own copy of
-``tpukube/sim/scenarios.py``'s scenarios 1-6, 10 and 12.
+``tpukube/sim/scenarios.py``'s scenarios 1-6, 8-10, 12 and 13.
 
 Each scenario replays one BASELINE.json config against the port's stack
 (the extender over HTTP inside ``SimCluster``'s ``with`` block; configs
@@ -9,10 +9,14 @@ without grpcio, which the GPU machine lacks) and returns a JSON-able
 result. Scenarios 10 and 12 are the kilonode churn drives:
 1,024 and 10,240 nodes on a fake clock, through the batch scheduling
 cycle (``sched/cycle.py``), each raising on its own invariants.
+Scenarios 8, 9 and 13 are the chaos drives: a seeded apiserver fault
+storm (``tpukube_torch/chaos``), an extender crash mid-gang with the cold
+restart, and the crash-at-every-journal-seam storm with the durable
+journal (``sched/journal.py``) carrying recovery.
 
 Not ported (``run`` raises, naming the plane): scenario 7 (the SLO
-plane), 8, 9 and 13 (chaos), 11 (tenancy), 14 (the shard router)
-and 15 (drain); each waits in ROADMAP.md Queue 1.
+plane), 11 (tenancy), 14 (the shard router) and 15 (drain); each waits
+in ROADMAP.md Queue 1.
 """
 
 from __future__ import annotations
@@ -69,10 +73,7 @@ _PASSTHROUGH_KEYS = (
 #: scenario -> the plane it needs that the port has not ported yet
 NOT_PORTED = {
     7: "the SLO plane (ROADMAP.md Queue 1)",
-    8: "the chaos harness (ROADMAP.md Queue 1)",
-    9: "the chaos harness (ROADMAP.md Queue 1)",
     11: "the tenancy plane (ROADMAP.md Queue 1)",
-    13: "the chaos harness and the journal (ROADMAP.md Queue 1)",
     14: "the shard router (ROADMAP.md Queue 1)",
     15: "drain and the autoscaler (ROADMAP.md Queue 1)",
 }
@@ -86,6 +87,17 @@ def _env(defaults: dict[str, str]) -> dict[str, str]:
         if os.environ.get(key):
             env[key] = os.environ[key]
     return env
+
+
+def _audit_stats(c: SimCluster) -> dict[str, Any]:
+    """The snapshot audit sentinel's counters for a scenario result
+    (all zero when snapshot_audit_rate is 0 — the default)."""
+    snaps = c.extender.snapshots
+    return {
+        "rate": snaps.audit_rate,
+        "checks": snaps.audit_checks,
+        "divergences": snaps.audit_divergences,
+    }
 
 
 def run(scenario: int, config: GpuKubeConfig | None = None) -> dict[str, Any]:
@@ -102,8 +114,11 @@ def run(scenario: int, config: GpuKubeConfig | None = None) -> dict[str, Any]:
         4: gang_16,
         5: multi_tenant_northstar,
         6: churn,
+        8: apiserver_chaos,
+        9: crash_recovery,
         10: kilonode_churn,
         12: kilonode10k_churn,
+        13: crash_storm,
     }[scenario]
     t0 = time.perf_counter()
     result = fn(config)
@@ -570,3 +585,615 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
             raise RuntimeError(f"{metric} invariants violated: "
                                + "; ".join(problems[:5]))
         return result
+
+
+def scenario8_storm():
+    """Scenario 8's storm spec — ONE definition, reused verbatim by the
+    multi-tenant scenario 11 so both run the same fault mix."""
+    from tpukube_torch.chaos import ChaosSpec
+
+    return ChaosSpec(
+        error_rate=0.12, timeout_rate=0.08, torn_rate=0.10,
+        slow_rate=0.05, slow_seconds=0.001,
+        gone_rate=0.10, drop_event_rate=0.05, dup_event_rate=0.05,
+    )
+
+
+def apiserver_chaos(config: GpuKubeConfig | None) -> dict[str, Any]:
+    """Scenario 8: seeded apiserver chaos under gang + burst churn.
+
+    A ChaosSimCluster runs the full control plane — preempting gang,
+    burst fill, completion churn — while the fault schedule injects
+    503s, transport timeouts, torn writes, and slow responses into the
+    eviction / lifecycle / bind-effector seams. A blackout phase
+    (every request failing) then trips the apiserver circuit and
+    proves degraded mode: filter requests fail SAFE while the circuit
+    is open, and scheduling resumes through the half-open probe once
+    the chaos stops. Acceptance: zero leaked gang reservations and
+    zero ledger/apiserver divergence after the dust settles.
+    """
+    from tpukube_torch.chaos import (
+        ChaosSimCluster,
+        ChaosSpec,
+        FaultSchedule,
+        converge,
+        leaked_reservations,
+        ledger_divergence,
+    )
+
+    # canonical topology; the seed + audit knobs must work WITHOUT
+    # --config — _env passes them through from the process environment
+    cfg = config or load_config(env=_env({
+        "TPUKUBE_SIM_MESH_DIMS": "4,4,1",
+        "TPUKUBE_SIM_HOST_BLOCK": "2,2,1",
+    }))
+    seed = cfg.chaos_seed or 1337
+    schedule_ = FaultSchedule(seed, scenario8_storm())
+
+    with ChaosSimCluster(cfg, schedule_) as c:
+
+        def robust(pod, deadline_s: float = 60.0,
+                   retry_unschedulable: bool = True):
+            """schedule() with the outer retry a real kube-scheduler
+            queue provides: degraded-mode refusals wait out the
+            circuit's reset window; chaos-exhausted binds,
+            victims-terminating gates, and release lag just requeue.
+            Each retry also steps the lifecycle loop — the real
+            daemon's release watch runs concurrently; the sim steps
+            it deterministically."""
+            t0 = time.monotonic()
+            while True:
+                try:
+                    return c.schedule(pod)
+                except RuntimeError as e:
+                    msg = str(e)
+                    if not retry_unschedulable and "unschedulable" in msg:
+                        raise
+                    if time.monotonic() - t0 > deadline_s:
+                        raise
+                    if "degraded mode" in msg:
+                        time.sleep(c.CIRCUIT_RESET_S)
+                    try:
+                        c._lifecycle.check_once()
+                    except RuntimeError:
+                        pass  # chaos-injected resync failure; next lap
+                    continue
+
+        # fill the mesh with bursts, then a priority gang preempts its
+        # way in — evictions, confirms, and binds all under fault fire
+        fill = 0
+        while True:
+            try:
+                robust(c.make_pod(f"burst-{fill}", tpu=1),
+                       deadline_s=20.0, retry_unschedulable=False)
+                fill += 1
+            except RuntimeError:
+                break
+        n_chips = sum(m.num_chips for m in c.slices.values())
+        group = PodGroup("storm", min_member=n_chips // 2)
+        for i in range(n_chips // 2):
+            robust(c.make_pod(f"storm-{i}", tpu=1, priority=100,
+                              group=group))
+
+        # churn: survivors finish, replacements land in the freed chips
+        survivors = sorted(
+            a.pod_key.split("/", 1)[1]
+            for a in c.extender.state.allocations()
+            if a.pod_key.startswith("default/burst-")
+        )
+        finished = survivors[:4]
+        for name in finished:
+            try:
+                c.complete_pod(name)
+            except RuntimeError:
+                pass  # release deferred by an injected fault; converge
+        converge(c)
+        for i in range(len(finished)):
+            robust(c.make_pod(f"refill-{i}", tpu=1), deadline_s=20.0)
+
+        # free one chip BEFORE the blackout so the probe pod passes
+        # filter and reaches the (failing) bind effector — a full mesh
+        # would answer "unschedulable" without ever touching the
+        # circuit
+        try:
+            c.complete_pod("refill-0")
+        except RuntimeError:
+            pass
+        converge(c)
+
+        # blackout: every apiserver call fails until the circuit opens
+        # and the extender fails filter requests safe (degraded mode)
+        schedule_.resume(ChaosSpec(error_rate=1.0))
+        degraded_before = c.extender.events.counts_by_reason().get(
+            "DegradedMode", 0)
+        blackout_refused = False
+        try:
+            c.schedule(c.make_pod("blackout-probe", tpu=1), retries=12)
+        except RuntimeError:
+            blackout_refused = True
+        degraded_refusals = c.extender.events.counts_by_reason().get(
+            "DegradedMode", 0) - degraded_before
+
+        # quiet: chaos off, circuit half-opens, scheduling resumes
+        schedule_.stop()
+        time.sleep(c.CIRCUIT_RESET_S * 2)
+        robust(c.make_pod("recovery-probe", tpu=1))
+        converge_rounds = converge(c)
+
+        leaks = leaked_reservations(c)
+        div = ledger_divergence(c)
+        reasons = c.extender.events.counts_by_reason()
+        gangs = c.extender.gang_snapshot()
+        committed = [g for g in gangs if g["committed"]]
+        result = {
+            "metric": "apiserver_chaos",
+            "value": schedule_.injected(),
+            "unit": "faults injected",
+            "faults": schedule_.report(),
+            "blackout_refused": blackout_refused,
+            "degraded_refusals": degraded_refusals,
+            "circuit": {
+                "opens": c.circuit.opens,
+                "state": c.circuit.state(),
+            },
+            "retry": {
+                "bind_attempts": c.bind_retrier.stats.attempts,
+                "bind_retries": c.bind_retrier.stats.retries,
+                "bind_exhausted": c.bind_retrier.stats.exhausted,
+                "retry_exhausted_events": reasons.get("RetryExhausted", 0),
+            },
+            "gang_committed": bool(committed),
+            "preemptions": c.extender.preemptions,
+            "converge_rounds": converge_rounds,
+            "evictions_pending": c._evictions.depth(),
+            "leaked_reservations": len(leaks),
+            "ledger_divergence": len(div),
+            "snapshot_audit": _audit_stats(c),
+            "utilization_percent": round(100 * c.utilization(), 2),
+        }
+        # the acceptance invariants FAIL the scenario, not just dent a
+        # number — a chaos run that leaks is a bug, full stop
+        problems = [str(p) for p in leaks] + div
+        if c._evictions.depth():
+            problems.append(
+                f"{c._evictions.depth()} eviction(s) still pending")
+        if not committed:
+            problems.append("the storm gang never committed")
+        if not (blackout_refused and degraded_refusals > 0
+                and c.circuit.opens > 0):
+            problems.append(
+                "blackout did not trip the circuit into degraded mode")
+        if problems:
+            raise RuntimeError("scenario 8 invariants violated: "
+                               + "; ".join(problems))
+        return result
+
+
+def crash_recovery(config: GpuKubeConfig | None) -> dict[str, Any]:
+    """Scenario 9: extender crash mid-gang-commit + cold restart.
+
+    Half a gang binds, then the extender "process" dies — HTTP gone,
+    ledger, reservations, and pending webhook context lost. A fresh
+    extender rebuilds from the apiserver (node annotations + live
+    bound pods' alloc annotations, via rebuild_from_pods), restoring
+    the partial gang as a partial RESERVATION; the remaining members
+    then bind and the gang commits. Rebuild residue the restart must
+    skip — a finished pod's lingering annotation and an unbound pod's
+    partial-failure annotation — is planted up front. The node-agent
+    half restarts too: one member's Allocate runs through a device
+    plugin that is torn down and re-registered mid-session.
+    Acceptance: gang committed, zero leaked reservations, zero ledger
+    divergence, recovery within the scenario wall.
+    """
+    from tpukube_torch.chaos import converge, leaked_reservations, \
+        ledger_divergence
+    from tpukube_torch.core import codec
+    from tpukube_torch.core.types import AllocResult, TopologyCoord
+
+    cfg = config or load_config(env=_env({
+        "TPUKUBE_SIM_MESH_DIMS": "4,4,1",
+        "TPUKUBE_SIM_HOST_BLOCK": "2,2,1",
+    }))
+    with SimCluster(cfg, transport="inprocess") as c:
+        group = PodGroup("phoenix", min_member=8)
+        for i in range(4):
+            c.schedule(c.make_pod(f"phoenix-{i}", tpu=1, priority=10,
+                                  group=group))
+
+        # rebuild-residue plants: a finished pod whose annotation
+        # lingers (chips are free — restoring it would leak) and an
+        # unbound pod carrying bind partial-failure residue
+        c.schedule(c.make_pod("finished", tpu=1))
+        c.pods["default/finished"].setdefault("status", {})[
+            "phase"] = "Succeeded"
+        residue = c.make_pod("residue", tpu=1)
+        residue["metadata"]["annotations"][codec.ANNO_ALLOC] = (
+            codec.encode_alloc(AllocResult(
+                pod_key="default/residue", node_name="host-0-0-0",
+                device_ids=["tpu-0"], coords=[TopologyCoord(0, 0, 0)],
+                env={}, priority=0, uid="uid-default-residue",
+            ))
+        )
+
+        ledger_before = len(c.extender.state.allocations())
+        t0 = time.perf_counter()
+        c.crash_extender()
+        restored = c.restart_extender()
+        gangs = c.extender.gang_snapshot()
+        partial = [g for g in gangs if g["group"] == "phoenix"]
+        restored_partial = bool(
+            partial and not partial[0]["committed"]
+            and partial[0]["members_bound"] == 4
+        )
+
+        # the crashed half's survivors + the rest of the gang
+        last_alloc = None
+        for i in range(4, 8):
+            _, last_alloc = c.schedule(
+                c.make_pod(f"phoenix-{i}", tpu=1, priority=10, group=group)
+            )
+        converge(c)
+        recovery_s = time.perf_counter() - t0
+
+        leaks = leaked_reservations(c)
+        div = ledger_divergence(c)
+        gangs = c.extender.gang_snapshot()
+        committed = [g for g in gangs if g["group"] == "phoenix"
+                     and g["committed"]]
+
+        # node-agent teardown + cold restart mid-session: the restarted
+        # agent re-registers and still serves the planned intent
+        env = c.execute_allocation(last_alloc, restart_agent=True)
+
+        result = {
+            "metric": "crash_recovery",
+            "value": round(recovery_s, 3),
+            "unit": "s crash -> ledger converged",
+            "recovery_s": round(recovery_s, 3),
+            "members_before_crash": 4,
+            "ledger_before_crash": ledger_before,
+            "restored": restored,
+            "partial_gang_restored": restored_partial,
+            "gang_committed": bool(committed),
+            "leaked_reservations": len(leaks),
+            "ledger_divergence": len(div),
+            "snapshot_audit": _audit_stats(c),
+            "agent_restart_allocate_ok": bool(env),
+        }
+        problems = [str(p) for p in leaks] + div
+        if restored != 4:
+            problems.append(
+                f"rebuild restored {restored} allocation(s), wanted 4 "
+                f"(residue/finished must be skipped)")
+        if not restored_partial:
+            problems.append("partial gang did not restore as an "
+                            "uncommitted reservation")
+        if not committed:
+            problems.append("gang did not commit after restart")
+        if not env:
+            problems.append("restarted node agent failed the Allocate")
+        if problems:
+            raise RuntimeError("scenario 9 invariants violated: "
+                               + "; ".join(problems))
+        return result
+
+
+def _complete_quiet(c: SimCluster, name: str) -> None:
+    """complete_pod whose lifecycle step may hit an injected apiserver
+    fault — the release is deferred, and converge() (the real daemons'
+    retrying poll loops) picks it up next lap."""
+    try:
+        c.complete_pod(name)
+    except RuntimeError:
+        pass
+
+
+def crash_storm(config: GpuKubeConfig | None) -> dict[str, Any]:
+    """Scenario 13: the crash-at-every-seam chaos storm —
+    a scenario-8-style apiserver fault storm interleaved with repeated
+    extender crash/restart cycles at kilonode-ish scale (256 nodes /
+    1024 chips), with the durable-state journal carrying recovery.
+
+    Per cycle: a burst wave schedules through the batched cycles on
+    the fake clock (completion churn frees chips), the journal
+    checkpoints on its cadence, then the extender "process" dies and
+    the :class:`~tpukube_torch.chaos.crash.CrashSchedule` mutilates the
+    journal files the way a real crash at one of the append/checkpoint
+    seams would (clean boundary, lost tail records, torn line, CRC
+    corruption, torn checkpoint). The restart recovers via checkpoint
+    + WAL replay + O(Δ) apiserver reconcile — under the SAME ongoing
+    fault storm — and the cycle's invariants run: the committed
+    training gang must still be committed, zero ledger divergence,
+    zero leaked reservations.
+
+    After the storm, checkpoint-warm recovery is timed against a cold
+    ``rebuild_extender`` on the same final state. Raises on any invariant violation or
+    an unbounded recovery time. ``TPUKUBE_CRASH_CYCLES`` scales the
+    storm (default 8 — the acceptance minimum)."""
+    import os
+    import tempfile
+    from dataclasses import replace as _dc_replace
+
+    from tpukube_torch.chaos import (
+        ChaosSimCluster,
+        CrashSchedule,
+        FaultSchedule,
+        converge,
+        leaked_reservations,
+        ledger_divergence,
+    )
+    from tpukube_torch.core.clock import FakeClock
+    from tpukube_torch.sched import kube
+
+    cycles = int(os.environ.get("TPUKUBE_CRASH_CYCLES", "8"))
+    seed = (config.chaos_seed if config is not None
+            else int(os.environ.get("TPUKUBE_CHAOS_SEED") or 0)) or 1337
+    with tempfile.TemporaryDirectory(prefix="tpukube-journal-") as td:
+        wal_path = os.path.join(td, "wal.jsonl")
+        cfg = config or load_config(env=_env({
+            "TPUKUBE_SIM_MESH_DIMS": "16,16,4",
+            "TPUKUBE_SIM_HOST_BLOCK": "2,2,1",
+            "TPUKUBE_BATCH_ENABLED": "1",
+            "TPUKUBE_BATCH_MAX_PODS": "256",
+            "TPUKUBE_JOURNAL_ENABLED": "1",
+            "TPUKUBE_JOURNAL_PATH": wal_path,
+            # two fake-clock waves per checkpoint: recoveries exercise
+            # BOTH the checkpoint-restore and the WAL-tail-replay arms
+            "TPUKUBE_CHECKPOINT_INTERVAL_SECONDS": "600",
+        }))
+        if not cfg.journal_enabled:
+            raise RuntimeError(
+                "scenario 13 needs journal_enabled (a --config must "
+                "set journal_enabled + journal_path)"
+            )
+        wal_path = cfg.journal_path
+        schedule_ = FaultSchedule(seed, scenario8_storm())
+        crash_sched = CrashSchedule(seed + 7)
+        clock = FakeClock()
+        gang_size = 64
+        violations: list[str] = []
+        recovery_walls: list[float] = []
+        modes: list[str] = []
+        # audit totals ACROSS incarnations (each crash wipes the next
+        # extender's counters; the storm's proof is the sum)
+        audit_checks = audit_divergences = 0
+        with ChaosSimCluster(cfg, schedule_, clock=clock,
+                             in_process=True) as c:
+            ext = c.extender
+
+            def robust(pod, deadline_rounds: int = 60):
+                last = None
+                for _ in range(deadline_rounds):
+                    try:
+                        return c.schedule(pod)
+                    except RuntimeError as e:
+                        last = e
+                        if "degraded mode" in str(e):
+                            time.sleep(c.CIRCUIT_RESET_S)
+                        converge(c, rounds=3)
+                raise RuntimeError(f"pod never scheduled: {last}")
+
+            def committed(name: str) -> bool:
+                return any(
+                    g["committed"] for g in c.extender.gang_snapshot()
+                    if g["group"] == name
+                )
+
+            def drive(pods) -> int:
+                """Batch-drive one wave with scheduler requeue
+                semantics under chaos; unplaced pods are abandoned
+                (their objects leave the store). Returns placed."""
+                ext = c.extender
+                remaining = list(pods)
+                placed = 0
+                for _ in range(8):
+                    if not remaining:
+                        break
+                    c._sync_nodes()
+                    try:
+                        c.drain_evictions()
+                    except RuntimeError:
+                        pass  # injected fault; converge retries below
+                    for obj in remaining:
+                        ext.admit(kube.pod_from_k8s(obj))
+                    ext.plan_pending()
+                    still = []
+                    for obj in remaining:
+                        meta = obj["metadata"]
+                        key = f"{meta['namespace']}/{meta['name']}"
+                        node = ext.planned_node(key)
+                        if node is None:
+                            still.append(obj)
+                            continue
+                        bres = c._post("/bind", {
+                            "PodName": meta["name"],
+                            "PodNamespace": meta["namespace"],
+                            "PodUID": meta["uid"],
+                            "Node": node,
+                        })
+                        if bres.get("Error"):
+                            if "degraded mode" in bres["Error"]:
+                                time.sleep(c.CIRCUIT_RESET_S)
+                            still.append(obj)
+                            continue
+                        meta.setdefault("annotations", {}).update(
+                            bres.get("Annotations", {})
+                        )
+                        obj["spec"]["nodeName"] = node
+                        placed += 1
+                    remaining = still
+                    converge(c, rounds=3)
+                for obj in remaining:
+                    meta = obj["metadata"]
+                    c.pods.pop(f"{meta['namespace']}/{meta['name']}",
+                               None)
+                converge(c, rounds=3)
+                return placed
+
+            # the training gang whose commit every crash must survive
+            group = PodGroup("stormtrain", min_member=gang_size)
+            for i in range(gang_size):
+                robust(c.make_pod(f"st-{i}", tpu=1, priority=100,
+                                  group=group))
+            if not committed("stormtrain"):
+                raise RuntimeError("scenario 13: the training gang "
+                                   "never committed")
+
+            alive: list[str] = []
+            seq = 0
+            pods_placed = 0
+            for cycle in range(cycles):
+                # churn: the oldest half of the burst plane completes
+                done, alive = alive[:64], alive[64:]
+                for name in done:
+                    _complete_quiet(c, name)
+                converge(c, rounds=3)
+                wave = []
+                for _ in range(96):
+                    wave.append(c.make_pod(f"b{seq}", tpu=1))
+                    seq += 1
+                names = [obj["metadata"]["name"] for obj in wave]
+                got = drive(wave)
+                pods_placed += got
+                alive.extend(
+                    n for n in names if f"default/{n}" in c.pods
+                    and c.pods[f"default/{n}"]["spec"].get("nodeName")
+                )
+                c.advance(300.0)  # checkpoint cadence rides the clock
+
+                # the crash: process death + one journal-seam outcome
+                audit_checks += c.extender.snapshots.audit_checks
+                audit_divergences += c.extender.snapshots.audit_divergences
+                c.crash_extender()
+                seam = crash_sched.next_seam()
+                crash_sched.apply(seam, wal_path)
+                t0 = time.perf_counter()
+                c.restart_extender()
+                recovery_walls.append(time.perf_counter() - t0)
+                modes.append(c.last_recovery.get("mode", "?"))
+                converge(c, rounds=5)
+
+                # per-cycle invariants — a violation fails the storm
+                if not committed("stormtrain"):
+                    violations.append(
+                        f"cycle {cycle} ({seam}): committed gang lost")
+                div = ledger_divergence(c)
+                if div:
+                    violations.append(
+                        f"cycle {cycle} ({seam}): ledger divergence "
+                        f"{div[:2]}")
+                leaks = leaked_reservations(c)
+                if leaks:
+                    violations.append(
+                        f"cycle {cycle} ({seam}): leaked reservations "
+                        f"{leaks[:2]}")
+
+            # quiet: storm off, drain, final invariants
+            schedule_.stop()
+            converge(c)
+            robust(c.make_pod("post-storm-probe", tpu=1))
+            converge(c)
+
+            # the acceptance measurement: checkpoint-warm recovery vs
+            # a cold rebuild_extender of the SAME final state
+            ext = c.extender
+            ext.journal.write_checkpoint_sync(ext.checkpoint_doc())
+            from tpukube_torch.apiserver import rebuild_extender
+            from tpukube_torch.sched.extender import Extender as _Ext
+
+            # same trace/events surface as the live extender — the cold
+            # number must be the restart a journal-less daemon would
+            # actually pay, not a stripped-down one
+            cold_cfg = _dc_replace(cfg, journal_enabled=False,
+                                   journal_path="")
+            throwaway = _Ext(cold_cfg, clock=clock)
+            t0 = time.perf_counter()
+            cold_restored = rebuild_extender(throwaway, c._store_api)
+            cold_s = time.perf_counter() - t0
+            # the timing pair runs at the PRODUCTION audit setting (the
+            # sentinel's two full rebuild-compares are a test-mode
+            # cost); the ≥8 storm cycles above already proved the
+            # recovered state correct at whatever rate the run pinned
+            audit_rate = cfg.snapshot_audit_rate
+            object.__setattr__(c.config, "snapshot_audit_rate", 0.0)
+            try:
+                c.crash_extender()
+                t0 = time.perf_counter()
+                c.restart_extender()
+                warm_s = time.perf_counter() - t0
+            finally:
+                object.__setattr__(c.config, "snapshot_audit_rate",
+                                   audit_rate)
+            c.extender.snapshots.audit_rate = audit_rate
+            warm = c.last_recovery
+            converge(c)
+
+            div = ledger_divergence(c)
+            leaks = leaked_reservations(c)
+            journal_stats = c.extender.journal.stats()
+            reasons = c.extender.events.counts_by_reason()
+            recovery_walls.sort()
+            result = {
+                "metric": "crash_storm",
+                "value": len(recovery_walls),
+                "unit": "crash/restart cycles survived",
+                "crash_cycles": cycles,
+                "seams": crash_sched.chosen,
+                "recovery_modes": modes,
+                "recovery_s_max": round(recovery_walls[-1], 4),
+                "recovery_s_p50": round(
+                    recovery_walls[len(recovery_walls) // 2], 4),
+                "warm_recovery_s": round(warm_s, 4),
+                "cold_rebuild_s": round(cold_s, 4),
+                "replay_speedup": round(cold_s / warm_s, 2)
+                if warm_s > 0 else None,
+                "warm_mode": warm.get("mode"),
+                "warm_from_checkpoint": warm.get("checkpoint"),
+                "warm_replayed": warm.get("replayed"),
+                "cold_restored": cold_restored,
+                "pods_placed": pods_placed,
+                "faults_injected": schedule_.injected(),
+                "checkpoints": journal_stats["checkpoints"],
+                "wal_appends": journal_stats["appends"],
+                "wal_replayed_total": journal_stats["replayed_total"],
+                # the LAST incarnation's journal events (an extender's
+                # event ring dies with its process — that is the point)
+                "recovery_events": {
+                    k: reasons.get(k, 0)
+                    for k in ("RecoveryCompleted", "RecoveryDiverged",
+                              "JournalTruncated", "CheckpointWritten")
+                },
+                "ledger_divergence": len(div),
+                "leaked_reservations": len(leaks),
+                "snapshot_audit": {
+                    "rate": cfg.snapshot_audit_rate,
+                    "checks": audit_checks
+                    + c.extender.snapshots.audit_checks,
+                    "divergences": audit_divergences
+                    + c.extender.snapshots.audit_divergences,
+                },
+                "utilization_percent": round(100 * c.utilization(), 2),
+            }
+            problems = list(violations) + div + [str(p) for p in leaks]
+            if recovery_walls[-1] > 30.0:
+                problems.append(
+                    f"recovery took {recovery_walls[-1]:.1f}s — "
+                    f"unbounded recovery time")
+            if not warm.get("checkpoint"):
+                problems.append(
+                    "the final warm recovery did not load a checkpoint")
+            if warm.get("mode") != "warm":
+                problems.append(
+                    f"final recovery mode {warm.get('mode')!r}, "
+                    f"expected warm")
+            if len(modes) != cycles:
+                problems.append(
+                    f"{len(modes)} recoveries ran for {cycles} crash "
+                    f"cycles")
+            if reasons.get("RecoveryCompleted", 0) < 1:
+                problems.append(
+                    "the final recovery was not journaled")
+            if problems:
+                raise RuntimeError("scenario 13 invariants violated: "
+                                   + "; ".join(problems[:6]))
+            return result

@@ -233,9 +233,37 @@ Drives the port's main path the way a cluster does, on the card:
       takes on a copy of those files and serve the same allocations;
       SIGTERM exits 0;
    c. the ``recovery:`` and ``journal:`` lines (host clock);
-16. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+16. the multi-tenant serving plane (``tpukube_torch/tenancy``, host work
+   but b's pods):
+   a. scenario 11 of the port at the reference's size (8 waves, seed 1337:
+      four burst tenants' diurnal waves under quotas and scenario 8's
+      fault storm, a committed training gang, a probe gang that preempts
+      and burns the gang SLO) and scenario 7 (chip and link faults through
+      a node agent's telemetry into the fleet rollup and the SLO
+      evaluator), each held to the invariants the reference's tests
+      assert: zero quota violations, a share ratio <= 2.0, both gangs
+      committed, preemptions, every shed and denial journaled, no leak or
+      divergence, steady utilization >= 90%; scenario 7's transitions,
+      events and fleet rollups;
+   b. an ``extender`` daemon as step 14 starts it, its config adding
+      ``tenancy_enabled`` and ``tenancy_quotas`` (team-a half a card,
+      team-b a card), over a stand-in holding this machine's Node,
+      annotated by a two-share node agent on the card: ``team-a-0`` binds
+      a share; ``team-a-1`` is refused at /filter by team-a's quota while
+      the other share is free (``tpukube_tenancy_shedding`` 0 before it,
+      a ``TenantQuotaDenied`` event, the denial counter at 1); ``team-b-0``
+      binds the other share; each pod's env (the plugin's Allocate) names
+      its tenant in ``TPU_KUBE_TENANT``, and the two serve Llama-3-8B
+      (B=1, S=2048) at once under the guard as step 8's pods do, their
+      ``meshenv`` reading the tenant back; while they run, /statusz and
+      ``tpukube_tenant_chips_used`` show each tenant at half a card and
+      ``obs slo --url`` exits 0; SIGTERM, and a restart with the same
+      config shows the same tenants and allocations; ``team-a-0`` ends,
+      is released, and ``team-a-1`` binds its share;
+   c. the ``tenancy:`` line (host clock; the pods' times beside step 8's);
+17. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-17. prints the kernels line: the JAX package has no Pallas kernel, so the
+18. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -1330,15 +1358,16 @@ SHARE_NODE_ENV = {  # step 12g's two-share node agent, on the sim backend
 
 
 @contextlib.contextmanager
-def share_agent():
+def share_agent(host: str = "share-node"):
     """Step 12g's two-share node agent ``share-node`` (sim backend): its
-    device plugin registered with the in-process kubelet peer."""
+    device plugin registered with the in-process kubelet peer. The tests
+    run step 16b on it under another ``host`` name."""
     from tpukube_torch.core.config import load_config
     from tpukube_torch.device import GpuDeviceManager
     from tpukube_torch.plugin import DevicePluginServer, InProcessKubelet
 
     cfg = load_config(env=SHARE_NODE_ENV)
-    with GpuDeviceManager(cfg, host="share-node") as mgr, InProcessKubelet() as kubelet:
+    with GpuDeviceManager(cfg, host=host) as mgr, InProcessKubelet() as kubelet:
         server = DevicePluginServer(cfg, mgr)
         kubelet.register_plugin(server)
         kubelet.wait_for_devices(server.resource_name, len(mgr.device_list()))
@@ -2497,6 +2526,320 @@ def recovery_phase(card: str, c0, daemons: dict):
     return rec_line, line
 
 
+# -- the multi-tenant serving plane (step 16) ----------------------------------
+
+TENANCY_WAVES = "8"  # scenario 11's default trace (the reference's size)
+TENANT_LABEL = "tpu.qiniu.com/tenant"  # tenancy_label's default
+# half a card for team-a (one share of two), a whole card for team-b
+TENANCY_QUOTAS = "team-a=chips:0.5;team-b=chips:1"
+# step 14's config with the tenancy plane on
+TENANCY_CONFIG = DAEMON_CONFIG + """\
+tenancy_enabled: true
+tenancy_quotas: "{quotas}"
+"""
+# /statusz tenants fields that are process counters (they restart at 0)
+TENANT_COUNTERS = ("sheds", "quota_denials")
+
+
+def tenancy_scenarios() -> dict:
+    """Step 16a: scenario 11 of the port at the reference's size (8
+    waves, seed 1337) and scenario 7, each held to the invariants the
+    reference's tests assert (each scenario also raises on its own).
+    Returns the ``tenancy:`` line's scenario numbers."""
+    from tpukube_torch.sim import scenarios
+
+    with scenario_env({"TPUKUBE_CHAOS_SEED": CHAOS_SEED,
+                       "TPUKUBE_TENANCY_WAVES": TENANCY_WAVES}):
+        r11 = scenarios.run(11)
+    sheds, denials = r11["sheds_by_tenant"], r11["quota_denials_by_tenant"]
+    if (r11["quota_violations"] or r11["value"] is None or r11["value"] > 2.0
+            or set(r11["gangs_committed"]) != {"diurnal-train", "slo-probe"}
+            or r11["preemptions"] <= 0 or not sum(sheds.values())
+            or sum(sheds.values()) != r11["shed_events_journaled"]
+            or not sum(denials.values())
+            or sum(denials.values()) != r11["denial_events_journaled"]
+            or r11["leaked_reservations"] or r11["ledger_divergence"]
+            or r11["steady_utilization_min_percent"] < 90):
+        raise RuntimeError(f"scenario 11: {r11}")
+    r7 = scenarios.run(7)
+    fleet = (r7["fleet_degraded"], r7["fleet_recovered"])
+    if (r7["transitions"] != {"chip_fault": True, "link_fault": True,
+                              "recovery": True}
+            or not {"ChipUnhealthy", "ChipRecovered", "LinkFault",
+                    "LinkRecovered"} <= set(r7["event_reasons"])
+            or r7["chip_series_on_node_metrics"] < 16
+            or (fleet[0]["unhealthy"], fleet[0]["degraded"],
+                fleet[0]["links_down"]) != (1, 2, 1)
+            or (fleet[1]["unhealthy"], fleet[1]["degraded"],
+                fleet[1]["healthy"]) != (0, 0, 16)
+            or any(v["total"] <= 0 or v["burn_rate"] is None
+                   for v in r7["slo"].values())):
+        raise RuntimeError(f"scenario 7: {r7}")
+    return {
+        "s11_wall_s": r11["wall_s"],
+        "s11_share_ratio": r11["value"],
+        "s11_sheds_by_tenant": sheds,
+        "s11_quota_denials_by_tenant": denials,
+        "s11_preemptions": r11["preemptions"],
+        "s11_steady_utilization_min_percent":
+            r11["steady_utilization_min_percent"],
+        "s11_pods_placed": r11["pods_placed"],
+        "s7_wall_s": r7["wall_s"],
+        "s7_slo": r7["slo"],
+    }
+
+
+def tenancy_life(share_agent, run_pair=None) -> dict:
+    """Step 16b: two tenants share this machine's card through the
+    extender daemon with ``tenancy_enabled`` (started as step 14 starts
+    it: config file, mTLS, probe port, the REST stand-in).
+    ``share_agent()`` enters the node agent with two shares per card (its
+    node named ``DAEMON_NODE``); ``run_pair(envs, agent, during)`` runs
+    the two tenants' pods on their share envs and calls ``during()``
+    while they run (None: no pods, ``during()`` alone). Returns the
+    decisions and host-clock times; raises RuntimeError when a check
+    fails. The tests run it on a sim share node."""
+    import ssl
+    import tempfile
+
+    from tpukube_torch.core import codec
+    from tpukube_torch.device.gpu import ENV_KUBE_TENANT
+    from tpukube_torch.sched import client
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sim.harness import _free_port
+    from tpukube_torch.sim.kube_rest import KubeRestServer
+    from tpukube_torch.workload.meshenv import PodGpuEnv
+
+    out: dict = {"quotas": TENANCY_QUOTAS}
+    t_step = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td, \
+            KubeRestServer(token=REST_TOKEN) as kube, \
+            contextlib.ExitStack() as stack:
+        kids = Children(td)
+        stack.callback(kids.close)
+        pki = mint_pki(td)
+        mtls = ssl.create_default_context(cafile=pki["ca"])
+        mtls.load_cert_chain(pki["client_cert"], pki["client_key"])
+        cfg_path = os.path.join(td, "config.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(TENANCY_CONFIG.format(
+                hosts=1, poll=REST_POLL_S,
+                trace=os.path.join(td, "trace.jsonl"),
+                events=os.path.join(td, "events.jsonl"),
+                quotas=TENANCY_QUOTAS))
+        token_path = os.path.join(td, "token")
+        with open(token_path, "w") as f:
+            f.write(REST_TOKEN + "\n")
+        with share_agent() as agent:
+            node = agent.mgr.host
+            if node != DAEMON_NODE:
+                raise RuntimeError(f"the node agent names its node {node}")
+            # the node agent's two-share annotation on this machine's Node
+            kube.store.patch_node_annotations(
+                node, codec.annotate_node(agent.mgr.node_info(), agent.mgr.mesh))
+            port, probe = _free_port(), _free_port()
+            ext_args = [
+                "extender", "--config", cfg_path, "--host", "127.0.0.1",
+                "--port", str(port), "--tls-cert", pki["cert"],
+                "--tls-key", pki["key"], "--tls-client-ca", pki["ca"],
+                "--probe-port", str(probe), "--kube-api", kube.base_url,
+                "--kube-token-file", token_path]
+            base = f"https://127.0.0.1:{port}"
+            probe_base = f"http://127.0.0.1:{probe}"
+
+            def start_extender(name: str):
+                t0 = time.perf_counter()
+                proc = kids.spawn(name, ext_args)
+                t_ready = daemon_wait(f"{name} ready", lambda: https_get(
+                    f"{probe_base}/healthz")["nodes"] == [node], proc)
+                return proc, (t_ready - t0) * 1e3
+
+            def metrics() -> dict:
+                return metric_lines(
+                    https_get(f"{probe_base}/metrics", raw=True).decode())
+
+            def pod(name: str, tenant: str) -> dict:
+                obj = pod_object(name, vtpu=1)
+                obj["metadata"]["labels"] = {TENANT_LABEL: tenant}
+                kube.store.upsert_pod(obj)
+                return obj
+
+            def place(name: str, tenant: str):
+                _, alloc, ms = client.place(port, pod(name, tenant), [node],
+                                            ssl_context=mtls)
+                env = allocate(agent, alloc)
+                seen = PodGpuEnv.from_env(env).tenant
+                if env.get(ENV_KUBE_TENANT) != tenant or seen != tenant:
+                    raise RuntimeError(f"{name}'s env names tenant {seen!r}")
+                out["binds"][name] = alloc.device_ids
+                out["tenants_env"][name] = seen
+                out["webhook_ms"][name] = ms
+                return env
+
+            def tenants_doc() -> dict:
+                doc = https_get(f"{base}/statusz", mtls)["tenants"]
+                return {"capacity": doc["capacity"],
+                        "max_min_share_ratio": doc["max_min_share_ratio"],
+                        "tenants": {t: {k: v for k, v in d.items()
+                                        if k not in TENANT_COUNTERS}
+                                    for t, d in doc["tenants"].items()}}
+
+            out.update(binds={}, tenants_env={}, webhook_ms={})
+            ext1, out["spawn_to_ready_ms"] = start_extender("extender-tenancy")
+            envs = [place("team-a-0", "team-a")]
+            # no SLO burns at the page threshold: the refusal below is
+            # the quota's, not a shed
+            out["shedding_before_refusal"] = metrics()["tpukube_tenancy_shedding"]
+            if out["shedding_before_refusal"] != 0:
+                raise RuntimeError("the tenancy plane is shedding")
+            t = time.perf_counter()
+            fres = client.filter_nodes(port, pod("team-a-1", "team-a"), [node],
+                                       ssl_context=mtls)
+            out["refusal_ms"] = (time.perf_counter() - t) * 1e3
+            out["refusal"] = fres.get("Error") or ""
+            if fres["NodeNames"] or "quota" not in out["refusal"]:
+                raise RuntimeError(f"team-a-1 was not refused by quota: {fres}")
+            events = https_get(f"{base}/events?reason=TenantQuotaDenied", mtls)
+            if [e["object"] for e in events] != ["pod/default/team-a-1"]:
+                raise RuntimeError(f"TenantQuotaDenied events: {events}")
+            out["quota_denials_metric"] = metrics()[
+                'tpukube_tenant_quota_denials_total{tenant="team-a"}']
+            if out["quota_denials_metric"] != 1:
+                raise RuntimeError(f"quota denials {out['quota_denials_metric']}")
+            envs.append(place("team-b-0", "team-b"))
+            if (out["binds"]["team-a-0"] != ["tpu-0-frac0of2"]
+                    or out["binds"]["team-b-0"] != ["tpu-0-frac1of2"]):
+                raise RuntimeError(f"the tenants bound {out['binds']}")
+
+            def during() -> None:
+                doc = https_get(f"{base}/statusz", mtls)["tenants"]["tenants"]
+                chips = {t: doc[t]["chips_used"] for t in ("team-a", "team-b")}
+                page = metrics()
+                gauge = {t: page[f'tpukube_tenant_chips_used{{tenant="{t}"}}']
+                         for t in chips}
+                if chips != {"team-a": 0.5, "team-b": 0.5} or gauge != chips:
+                    raise RuntimeError(f"tenant usage {chips}, gauge {gauge}")
+                rc, text = kids.run("obs-slo", ["obs", "slo", "--url",
+                                                f"{probe_base}/metrics"])
+                if rc != 0:
+                    raise RuntimeError(f"obs slo exited {rc}: {text[-2000:]}")
+                out["chips_used"] = chips
+                out["slo_burn"] = {k: v["burn_rate"]
+                                   for k, v in json.loads(text).items()}
+
+            if run_pair is None:
+                during()
+            else:
+                out["pods"] = run_pair(envs, agent, during)
+            before = (tenants_doc(), https_get(f"{base}/state/allocs", mtls))
+            rc, _ = kids.stop(ext1)
+            if rc != 0:
+                raise RuntimeError(f"the extender exited {rc} on SIGTERM: "
+                                   f"{Children.tail(ext1)}")
+            ext2, out["restart_to_ready_ms"] = start_extender(
+                "extender-tenancy-restarted")
+            after = (tenants_doc(), https_get(f"{base}/state/allocs", mtls))
+            out["restart_same_tenants"] = after[0] == before[0]
+            out["restart_same_allocs"] = after[1] == before[1]
+            if not (out["restart_same_tenants"] and out["restart_same_allocs"]):
+                raise RuntimeError(f"the restarted daemon's tenants {after[0]} "
+                                   f"and allocations {after[1]}, before "
+                                   f"{before}")
+            out["tenants_after_restart"] = after[0]["tenants"]
+            # team-a-0 ends; the lifecycle loop releases its share, and
+            # team-a-1's retry is admitted onto it
+            done = dict(kube.store.get_pod("default", "team-a-0"))
+            done["status"] = {"phase": "Succeeded"}
+            t = time.perf_counter()
+            kube.store.upsert_pod(done)
+            t_rel = daemon_wait("team-a-0's release", lambda: "default/team-a-0"
+                                not in {a["pod"] for a in https_get(
+                                    f"{base}/state/allocs", mtls)}, ext2)
+            out["phase_to_release_ms"] = (t_rel - t) * 1e3
+            place("team-a-1", "team-a")
+            if out["binds"]["team-a-1"] != ["tpu-0-frac0of2"]:
+                raise RuntimeError(f"team-a-1 bound {out['binds']['team-a-1']}")
+            rc, _ = kids.stop(ext2)
+            if rc != 0:
+                raise RuntimeError(f"the extender exited {rc} on SIGTERM: "
+                                   f"{Children.tail(ext2)}")
+        out["routes"] = dict(kube.requests)
+    out["step_s"] = time.perf_counter() - t_step
+    return out
+
+
+def tenancy_phase(card: str, c0, daemons: dict, step8: list):
+    """Step 16 on the card: the scenarios (16a), then ``tenancy_life`` with
+    the card's two-share node agent, the two tenants' ``--shared`` pods
+    serving Llama-3-8B under the guard (16b); prints the ``tenancy:``
+    line's text. ``daemons`` is step 14's line (its /filter round trip
+    over mTLS with tenancy off) and ``step8`` step 8's shared pods'
+    reports. Returns the line's object, or None when a check failed."""
+    from tpukube_torch.native import cudaguard
+
+    host = host_cpu()
+    guard = cudaguard.library_path()
+    quota = c0.hbm_bytes // 2
+
+    def run_pair(envs, agent, during):
+        ran = run_shared(envs, guard, agent.mgr, during=during)
+        if ran is None:
+            raise RuntimeError("the tenants' shared pods failed")
+        return ran[0]
+
+    try:
+        scen = tenancy_scenarios()
+        life = tenancy_life(
+            lambda: node_agent({"TPUKUBE_SHARES_PER_CHIP": "2"}, host=DAEMON_NODE),
+            run_pair=run_pair)
+    except (RuntimeError, subprocess.SubprocessError, OSError) as e:
+        fail(f"tenancy: {e}")
+        return None
+    reports = life.pop("pods")
+    for tenant, r in zip(("team-a", "team-b"), reports):
+        if (r["uuid"] != c0.chip_id or r["tenant"] != tenant
+                or r["max_memory_reserved"] > quota or r["guard_peak"] > quota):
+            fail(f"{tenant}'s pod: {r}")
+            return None
+        print(f"tenant pod {tenant}: " + json.dumps(r, sort_keys=True), flush=True)
+    per_pod = {t: {"forward_ms_median": r["forward_ms_median"],
+                   "tokens_per_s": r["tokens_per_s"]}
+               for t, r in zip(("team-a", "team-b"), reports)}
+    step8_pods = [{"forward_ms_median": r["forward_ms_median"],
+                   "tokens_per_s": r["tokens_per_s"]} for r in step8]
+    tenancy_filter = {t: life["webhook_ms"][f"{t}-0"]["filter"]
+                      for t in ("team-a", "team-b")}
+    line = {"card": card, "host": host, **scen, **life, "pods": per_pod,
+            "step8_pods": step8_pods,
+            "step14_webhook_mtls_ms": daemons["webhook_mtls_ms"]}
+    print(
+        f"tenancy: scenario 11 ({TENANCY_WAVES} waves, seed {CHAOS_SEED}) "
+        f"{scen['s11_wall_s']:.2f} s, share ratio {scen['s11_share_ratio']}, "
+        f"sheds {json.dumps(scen['s11_sheds_by_tenant'], sort_keys=True)}, "
+        f"quota denials "
+        f"{json.dumps(scen['s11_quota_denials_by_tenant'], sort_keys=True)}, "
+        f"{scen['s11_preemptions']} preemptions, steady utilization min "
+        f"{scen['s11_steady_utilization_min_percent']}%; scenario 7 "
+        f"{scen['s7_wall_s']:.2f} s; daemon /filter with tenancy on "
+        + ", ".join(f"{t} {v:.3f} ms" for t, v in tenancy_filter.items())
+        + f" (step 14, tenancy off: {daemons['webhook_mtls_ms']['filter']:.3f} "
+        f"ms); team-a-1 refused by quota in {life['refusal_ms']:.3f} ms "
+        f"(tpukube_tenancy_shedding {life['shedding_before_refusal']:g}); "
+        f"restart -> ready {life['restart_to_ready_ms']:.1f} ms with the "
+        f"same tenants; team-a-0 Succeeded -> released "
+        f"{life['phase_to_release_ms']:.1f} ms, team-a-1 placed on "
+        f"{life['binds']['team-a-1']}; Llama-3-8B B=1 S=2048 per pod: "
+        + ", ".join(f"{t} {v['forward_ms_median']:.3f} ms "
+                    f"{v['tokens_per_s']:.1f} tokens/s" for t, v in per_pod.items())
+        + " (step 8: "
+        + ", ".join(f"{v['forward_ms_median']:.3f} ms {v['tokens_per_s']:.1f} "
+                    f"tokens/s" for v in step8_pods)
+        + f"); step {life['step_s']:.1f} s [host CPU times; {host}; {card}]",
+        flush=True,
+    )
+    return line
+
+
 def mps_daemon_running() -> bool:
     """Whether an MPS control daemon runs on this machine: without one,
     CUDA_MPS_ACTIVE_THREAD_PERCENTAGE binds nothing."""
@@ -2517,12 +2860,14 @@ def pump(stream, q: queue.Queue) -> None:
     q.put(None)
 
 
-def run_shared(envs: list, guard: str, mgr) -> tuple:
+def run_shared(envs: list, guard: str, mgr, during=None) -> tuple:
     """Two ``--shared`` pods, one per share env, under the guard: both are
     started, and released by ``go`` together once both are ``ready``;
     while they run, the node agent's telemetry is sampled and its probe
-    must stay healthy. Returns (reports, ready lines, [(phase, telemetry)])
-    or None when a pod or the probe failed. No pod outlives the call."""
+    must stay healthy, and ``during()`` (when given) runs once, right
+    after the release. Returns (reports, ready lines, [(phase,
+    telemetry)]) or None when a pod or the probe failed. No pod outlives
+    the call."""
     procs, lines = [], []
     try:
         for env in envs:
@@ -2561,6 +2906,8 @@ def run_shared(envs: list, guard: str, mgr) -> tuple:
             proc.stdin.write("go\n")
             proc.stdin.flush()
             proc.stdin.close()
+        if during is not None:
+            during()
         done = [False] * len(procs)
         while not all(done):
             if time.monotonic() > deadline:
@@ -2592,9 +2939,10 @@ def run_shared(envs: list, guard: str, mgr) -> tuple:
             proc.wait()
 
 
-def vgpu_phase(card: str, c0, solo: dict) -> int:
+def vgpu_phase(card: str, c0, solo: dict, shared_out: list) -> int:
     """BASELINE config 3 on the card (module docstring, step 8); 0 or the
-    exit code of the failed check."""
+    exit code of the failed check. The two shared pods' reports go into
+    ``shared_out`` (step 16 prints its tenants' pods beside them)."""
     from tpukube_torch.device.gpu import (
         ENV_HBM_LIMIT,
         ENV_KUBE_CORE_IDS,
@@ -2673,6 +3021,7 @@ def vgpu_phase(card: str, c0, solo: dict) -> int:
         if r["max_memory_reserved"] > quota or r["guard_peak"] > quota:
             return fail(f"shared pod {i} passed its quota {quota}: {r}")
         print(f"shared {i}: " + json.dumps(r, sort_keys=True), flush=True)
+    shared_out.extend(reports)
     nvml_used = max(t.hbm_used_bytes for _, t in samples)
     reserved = sum(r["memory_reserved"] for r in ready)
     if nvml_used <= reserved:
@@ -2863,7 +3212,8 @@ def main() -> int:
     print("dryrun: " + json.dumps(dry, sort_keys=True) + f" [{card}]", flush=True)
 
     # -- vGPU: two pods on shares of the card ---------------------------------
-    rc = vgpu_phase(card, c0, pod)
+    step8_shared: list = []
+    rc = vgpu_phase(card, c0, pod, step8_shared)
     if rc:
         return rc
 
@@ -2937,6 +3287,12 @@ def main() -> int:
     print("recovery: " + json.dumps(recovered[0], sort_keys=True), flush=True)
     print("journal: " + json.dumps(recovered[1], sort_keys=True), flush=True)
 
+    # -- the multi-tenant serving plane: scenarios 11 and 7, two tenants ----
+    tenancy = tenancy_phase(card, c0, daemons, step8_shared)
+    if tenancy is None:
+        return 1
+    print("tenancy: " + json.dumps(tenancy, sort_keys=True), flush=True)
+
     # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -2972,9 +3328,10 @@ def main() -> int:
         "kernels": [],
         "note": "no Pallas kernel in tpukube; the port's native code is host "
                 "C++: gpuinfo (NVML discovery, XID health, telemetry) and "
-                "cudaguard (CUDA driver quota guard); the scheduler extender "
-                "and its durable journal (WAL, CRC, checkpoints) are host "
-                "Python (numpy)",
+                "cudaguard (CUDA driver quota guard); the scheduler extender, "
+                "its durable journal (WAL, CRC, checkpoints), the tenancy "
+                "plane (quotas, DRF order, SLO-burn shedding) and the SLO "
+                "evaluator are host Python (numpy)",
     }), flush=True)
     print(json.dumps({
         "ok": True,

@@ -15,9 +15,9 @@ test_cli.py's ``test_scenarios_one_through_four`` (its env-key check names
 port's daemon is started below); test_ingest.py's checkpoint tests
 (twinned in tests/test_torch_journal.py) and its ``allocs_since`` and
 resync tests (the incremental resync log, ROADMAP.md Queue 1 item 5; the
-ingest halves of its two statusz/metrics tests are held below). test_promlint.py imports the
-reference's SLO module (not ported, item 4): the port's pages are linted
-below with the reference's linter.
+ingest halves of its two statusz/metrics tests are held below).
+test_promlint.py is twinned in tests/test_torch_slo.py; the port's pages
+are linted below with the port's own linter (``obs/slo.py``).
 
 Daemons run as children of these tests (``python -m tpukube_torch.cli``),
 each under its own timeout."""
@@ -48,10 +48,10 @@ import test_telemetry
 import test_trace
 from tpukube import trace as ref_trace
 from tpukube.core.config import load_config as ref_load_config
-from tpukube.obs.slo import parse_metrics, validate_exposition
 from tpukube.sim import scenarios as ref_scenarios
 from tpukube_torch import cli, trace
 from tpukube_torch.core.config import load_config, read_yaml
+from tpukube_torch.obs.slo import parse_metrics, validate_exposition
 from tpukube_torch.sim import scenarios
 from torch_refnative import use_private_tpuinfo
 from torch_twin import REF_SIM_DEFAULTS, TMP_PATH, reference_tests, run_twin
@@ -419,6 +419,15 @@ ACCEPTED_FILES = {
         "checkpoint_interval_seconds: 15\n"
         "journal_fsync: always\n"
     ),
+    "tenancy": (
+        "tenancy_enabled: true\n"
+        "tenancy_quotas: \"team-a=chips:0.5;team-b=chips:1,hbm:0.5\"\n"
+        "tenancy_label: tpu.qiniu.com/tenant\n"
+        "tenancy_default_tenant: shared\n"
+        "tenancy_burn_threshold: 14.4\n"
+        "tenancy_burn_window_seconds: 300\n"
+        "tenancy_shed_priority_max: 0\n"
+    ),
 }
 
 REFUSED_FILES = {
@@ -436,7 +445,7 @@ REFUSED_FILES = {
     "top-level-scalar": "just a string\n",
     "unknown-key": "no_such_field: 1\n",
     "journal-path-without-journal": "journal_path: /var/lib/wal\n",
-    "unported-tenancy": "tenancy_quotas: a=1\n",
+    "tenancy-quotas-without-tenancy": "tenancy_quotas: a=1\n",
     "unported-resync": "generation_log_capacity: 0\n",
     "unported-plane-on": "decisions_enabled: true\n",
     "bad-int": "extender_port: twelve\n",
@@ -482,7 +491,7 @@ def test_config_file_loads_as_the_reference(tmp_path, name):
 REFERENCE_REFUSES_TOO = {
     "nested", "alias", "flow-mapping", "two-documents", "top-level-list",
     "top-level-scalar", "unknown-key", "journal-path-without-journal",
-    "unported-tenancy", "bad-int", "bad-range", "short-tuple",
+    "tenancy-quotas-without-tenancy", "bad-int", "bad-range", "short-tuple",
 }
 # refusals of the reader itself, which name the file's line
 _PARSE_REFUSALS = {
@@ -695,9 +704,8 @@ print(json.dumps({{"rc": rc, "loaded": bad}}))
 def test_unported_tools_exit_2_naming_their_plane(capsys):
     for argv, word in ((["obs", "explain", "default/p"], "provenance"),
                        (["obs", "capacity"], "capacity"),
-                       (["obs", "slo", "--url", "x"], "SLO"),
                        (["shard-worker"], "shard router"),
-                       (["sim", "7"], "SLO")):
+                       (["sim", "14"], "shard router")):
         assert cli.main(argv) == 2, argv
         assert word in capsys.readouterr().err, argv
     assert cli.main(["nope"]) == 2
@@ -705,6 +713,28 @@ def test_unported_tools_exit_2_naming_their_plane(capsys):
     trace_file.write_text("")
     assert cli.main(["obs", "timeline", "--merge", str(trace_file),
                      str(trace_file)]) == 2
+
+
+@pytest.mark.parametrize("argv", [["obs", "slo", "--snapshot"], ["sim", "7"]],
+                         ids=["obs-slo", "sim-7"])
+def test_tools_once_refused_run_and_exit_0(tmp_path, capsys, argv):
+    # ``obs slo`` and ``sim 7`` exited 2 while the SLO evaluator was not
+    # ported; they run now
+    if argv[:2] == ["obs", "slo"]:
+        snap = tmp_path / "metrics.txt"
+        snap.write_text('# TYPE gang_schedule_latency_seconds_bucket counter\n'
+                        'gang_schedule_latency_seconds_bucket{le="2.5"} 99\n'
+                        'gang_schedule_latency_seconds_bucket{le="+Inf"} 100\n')
+        argv = [*argv, str(snap)]
+    assert cli.main(argv) == 0, argv
+    text = capsys.readouterr().out
+    if argv[0] == "obs":
+        assert json.loads(text)["gang-schedule-latency"]["burn_rate"] == 1.0
+    else:
+        out = json.loads(text.strip().splitlines()[-1])
+        assert out["scenario"] == 7
+        assert out["transitions"] == {"chip_fault": True, "link_fault": True,
+                                      "recovery": True}
 
 
 def test_obs_events_filters_a_capture(tmp_path, capsys):

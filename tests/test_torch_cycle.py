@@ -45,7 +45,8 @@ def test_reference_scenario_parity_test_holds_on_the_port(scenario):
 
 
 # test_tenancy's tests of the pod informer's admission feed (batching on,
-# tenancy off); the rest of that module waits for the tenancy plane
+# tenancy off); the rest of that module is twinned in
+# tests/test_torch_tenancy.py
 ADMISSION_TESTS = (
     "test_pod_admission_feed_routes_pending_pods_into_the_queue",
     "test_pod_admission_feed_is_noop_without_batching",

@@ -113,7 +113,7 @@ def test_kilonode_drive_matches_the_reference(n, knob, pods, monkeypatch):
 
 
 @pytest.mark.parametrize("n,plane", [
-    (7, "SLO"), (11, "tenancy"), (14, "shard router"), (15, "drain"),
+    (14, "shard router"), (15, "drain"),
 ])
 def test_unported_scenario_raises_naming_its_plane(n, plane):
     with pytest.raises(NotImplementedError, match=plane):
@@ -123,6 +123,6 @@ def test_unported_scenario_raises_naming_its_plane(n, plane):
 def test_passthrough_of_an_unported_plane_is_refused(monkeypatch):
     # a refused plane's knob reaches load_config through the passthrough
     # and is refused there, never ignored
-    monkeypatch.setenv("TPUKUBE_TENANCY_ENABLED", "1")
+    monkeypatch.setenv("TPUKUBE_DRAIN_ENABLED", "1")
     with pytest.raises(ValueError, match="is not ported yet"):
         scenarios.run(2)

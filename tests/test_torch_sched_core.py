@@ -174,7 +174,6 @@ def test_config_defaults_are_the_reference_s():
 @pytest.mark.parametrize("key,value", [
     ("TPUKUBE_DECISIONS_ENABLED", "1"),
     ("TPUKUBE_CAPACITY_ENABLED", "1"),
-    ("TPUKUBE_TENANCY_ENABLED", "1"),
     ("TPUKUBE_DRAIN_ENABLED", "1"),
     ("TPUKUBE_AUTOSCALE_ENABLED", "1"),
     ("TPUKUBE_LOCK_MONITOR", "1"),

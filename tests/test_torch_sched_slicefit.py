@@ -16,25 +16,24 @@ from tpukube_torch.core.mesh import MeshSpec
 from tpukube_torch.core.types import TopologyCoord, canonical_link
 from tpukube_torch.sched import slicefit
 from torch_refnative import use_private_tpuinfo
-from torch_twin import reference_tests, run_twin
+from torch_twin import reference_cases, run_twin, value_fixtures
 
 use_private_tpuinfo()
 
 SNAPSHOT_SKIPS: dict[str, str] = {}
-DELTA_SKIPS = {
-    "test_property_random_mutations_delta_equals_cold_rebuild": "hypothesis-parametrized",
-}
+DELTA_SKIPS: dict[str, str] = {}
 FIXTURES = {"monkeypatch": lambda g: pytest.MonkeyPatch.context()}
 
 
 @pytest.mark.parametrize(
-    "fn",
-    reference_tests(test_slicefit, {})
-    + reference_tests(test_snapshot, SNAPSHOT_SKIPS)
-    + reference_tests(test_snapshot_delta, DELTA_SKIPS),
-    ids=lambda f: f"{f.__module__}.{f.__name__}")
-def test_reference_slicefit_tests_hold_on_the_port(fn):
-    run_twin(fn, FIXTURES)
+    "fn,params",
+    # one case per test, and per seed of the delta property
+    [pytest.param(*case.values, id=f"{case.values[0].__module__}.{case.id}")
+     for case in reference_cases(test_slicefit, {})
+     + reference_cases(test_snapshot, SNAPSHOT_SKIPS)
+     + reference_cases(test_snapshot_delta, DELTA_SKIPS)])
+def test_reference_slicefit_tests_hold_on_the_port(fn, params):
+    run_twin(fn, {**FIXTURES, **value_fixtures(params)})
 
 
 # (dims, host_block, torus) — the reference's v5p-style mesh, a 2D torus,

@@ -34,6 +34,7 @@ import types
 from typing import Any, Callable, Optional
 
 from tpukube.chaos import ChaosSimCluster as RefChaosSim
+from tpukube.core.config import TpuKubeConfig as RefConfig
 from tpukube.device import TpuDeviceManager as RefDeviceManager
 from tpukube.plugin import DevicePluginServer as RefPluginServer
 from tpukube.plugin import FakeKubelet as RefFakeKubelet
@@ -59,8 +60,14 @@ REF_SIM_DEFAULTS = {
 
 def port_load_config(yaml_path: Optional[str] = None,
                      env: Optional[dict] = None):
+    """The port's ``load_config`` with the reference's sim defaults where
+    neither the file nor ``env`` sets the field (the defaults sit under
+    the file, as the reference's own defaults do)."""
+    in_file = set(port_config.read_yaml(yaml_path)) if yaml_path else set()
+    defaults = {k: v for k, v in REF_SIM_DEFAULTS.items()
+                if k[len(port_config.ENV_PREFIX):].lower() not in in_file}
     return port_config.load_config(
-        yaml_path=yaml_path, env={**REF_SIM_DEFAULTS, **(env or {})})
+        yaml_path=yaml_path, env={**defaults, **(env or {})})
 
 
 def _pod_key(pod: dict) -> str:
@@ -205,6 +212,12 @@ def _port_value(name: str, val: Any) -> Any:
         return val
     if name == "load_config" and getattr(val, "__module__", "") == "tpukube.core.config":
         return port_load_config
+    if isinstance(val, RefConfig):
+        # a module-level config of the reference's defaults: the port's
+        # defaults (its own card, its own backend), not the sim's
+        if val != RefConfig():
+            raise PortLacks(f"{name}: only a default config has a namesake")
+        return port_config.GpuKubeConfig()
     if isinstance(val, types.ModuleType):
         if val.__name__ == "tpukube" or val.__name__.startswith("tpukube."):
             return _port_module(val.__name__)
@@ -282,8 +295,8 @@ def _port_run():
 
 def _rebind(fn: Callable, port: bool, log: list,
             serve_ref: bool = False) -> Callable:
-    """``fn`` with its module's globals remapped (helpers of the same
-    module rebuilt over the same remapped globals)."""
+    """``fn`` with its module's globals remapped (helper functions and
+    classes of the same module rebuilt over the same remapped globals)."""
     g = dict(fn.__globals__)
     base = (_PortRecorder if port
             else _RefServingRecorder if serve_ref else _RefRecorder)
@@ -303,8 +316,19 @@ def _rebind(fn: Callable, port: bool, log: list,
     for name, val in list(g.items()):
         if (isinstance(val, types.FunctionType)
                 and val.__module__ == fn.__module__):
-            g[name] = types.FunctionType(val.__code__, g, val.__name__,
-                                         val.__defaults__, val.__closure__)
+            g[name] = _over(val, g)
+        elif isinstance(val, type) and val.__module__ == fn.__module__:
+            # a helper class of the test module (a mutation driver): its
+            # methods read the same remapped globals
+            ns = {k: _over(v, g) if isinstance(v, types.FunctionType) else v
+                  for k, v in vars(val).items()
+                  if k not in ("__dict__", "__weakref__")}
+            g[name] = type(val.__name__, val.__bases__, ns)
+    return _over(fn, g)
+
+
+def _over(fn: types.FunctionType, g: dict) -> types.FunctionType:
+    """``fn`` rebuilt over globals ``g``."""
     return types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__,
                               fn.__closure__)
 
@@ -332,15 +356,18 @@ def _call(fn: Callable, fixtures: dict[str, Callable]) -> None:
 
 
 def _placed(log: list) -> list:
-    """The chips a log bound, order-free (for tests whose binds race)."""
-    return sorted(c for entry in log if len(entry) == 7 for c in entry[3])
+    """The pods a log bound and the chips each took, order-free (for tests
+    whose binds race: which chip a racing pod lands on, and whether a
+    concurrently deleted pod's chip is bound again, hang on the race)."""
+    return sorted((entry[0], len(entry[2])) for entry in log
+                  if len(entry) == 7)
 
 
 def run_twin(fn: Callable, fixtures: Optional[dict] = None,
              ordered: bool = True, serve_ref: bool = False) -> list:
     """Run reference test ``fn`` against the reference, then the port;
-    assert the decision logs are equal (``ordered=False``: the chips bound,
-    for a test whose threads race each other). ``fixtures`` maps a
+    assert the decision logs are equal (``ordered=False``: the pods bound
+    and their chip counts, for a test whose threads race each other). ``fixtures`` maps a
     parameter name to ``globals -> context manager``; ``serve_ref`` runs
     the reference's SimCluster over its HTTP app (the port's always
     serves inside ``with``). Returns the reference log."""
@@ -363,3 +390,39 @@ def reference_tests(module, skip: dict[str, str]) -> list:
     unknown = set(skip) - set(names)
     assert not unknown, f"skip names no test of {module.__name__}: {unknown}"
     return [vars(module)[n] for n in names if n not in skip]
+
+
+def reference_cases(module, skip: dict[str, str]) -> list:
+    """``reference_tests``' functions, one ``pytest.param(fn, kwargs)``
+    per case of their ``parametrize`` marks (kwargs maps each
+    parametrized argument to its value; ``{}`` for a plain test). Feed
+    the kwargs to ``run_twin`` through :func:`value_fixtures`."""
+    import pytest
+
+    cases = []
+    for fn in reference_tests(module, skip):
+        combos: list[tuple[dict, list[str]]] = [({}, [])]
+        for mark in getattr(fn, "pytestmark", []):
+            if mark.name != "parametrize":
+                continue
+            names = mark.args[0]
+            if isinstance(names, str):
+                names = [n.strip() for n in names.split(",")]
+            ids = mark.kwargs.get("ids")
+            combos = [
+                ({**kw, **dict(zip(names, v if len(names) > 1 else (v,)))},
+                 tags + [str(ids[i]) if ids is not None else str(v)])
+                for kw, tags in combos
+                for i, v in enumerate(mark.args[1])
+            ]
+        for kw, tags in combos:
+            cases.append(pytest.param(
+                fn, kw, id="-".join([fn.__name__, *tags])))
+    return cases
+
+
+def value_fixtures(values: dict) -> dict:
+    """Twin fixtures that hand each parametrized argument its value."""
+    return {name: (lambda g, v=v: contextlib.nullcontext(v))
+            for name, v in values.items()}
+

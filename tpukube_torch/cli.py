@@ -38,7 +38,7 @@ trustworthy base.
 
 Left out or refused, each naming its plane (ROADMAP.md Queue 1):
 ``shard-worker`` (the shard router, item 5); ``obs
-explain`` and ``obs slo`` (decision provenance and SLO, item 4), ``obs
+explain`` (decision provenance, item 4), ``obs
 capacity`` (item 3) and ``obs timeline --merge`` (the federated
 captures, item 5) exit 2; ``sim N`` for a scenario whose plane is not
 ported fails with the scenario runner's message.
@@ -566,8 +566,8 @@ def main_sim(argv: Optional[list[str]] = None) -> int:
         "run a BASELINE config scenario against the real control-plane stack",
     )
     p.add_argument("scenario", type=int, choices=range(1, 16),
-                   help="BASELINE scenario number; the port runs 1-6, 10 "
-                        "and 12 (the others' planes are not ported yet)")
+                   help="BASELINE scenario number; the port runs 1-13 "
+                        "(14 and 15's planes are not ported yet)")
     args = p.parse_args(argv)
     cfg = _setup(args)
 
@@ -608,7 +608,6 @@ _OBS_UNPORTED = {
                "item 4)",
     "capacity": "capacity analytics is not ported yet (ROADMAP.md Queue 1, "
                 "item 3)",
-    "slo": "the SLO evaluator is not ported yet (ROADMAP.md Queue 1, item 4)",
 }
 
 
@@ -617,10 +616,13 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
     decision trace to Chrome trace-event JSON (Perfetto-loadable per-pod
     scheduling timelines); ``events`` queries an event-journal capture
     (the events_path sink, or an /events dump saved one JSON object per
-    line) with pod/node/reason/since filters."""
+    line) with pod/node/reason/since filters; ``slo`` evaluates the
+    burn-rate SLOs against a live /metrics endpoint or a captured
+    snapshot (exit 1 while any SLO burns at page rate)."""
     p = argparse.ArgumentParser(
         prog="tpukube-obs",
-        description="offline observability tooling (timeline / events)",
+        description="offline observability tooling (timeline / events / "
+                    "slo)",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
     tp = sub.add_parser(
@@ -650,6 +652,19 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
                          "seconds before the newest event in the capture")
     ep.add_argument("--json", action="store_true", dest="as_json",
                     help="one JSON object per event instead of text lines")
+    sp = sub.add_parser(
+        "slo",
+        help="evaluate the latency SLOs (burn rates) from /metrics",
+    )
+    src = sp.add_mutually_exclusive_group(required=True)
+    src.add_argument("--url", default=None,
+                     help="live /metrics endpoint to scrape")
+    src.add_argument("--snapshot", default=None, metavar="FILE",
+                     help="captured /metrics text to evaluate offline")
+    sp.add_argument("--window", type=float, default=0.0, metavar="SECONDS",
+                    help="with --url: scrape twice this far apart and "
+                         "report the windowed burn rate (0 = single "
+                         "scrape, lifetime burn)")
     for name, why in _OBS_UNPORTED.items():
         sub.add_parser(name, help=f"not ported: {why}")
     argv = sys.argv[1:] if argv is None else argv
@@ -681,6 +696,9 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
                   file=sys.stderr)
         return 0
 
+    if args.cmd == "slo":
+        return _obs_slo(args)
+
     from tpukube_torch.obs import events as events_mod
 
     evs = events_mod.load(args.events_file)
@@ -698,6 +716,36 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
         else:
             print(events_mod.format_event(ev))
     return 0
+
+
+def _obs_slo(args: argparse.Namespace) -> int:
+    """``obs slo``: DEFAULT_SLOS' burn rates as JSON, from one snapshot
+    (lifetime burn) or two scrapes ``--window`` seconds apart."""
+    import time as time_mod
+
+    from tpukube_torch.obs import slo as slo_mod
+
+    def scrape(url: str) -> str:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.read().decode()
+
+    if args.snapshot:
+        with open(args.snapshot) as f:
+            text = f.read()
+        result = slo_mod.evaluate(text)
+    elif args.window > 0:
+        first = scrape(args.url)
+        time_mod.sleep(args.window)
+        second = scrape(args.url)
+        result = slo_mod.evaluate(second, prev_text=first,
+                                  window_seconds=args.window)
+    else:
+        result = slo_mod.evaluate(scrape(args.url))
+    print(json.dumps(result, indent=2, sort_keys=True))
+    # exit non-zero when any SLO is burning at page rate, so the
+    # command composes into scripts/CI gates
+    burning = any(("page" in v["alerts"]) for v in result.values())
+    return 1 if burning else 0
 
 
 # -- ctl ----------------------------------------------------------------------

@@ -145,13 +145,40 @@ class GpuKubeConfig:
     # batch. Checkpoints fsync before their atomic rename either way.
     journal_fsync: str = "off"
 
+    # Multi-tenant serving plane (tenancy/). With tenancy_enabled the
+    # extender attaches a TenantPlane: tenant ids from the
+    # tenancy_label pod label (unlabeled pods belong to
+    # tenancy_default_tenant), per-tenant quota enforcement at
+    # admission, DRF ordering of the batch scheduling queue,
+    # tenant-aware preemption victim bias, and SLO-burn shedding of
+    # low-priority bursts. false (the default) constructs NOTHING —
+    # placements, /metrics exposition, and alloc annotations stay
+    # byte-identical to the behavior without the plane.
+    tenancy_enabled: bool = False
+    tenancy_label: str = "tpu.qiniu.com/tenant"
+    tenancy_default_tenant: str = "default"
+    # per-tenant caps: "teamA=chips:16,hbm:0.25;teamB=chips:8" —
+    # chips are whole-chip equivalents (vGPU shares count 1/n), hbm a
+    # fraction of total cluster HBM. Empty = no quotas (fairness and
+    # shedding still apply).
+    tenancy_quotas: str = ""
+    # SLO-aware admission: while any DEFAULT_SLOS burn rate over the
+    # sliding window reaches this page threshold (obs/slo.py
+    # MULTIWINDOW_ALERTS' page burn), low-priority non-gang admissions
+    # from over-share tenants are shed with a TenantAdmissionShed
+    # journal event. 0 disables shedding (quotas still enforce).
+    tenancy_burn_threshold: float = 14.4
+    tenancy_burn_window_seconds: float = 60.0
+    # only pods at or below this priority are ever shed (burst
+    # inference traffic; committed training gangs are never shed)
+    tenancy_shed_priority_max: int = 0
+
     # The reference's opt-in planes, not ported yet: load_config refuses
     # a config that turns one on.
     planner_replicas: int = 1
     shard_transport: str = "inprocess"
     decisions_enabled: bool = False
     capacity_enabled: bool = False
-    tenancy_enabled: bool = False
     drain_enabled: bool = False
     autoscale_enabled: bool = False
     lock_monitor: bool = False
@@ -176,7 +203,6 @@ _TUPLE_FIELDS = {"sim_mesh_dims", "sim_host_block", "sim_torus"}
 _NOT_PORTED = {
     "decisions_enabled": "decision provenance",
     "capacity_enabled": "capacity analytics",
-    "tenancy_enabled": "the tenancy plane",
     "drain_enabled": "drain",
     "autoscale_enabled": "the autoscaler",
     "lock_monitor": "the lock-order monitor",
@@ -192,7 +218,6 @@ _RESYNC_LOG_KEY = ENV_PREFIX + "GENERATION_LOG_CAPACITY"
 # config file that sets one is refused, naming the plane (ROADMAP.md
 # Queue 1 item of each)
 _UNPORTED_KEY_PREFIXES = {
-    "tenancy_": "the tenancy plane (Queue 1, item 2)",
     "capacity_": "capacity analytics (Queue 1, item 3)",
     "drain_": "drain (Queue 1, item 3)",
     "autoscale_": "the autoscaler (Queue 1, item 3)",
@@ -532,15 +557,6 @@ def load_config(yaml_path: Optional[str] = None,
         )
     if cfg.batch_max_pods < 1:
         raise ValueError("batch_max_pods must be >= 1")
-    if cfg.cycle_interval_seconds < 0:
-        raise ValueError(
-            "cycle_interval_seconds must be >= 0 (0 = plan on demand)"
-        )
-    if cfg.filter_from_plan and not cfg.batch_enabled:
-        raise ValueError(
-            "filter_from_plan requires batch_enabled — without the "
-            "batch planner there is no cycle plan to answer from"
-        )
     if cfg.journal_enabled and not cfg.journal_path:
         # a journal with nowhere to write would provide no durability
         raise ValueError("journal_enabled requires journal_path")
@@ -557,6 +573,40 @@ def load_config(yaml_path: Optional[str] = None,
         raise ValueError("journal_max_bytes must be >= 0 (0 = uncapped)")
     if cfg.checkpoint_interval_seconds <= 0:
         raise ValueError("checkpoint_interval_seconds must be positive")
+    if cfg.tenancy_quotas and not cfg.tenancy_enabled:
+        # quotas without the plane would be silently unenforced — an
+        # operator who wrote caps believes they are live; fail loudly
+        raise ValueError(
+            "tenancy_quotas is set but tenancy_enabled is false — "
+            "enable tenancy or drop the quotas"
+        )
+    if cfg.tenancy_enabled:
+        if not cfg.tenancy_label or not cfg.tenancy_default_tenant:
+            raise ValueError(
+                "tenancy_label and tenancy_default_tenant must be "
+                "non-empty"
+            )
+        # surface quota-spec mistakes at config load, not at the first
+        # webhook (lazy import: tenancy is only pulled in when used;
+        # parse_quotas raises ValueError with the offending fragment)
+        from tpukube_torch.tenancy import parse_quotas
+
+        parse_quotas(cfg.tenancy_quotas)
+    if cfg.tenancy_burn_threshold < 0:
+        raise ValueError(
+            "tenancy_burn_threshold must be >= 0 (0 = no SLO shedding)"
+        )
+    if cfg.tenancy_burn_window_seconds <= 0:
+        raise ValueError("tenancy_burn_window_seconds must be positive")
+    if cfg.cycle_interval_seconds < 0:
+        raise ValueError(
+            "cycle_interval_seconds must be >= 0 (0 = plan on demand)"
+        )
+    if cfg.filter_from_plan and not cfg.batch_enabled:
+        raise ValueError(
+            "filter_from_plan requires batch_enabled — without the "
+            "batch planner there is no cycle plan to answer from"
+        )
     for name, plane in _NOT_PORTED.items():
         if getattr(cfg, name):
             raise ValueError(f"{name}: {plane} is not ported yet")

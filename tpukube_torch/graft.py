@@ -732,7 +732,8 @@ def shared_main() -> int:
     out = serve(LlamaConfig.llama3_8b(), device, seed=0, requests=SHARED_REQUESTS,
                 batch=1, seq=2048, parity_layers=2, parity_seq=64, on_warm=ready)
     out.update(device=torch.cuda.get_device_name(device), uuid=uuid,
-               device_ids=list(pe.device_ids), mem_fraction=pe.mem_fraction,
+               device_ids=list(pe.device_ids), tenant=pe.tenant,
+               mem_fraction=pe.mem_fraction,
                hbm_limit_bytes=pe.hbm_limit_bytes,
                max_memory_reserved=torch.cuda.max_memory_reserved(device),
                guard_peak=guard.peak(), guard_refused=guard.refused())

@@ -27,6 +27,13 @@ Extender series, under the reference's names and types:
   tpukube_cycle_batch_size{quantile}, tpukube_cycle_wall_seconds{quantile}
   (+ _bucket{le}), tpukube_cycle_queue_age_seconds_bucket{le},
   tpukube_cycle_queue_depth;
+  with the tenancy plane built (``tenancy_enabled``):
+  tpukube_tenant_{chips_used,hbm_used_bytes,dominant_share}{tenant},
+  tpukube_tenant_quota_{chips,hbm_fraction}{tenant},
+  tpukube_tenant_{sheds,quota_denials}_total{tenant},
+  tpukube_tenant_{admission,commit}_seconds_bucket{tenant,le},
+  tpukube_tenancy_burn_rate{slo}, tpukube_tenant_slo_burn{tenant,slo},
+  tpukube_tenancy_shedding;
   with the apiserver channel's Retrier / CircuitBreaker attached
   (``extender.api_retrier``/``api_circuit``):
   tpukube_retry_{attempts,retries,exhausted}_total{op},
@@ -193,6 +200,12 @@ def build_extender_registry(extender, reconcile=None, evictions=None,
     cycle = getattr(extender, "cycle", None)
     if cycle is not None:
         _add_cycle_metrics(reg, cycle)
+    # multi-tenant serving plane (tenancy/): series render only when
+    # tenancy_enabled built a TenantPlane — tenancy-off exposition
+    # stays byte-identical
+    tenants = getattr(extender, "tenants", None)
+    if tenants is not None:
+        _add_tenant_metrics(reg, tenants)
     # the apiserver channel's retry/circuit layer: series render only
     # when a daemon wired the channel objects — sim extenders keep the
     # default exposition
@@ -384,6 +397,97 @@ def _add_cycle_metrics(reg: Registry, cycle) -> None:
         fn=lambda: cycle.queue_depth(),
         help_text="Pending pods admitted to the scheduling queue but "
                   "not yet planned.")
+
+
+def _add_tenant_metrics(reg: Registry, tenants) -> None:
+    """Per-tenant serving-plane families (tenancy/): usage and
+    dominant shares from the epoch-cached TenantLedger, quota caps,
+    and the shed/denial counters the admission gate maintains. One
+    child per tenant the plane knows (quota'd, with usage, or already
+    refused); renderers rebuild per scrape so late tenants appear on
+    the next pull."""
+    names = tenants.known_tenants()
+
+    chips = reg.gauge(
+        "tpukube_tenant_chips_used",
+        help_text="Whole-chip equivalents held per tenant (vTPU "
+                  "shares count 1/n; gang reservations included).")
+    hbm = reg.gauge(
+        "tpukube_tenant_hbm_used_bytes",
+        help_text="HBM bytes held per tenant.")
+    share = reg.gauge(
+        "tpukube_tenant_dominant_share",
+        help_text="DRF dominant share per tenant: max(chips share, "
+                  "HBM share) of cluster capacity.")
+    q_chips = reg.gauge(
+        "tpukube_tenant_quota_chips",
+        help_text="Configured whole-chip quota per tenant (only "
+                  "capped tenants render).")
+    q_hbm = reg.gauge(
+        "tpukube_tenant_quota_hbm_fraction",
+        help_text="Configured HBM-fraction quota per tenant (only "
+                  "capped tenants render).")
+    shed_c = reg.counter(
+        "tpukube_tenant_sheds_total",
+        help_text="Admissions shed per tenant while an SLO burned at "
+                  "the page threshold (TenantAdmissionShed events).")
+    denied_c = reg.counter(
+        "tpukube_tenant_quota_denials_total",
+        help_text="Admissions refused per tenant for quota breaches "
+                  "(TenantQuotaDenied events).")
+
+    def usage_fn(tenant: str, attr: str):
+        def get() -> float:
+            u = tenants.ledger.usage().usage.get(tenant)
+            return float(getattr(u, attr)) if u is not None else 0.0
+        return get
+
+    for t in names:
+        chips.labels(tenant=t).set_function(usage_fn(t, "chips"))
+        hbm.labels(tenant=t).set_function(usage_fn(t, "hbm_bytes"))
+        share.labels(tenant=t).set_function(
+            lambda t=t: tenants.ledger.usage().dominant_share(t))
+        quota = tenants.quotas.get(t)
+        if quota is not None and quota.chips is not None:
+            q_chips.labels(tenant=t).set(quota.chips)
+        if quota is not None and quota.hbm_fraction is not None:
+            q_hbm.labels(tenant=t).set(quota.hbm_fraction)
+        shed_c.labels(tenant=t).set_function(
+            lambda t=t: tenants.counter_snapshot()[0].get(t, 0))
+        denied_c.labels(tenant=t).set_function(
+            lambda t=t: tenants.counter_snapshot()[1].get(t, 0))
+
+    # per-tenant latency histograms: admission (filter)
+    # and commit (bind) walls, observed by the extender per decision —
+    # the admission family is also the per-tenant burn source
+    reg.register(tenants.admission_hist)
+    reg.register(tenants.commit_hist)
+
+    burn = reg.gauge(
+        "tpukube_tenancy_burn_rate",
+        help_text="Last evaluated SLO burn rate per source feeding "
+                  "the shedding decision (sliding window).")
+    for name in tenants.burn.stats()["sources"]:
+        burn.labels(slo=name).set_function(
+            lambda n=name: tenants.burn.stats()["last_burns"].get(n)
+            or 0.0)
+    tburn = reg.gauge(
+        "tpukube_tenant_slo_burn",
+        help_text="Last evaluated per-tenant windowed SLO burn — the "
+                  "tenant-local number a shed decision cites.")
+    bstats = tenants.burn.stats()
+    for tenant, burns in sorted(bstats["last_tenant_burns"].items()):
+        for slo in sorted(burns):
+            tburn.labels(tenant=tenant, slo=slo).set_function(
+                lambda t=tenant, s=slo:
+                tenants.burn.last_tenant_burn(t, s))
+    reg.gauge(
+        "tpukube_tenancy_shedding",
+        # read-only view of the last admission-path evaluation: a
+        # scrape must not slide the burn windows itself
+        fn=lambda: 1.0 if tenants.burn.last_page_burning() else 0.0,
+        help_text="1 while SLO burn is at the page threshold and "
+                  "over-share low-priority admissions are being shed.")
 
 
 def _add_events_counter(reg: Registry, events) -> None:

@@ -22,7 +22,6 @@ from typing import Any
 # the reference's /statusz sections of planes not ported, as it renders
 # them with the plane off
 _RESYNC_OFF = {"enabled": False}     # incremental resync log, Queue 1 item 5
-_TENANTS_OFF = {"enabled": False}    # tenancy, Queue 1 item 2
 _DECISIONS_OFF = {"enabled": False}  # decision provenance, Queue 1 item 4
 # capacity, drain and autoscaler (Queue 1 item 3): the reference leaves
 # their keys out entirely when the plane is off
@@ -180,7 +179,12 @@ def extender_statusz(
         # plan-hit ratio
         "cycle": (extender.cycle.stats() if extender.cycle is not None
                   else {"enabled": False}),
-        "tenants": _TENANTS_OFF,
+        # multi-tenant serving plane (tenancy/): per-tenant
+        # usage/share/quota, shed and denial counters, and the SLO
+        # burn monitor feeding the shedding decision
+        "tenants": (extender.tenants.stats()
+                    if getattr(extender, "tenants", None) is not None
+                    else {"enabled": False}),
         "decisions": _DECISIONS_OFF,
         "events": _events_section(extender.events),
     }

@@ -43,9 +43,12 @@ needs no lock of its own. The pinned snapshot is taken once per cycle
 through the one seam ``_pin_snapshot``: no other ``SnapshotCache`` read
 or ad-hoc sweep construction lives in this module.
 
+With the tenancy plane on (``ext.tenants``) a full drain orders the queue
+by ``drf_order``, the gang arm and the fast path run its admission gate,
+and a planned bind carries the tenant env, as the reference's do.
+
 Left out, because their planes are not ported (ROADMAP.md Queue 1): the
-tenancy plane's queue order (``drf_order``), admission gate and tenant
-env (``ext.tenants``); the decision-provenance records (``ext.decisions``);
+decision-provenance records (``ext.decisions``);
 capacity's stranded-demand forensics and sampling (``ext.capacity``); and
 cycle phase profiling with its timeline spans (``ext.phase_hist``). With
 those planes off the reference never takes these branches, so leaving
@@ -551,6 +554,15 @@ class SchedulingCycle:
         self.plan_misses += 1
         return None
 
+    def note_pending(self, pod_key: str) -> None:
+        """First-admit stamp for a pod refused at the admission gate
+        WITHOUT entering the queue (Extender.admit's tenancy refusal):
+        it is still pending — the informer feed retries it — and the
+        queue-age starvation stats must count it from its first
+        attempt. Retires like any stamp (bind/release)."""
+        self._enqueued_at.setdefault(pod_key,
+                                     self._ext.clock.monotonic())
+
     def on_bound(self, pod_key: str) -> None:
         """A bind actually committed (plan-served or legacy path):
         retire the first-admit stamp — the pod is no longer pending,
@@ -601,18 +613,26 @@ class SchedulingCycle:
                 or now - self._last_drain >= self._interval)
         batch: list[tuple[PodInfo, int, Optional[tuple[str, ...]]]] = []
         if full:
-            order = sorted(
-                self._queue.values(),
-                key=lambda e: (
-                    -e[0].priority,
-                    # gang-aware: members of one gang plan adjacently
-                    # (their reservation assembles within one cycle),
-                    # gangs ahead of strays within a priority band
-                    (0, e[0].group.name) if e[0].group is not None
-                    else (1, ""),
-                    e[1],
-                ),
-            )
+            if ext.tenants is not None:
+                # multi-tenant plane: priority bands first (unchanged),
+                # then progressive dominant-resource fairness within
+                # each band — a neutral plane (one tenant) reproduces
+                # the order without it exactly (parity-tested)
+                order = ext.tenants.drf_order(list(self._queue.values()))
+            else:
+                order = sorted(
+                    self._queue.values(),
+                    key=lambda e: (
+                        -e[0].priority,
+                        # gang-aware: members of one gang plan
+                        # adjacently (their reservation assembles within
+                        # one cycle), gangs ahead of strays within a
+                        # priority band
+                        (0, e[0].group.name) if e[0].group is not None
+                        else (1, ""),
+                        e[1],
+                    ),
+                )
             batch = order[: self._max_pods]
             self._last_drain = now
         if must_plan is not None and must_plan in self._queue and not any(
@@ -850,6 +870,13 @@ class SchedulingCycle:
                     entries.append(self._general(pod, seq, names))
                     continue
                 count = ask[1]
+                if ext.tenants is not None:
+                    refusal = ext.tenants.admit(pod, RESOURCE_TPU, count)
+                    if refusal is not None:
+                        entry.error = refusal
+                        entry.epoch_key = ext.snapshots.epoch_key()
+                        entries.append(entry)
+                        continue
                 ext._remember(pod)
                 try:
                     res = ext.gang.ensure_reservation(pod, count)
@@ -1097,6 +1124,14 @@ class SchedulingCycle:
 
         ext = self._ext
         entry = PodPlan(pod, tuple(names), ext.clock.monotonic(), seq)
+        if ext.tenants is not None:
+            # the same tenancy admission gate the general path hits
+            # inside ext.filter — the fast path answers webhooks too,
+            # so a quota breach or SLO shed must refuse identically
+            refusal = ext.tenants.admit(pod, RESOURCE_TPU, 1)
+            if refusal is not None:
+                entry.error = refusal
+                return entry
         ext._remember(pod)
         overlays: dict[str, _SliceOverlay] = fs["overlays"]
         node_slice: dict[str, str] = fs["node_slice"]
@@ -1171,6 +1206,12 @@ class SchedulingCycle:
             )
             return entry
         env: dict[str, str] = {}
+        if ext.tenants is not None:
+            from tpukube_torch.device.gpu import ENV_KUBE_TENANT
+
+            # same tenant attribution the webhook bind writes — the
+            # assumed allocation's annotation must match it exactly
+            env[ENV_KUBE_TENANT] = ext.tenants.tenant_of(pod)
         try:
             did = make_device_id(view.index_at(coord))
             alloc = AllocResult(

@@ -55,8 +55,12 @@ the durable journal (``sched/journal.py``) and ``handle`` captures a
 periodic checkpoint; ``journal.recover_extender`` restores a restarted
 daemon from them.
 
-Not ported yet (each refused or absent, none faked): tenancy
-(with its preemption victim bias and admission gate), capacity, drain,
+With ``tenancy_enabled`` the tenancy plane (``tenancy/``) gates /filter,
+``admit`` and the batch plans (quotas, SLO-burn shedding), biases
+preemption toward over-share tenants and stamps each bind's alloc env
+with its tenant.
+
+Not ported yet (each refused or absent, none faked): capacity, drain,
 autoscale, decision provenance and cycle phase profiling (``/explain``
 and ``/capacity*`` answer 404 naming the plane), and the shard router.
 """
@@ -94,6 +98,7 @@ from tpukube_torch.device.gpu import (
     ENV_GANG_NUM_SLICES,
     ENV_GANG_SLICE_INDEX,
     ENV_GANG_SLICES,
+    ENV_KUBE_TENANT,
 )
 from tpukube_torch.obs.events import EventJournal
 from tpukube_torch.obs.registry import Histogram
@@ -245,6 +250,33 @@ class Extender:
         # run (under the decision lock): their filter/prioritize/bind
         # invocations are not webhooks and must not feed the histograms
         self._suppress_latency = False
+        # Multi-tenant serving plane (tpukube_torch/tenancy): with
+        # tenancy_enabled the plane gates admissions (quotas + SLO-burn
+        # shedding), orders the batch queue by dominant-resource
+        # fairness, and biases preemption victim choice toward
+        # over-share tenants. None (the config default) constructs
+        # nothing — every placement path and the /metrics exposition
+        # stay byte-identical to the behavior without it.
+        self.tenants = None
+        if config.tenancy_enabled:
+            from tpukube_torch.tenancy import TenantPlane
+
+            self.tenants = TenantPlane(
+                config, self.state, self.gang, events=self.events,
+                clock=self.clock,
+            )
+            # SLO-aware admission reads the DEFAULT_SLOS burn straight
+            # off the daemon's own cumulative histograms — the same
+            # objectives deploy/prometheus-rules.yaml alerts on
+            self.tenants.burn.attach_default_slos({
+                "gang_schedule_latency_seconds": self.gang.commit_hist,
+                "tpukube_webhook_latency_seconds": self.webhook_hist,
+            })
+            # gang reservations carry their tenant so reserved-but-
+            # unbound chips are charged to the right owner
+            self.gang.tenant_of = self.tenants.tenant_of
+            # the plane's decision-provenance hook (plane.decisions)
+            # stays None: the port has no provenance ring yet
         self.preemptions = 0   # victims evicted for higher-priority gangs
         self.binds_total = 0   # successful binds (metrics counter)
         # The bind EFFECTOR: with bindVerb configured, kube-scheduler
@@ -391,6 +423,15 @@ class Extender:
             by_name = (dict(zip(names, raw_nodes))
                        if raw_nodes is not None else None)
             resource, count = ask
+            if self.tenants is not None:
+                # tenancy admission gate: quota breaches and SLO-burn
+                # sheds refuse BEFORE any reservation or preemption
+                # plan exists — the refusal (journaled by the plane)
+                # rides back as the filter error and the scheduler's
+                # requeue turns it into a deferral
+                refusal = self.tenants.admit(pod, resource, count)
+                if refusal is not None:
+                    raise ExtenderError(refusal)
             self._remember(pod)
             res: Optional[GangReservation] = None
             if pod.group is not None:
@@ -489,6 +530,12 @@ class Extender:
                     f"gang needs {total} — refusing to preempt for it"
                 )
         workloads = self._preemption_workloads()
+        # tenant-aware victim bias (tpukube_torch/tenancy): at equal
+        # priority cost the planner prefers boxes whose victims belong
+        # to the most over-entitlement tenants; None with tenancy off
+        # leaves the ranking bit-identical
+        overshare = (self.tenants.overshare_map()
+                     if self.tenants is not None else None)
         plan = None
         plan_slice = None
         best_rank = None
@@ -507,6 +554,7 @@ class Extender:
                 pod.group.shape,
                 pod.priority,
                 broken=ss.broken,
+                overshare=overshare,
             )
             if cand is None:
                 continue
@@ -517,6 +565,7 @@ class Extender:
             if pod.group.allow_dcn and pod.group.shape is None:
                 split = self._plan_split_preemption(
                     workloads, total, count, pod.priority,
+                    overshare=overshare,
                 )
                 if split is not None:
                     victims = [w for p in split.values() for w in p.victims]
@@ -705,6 +754,7 @@ class Extender:
     def _plan_split_preemption(
         self, workloads: list[policy.Workload], total: int,
         chips_per_pod: int, priority: int,
+        overshare: Optional[dict[str, float]] = None,
     ) -> Optional[dict[str, policy.PreemptionPlan]]:
         """Preemption for a DCN-split gang: one cost-optimal box per slice
         (greedy over slices by free capacity, largest feasible volume
@@ -736,7 +786,7 @@ class Extender:
             while vol >= chips_per_pod:
                 cand = policy.find_preemption_plan(
                     in_slice, mesh, unhealthy, vol, None, priority,
-                    broken=broken,
+                    broken=broken, overshare=overshare,
                 )
                 if cand is not None:
                     parts[sid] = cand
@@ -779,6 +829,8 @@ class Extender:
                     pod_keys=tuple(members),
                     gang_key=res.key,
                     slice_id=sid,
+                    tenant=(res.tenant or self.tenants.default
+                            if self.tenants is not None else ""),
                 ))
         for alloc in self.state.allocations():
             if alloc.pod_key in gang_pods:
@@ -798,6 +850,8 @@ class Extender:
                 coords=frozenset(TopologyCoord.of(c) for c in alloc.coords),
                 pod_keys=(alloc.pod_key,),
                 slice_id=sid,
+                tenant=(self.tenants.tenant_of_alloc(alloc)
+                        if self.tenants is not None else ""),
             ))
         return out
 
@@ -1105,6 +1159,11 @@ class Extender:
                 # by a non-victim) never costs the victims their chips
                 self._execute_pending_preemption(res, view, device_ids)
             env: dict[str, str] = {}
+            if self.tenants is not None:
+                # tenant attribution rides the alloc annotation so the
+                # TenantLedger (and a restarted extender's rebuild)
+                # charge the right owner
+                env[ENV_KUBE_TENANT] = self.tenants.tenant_of(pod)
             if res is not None:
                 # gang context for the in-pod runtime (rides the alloc
                 # annotation / downward API — the device plugin's Allocate
@@ -1183,13 +1242,36 @@ class Extender:
         /filter webhook (pod-informer feed / sim batch driver). No-op
         without batching — the webhook path needs no pre-admission.
         Returns True when the pod actually entered the queue (False:
-        batching off, or a live plan already exists — informer
-        re-deliveries must not replan an assumed allocation)."""
+        batching off, tenancy refusal, or a live plan already exists —
+        informer re-deliveries must not replan an assumed allocation).
+
+        With the tenancy plane on, the admission gate runs HERE too —
+        at enqueue time, against pre-drain usage — so a shed burst
+        never even enters the queue (the plan-time gate inside the
+        planning arms stays authoritative for quota races within a
+        drain)."""
         if self.cycle is None:
             return False
         with self._decision_lock:
             if self.cycle.plan_is_live(pod):
+                # informer re-delivery of an already-planned pod: no
+                # re-enqueue, and — checked FIRST — no tenancy gate
+                # run, which would journal a phantom refusal against a
+                # pod whose own assumed usage already fills its quota
                 return False
+            if self.tenants is not None:
+                try:
+                    ask = self.device_request(pod)
+                except ExtenderError:
+                    ask = None  # planning reports the schema error
+                if ask is not None and self.tenants.admit(
+                    pod, ask[0], ask[1]
+                ) is not None:
+                    # refused and journaled, not enqueued — but the pod
+                    # IS pending (the feed retries), so the starvation
+                    # stats must see its first-admit stamp
+                    self.cycle.note_pending(pod.key())
+                    return False
             self.cycle.enqueue(pod)
             return True
 
@@ -1261,6 +1343,12 @@ class Extender:
                     names = self.state.node_names()
                 mk = (kube.filter_result if nodes is not None
                       else kube.filter_result_names)
+                # per-tenant admission latency: the whole filter
+                # decision's wall, charged to the pod's tenant — the
+                # tpukube_tenant_admission_seconds histogram the
+                # per-tenant burn monitor slides its windows over
+                tt0 = (time.monotonic() if self.tenants is not None
+                       else None)
                 try:
                     if self.cycle is not None:
                         # batch mode: admit + plan (one snapshot per
@@ -1282,6 +1370,11 @@ class Extender:
                 except (ExtenderError, GangError, StateError,
                         codec.CodecError) as e:
                     response = mk([], {}, error=str(e))
+                if self.tenants is not None and tt0 is not None:
+                    self.tenants.observe_admission(
+                        self.tenants.tenant_of(pod),
+                        time.monotonic() - tt0,
+                    )
             elif kind == "prioritize":
                 pod, nodes, names = kube.parse_extender_args(body)
                 if nodes is None and names is None:
@@ -1438,6 +1531,7 @@ class Extender:
         response reports the failure to the scheduler for a retry."""
         name, ns, uid, node = kube.parse_binding_args(body)
         key = f"{ns}/{name}"
+        bt0 = time.monotonic()
         degraded = self._degraded_reason()
         if degraded is not None:
             # the filter's fail-safe contract: refused before any
@@ -1511,6 +1605,13 @@ class Extender:
                 self.trace.record("bind", body, response)
             if self.journal is not None:
                 self._maybe_checkpoint()
+        if self.tenants is not None and alloc is not None:
+            # per-tenant commit latency: the whole successful bind
+            # decision's wall, charged to the allocation's tenant
+            self.tenants.observe_commit(
+                self.tenants.tenant_of_alloc(alloc),
+                time.monotonic() - bt0,
+            )
         if alloc is None or self.binder is None:
             return response
         try:

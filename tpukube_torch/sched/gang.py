@@ -35,8 +35,9 @@ enqueues one WAL record (``gre``, ``gdrop``, ``evict``, ``gvtaken``,
 ``gterm``, ``gvgone``, ``gbound``, ``guncommit``, ``gmrel``, ``greas``)
 in the reference's order, ``checkpoint_doc``/``restore_checkpoint`` carry
 the reservations through a checkpoint, and ``apply_journal`` replays a
-record. The port has no tenancy plane: every reservation's ``tenant`` is
-the empty string, as the reference's is with tenancy off.
+record. With the tenancy plane on (``tenancy/``) every reservation carries
+its tenant, stamped by ``tenant_of`` at reservation time and restored
+from the members' alloc env on a rebuild; with it off the tenant is "".
 """
 
 from __future__ import annotations
@@ -81,6 +82,9 @@ class GangReservation:
     slice_coords: dict[str, set[TopologyCoord]]
     chips_per_pod: int
     priority: int = 0  # the reserving pods' priority (preemption blocking)
+    # serving-plane tenant the reservation's chips are accounted to
+    # ("" when tenancy is off — the TenantLedger never reads it then)
+    tenant: str = ""
     created: float = field(default_factory=time.monotonic)
     # pod_key -> (slice id, that member's chips)
     assigned: dict[str, tuple[str, list[TopologyCoord]]] = field(
@@ -181,6 +185,10 @@ class GangManager:
         # structured event journal (obs/events.py), shared with the
         # owning Extender; None = no journal (standalone/unit tests)
         self._events = events
+        # tenant resolver (pod -> tenant id), wired by the Extender
+        # when the multi-tenant serving plane is on; None (the
+        # default) stamps reservations with the empty tenant
+        self.tenant_of = None
         # durable-state journal (sched/journal.py), wired by the owning
         # Extender when journal_enabled; None journals nothing
         self._journal = None
@@ -255,8 +263,7 @@ class GangManager:
     @staticmethod
     def _res_doc(res: GangReservation) -> dict:
         """A reservation as a plain-JSON record (WAL ``gre`` payload and
-        the Checkpoint's reservation list share this one shape; the
-        tenant is always "" — the port has no tenancy plane)."""
+        the Checkpoint's reservation list share this one shape)."""
         return {
             "ns": res.namespace,
             "g": {
@@ -268,7 +275,7 @@ class GangManager:
             },
             "cpp": res.chips_per_pod,
             "prio": res.priority,
-            "tenant": "",
+            "tenant": res.tenant,
             "committed": res.committed,
             # only the FLAG survives: a deferred (unexecuted) eviction
             # plan names live Workload objects that cannot round-trip —
@@ -294,6 +301,17 @@ class GangManager:
             kind="gang", epoch=self._epoch,
             slices=tuple(slices), why=why,
         ))
+
+    def _tenant_for(self, pod: PodInfo) -> str:
+        """The reservation's tenant stamp; "" without a serving plane.
+        A broken resolver must never fail a reservation."""
+        if self.tenant_of is None:
+            return ""
+        try:
+            return self.tenant_of(pod)
+        except Exception:
+            log.exception("tenant resolver failed for %s", pod.key())
+            return ""
 
     def _emit(self, reason: str, res_key: tuple[str, str], message: str,
               warning: bool = False) -> None:
@@ -532,6 +550,7 @@ class GangManager:
                 slice_coords=slice_coords,
                 chips_per_pod=chips_per_pod,
                 priority=pod.priority,
+                tenant=self._tenant_for(pod),
                 created=self._clock.monotonic(),
             )
             self._reservations[key] = res
@@ -712,12 +731,20 @@ class GangManager:
                         return None
                     coords = coords_or_none
                 slice_coords = {slice_id: coords}
+            from tpukube_torch.device.gpu import ENV_KUBE_TENANT
+
             res = GangReservation(
                 group=group,
                 namespace=namespace,
                 slice_coords=slice_coords,
                 chips_per_pod=chips_per_pod,
                 priority=max(a.priority for a in allocs),
+                # tenant attribution survives the restart through the
+                # members' alloc-annotation env, like the chips do
+                tenant=next(
+                    (a.env.get(ENV_KUBE_TENANT) for a in allocs
+                     if a.env.get(ENV_KUBE_TENANT)), "",
+                ),
                 created=self._clock.monotonic(),
             )
             for a in allocs:
@@ -863,6 +890,7 @@ class GangManager:
                 slice_coords={s: set(cs) for s, cs in parts.items()},
                 chips_per_pod=chips_per_pod,
                 priority=pod.priority,
+                tenant=self._tenant_for(pod),
                 created=self._clock.monotonic(),
                 pending_victims=(
                     list(pending_victims) if pending_victims else None
@@ -1307,6 +1335,7 @@ class GangManager:
             },
             chips_per_pod=int(doc["cpp"]),
             priority=int(doc["prio"]),
+            tenant=doc.get("tenant", ""),
             created=self._clock.monotonic(),
         )
         for pk, entry in doc.get("as", {}).items():

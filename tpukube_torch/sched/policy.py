@@ -23,11 +23,6 @@ it executes them — non-gang victims released and queued for eviction,
 gang victims dissolved wholesale. A planned-but-never-bound gang (crash,
 higher-priority queue churn) therefore costs no victim its chips: the TTL
 sweep drops the reservation and the victims were never touched.
-
-The reference's tenancy bias (``overshare``: at equal cost, prefer victims
-of over-entitlement tenants) is left out with the tenancy plane, which
-``load_config`` refuses; it adds a constant 0 to the ranking there when
-tenancy is off, so the ranking below is the reference's.
 """
 
 from __future__ import annotations
@@ -54,6 +49,7 @@ class Workload:
     pod_keys: tuple[str, ...] = ()
     gang_key: Optional[tuple[str, str]] = None
     slice_id: str = DEFAULT_SLICE  # the ICI domain the chips live in
+    tenant: str = ""  # serving-plane owner ("" when tenancy is off)
 
 
 @dataclass(frozen=True)
@@ -72,11 +68,19 @@ def find_preemption_plan(
     shape: Optional[tuple[int, int, int]],
     preemptor_priority: int,
     broken: Optional[set] = None,
+    overshare: Optional[dict[str, float]] = None,
 ) -> Optional[PreemptionPlan]:
     """Cheapest victim set whose eviction opens a contiguous `total`-chip
     box (or the exact `shape`). None when no eligible box exists. Boxes
     spanning a downed ICI link are never candidates — evicting pods cannot
-    repair a link, so such a box would be a degraded slice."""
+    repair a link, so such a box would be a degraded slice.
+
+    ``overshare`` (the tenancy plane's tenant -> over-entitlement map)
+    biases victim choice: at equal priority cost, the box whose victims
+    belong to the MOST over-share tenants wins — the lowest-share
+    preemptor takes chips back from whoever is furthest over. None (the
+    default, and every tenancy-off call) contributes a constant 0.0 to
+    the ranking, leaving the ranking without it bit-identical."""
     # A chip may host several workloads (fractional vTPU co-tenants): all
     # of them must be evicted to free it, so the owner map is coord->list.
     owner: dict[TopologyCoord, list[Workload]] = {}
@@ -100,6 +104,7 @@ def find_preemption_plan(
         broken=broken,
     )
 
+    over = overshare or {}
     best: Optional[tuple] = None  # (key, cost, coords, victims)
     for sb in candidates:
         coords = slicefit.box_coords(mesh, sb.box)
@@ -107,8 +112,14 @@ def find_preemption_plan(
             w.id: w for c in coords for w in owner.get(c, ())
         }
         cost = sum(w.cost for w in victims.values())
+        # tenant bias: rounded once so float noise can never reorder
+        # plans; exactly 0.0 for every box when tenancy is off
+        bias = round(
+            sum(over.get(w.tenant, 0.0) for w in victims.values()), 9
+        )
         key = (
             cost,
+            -bias,  # more over-share victims = preferred at equal cost
             len(victims),
             sb.surface,
             sb.contact,  # already negated: lower = snugger

@@ -261,9 +261,40 @@ Drives the port's main path the way a cluster does, on the card:
       config shows the same tenants and allocations; ``team-a-0`` ends,
       is released, and ``team-a-1`` binds its share;
    c. the ``tenancy:`` line (host clock; the pods' times beside step 8's);
-17. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+17. fleet elasticity and capacity forensics (``sched/drain.py``,
+   ``sched/autoscale.py``, ``obs/capacity.py``, ``chaos/maintenance.py``;
+   host work but b's pods):
+   a. scenario 15 of the port, phases A and B (the maintenance storm of
+      drains, crashes and spot kills on 4 slices of 4x4x1 with an
+      8-member gang and 6 fillers, 6 cycles; the autoscaler's burst -> up
+      -> idle -> down), seed 1337, every snapshot lookup audited, held to
+      the reference's invariants: the gang all-or-nothing, zero leaks and
+      divergences, no tick over the budget, every cordon surviving its
+      crash; then one graceful drain of a resident-loaded 64-GPU slice
+      under budget 2 (begin -> the slice leaves the ledger), and the bulk
+      provisioning of a 10,240-node slice until its GPUs are free to the
+      placement sweeps;
+   b. ``drain_life``: an in-process extender with drain, capacity, the
+      autoscaler (up at queue depth 1, one slice at least, no cooldown),
+      batching and the journal, over step 12's REST stand-in, this
+      machine's node annotated by the real-backend node agent:
+      ``serve-0`` bound to ``tpu-0`` from a batch plan serves Llama-3-8B
+      (B=1, S=2048) until evicted; ``drain.begin`` cordons the node
+      (/statusz shows it); the tick evicts serve-0 through the
+      ``EvictionExecutor`` (SIGTERM to its process, the pod deleted once
+      it exited); ``serve-1`` arrives meanwhile and stays pending,
+      stranded as ``draining`` on /capacity, a one-GPU probe fitting
+      nowhere; the next tick un-ingests the node (``unnodes`` in the WAL,
+      the ``tpukube_drain_*`` families on /metrics); the autoscaler sees
+      serve-1 queued and provisions this machine's Node item (``up``);
+      serve-1 is bound to ``tpu-0`` and serves alone (B=1, three
+      requests); ``obs capacity --url`` exits 0; serve-1 ends and is
+      released;
+   c. the ``elasticity:`` line (host clock; serve-1's forward beside step
+      8's two shared pods);
+18. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-18. prints the kernels line: the JAX package has no Pallas kernel, so the
+19. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -2840,6 +2871,483 @@ def tenancy_phase(card: str, c0, daemons: dict, step8: list):
     return line
 
 
+# -- fleet elasticity and capacity forensics (step 17) -------------------------
+
+MAINT_CYCLES = "6"  # scenario 15's default storm (the reference's size)
+DRAIN_POINT_BUDGET = "2"  # the graceful drain point's eviction budget
+SCALE_UP_NODES = 10240  # the scale-up point: one slice of 32x32x40, 4 per node
+# the in-process extender of 17b: every elasticity plane on, the batch
+# cycle, the journal; the autoscaler scales up on one queued pod, keeps
+# at least one slice and acts on every evaluation (no cooldown)
+DRAIN_LIFE_ENV = {
+    "TPUKUBE_BATCH_ENABLED": "1", "TPUKUBE_DRAIN_ENABLED": "1",
+    "TPUKUBE_CAPACITY_ENABLED": "1", "TPUKUBE_AUTOSCALE_ENABLED": "1",
+    "TPUKUBE_AUTOSCALE_UP_QUEUE_DEPTH": "1",
+    "TPUKUBE_AUTOSCALE_MIN_SLICES": "1",
+    "TPUKUBE_AUTOSCALE_COOLDOWN_SECONDS": "0",
+    "TPUKUBE_JOURNAL_ENABLED": "1", "TPUKUBE_JOURNAL_FSYNC": "always",
+}
+
+
+def elasticity_scenarios() -> dict:
+    """Step 17a: scenario 15 of the port (phases A and B) at the
+    reference's size and seed, every snapshot lookup audited, held to the
+    invariants the reference asserts (the scenario raises on a partial
+    gang, a leak, a divergence, a lost cordon or a tick over the budget;
+    they are checked here again); then the two direct points of the
+    reference's elasticity bench on the port's code. Returns the
+    ``elasticity:`` line's host-side numbers."""
+    from tpukube_torch.core.clock import FakeClock
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.mesh import MeshSpec
+    from tpukube_torch.sim import scenarios
+    from tpukube_torch.sim.harness import SimCluster
+
+    with scenario_env({"TPUKUBE_CHAOS_SEED": CHAOS_SEED,
+                       "TPUKUBE_MAINT_CYCLES": MAINT_CYCLES,
+                       "TPUKUBE_SNAPSHOT_AUDIT_RATE": "1.0"}):
+        r15 = scenarios.run(15)
+    storm, scale, audit = r15["storm"], r15["autoscale"], r15["snapshot_audit"]
+    if (r15["peak_tick_moves"] > r15["budget_moves"] or audit["divergences"]
+            or not audit["checks"] or not storm["drains_completed"]
+            or not storm["spot_kills"] or scale["scale_ups"] != 1
+            or scale["scale_downs"] != 1 or "sharded" in r15):
+        raise RuntimeError(f"scenario 15: {r15}")
+    out = {
+        "s15_wall_s": r15["wall_s"], "s15_cycles": r15["cycles"],
+        "s15_drains_completed": storm["drains_completed"],
+        "s15_scale_downs": scale["scale_downs"],
+        "s15_last_incarnation_evictions":
+            storm["last_incarnation_drain"].get("evictions", 0),
+        "s15_spot_kills": storm["spot_kills"],
+        "s15_returned_slices": storm["returned_slices"],
+        "s15_peak_tick_moves": r15["peak_tick_moves"],
+        "s15_budget_moves": r15["budget_moves"],
+        "s15_audit_checks": audit["checks"],
+    }
+    # one graceful drain of a resident-loaded 64-chip slice under budget
+    # 2, from begin() until the slice leaves the ledger
+    cfg = load_config(env={"TPUKUBE_BACKEND": "sim",
+                           "TPUKUBE_DRAIN_ENABLED": "1",
+                           "TPUKUBE_DRAIN_MAX_CONCURRENT_MOVES":
+                               DRAIN_POINT_BUDGET})
+    mesh = MeshSpec(dims=(4, 4, 4), host_block=(2, 2, 1))
+    with SimCluster(cfg, clock=FakeClock(), in_process=True,
+                    slices={"s0": mesh, "s1": mesh}) as c:
+        ext = c.extender
+        for i in range(16):
+            c.schedule(c.make_pod(f"d{i}", tpu=2))
+        doomed = sorted(n for n in ext.state.node_names()
+                        if ext.state.slice_of_node(n) == "s0")
+        t0 = time.perf_counter()
+        ext.drain.begin(doomed, reason="elasticity point")
+        ticks = 0
+        while ext.drain.active():
+            ext.drain.tick()
+            c.clock.advance(1.0)
+            ticks += 1
+            if ticks > 200:
+                raise RuntimeError("the drain point did not converge")
+        wall = time.perf_counter() - t0
+        st = ext.drain.statusz()
+        if st["completed"] != 1 or "s0" in ext.state.slice_ids():
+            raise RuntimeError(f"the drain point did not complete: {st}")
+    out.update(drain_point_wall_s=wall, drain_point_ticks=ticks,
+               drain_point_evictions=st["evictions_total"],
+               drain_point_peak_tick_moves=st["peak_tick_moves"],
+               drained_chips_per_s=st["chips_removed_total"] / max(wall, 1e-9))
+    out.update(scale_up_point(SCALE_UP_NODES))
+    return out
+
+
+def scale_up_point(n_nodes: int) -> dict:
+    """Bulk provisioning of one fresh slice of ``n_nodes`` nodes (4 GPUs
+    each under a 2,2,1 host block, the reference's 32x32x40 geometry at
+    10,240 nodes) through ``upsert_nodes`` until its chips are free to
+    the placement sweeps: the scale-up's time to capacity."""
+    from tpukube_torch.core import codec
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.mesh import MeshSpec
+    from tpukube_torch.core.types import ChipInfo, NodeInfo
+    from tpukube_torch.sched.extender import Extender
+
+    dims = (32, 32, max(1, n_nodes * 4 // (32 * 32)))
+    mesh = MeshSpec(dims=dims, host_block=(2, 2, 1))
+    items = []
+    for host in mesh.all_hosts()[:n_nodes]:
+        name = f"as-{host}"
+        chips = [ChipInfo(chip_id=f"{name}-chip-{i}", index=i, coord=c,
+                          hbm_bytes=16 * 2**30)
+                 for i, c in enumerate(mesh.coords_of_host(host))]
+        items.append({"name": name, "annotations": codec.annotate_node(
+            NodeInfo(name=name, chips=chips, slice_id="as"), mesh)})
+    ext = Extender(load_config(env={"TPUKUBE_BACKEND": "sim"}))
+    try:
+        t0 = time.perf_counter()
+        results = ext.upsert_nodes_many(items)
+        snap = ext.snapshots.current()
+        free = sum(snap.slice(sid).free_chips for sid in ext.state.slice_ids())
+        took = time.perf_counter() - t0
+    finally:
+        ext.state.retire()
+    bad = [r for r in results if r != {"ours": True}]
+    if bad or free != len(items) * 4:
+        raise RuntimeError(f"the scale-up point: {len(bad)} rejects, "
+                           f"{free} GPUs free of {len(items) * 4}")
+    return {"scale_up_nodes": len(items), "scale_up_gpus": free,
+            "scale_up_to_capacity_s": took}
+
+
+def drain_life(card_agent, start_serving=None, run_solo=None) -> dict:
+    """Step 17b: this machine's node drained under a serving pod and given
+    back by the autoscaler, every effect through the REST channel of
+    step 12 (the stand-in apiserver, ``rest_loops`` with the admission
+    feed). The extender runs in process with ``DRAIN_LIFE_ENV`` (drain,
+    capacity, the autoscaler, batching, the journal), its HTTP app on
+    127.0.0.1.
+
+    ``card_agent()`` enters the node agent; ``start_serving(env)``
+    starts serve-0's container (a Popen that prints a ``serving`` line,
+    then serves until SIGTERM); ``run_solo(env)`` runs serve-1 to its end
+    and returns its report. None for either: no container (the tests).
+
+    serve-0 is admitted by the feed, planned, bound to tpu-0 from the
+    plan, and its env comes from the plugin's Allocate. The drain
+    cordons the node (``begin``: the cordon is durable when it returns);
+    /statusz shows it. The drain tick evicts serve-0 (its GPU leaves the
+    ledger, as a preemption victim's does); the executor's Eviction POST
+    reaches the stand-in, whose kubelet part SIGTERMs the container and
+    deletes the pod once it has exited. Meanwhile serve-1 arrives, is
+    admitted and planned to no node: its GPU is free but cordoned, so
+    /capacity's stranded ledger names it ``draining``, and the probe of
+    one GPU fits nowhere. The lifecycle loop's DELETED event confirms the
+    eviction; the next tick un-ingests the node (``unnodes`` in the WAL
+    after a sync) and counts the drain on /metrics. serve-1 is retried (kube-scheduler marks it
+    unschedulable: a MODIFIED event re-admits it), the autoscaler sees
+    queue depth 1 and provisions this machine's Node item (once: one
+    machine): ``up``; the probe fits again, serve-1 is planned and bound
+    to tpu-0 and runs; ``obs capacity --url`` exits 0; serve-1 ends and
+    is released. Returns the decisions and host-clock times; raises
+    RuntimeError when a check fails. No container outlives the call."""
+    import math
+    import signal
+    import tempfile
+
+    from tpukube_torch.apiserver import FakeApiServer
+    from tpukube_torch.graft import ENV_ALLOC
+    from tpukube_torch.sched import client
+    from tpukube_torch.sched.journal import load_wal
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sim.kube_rest import KubeRestServer
+
+    pkg = port_pkg()
+    a, codec = pkg.api, pkg.codec
+    procs: dict = {}  # pod key -> its container's process
+    t_sig: list = []
+
+    class KubeletApi(FakeApiServer):
+        """The stand-in's store, with the kubelet's half of an eviction:
+        an accepted eviction of a graceful pod SIGTERMs its container."""
+
+        def evict_pod(self, namespace, name, dry_run=False):
+            ok = super().evict_pod(namespace, name, dry_run=dry_run)
+            proc = procs.get(f"{namespace}/{name}")
+            if ok and not dry_run and proc is not None and proc.poll() is None:
+                t_sig.append(time.perf_counter())
+                proc.send_signal(signal.SIGTERM)
+            return ok
+
+    out: dict = {"binds": {}}
+    t_step = time.perf_counter()
+    store = KubeletApi()
+    with tempfile.TemporaryDirectory() as td, \
+            KubeRestServer(store=store, token=REST_TOKEN) as kube, \
+            contextlib.ExitStack() as stack:
+
+        def stop_containers() -> None:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+
+        stack.callback(stop_containers)
+        wal = os.path.join(td, "wal.jsonl")
+        cfg = pkg.load_config(env={**DRAIN_LIFE_ENV, "TPUKUBE_JOURNAL_PATH": wal})
+        api = pkg.rest_api(cfg, kube.base_url, token=REST_TOKEN)
+        ext = pkg.Extender(cfg)
+        stack.callback(ext.journal.close)
+        # the step drives the drain's ticks itself; the decision path's
+        # amortized tick would take the eviction out of its hands
+        ext.drain.TICK_INTERVAL_S = math.inf
+        loops = stack.enter_context(rest_loops(pkg, ext, api, admission=True))
+        server = pkg.serve(ext, evictions=loops.execu, lifecycle=loops.lifecycle,
+                           reconcile=loops.reconcile, node_refresh=loops.refresh)
+        stack.callback(server.server_close)
+        stack.callback(server.shutdown)
+        port = server.server_address[1]
+        base = f"http://127.0.0.1:{port}"
+
+        def get(path: str):
+            return https_get(f"{base}{path}")
+
+        def metrics() -> dict:
+            return metric_lines(https_get(f"{base}/metrics", raw=True).decode())
+
+        agent = stack.enter_context(card_agent())
+        node = agent.mgr.host
+        out["node"] = node
+        res = agent.server.resource_name
+        intents = a.AllocIntentWatcher(api, node, agent.server,
+                                       poll_seconds=REST_POLL_S)
+        intents.start()
+        stack.callback(intents.stop)
+        wait_for("the intent watch", intents.stream_connected)
+        annotations = codec.annotate_node(agent.mgr.node_info(), agent.mgr.mesh)
+        api.patch_node_annotations(node, annotations)
+        wait_for("node topology", lambda: ext.state.node(node) is not None)
+        chips = len(ext.state.node(node).info.chips)
+
+        def admitted(name: str, n: int) -> None:
+            wait_for(f"{name}'s admission", lambda: loops.feed.admitted >= n)
+
+        def bind_from_plan(name: str) -> dict:
+            """Plan the queue, then kube-scheduler's cycle over HTTP, the
+            Binding POST, the intent watch and the kubelet's Allocate:
+            the pod's container env."""
+            key = f"default/{name}"
+            ext.plan_pending()
+            if ext.planned_node(key) != node:
+                raise RuntimeError(f"{name} planned on {ext.planned_node(key)}")
+            host, alloc, _ = client.place(port, pod_object(name, tpu=1), [node])
+            out["binds"][name] = alloc.device_ids
+            wait_for(f"{name}'s intent", lambda: agent.server.intents
+                     .snapshot().get(key) == alloc.device_ids)
+            payload = (api.get_pod("default", name)["metadata"]["annotations"]
+                       [codec.ANNO_ALLOC])
+            if host != node or alloc.device_ids != ["tpu-0"]:
+                raise RuntimeError(f"{name} bound {alloc.device_ids} on {host}")
+            return {**alloc.env, **agent.kubelet.allocate(res, alloc.device_ids),
+                    ENV_ALLOC: payload}
+
+        # serve-0: admitted by the feed, bound from the plan, serving
+        kube.store.upsert_pod(pod_object("serve-0", tpu=1))
+        admitted("serve-0", 1)
+        env0 = bind_from_plan("serve-0")
+        kube.store.graceful.add("default/serve-0")  # terminates as the kubelet lets it
+        if start_serving is not None:
+            proc = procs["default/serve-0"] = start_serving(env0)
+            lines: queue.Queue = queue.Queue()
+            threading.Thread(target=pump, args=(proc.stdout, lines),
+                             daemon=True).start()
+            while True:
+                line = lines.get(timeout=POD_TIMEOUT_S)
+                if line is None:
+                    raise RuntimeError(f"serve-0 exited {proc.wait()} before "
+                                       f"serving")
+                print(f"serve-0: {line.rstrip()}", flush=True)
+                if line.startswith('{"serving"'):
+                    break
+
+        # the drain: cordon (durable when begin returns)
+        t = time.perf_counter()
+        drain_id = ext.drain.begin([node], reason="maintenance")
+        t_cordon = time.perf_counter()
+        out["begin_to_cordon_ms"] = (t_cordon - t) * 1e3
+        out["cordoned"] = sorted(ext.state.cordoned_nodes())
+        active = get("/statusz")["drain"]["active"]
+        out["statusz_drain_active"] = len(active)
+        if [d["id"] for d in active] != [drain_id] or out["cordoned"] != [node]:
+            raise RuntimeError(f"the drain: /statusz {active}, cordoned "
+                               f"{out['cordoned']}")
+        # the tick: serve-0 evicted; the executor's Eviction POST reaches
+        # the stand-in, whose kubelet part SIGTERMs the container and
+        # deletes the pod once it has exited
+        exited = threading.Event()
+        t_exit: list = []
+
+        def kubelet(proc) -> None:
+            if proc is not None:
+                proc.wait()
+            t_exit.append(time.perf_counter())
+            exited.set()
+            kube.store.finish_termination("default", "serve-0")
+
+        t_tick = time.perf_counter()
+        moves = ext.drain.tick()
+        loops.execu.check_once()
+        if moves != 1 or ext.state.allocation("default/serve-0") is not None:
+            raise RuntimeError(f"the drain tick moved {moves}")
+        proc = procs.get("default/serve-0")
+        if proc is not None and not t_sig:
+            raise RuntimeError("the eviction did not SIGTERM serve-0")
+        threading.Thread(target=kubelet, args=(proc,), daemon=True).start()
+        # serve-1 arrives while serve-0 terminates: admitted, planned to
+        # no node; its GPU is free in the ledger but cordoned, so the
+        # stranded ledger names the drain, and a probe fits nowhere
+        kube.store.upsert_pod(pod_object("serve-1", tpu=1))
+        admitted("serve-1", 2)
+        ext.plan_pending()
+        if ext.planned_node("default/serve-1") is not None:
+            raise RuntimeError("serve-1 was planned onto the cordoned node")
+        doc = get("/capacity")
+        out["stranded_reasons"] = {r: n for row in doc["stranded"]["by_shape"]
+                                   for r, n in row["reasons"].items()}
+        out["unschedulable"] = doc["unschedulable"]
+        probe = get("/capacity/probe?count=1")
+        out["probe_fits_before"] = probe["fits"]
+        if out["stranded_reasons"] != {"draining": 1} or probe["fits"]:
+            raise RuntimeError(f"serve-1 stranded {doc['stranded']}, probe "
+                               f"{probe}")
+        if not exited.wait(PREEMPT_TIMEOUT_S):
+            raise RuntimeError(f"serve-0 did not exit in {PREEMPT_TIMEOUT_S} s")
+        if proc is not None:
+            # the cordon's interval holds the /statusz read above; the
+            # tick's is the choreography alone
+            out["cordon_to_sigterm_ms"] = (t_sig[0] - t_cordon) * 1e3
+            out["tick_to_sigterm_ms"] = (t_sig[0] - t_tick) * 1e3
+            out["sigterm_to_exit_ms"] = (t_exit[0] - t_sig[0]) * 1e3
+            if proc.returncode != -signal.SIGTERM:
+                raise RuntimeError(f"serve-0 exited {proc.returncode}, not by "
+                                   f"its SIGTERM")
+        wait_for("serve-0's eviction confirmed", lambda: loops.execu.evicted == 1)
+        out["evicted"] = ["default/serve-0"]
+        # the next tick: nothing left on the node, the drain un-ingests it
+        ext.drain.tick()
+        t_done = time.perf_counter()
+        out["exit_to_completed_ms"] = (t_done - t_exit[0]) * 1e3
+        st = ext.drain.stats()
+        out["removed_nodes"] = ([node] if node not in ext.state.node_names()
+                                else [])
+        if st["completed"] != 1 or node in ext.state.node_names():
+            raise RuntimeError(f"the drain did not complete: {st}")
+        ext.journal.sync()
+        records, _ = load_wal(wal)
+        out["wal_unnodes"] = [r["d"]["n"] for r in records if r["k"] == "unnodes"]
+        page = metrics()
+        out["metrics"] = {k: page.get(k) for k in (
+            "tpukube_drain_completed_total", "tpukube_drain_evictions_total",
+            "tpukube_drain_chips_removed_total")}
+        if out["metrics"] != {"tpukube_drain_completed_total": 1.0,
+                              "tpukube_drain_evictions_total": 1.0,
+                              "tpukube_drain_chips_removed_total": float(chips)}:
+            raise RuntimeError(f"/metrics drain families {out['metrics']}")
+        # kube-scheduler's retry marks serve-1 unschedulable: the MODIFIED
+        # event re-admits it, and the queue holds it
+        retried = dict(kube.store.get_pod("default", "serve-1"))
+        retried["status"] = {"phase": "Pending", "conditions": [
+            {"type": "PodScheduled", "status": "False",
+             "reason": "Unschedulable"}]}
+        kube.store.upsert_pod(retried)
+        admitted("serve-1", 3)
+        # the scale-up: this machine's Node item, once (one machine)
+        items = [{"name": node, "annotations": annotations}]
+        t_up = time.perf_counter()
+        with ext._decision_lock:
+            ext.autoscaler.set_provisioner(lambda: [items.pop()] if items else [])
+            out["queue_depth_at_tick"] = ext.cycle.queue_depth()
+            out["decision"] = ext.autoscaler.tick()
+        if out["decision"] != "up" or node not in ext.state.node_names():
+            raise RuntimeError(f"the autoscaler decided {out['decision']} at "
+                               f"queue depth {out['queue_depth_at_tick']}")
+        out["probe_fits_after"] = get("/capacity/probe?count=1")["fits"]
+        env1 = bind_from_plan("serve-1")
+        out["up_to_bound_ms"] = (time.perf_counter() - t_up) * 1e3
+        out["metrics"]["tpukube_autoscaler_scale_ups_total"] = metrics().get(
+            "tpukube_autoscaler_scale_ups_total")
+        if run_solo is not None:
+            out["solo"] = run_solo(env1)
+        obs = subprocess.run(
+            [sys.executable, "-m", "tpukube_torch.cli", "obs", "capacity",
+             "--url", base], cwd=ROOT, env=pod_env({}), capture_output=True,
+            text=True, timeout=60)
+        out["obs_capacity_rc"] = obs.returncode
+        out["obs_capacity"] = obs.stdout.strip().splitlines()
+        if obs.returncode != 0:
+            raise RuntimeError(f"obs capacity --url exited {obs.returncode}: "
+                               f"{obs.stderr[-2000:]}")
+        # serve-1 ends and is released; no pod outlives the step
+        done = dict(kube.store.get_pod("default", "serve-1"))
+        done["status"] = {"phase": "Succeeded"}
+        kube.store.upsert_pod(done)
+        wait_for("serve-1's release",
+                 lambda: ext.state.allocation("default/serve-1") is None)
+        streams_held(intents)
+        out["drain"] = ext.drain.statusz()
+        out["autoscaler"] = ext.autoscaler.statusz()
+    out["routes"] = dict(kube.requests)
+    out["step_s"] = time.perf_counter() - t_step
+    return out
+
+
+def elasticity_phase(card: str, c0, step8: list):
+    """Step 17 on the card: scenario 15 and the two points (17a), then
+    ``drain_life`` with the card's node agent, serve-0 a Llama-3-8B B=1
+    pod serving until evicted and serve-1 a B=1 pod of 3 requests (17b);
+    prints the ``elasticity:`` line's text. ``step8`` is step 8's shared
+    pods' reports. Returns the line's object, or None when a check
+    failed."""
+    host = host_cpu()
+
+    def start_serving(env):
+        return subprocess.Popen(
+            [sys.executable, "-m", "tpukube_torch.graft", "--requests",
+             str(BURST_REQUESTS), "--batch", "1"],
+            cwd=ROOT, env=pod_env(env), stdout=subprocess.PIPE, text=True)
+
+    def run_solo(env):
+        r = run_pod(["--requests", "3", "--batch", "1"], env, "pod")
+        if r is None:
+            raise RuntimeError("serve-1's pod failed")
+        return r
+
+    try:
+        scen = elasticity_scenarios()
+        life = drain_life(lambda: node_agent({}), start_serving=start_serving,
+                          run_solo=run_solo)
+    except (RuntimeError, subprocess.SubprocessError, OSError,
+            queue.Empty) as e:
+        fail(f"elasticity: {e}")
+        return None
+    solo = life.pop("solo")
+    if solo["uuid"] != c0.chip_id or solo["batch"] != 1:
+        fail(f"serve-1's pod: {solo}")
+        return None
+    print("serve-1: " + json.dumps(solo, sort_keys=True), flush=True)
+    step8_pods = [{"forward_ms_median": r["forward_ms_median"],
+                   "tokens_per_s": r["tokens_per_s"]} for r in step8]
+    line = {"card": card, "host": host, **scen, **life,
+            "serve1": {"forward_ms_median": solo["forward_ms_median"],
+                       "tokens_per_s": solo["tokens_per_s"]},
+            "step8_pods": step8_pods}
+    print(
+        f"elasticity: scenario 15 A+B ({scen['s15_cycles']} cycles, seed "
+        f"{CHAOS_SEED}, audit 1.0) {scen['s15_wall_s']:.3f} s, "
+        f"{scen['s15_drains_completed']} storm drains + "
+        f"{scen['s15_scale_downs']} scale-down, "
+        f"{scen['s15_last_incarnation_evictions']} evictions (last "
+        f"incarnation), {scen['s15_spot_kills']} spot kills, peak "
+        f"{scen['s15_peak_tick_moves']} moves a tick (budget "
+        f"{scen['s15_budget_moves']}); a 64-GPU slice drained in "
+        f"{scen['drain_point_wall_s'] * 1e3:.1f} ms "
+        f"({scen['drained_chips_per_s']:.1f} GPUs/s, budget "
+        f"{DRAIN_POINT_BUDGET}); {scen['scale_up_nodes']} nodes to capacity "
+        f"in {scen['scale_up_to_capacity_s']:.3f} s; this node: begin -> "
+        f"cordon {life['begin_to_cordon_ms']:.3f} ms, cordon -> SIGTERM "
+        f"{life['cordon_to_sigterm_ms']:.3f} ms (the tick's "
+        f"{life['tick_to_sigterm_ms']:.3f} ms), SIGTERM -> exit "
+        f"{life['sigterm_to_exit_ms']:.1f} ms, exit -> drain completed "
+        f"{life['exit_to_completed_ms']:.1f} ms, scale-up decision -> "
+        f"serve-1 bound {life['up_to_bound_ms']:.3f} ms; serve-1 alone, "
+        f"Llama-3-8B B=1 S=2048: {solo['forward_ms_median']:.3f} ms, "
+        f"{solo['tokens_per_s']:.1f} tokens/s (step 8's two shared pods: "
+        + ", ".join(f"{v['forward_ms_median']:.3f} ms {v['tokens_per_s']:.1f} "
+                    f"tokens/s" for v in step8_pods)
+        + f"); step {life['step_s']:.1f} s [host CPU times; {host}; {card}]",
+        flush=True,
+    )
+    return line
+
+
 def mps_daemon_running() -> bool:
     """Whether an MPS control daemon runs on this machine: without one,
     CUDA_MPS_ACTIVE_THREAD_PERCENTAGE binds nothing."""
@@ -3293,6 +3801,12 @@ def main() -> int:
         return 1
     print("tenancy: " + json.dumps(tenancy, sort_keys=True), flush=True)
 
+    # -- fleet elasticity: scenario 15, this node drained and scaled back --
+    elastic = elasticity_phase(card, c0, step8_shared)
+    if elastic is None:
+        return 1
+    print("elasticity: " + json.dumps(elastic, sort_keys=True), flush=True)
+
     # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -3330,8 +3844,9 @@ def main() -> int:
                 "C++: gpuinfo (NVML discovery, XID health, telemetry) and "
                 "cudaguard (CUDA driver quota guard); the scheduler extender, "
                 "its durable journal (WAL, CRC, checkpoints), the tenancy "
-                "plane (quotas, DRF order, SLO-burn shedding) and the SLO "
-                "evaluator are host Python (numpy)",
+                "plane (quotas, DRF order, SLO-burn shedding), the SLO "
+                "evaluator, drain, the autoscaler and capacity analytics are "
+                "host Python (numpy)",
     }), flush=True)
     print(json.dumps({
         "ok": True,

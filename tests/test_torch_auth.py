@@ -198,7 +198,8 @@ def test_every_route_answers_as_the_reference():
         assert ({k: got["snapshot"][k] for k in keep}
                 == {k: want["snapshot"][k] for k in keep})
         assert got["ingest"]["nodes_total"] == want["ingest"]["nodes_total"]
-        # the unported planes' routes: 404 on both, the port naming them
+        # /explain (decision provenance, not ported) and /capacity with
+        # its plane off: 404 on both
         for path in ("/explain?pod=default/a", "/capacity",
                      "/capacity/probe?count=4"):
             assert same("GET", path)[0] == 404

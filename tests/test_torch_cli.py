@@ -703,7 +703,6 @@ print(json.dumps({{"rc": rc, "loaded": bad}}))
 
 def test_unported_tools_exit_2_naming_their_plane(capsys):
     for argv, word in ((["obs", "explain", "default/p"], "provenance"),
-                       (["obs", "capacity"], "capacity"),
                        (["shard-worker"], "shard router"),
                        (["sim", "14"], "shard router")):
         assert cli.main(argv) == 2, argv
@@ -715,11 +714,21 @@ def test_unported_tools_exit_2_naming_their_plane(capsys):
                      str(trace_file)]) == 2
 
 
-@pytest.mark.parametrize("argv", [["obs", "slo", "--snapshot"], ["sim", "7"]],
-                         ids=["obs-slo", "sim-7"])
-def test_tools_once_refused_run_and_exit_0(tmp_path, capsys, argv):
+@pytest.mark.parametrize("argv", [["obs", "slo", "--snapshot"], ["sim", "7"],
+                                  ["obs", "capacity"], ["sim", "15"]],
+                         ids=["obs-slo", "sim-7", "obs-capacity", "sim-15"])
+def test_tools_once_refused_run_and_exit_0(tmp_path, capsys, monkeypatch,
+                                           argv):
     # ``obs slo`` and ``sim 7`` exited 2 while the SLO evaluator was not
-    # ported; they run now
+    # ported, ``obs capacity`` and ``sim 15`` while capacity analytics and
+    # drain were not; they run now
+    if argv == ["obs", "capacity"]:
+        capture = tmp_path / "capacity.jsonl"
+        capture.write_text(json.dumps({"ts": 1.7e9, "fleet": {
+            "utilization": 0.5}, "queue": {"depth": 2}}) + "\n")
+        argv = [*argv, str(capture)]
+    if argv == ["sim", "15"]:
+        monkeypatch.setenv("TPUKUBE_MAINT_CYCLES", "2")
     if argv[:2] == ["obs", "slo"]:
         snap = tmp_path / "metrics.txt"
         snap.write_text('# TYPE gang_schedule_latency_seconds_bucket counter\n'
@@ -728,8 +737,13 @@ def test_tools_once_refused_run_and_exit_0(tmp_path, capsys, argv):
         argv = [*argv, str(snap)]
     assert cli.main(argv) == 0, argv
     text = capsys.readouterr().out
-    if argv[0] == "obs":
+    if argv[:2] == ["obs", "slo"]:
         assert json.loads(text)["gang-schedule-latency"]["burn_rate"] == 1.0
+    elif argv[:2] == ["obs", "capacity"]:
+        assert "utilization" in text and "(last 50.0% over 1 samples)" in text
+    elif argv[1] == "15":
+        out = json.loads(text.strip().splitlines()[-1])
+        assert out["scenario"] == 15 and out["storm"]["drains_completed"] >= 1
     else:
         out = json.loads(text.strip().splitlines()[-1])
         assert out["scenario"] == 7

@@ -113,16 +113,27 @@ def test_kilonode_drive_matches_the_reference(n, knob, pods, monkeypatch):
 
 
 @pytest.mark.parametrize("n,plane", [
-    (14, "shard router"), (15, "drain"),
+    (14, "shard router"),
 ])
 def test_unported_scenario_raises_naming_its_plane(n, plane):
     with pytest.raises(NotImplementedError, match=plane):
         scenarios.run(n)
 
 
+def test_once_unported_scenario_15_runs(monkeypatch):
+    # scenario 15 raised while drain and the autoscaler were not ported;
+    # phases A and B run now (tests/test_torch_drain.py holds them
+    # against the reference's), phase C still waits on the shard router
+    monkeypatch.setenv("TPUKUBE_MAINT_CYCLES", "2")
+    got = scenarios.run(15)
+    assert got["scenario"] == 15 and "sharded" not in got
+    assert got["storm"]["drains_completed"] >= 1
+    assert got["autoscale"]["scale_ups"] == 1
+
+
 def test_passthrough_of_an_unported_plane_is_refused(monkeypatch):
     # a refused plane's knob reaches load_config through the passthrough
     # and is refused there, never ignored
-    monkeypatch.setenv("TPUKUBE_DRAIN_ENABLED", "1")
+    monkeypatch.setenv("TPUKUBE_DECISIONS_ENABLED", "1")
     with pytest.raises(ValueError, match="is not ported yet"):
         scenarios.run(2)

@@ -173,9 +173,6 @@ def test_config_defaults_are_the_reference_s():
 
 @pytest.mark.parametrize("key,value", [
     ("TPUKUBE_DECISIONS_ENABLED", "1"),
-    ("TPUKUBE_CAPACITY_ENABLED", "1"),
-    ("TPUKUBE_DRAIN_ENABLED", "1"),
-    ("TPUKUBE_AUTOSCALE_ENABLED", "1"),
     ("TPUKUBE_LOCK_MONITOR", "1"),
     ("TPUKUBE_PLANNER_REPLICAS", "2"),
     ("TPUKUBE_SHARD_TRANSPORT", "subprocess"),
@@ -187,3 +184,23 @@ def test_every_opt_in_plane_is_refused(key, value):
     # off, the same key is accepted
     off = {"TPUKUBE_PLANNER_REPLICAS": "1", "TPUKUBE_SHARD_TRANSPORT": "inprocess"}
     load_config(env={key: off.get(key, "0")})
+
+
+@pytest.mark.parametrize("key,plane", [
+    ("TPUKUBE_CAPACITY_ENABLED", "capacity"),
+    ("TPUKUBE_DRAIN_ENABLED", "drain"),
+    ("TPUKUBE_AUTOSCALE_ENABLED", "autoscaler"),
+])
+def test_once_refused_elasticity_planes_load_and_build(key, plane):
+    # refused until capacity, drain and the autoscaler were ported: on,
+    # each builds its plane on the extender as the reference's does
+    # (the autoscaler with drain, which it requires); off, none is built
+    from tpukube_torch.sched.extender import Extender
+
+    env = {key: "1"}
+    if plane == "autoscaler":
+        env["TPUKUBE_DRAIN_ENABLED"] = "1"
+    on, off = (Extender(load_config(env=e)) for e in (env, {key: "0"}))
+    assert getattr(on, plane) is not None
+    assert getattr(off, plane) is None
+    assert getattr(load_config(env=env), key[len("TPUKUBE_"):].lower())

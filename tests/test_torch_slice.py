@@ -189,6 +189,8 @@ def test_port_pulls_in_no_control_plane_dependency():
         "tpukube_torch.sched.policy, tpukube_torch.core.retry\n"
         "import tpukube_torch.sim.kube_rest\n"
         "import tpukube_torch.tenancy, tpukube_torch.obs.slo\n"
+        "import tpukube_torch.obs.capacity, tpukube_torch.sched.drain, "
+        "tpukube_torch.sched.autoscale, tpukube_torch.chaos.maintenance\n"
         "import tpukube_torch.plugin, tpukube_torch.plugin.server, "
         "tpukube_torch.plugin.proto.deviceplugin, tpukube_torch.plugin.fake_kubelet\n"
         "bad = ('yaml', 'grpc', 'google.protobuf', 'aiohttp', 'jax', 'jaxlib', 'optax', "
@@ -246,7 +248,9 @@ def test_scheduler_is_host_code_without_torch():
         "tpukube_torch.sim.scenarios, tpukube_torch.obs.timeline, "
         "tpukube_torch.chaos, tpukube_torch.chaos.crash, "
         "tpukube_torch.sched.journal, tpukube_torch.tenancy, "
-        "tpukube_torch.obs.slo\n"
+        "tpukube_torch.obs.slo, tpukube_torch.obs.capacity, "
+        "tpukube_torch.sched.drain, tpukube_torch.sched.autoscale, "
+        "tpukube_torch.chaos.maintenance\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'tpukube', 'aiohttp', 'grpc', 'yaml') "
         "or m.startswith('google.protobuf'))))\n"
@@ -268,7 +272,7 @@ def test_scenarios_in_process_load_no_control_plane_dependency():
         "os.environ['TPUKUBE_CRASH_CYCLES'] = '2'\n"
         "os.environ['TPUKUBE_TENANCY_WAVES'] = '3'\n"
         "out = [scenarios.run(n)['scenario'] "
-        "for n in (1, 3, 5, 7, 8, 9, 11, 13)]\n"
+        "for n in (1, 3, 5, 7, 8, 9, 11, 13, 15)]\n"
         "del os.environ['TPUKUBE_BATCH_ENABLED']\n"
         "out.append(scenarios.run(10)['pods_total'])\n"
         "print(json.dumps([out, sorted(m for m in sys.modules if m.split('.')[0] "
@@ -278,7 +282,7 @@ def test_scenarios_in_process_load_no_control_plane_dependency():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                           capture_output=True, text=True, timeout=300)
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == [
-        [1, 3, 5, 7, 8, 9, 11, 13, 300], []]
+        [1, 3, 5, 7, 8, 9, 11, 13, 15, 300], []]
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):

@@ -12,10 +12,12 @@ The schedule draws every fault decision from one seeded RNG in call
 order, so a scenario replays the same fault sequence for the same seed,
 on either package. Scenarios 8, 9 and 13 drive this end to end and
 assert the recovery invariants: zero leaked gang reservations and zero
-ledger/apiserver divergence after the dust settles.
+ledger/apiserver divergence after the dust settles. The maintenance and
+spot-churn schedules (``chaos/maintenance.py``) take capacity out of a
+live fleet in scenario 15.
 
-Not ported yet: the maintenance and spot-churn schedules (drain, ROADMAP
-Queue 1 item 3) and ``replica_crash_recover`` (the shard router, item 5).
+Not ported yet: ``replica_crash_recover`` (the shard router, ROADMAP
+Queue 1 item 5).
 """
 
 from tpukube_torch.apiserver import transient_api_error
@@ -27,6 +29,10 @@ from tpukube_torch.chaos.cluster import (
     ledger_divergence,
 )
 from tpukube_torch.chaos.crash import CrashSchedule
+from tpukube_torch.chaos.maintenance import (
+    MaintenanceSchedule,
+    SpotChurnSchedule,
+)
 from tpukube_torch.chaos.schedule import ChaosSpec, FaultSchedule
 
 __all__ = [
@@ -35,6 +41,8 @@ __all__ = [
     "ChaosSpec",
     "CrashSchedule",
     "FaultSchedule",
+    "MaintenanceSchedule",
+    "SpotChurnSchedule",
     "converge",
     "leaked_reservations",
     "ledger_divergence",

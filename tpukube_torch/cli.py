@@ -36,12 +36,16 @@ the apiserver reconcile, ``sched/journal.py``) and falls back to the
 full rebuild from the apiserver when the journal cannot produce a
 trustworthy base.
 
+``obs capacity`` renders a capacity flight-recorder capture (one file,
+or several per-replica files with ``--merge``) or a live ``/capacity``
+(``--url``; ``--probe-count``/``--probe-shape`` ask ``/capacity/probe``
+instead) as a sparkline, csv or json.
+
 Left out or refused, each naming its plane (ROADMAP.md Queue 1):
-``shard-worker`` (the shard router, item 5); ``obs
-explain`` (decision provenance, item 4), ``obs
-capacity`` (item 3) and ``obs timeline --merge`` (the federated
-captures, item 5) exit 2; ``sim N`` for a scenario whose plane is not
-ported fails with the scenario runner's message.
+``shard-worker`` (the shard router, item 5); ``obs explain`` (decision
+provenance, item 4) and ``obs timeline --merge`` (the federated captures,
+item 5) exit 2; ``sim N`` for a scenario whose plane is not ported fails
+with the scenario runner's message.
 """
 
 from __future__ import annotations
@@ -550,6 +554,8 @@ def main_extender(argv: Optional[list[str]] = None) -> int:
         # drain the capture sinks so a post-mortem read sees every event
         if extender.trace is not None:
             extender.trace.close()
+        if extender.capacity is not None:
+            extender.capacity.close()
         extender.events.close()
         if extender.journal is not None:
             # drain the queued WAL records before exit (a SIGKILL loses
@@ -566,8 +572,9 @@ def main_sim(argv: Optional[list[str]] = None) -> int:
         "run a BASELINE config scenario against the real control-plane stack",
     )
     p.add_argument("scenario", type=int, choices=range(1, 16),
-                   help="BASELINE scenario number; the port runs 1-13 "
-                        "(14 and 15's planes are not ported yet)")
+                   help="BASELINE scenario number; the port runs 1-13 and "
+                        "15's phases A and B (14's plane, and 15's phase "
+                        "C, are not ported yet)")
     args = p.parse_args(argv)
     cfg = _setup(args)
 
@@ -586,18 +593,14 @@ def main_sim(argv: Optional[list[str]] = None) -> int:
 
 # -- obs ----------------------------------------------------------------------
 
-_DURATION_UNITS = {"s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0}
-
-
 def _since_arg(text: str) -> float:
     """argparse type for ``--since``: epoch seconds, a bare relative
-    number, or a suffixed duration (15m, 2h, 90s, 1d)."""
-    t = str(text).strip()
+    number, or a suffixed duration (15m, 2h, 90s, 1d) — the shared
+    parser lives in tpukube_torch.obs.capacity."""
+    from tpukube_torch.obs.capacity import parse_since
+
     try:
-        if not t:
-            raise ValueError("empty duration")
-        unit = _DURATION_UNITS.get(t[-1].lower())
-        return float(t[:-1]) * unit if unit is not None else float(t)
+        return parse_since(text)
     except ValueError as e:
         raise argparse.ArgumentTypeError(str(e)) from None
 
@@ -606,8 +609,6 @@ def _since_arg(text: str) -> float:
 _OBS_UNPORTED = {
     "explain": "decision provenance is not ported yet (ROADMAP.md Queue 1, "
                "item 4)",
-    "capacity": "capacity analytics is not ported yet (ROADMAP.md Queue 1, "
-                "item 3)",
 }
 
 
@@ -616,13 +617,15 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
     decision trace to Chrome trace-event JSON (Perfetto-loadable per-pod
     scheduling timelines); ``events`` queries an event-journal capture
     (the events_path sink, or an /events dump saved one JSON object per
-    line) with pod/node/reason/since filters; ``slo`` evaluates the
-    burn-rate SLOs against a live /metrics endpoint or a captured
-    snapshot (exit 1 while any SLO burns at page rate)."""
+    line) with pod/node/reason/since filters; ``capacity`` renders the
+    capacity flight recorder (a capture or a live /capacity) and asks
+    /capacity/probe; ``slo`` evaluates the burn-rate SLOs against a live
+    /metrics endpoint or a captured snapshot (exit 1 while any SLO burns
+    at page rate)."""
     p = argparse.ArgumentParser(
         prog="tpukube-obs",
         description="offline observability tooling (timeline / events / "
-                    "slo)",
+                    "capacity / slo)",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
     tp = sub.add_parser(
@@ -652,6 +655,40 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
                          "seconds before the newest event in the capture")
     ep.add_argument("--json", action="store_true", dest="as_json",
                     help="one JSON object per event instead of text lines")
+
+    cp = sub.add_parser(
+        "capacity",
+        help="render a capacity flight-recorder capture or a live "
+             "/capacity endpoint (sparkline / csv / json)",
+    )
+    cp.add_argument("capacity_file", nargs="*",
+                    help="capacity_path JSONL capture(s); pass several "
+                         "with --merge (one per replica)")
+    cp.add_argument("--url", default=None,
+                    help="live extender base URL (reads /capacity)")
+    cp.add_argument("--token-file", default=None, metavar="FILE",
+                    help="bearer token file for an --auth-token-file "
+                         "extender (/capacity sits behind its auth)")
+    cp.add_argument("--merge", action="store_true",
+                    help="stitch several per-replica captures into one "
+                         "fleet view (each file becomes a replica lane "
+                         "named for it)")
+    cp.add_argument("--since", type=_since_arg, default=None,
+                    metavar="T",
+                    help="absolute unix timestamp, a relative duration "
+                         "(15m, 2h), or a bare number < 1e9 = seconds "
+                         "before the newest sample")
+    cp.add_argument("--format", default="sparkline",
+                    choices=("sparkline", "csv", "json"),
+                    help="output rendering (default: sparkline)")
+    cp.add_argument("--probe-count", type=int, default=None,
+                    metavar="N",
+                    help="with --url: what-if probe for N contiguous "
+                         "chips (/capacity/probe) instead of the "
+                         "recorder document")
+    cp.add_argument("--probe-shape", default=None, metavar="XxYxZ",
+                    help="with --url: what-if probe for a shaped box "
+                         "(e.g. 4x4x4)")
     sp = sub.add_parser(
         "slo",
         help="evaluate the latency SLOs (burn rates) from /metrics",
@@ -698,6 +735,8 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
 
     if args.cmd == "slo":
         return _obs_slo(args)
+    if args.cmd == "capacity":
+        return _obs_capacity(p, args)
 
     from tpukube_torch.obs import events as events_mod
 
@@ -715,6 +754,67 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
             print(json.dumps(ev, sort_keys=True))
         else:
             print(events_mod.format_event(ev))
+    return 0
+
+
+def _obs_capacity(p: argparse.ArgumentParser, args) -> int:
+    """``obs capacity``: a live /capacity (or /capacity/probe) with
+    ``--url``, else one capture file or several with ``--merge``."""
+    import os
+
+    from tpukube_torch import trace as trace_mod
+    from tpukube_torch.obs import capacity as capacity_mod
+
+    if args.url:
+        if args.capacity_file:
+            p.error("--url and capture files are exclusive")
+
+        def fetch(path: str) -> dict:
+            req = urllib.request.Request(f"{args.url}{path}")
+            if args.token_file:
+                with open(args.token_file) as f:
+                    req.add_header("Authorization",
+                                   f"Bearer {f.read().strip()}")
+            with urllib.request.urlopen(req, timeout=10) as r:
+                return json.loads(r.read())
+
+        if args.probe_count is not None or args.probe_shape:
+            q = (f"count={args.probe_count}"
+                 if args.probe_count is not None
+                 else f"shape={args.probe_shape}")
+            doc = fetch(f"/capacity/probe?{q}")
+            print(json.dumps(doc, indent=2, sort_keys=True))
+            # composes into scripts: exit 0 only when the demand fits
+            # somewhere (contiguous or via the DCN fallback)
+            return 0 if (doc.get("fits")
+                         or (doc.get("dcn") or {}).get("fits")) else 1
+        since = f"?since={args.since}" if args.since is not None else ""
+        print(capacity_mod.format_capacity(
+            fetch(f"/capacity{since}"), args.format))
+        return 0
+    if not args.capacity_file:
+        p.error("a capture file or --url is required")
+    if args.probe_count is not None or args.probe_shape:
+        p.error("--probe-count/--probe-shape need --url (a probe runs "
+                "against a live snapshot)")
+    if len(args.capacity_file) > 1 and not args.merge:
+        p.error("multiple capture files require --merge")
+    since = args.since
+    if args.merge:
+        per = [(os.path.basename(path), {"samples": trace_mod.load(path)})
+               for path in args.capacity_file]
+        doc = capacity_mod.merge_capacity_docs(per)
+    else:
+        doc = {"samples": trace_mod.load(args.capacity_file[0])}
+    samples = doc.get("samples") or []
+    if since is not None:
+        if since < 1e9:
+            newest = max((float(s.get("ts", 0.0)) for s in samples),
+                         default=0.0)
+            since = newest - since
+        doc["samples"] = [s for s in samples
+                          if float(s.get("ts", 0.0)) >= since]
+    print(capacity_mod.format_capacity(doc, args.format))
     return 0
 
 

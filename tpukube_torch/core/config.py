@@ -16,9 +16,10 @@ with a dot, ``yes/no/on/off/true/false``, quoted and plain strings).
 Anything else (nesting, block lists, anchors, tags, block scalars,
 several documents, a null) raises ValueError naming the line.
 
-The reference's opt-in planes are not ported yet: a config that turns one
-on, or a file that sets one of their keys, is refused by
-:func:`load_config` rather than silently ignored.
+The reference's opt-in planes that are not ported yet (decision
+provenance, the shard router and its wire codec, the lock-order monitor):
+a config that turns one on, or a file that sets one of their keys, is
+refused by :func:`load_config` rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -173,14 +174,64 @@ class GpuKubeConfig:
     # inference traffic; committed training gangs are never shed)
     tenancy_shed_priority_max: int = 0
 
+    # Capacity analytics & demand forensics (obs/capacity.py). With
+    # capacity_enabled the extender keeps a bounded flight-recorder ring
+    # of periodic fleet samples (per-slice utilization / fragmentation /
+    # largest-free-box, queue depth, tenant shares), root-causes every
+    # failed/deferred plan into the stranded-demand taxonomy (fragmented
+    # / capacity / quota / shed / unhealthy / dcn-ineligible / draining)
+    # and serves /capacity + /capacity/probe. Samples ride the
+    # scheduling clock and the snapshot's observer view. false (the
+    # default) constructs nothing: no recorder, no series, placements
+    # and exposition stay byte-identical.
+    capacity_enabled: bool = False
+    capacity_sample_interval_seconds: float = 30.0
+    # flight-recorder ring depth (samples, not bytes)
+    capacity_samples: int = 2048
+    # optional JSONL sample sink for `obs capacity --merge` (size-capped
+    # like the trace/events sinks)
+    capacity_path: str = ""
+    capacity_sink_max_bytes: int = 64 * 1024**2
+
+    # Graceful drain / decommission (sched/drain.py). With drain_enabled
+    # the extender attaches a DrainCoordinator: cordon a node/slice
+    # (excluded from every placement sweep while live allocations keep
+    # serving), migrate-or-preempt residents through the preemption
+    # victim machinery and the eviction executor under a bounded
+    # disruption budget, then release and un-ingest (the inverse of
+    # ingest_nodes: one epoch/delta/journal seam per batch). false (the
+    # default) constructs nothing: placements, exposition and journal
+    # bytes stay byte-identical.
+    drain_enabled: bool = False
+    # most resident evictions per drain tick (the disruption budget)
+    drain_max_concurrent_moves: int = 4
+    # most evictions charged to ONE tenant per drain tick (0 = no
+    # per-tenant budget; only meaningful with tenancy attribution)
+    drain_tenant_budget: int = 0
+
+    # Autoscaler loop (sched/autoscale.py). With autoscale_enabled the
+    # extender attaches an Autoscaler that grows the fleet against queue
+    # depth + tenant SLO burn (bulk ingest of provisioned slices) and
+    # shrinks it by driving drains when utilization idles below the
+    # floor. Requires drain_enabled: scale-down IS a drain. false (the
+    # default) constructs nothing.
+    autoscale_enabled: bool = False
+    # queue depth at/above which a scale-up fires (SLO page burn also
+    # triggers one regardless of depth)
+    autoscale_up_queue_depth: int = 8
+    # fleet utilization below which a scale-down drain is considered
+    autoscale_down_utilization: float = 0.25
+    # slice-count bounds the loop never crosses
+    autoscale_min_slices: int = 1
+    autoscale_max_slices: int = 16
+    # scheduling-clock seconds between scale actions (either direction)
+    autoscale_cooldown_seconds: float = 120.0
+
     # The reference's opt-in planes, not ported yet: load_config refuses
     # a config that turns one on.
     planner_replicas: int = 1
     shard_transport: str = "inprocess"
     decisions_enabled: bool = False
-    capacity_enabled: bool = False
-    drain_enabled: bool = False
-    autoscale_enabled: bool = False
     lock_monitor: bool = False
 
     def sim_mesh(self) -> MeshSpec:
@@ -202,9 +253,6 @@ _TUPLE_FIELDS = {"sim_mesh_dims", "sim_host_block", "sim_torus"}
 # opt-in field -> the plane it would turn on (refused until ported)
 _NOT_PORTED = {
     "decisions_enabled": "decision provenance",
-    "capacity_enabled": "capacity analytics",
-    "drain_enabled": "drain",
-    "autoscale_enabled": "the autoscaler",
     "lock_monitor": "the lock-order monitor",
 }
 # the reference's alloc change log for incremental resync (on by default
@@ -218,9 +266,6 @@ _RESYNC_LOG_KEY = ENV_PREFIX + "GENERATION_LOG_CAPACITY"
 # config file that sets one is refused, naming the plane (ROADMAP.md
 # Queue 1 item of each)
 _UNPORTED_KEY_PREFIXES = {
-    "capacity_": "capacity analytics (Queue 1, item 3)",
-    "drain_": "drain (Queue 1, item 3)",
-    "autoscale_": "the autoscaler (Queue 1, item 3)",
     "decisions_": "decision provenance (Queue 1, item 4)",
     "wire_": "the shard router's wire codec (Queue 1, item 5)",
 }
@@ -607,6 +652,46 @@ def load_config(yaml_path: Optional[str] = None,
             "filter_from_plan requires batch_enabled — without the "
             "batch planner there is no cycle plan to answer from"
         )
+    if cfg.capacity_path and not cfg.capacity_enabled:
+        raise ValueError(
+            "capacity_path is set but capacity_enabled is false — "
+            "enable capacity analytics or drop the path"
+        )
+    if cfg.capacity_enabled and cfg.capacity_samples < 1:
+        raise ValueError("capacity_samples must be >= 1 when enabled")
+    if cfg.capacity_enabled and cfg.capacity_sample_interval_seconds <= 0:
+        raise ValueError(
+            "capacity_sample_interval_seconds must be positive"
+        )
+    if cfg.capacity_sink_max_bytes < 0:
+        raise ValueError("capacity_sink_max_bytes must be >= 0")
+    if cfg.drain_max_concurrent_moves < 1:
+        raise ValueError("drain_max_concurrent_moves must be >= 1")
+    if cfg.drain_tenant_budget < 0:
+        raise ValueError(
+            "drain_tenant_budget must be >= 0 (0 = no per-tenant cap)"
+        )
+    if cfg.autoscale_enabled and not cfg.drain_enabled:
+        # scale-down IS a drain: an autoscaler without the drain
+        # choreography would silently never shrink
+        raise ValueError(
+            "autoscale_enabled requires drain_enabled — scale-down "
+            "drives the drain choreography"
+        )
+    if cfg.autoscale_up_queue_depth < 1:
+        raise ValueError("autoscale_up_queue_depth must be >= 1")
+    if not 0.0 <= cfg.autoscale_down_utilization <= 1.0:
+        raise ValueError(
+            "autoscale_down_utilization must be in [0, 1]"
+        )
+    if cfg.autoscale_min_slices < 1:
+        raise ValueError("autoscale_min_slices must be >= 1")
+    if cfg.autoscale_max_slices < cfg.autoscale_min_slices:
+        raise ValueError(
+            "autoscale_max_slices must be >= autoscale_min_slices"
+        )
+    if cfg.autoscale_cooldown_seconds < 0:
+        raise ValueError("autoscale_cooldown_seconds must be >= 0")
     for name, plane in _NOT_PORTED.items():
         if getattr(cfg, name):
             raise ValueError(f"{name}: {plane} is not ported yet")

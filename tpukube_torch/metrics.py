@@ -34,6 +34,17 @@ Extender series, under the reference's names and types:
   tpukube_tenant_{admission,commit}_seconds_bucket{tenant,le},
   tpukube_tenancy_burn_rate{slo}, tpukube_tenant_slo_burn{tenant,slo},
   tpukube_tenancy_shedding;
+  with the capacity recorder built (``capacity_enabled``):
+  tpukube_capacity_{samples,sample_seconds}_total,
+  tpukube_capacity_{fleet,recoverable}_chips,
+  tpukube_capacity_stranded_{chips,demands}{reason},
+  tpukube_unschedulable_pods{reason};
+  with the drain coordinator built (``drain_enabled``):
+  tpukube_drain_{started,completed,evictions,nodes_removed,chips_removed,
+  slices_dropped}_total, tpukube_drain_peak_tick_moves,
+  tpukube_drain_active;
+  with the autoscaler built (``autoscale_enabled``):
+  tpukube_autoscaler_{scale_ups,scale_downs,nodes_added,ticks}_total;
   with the apiserver channel's Retrier / CircuitBreaker attached
   (``extender.api_retrier``/``api_circuit``):
   tpukube_retry_{attempts,retries,exhausted}_total{op},
@@ -70,8 +81,8 @@ tpukube_checkpoint_seconds{quantile}, tpukube_recovery_seconds{quantile}
 and tpukube_recovery_replayed_deltas_total.
 
 Absent, because the port lacks their source (each listed in ROADMAP.md,
-none faked): the incremental-resync series, and the tenancy,
-decision-provenance, capacity, drain and autoscaler sections.
+none faked): the incremental-resync series and the decision-provenance
+section.
 
 :class:`MetricsServer` serves a page (and optionally a /statusz
 document) for the plugin and syncer daemons.
@@ -206,6 +217,21 @@ def build_extender_registry(extender, reconcile=None, evictions=None,
     tenants = getattr(extender, "tenants", None)
     if tenants is not None:
         _add_tenant_metrics(reg, tenants)
+    # capacity analytics & demand forensics (obs/capacity.py): series
+    # render only when capacity_enabled built a CapacityRecorder —
+    # capacity-off exposition stays byte-identical
+    capacity = getattr(extender, "capacity", None)
+    if capacity is not None:
+        _add_capacity_metrics(reg, capacity)
+    # fleet elasticity (sched/drain.py + sched/autoscale.py): series
+    # render only when the flags built the objects — elasticity-off
+    # exposition stays byte-identical
+    drain = getattr(extender, "drain", None)
+    if drain is not None:
+        _add_drain_metrics(reg, drain)
+    autoscaler = getattr(extender, "autoscaler", None)
+    if autoscaler is not None:
+        _add_autoscaler_metrics(reg, autoscaler)
     # the apiserver channel's retry/circuit layer: series render only
     # when a daemon wired the channel objects — sim extenders keep the
     # default exposition
@@ -488,6 +514,127 @@ def _add_tenant_metrics(reg: Registry, tenants) -> None:
         fn=lambda: 1.0 if tenants.burn.last_page_burning() else 0.0,
         help_text="1 while SLO burn is at the page threshold and "
                   "over-share low-priority admissions are being shed.")
+
+
+def _add_capacity_metrics(reg: Registry, capacity) -> None:
+    """Capacity analytics families (obs/capacity.py): flight-recorder
+    volume + measured overhead, the failed-plan taxonomy counter, and
+    the live stranded ledger per root cause — the stranded-ratio
+    recording rule and the fragmentation ticket alert read these."""
+    from tpukube_torch.obs.capacity import UNSCHEDULABLE_REASONS
+
+    reg.counter(
+        "tpukube_capacity_samples_total",
+        fn=lambda: capacity.samples_taken,
+        help_text="Flight-recorder fleet samples taken (scheduling "
+                  "clock cadence).")
+    reg.counter(
+        "tpukube_capacity_sample_seconds_total",
+        fn=lambda: capacity.sample_seconds,
+        help_text="Cumulative wall spent sampling + classifying — the "
+                  "measured overhead the check.sh capacity smoke "
+                  "floors.")
+    reg.gauge(
+        "tpukube_capacity_fleet_chips",
+        fn=lambda: capacity.fleet_chips,
+        help_text="Fleet chip count at the last flight-recorder "
+                  "sample (the stranded-ratio denominator).")
+    reg.gauge(
+        "tpukube_capacity_recoverable_chips",
+        fn=lambda: capacity._recoverable_last,
+        help_text="Chips a perfect repack would recover into the "
+                  "largest contiguous boxes, from the last stranded "
+                  "classification (the defragmenter's objective).")
+    unsched = reg.counter(
+        "tpukube_unschedulable_pods",
+        help_text="Failed/deferred plans root-caused by reason "
+                  "(fragmented = chips free but no contiguous box; "
+                  "capacity = not enough free chips anywhere).")
+    chips_g = reg.gauge(
+        "tpukube_capacity_stranded_chips",
+        help_text="Chips requested by live stranded demands, by root "
+                  "cause (ledger entries expire with their demand).")
+    demands_g = reg.gauge(
+        "tpukube_capacity_stranded_demands",
+        help_text="Live stranded demands (gangs collapse to one), by "
+                  "root cause.")
+    for reason in UNSCHEDULABLE_REASONS:
+        unsched.labels(reason=reason).set_function(
+            lambda r=reason: capacity.unschedulable_counts().get(r, 0))
+        chips_g.labels(reason=reason).set_function(
+            lambda r=reason:
+            capacity.stranded_by_reason().get(r, (0, 0))[1])
+        demands_g.labels(reason=reason).set_function(
+            lambda r=reason:
+            capacity.stranded_by_reason().get(r, (0, 0))[0])
+
+
+def _add_drain_metrics(reg: Registry, drain) -> None:
+    """Drain choreography families (sched/drain.py): lifecycle
+    counters plus the disruption-budget gauge pair scenario 15 and the
+    elasticity bench read (peak moves per tick vs the configured
+    budget)."""
+    reg.counter(
+        "tpukube_drain_started_total",
+        fn=lambda: drain.drains_started,
+        help_text="Drains begun (cordon + record).")
+    reg.counter(
+        "tpukube_drain_completed_total",
+        fn=lambda: drain.drains_completed,
+        help_text="Drains whose nodes were fully un-ingested.")
+    reg.counter(
+        "tpukube_drain_evictions_total",
+        fn=lambda: drain.evictions_total,
+        help_text="Pods evicted by drain migrate-or-preempt ticks "
+                  "(gangs dissolve all-or-nothing).")
+    reg.counter(
+        "tpukube_drain_nodes_removed_total",
+        fn=lambda: drain.nodes_removed_total,
+        help_text="Nodes un-ingested at drain completion (the "
+                  "inverse of bulk ingest: one seam per batch).")
+    reg.counter(
+        "tpukube_drain_chips_removed_total",
+        fn=lambda: drain.chips_removed_total,
+        help_text="Chips decommissioned by completed drains.")
+    reg.counter(
+        "tpukube_drain_slices_dropped_total",
+        fn=lambda: drain.slices_dropped_total,
+        help_text="Slices whose last node left at drain completion.")
+    reg.gauge(
+        "tpukube_drain_peak_tick_moves",
+        fn=lambda: drain.peak_tick_moves,
+        help_text="Worst-ever workloads moved in one drain tick — "
+                  "must never exceed the configured disruption "
+                  "budget (drain_max_concurrent_moves).")
+    reg.gauge(
+        "tpukube_drain_active",
+        fn=lambda: len(drain.statusz()["active"]),
+        help_text="Drains currently in the migrate-or-preempt phase.")
+
+
+def _add_autoscaler_metrics(reg: Registry, autoscaler) -> None:
+    """Autoscaler loop families (sched/autoscale.py): scaling actions
+    and evaluation volume — the elasticity bench's time-to-capacity
+    numerator rides scale_ups/nodes_added."""
+    reg.counter(
+        "tpukube_autoscaler_scale_ups_total",
+        fn=lambda: autoscaler.scale_ups,
+        help_text="Scale-up actions (one provisioned slice each, "
+                  "bulk-ingested as one decision).")
+    reg.counter(
+        "tpukube_autoscaler_scale_downs_total",
+        fn=lambda: autoscaler.scale_downs,
+        help_text="Scale-down actions (one graceful slice drain "
+                  "each).")
+    reg.counter(
+        "tpukube_autoscaler_nodes_added_total",
+        fn=lambda: autoscaler.nodes_added_total,
+        help_text="Nodes successfully ingested by scale-ups.")
+    reg.counter(
+        "tpukube_autoscaler_ticks_total",
+        fn=lambda: autoscaler.ticks,
+        help_text="Scaling evaluations run (amortized onto the "
+                  "decision path at cooldown cadence).")
 
 
 def _add_events_counter(reg: Registry, events) -> None:

@@ -23,8 +23,6 @@ from typing import Any
 # them with the plane off
 _RESYNC_OFF = {"enabled": False}     # incremental resync log, Queue 1 item 5
 _DECISIONS_OFF = {"enabled": False}  # decision provenance, Queue 1 item 4
-# capacity, drain and autoscaler (Queue 1 item 3): the reference leaves
-# their keys out entirely when the plane is off
 
 
 def device_health_counts(device) -> tuple[int, int]:
@@ -188,6 +186,23 @@ def extender_statusz(
         "decisions": _DECISIONS_OFF,
         "events": _events_section(extender.events),
     }
+    # capacity analytics (obs/capacity.py): the key itself is
+    # CONDITIONAL — with the plane off the /statusz document stays
+    # byte-identical, like the lifecycle/reconcile keys
+    capacity = getattr(extender, "capacity", None)
+    if capacity is not None:
+        out["capacity"] = {
+            **capacity.stats(),
+            "stranded": capacity.stranded_summary(),
+        }
+    # fleet elasticity: drain choreography + autoscaler loop — both keys
+    # conditional like capacity's
+    drain = getattr(extender, "drain", None)
+    if drain is not None:
+        out["drain"] = drain.statusz()
+    autoscaler = getattr(extender, "autoscaler", None)
+    if autoscaler is not None:
+        out["autoscaler"] = autoscaler.statusz()
     if lifecycle is not None:
         out["lifecycle_releases"] = lifecycle.released
     if reconcile is not None:

@@ -47,12 +47,14 @@ With the tenancy plane on (``ext.tenants``) a full drain orders the queue
 by ``drf_order``, the gang arm and the fast path run its admission gate,
 and a planned bind carries the tenant env, as the reference's do.
 
+With the capacity recorder on (``ext.capacity``) every plan that found no
+node is root-caused into its stranded-demand ledger, and each cycle's end
+is a sampling seam.
+
 Left out, because their planes are not ported (ROADMAP.md Queue 1): the
-decision-provenance records (``ext.decisions``);
-capacity's stranded-demand forensics and sampling (``ext.capacity``); and
-cycle phase profiling with its timeline spans (``ext.phase_hist``). With
-those planes off the reference never takes these branches, so leaving
-them out keeps parity.
+decision-provenance records (``ext.decisions``) and cycle phase profiling
+with its timeline spans (``ext.phase_hist``). With those planes off the
+reference never takes these branches, so leaving them out keeps parity.
 """
 
 from __future__ import annotations
@@ -655,6 +657,19 @@ class SchedulingCycle:
             self.queue_age_hist.observe(age)
             return age
 
+        def _note_stranded(p: PodInfo, entry: PodPlan) -> None:
+            # stranded-demand forensics: every plan that produced no
+            # node — a refusal error or an unschedulable verdict
+            # (feasible computed, empty) — gets root-caused by the
+            # capacity recorder. Assumed plans and plan-served binds are
+            # successes; bind errors are transport, not capacity.
+            cap = ext.capacity
+            if (cap is not None and entry.node is None
+                    and not entry.assumed
+                    and (entry.error is not None
+                         or entry.feasible is not None)):
+                cap.note_failed_plan(p, entry.error)
+
         # ONE shared tuple for driver/informer admissions: every such
         # PodPlan stores `names` verbatim, and at 10k nodes a per-entry
         # copy is ~80KB — tuple(t) on an existing tuple is identity, so
@@ -689,6 +704,7 @@ class SchedulingCycle:
                     self._plans[key2] = entry
                     self.pods_planned += 1
                     _age_of(key2)
+                    _note_stranded(p2, entry)
                 i = j
                 continue
             key = pod.key()
@@ -723,6 +739,7 @@ class SchedulingCycle:
             entry.epoch_key = ext.snapshots.epoch_key()
             self._plans[key] = entry
             self.pods_planned += 1
+            _note_stranded(pod, entry)
             i += 1
         self.cycles += 1
         self.batch_sizes.append(len(batch))
@@ -730,6 +747,11 @@ class SchedulingCycle:
         self.cycle_walls.append(wall)
         self.cycle_wall_total += wall
         self.cycle_hist.observe(wall)
+        # flight-recorder cadence: batch-driven drives may never touch
+        # the webhook tail's hook, so the cycle end is the sampling seam
+        # — one clock read when the interval has not elapsed
+        if ext.capacity is not None:
+            ext.capacity.maybe_sample()
         return len(batch)
 
     def _pin_snapshot(self):
@@ -958,6 +980,13 @@ class SchedulingCycle:
         if pod.group is not None:
             return False
         if self._ext._config.score_mode != "topology":
+            return False
+        if (self._ext.drain is not None
+                and self._ext.state.cordoned_nodes()):
+            # the fast path's overlay carries no cordon mask: while a
+            # drain holds nodes cordoned, a plan takes the general path,
+            # whose /filter refuses a cordoned node (the reference's fast
+            # path plans onto it: ROADMAP.md Queue 3)
             return False
         try:
             ask = self._ext.device_request(pod)
@@ -1283,10 +1312,31 @@ class SchedulingCycle:
             # ever comes back
             self._enqueued_at.pop(key, None)
 
+    def is_pending(self, pod_key: str) -> bool:
+        """True while ``pod_key`` has an un-retired first-admit stamp —
+        admitted and not yet bound, released or TTL'd out. The capacity
+        recorder's stranded ledger uses this to expire entries whose
+        demand left the system."""
+        return pod_key in self._enqueued_at
+
+    def pending_oldest_age(self, now: float) -> Optional[float]:
+        """Oldest pending-admit age at clock time ``now`` (None when
+        nothing is pending). Same bounded-retry snapshot as stats():
+        admission threads insert while the recorder reads."""
+        stamps: list[float] = []
+        for _ in range(5):
+            try:
+                stamps = list(self._enqueued_at.values())
+                break
+            except RuntimeError:  # dict mutated mid-iteration
+                continue
+        if not stamps:
+            return None
+        return max(0.0, now - min(stamps))
+
     # -- observability -------------------------------------------------------
     def stats(self) -> dict[str, Any]:
-        """The cycle's counters (the reference's /statusz "cycle"
-        section; the port serves no /statusz yet)."""
+        """The /statusz "cycle" section."""
         from tpukube_torch.obs.registry import quantile
 
         lookups = self.plan_hits + self.plan_misses

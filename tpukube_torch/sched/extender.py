@@ -60,9 +60,19 @@ With ``tenancy_enabled`` the tenancy plane (``tenancy/``) gates /filter,
 preemption toward over-share tenants and stamps each bind's alloc env
 with its tenant.
 
-Not ported yet (each refused or absent, none faked): capacity, drain,
-autoscale, decision provenance and cycle phase profiling (``/explain``
-and ``/capacity*`` answer 404 naming the plane), and the shard router.
+With ``capacity_enabled`` the capacity recorder (``obs/capacity.py``)
+samples the fleet on the decision path, root-causes each refusal into the
+stranded-demand taxonomy and serves ``/capacity`` and ``/capacity/probe``.
+With ``drain_enabled`` the drain coordinator (``sched/drain.py``) cordons,
+evicts under a budget and un-ingests; /filter refuses a cordoned node.
+With ``autoscale_enabled`` the autoscaler (``sched/autoscale.py``) grows
+the fleet on queue depth or SLO burn and shrinks it through a drain.
+Drain and autoscaler ticks ride the decision path, as checkpoints do.
+
+Not ported yet (each refused or absent, none faked): decision provenance
+and cycle phase profiling (``/explain`` answers 404 naming the plane; the
+provenance calls go through ``_note_decision``, which records nothing
+while ``decisions`` is None), and the shard router.
 """
 
 from __future__ import annotations
@@ -277,6 +287,37 @@ class Extender:
             self.gang.tenant_of = self.tenants.tenant_of
             # the plane's decision-provenance hook (plane.decisions)
             # stays None: the port has no provenance ring yet
+        # Decision provenance is not ported: None records nothing, and
+        # the call sites that would record go through _note_decision
+        self.decisions = None
+        # Capacity analytics & demand forensics (obs/capacity.py):
+        # flight-recorder ring + stranded-demand forensics + what-if
+        # probes. None (the config default) constructs nothing — no
+        # sample is ever taken, no series renders, /capacity 404s, and
+        # placements/exposition stay byte-identical. Built AFTER
+        # snapshots/cycle/tenants so a sample can read all of them.
+        self.capacity = None
+        if config.capacity_enabled:
+            from tpukube_torch.obs.capacity import CapacityRecorder
+
+            self.capacity = CapacityRecorder(self, config)
+        # Fleet elasticity: the graceful drain/decommission choreography
+        # (sched/drain.py) and the autoscaler loop (sched/autoscale.py).
+        # None (the config defaults) constructs nothing — no cordon
+        # state is consulted on any placement path, no tpukube_drain_* /
+        # tpukube_autoscaler_* series render, and /statusz carries no
+        # drain/autoscaler section. Built AFTER snapshots/cycle/tenants/
+        # capacity so a tick can read all of them.
+        self.drain = None
+        if config.drain_enabled:
+            from tpukube_torch.sched.drain import DrainCoordinator
+
+            self.drain = DrainCoordinator(self, config)
+        self.autoscaler = None
+        if config.autoscale_enabled:
+            from tpukube_torch.sched.autoscale import Autoscaler
+
+            self.autoscaler = Autoscaler(self, config)
         self.preemptions = 0   # victims evicted for higher-priority gangs
         self.binds_total = 0   # successful binds (metrics counter)
         # The bind EFFECTOR: with bindVerb configured, kube-scheduler
@@ -327,6 +368,13 @@ class Extender:
             )
         except Exception:
             log.exception("event emit failed: %s %s", reason, obj)
+
+    def _note_decision(self, pod_key: str, stage: str, **fields) -> None:
+        """Guarded provenance record: nothing while ``decisions`` is None
+        (decision provenance is not ported)."""
+        dlog = self.decisions
+        if dlog is not None and dlog.wants(pod_key):
+            dlog.record(pod_key, stage, **fields)
 
     def _degraded_reason(self) -> Optional[str]:
         """The degraded gate's answer, never letting a broken gate break
@@ -868,6 +916,11 @@ class Extender:
         view = self.state.node(name)
         if view is None:
             return "no tpukube node-topology annotation"
+        if self.drain is not None and self.state.is_cordoned(name):
+            # draining: live allocs keep serving, new placements are
+            # refused — capacity forensics root-causes demand stranded
+            # this way as "draining", not "capacity"
+            return "node cordoned (draining)"
         vtpu_node = view.shares_per_chip > 1
         if resource == RESOURCE_VTPU:
             if not vtpu_node:
@@ -1370,6 +1423,15 @@ class Extender:
                 except (ExtenderError, GangError, StateError,
                         codec.CodecError) as e:
                     response = mk([], {}, error=str(e))
+                    self._note_decision(pod.key(), "refusal",
+                                        kind="filter_error",
+                                        reason=str(e))
+                    if self.capacity is not None:
+                        # stranded-demand forensics: root-cause the
+                        # per-pod path's refusal (fragmented / capacity
+                        # / quota / shed / unhealthy / dcn-ineligible /
+                        # draining)
+                        self.capacity.note_refusal(pod, str(e))
                 if self.tenants is not None and tt0 is not None:
                     self.tenants.observe_admission(
                         self.tenants.tenant_of(pod),
@@ -1462,6 +1524,18 @@ class Extender:
                 self.trace.record(kind, body, response)
             if self.journal is not None:
                 self._maybe_checkpoint()
+            if self.capacity is not None:
+                # amortized flight-recorder hook (the checkpoint seam's
+                # pattern): a scheduling-clock read per decision, a real
+                # sample only on interval expiry
+                self.capacity.maybe_sample()
+            if self.drain is not None:
+                # amortized drain choreography: budgeted migrate-or-
+                # preempt progress rides the decision path under the
+                # same lock (a clock read when no drain is active)
+                self.drain.maybe_tick()
+            if self.autoscaler is not None:
+                self.autoscaler.maybe_tick()
             return response
 
     def checkpoint_doc(self) -> dict:
@@ -1494,7 +1568,7 @@ class Extender:
             # the O(chips) rebuild that would drag every lazy node in
             snap_doc: dict[str, dict] = {}
             for sid, ss in snap.slices.items():
-                snap_doc[sid] = {
+                sd = {
                     "occ": [list(c) for c in ss.occupied],
                     "res": [list(c) for c in ss.reserved],
                     "unh": [list(c) for c in ss.unhealthy],
@@ -1503,6 +1577,11 @@ class Extender:
                     "used": ss.used_shares,
                     "total": ss.total_shares,
                 }
+                if ss.cordoned:
+                    # only when non-empty: with the drain flag off the
+                    # checkpoint bytes stay identical
+                    sd["crd"] = [list(c) for c in ss.cordoned]
+                snap_doc[sid] = sd
             head["snap"] = snap_doc
         return {
             "head": head,
@@ -1920,11 +1999,8 @@ _GET_ROUTES = _PROBE_ROUTES + (
 _UNPORTED_ROUTES = {
     "/explain": "decision provenance is not ported yet "
                 "(ROADMAP.md Queue 1, item 4)",
-    "/capacity": "capacity analytics is not ported yet "
-                 "(ROADMAP.md Queue 1, item 3)",
-    "/capacity/probe": "capacity analytics is not ported yet "
-                       "(ROADMAP.md Queue 1, item 3)",
 }
+_CAPACITY_OFF = "capacity analytics disabled (set capacity_enabled)"
 
 
 class App:
@@ -2006,6 +2082,45 @@ class App:
                 node=query.get("node") or None,
                 since=since,
             )
+        if path == "/capacity":
+            # samples disclose utilization, tenant shares and the
+            # stranded-demand ledger: behind the bearer gate
+            if ext.capacity is None:
+                return 404, _CAPACITY_OFF
+            from tpukube_torch.obs.capacity import parse_since
+
+            since = None
+            if query.get("since"):
+                try:
+                    since = parse_since(query["since"])
+                except ValueError:
+                    return 400, "since must be a unix ts or duration (15m, 2h)"
+            if since is not None and since < 1e9:
+                # relative window: anchored to the newest sample's wall
+                # ts (the events/CLI relative-since semantics)
+                newest = max((float(s.get("ts", 0.0))
+                              for s in ext.capacity.samples()), default=0.0)
+                since = newest - since
+            return 200, ext.capacity.capacity_doc(since)
+        if path == "/capacity/probe":
+            # read-only what-if fit dry-run against the observer snapshot
+            if ext.capacity is None:
+                return 404, _CAPACITY_OFF
+            from tpukube_torch.obs.capacity import parse_shape
+
+            count = shape = None
+            try:
+                if query.get("shape"):
+                    shape = parse_shape(query["shape"])
+                elif query.get("count"):
+                    count = int(query["count"])
+                else:
+                    raise ValueError("want shape=XxYxZ or count=N")
+                cpp = int(query.get("cpp", 1))
+                return 200, ext.capacity.probe(count=count, shape=shape,
+                                               chips_per_pod=cpp)
+            except ValueError as e:
+                return 400, str(e)
         if path == "/statusz":
             from tpukube_torch.obs.statusz import extender_statusz
 

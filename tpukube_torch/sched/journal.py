@@ -664,6 +664,16 @@ def replay_records(extender, records: list[dict]) -> int:
                 state.release(d["p"])
             elif kind == "node":
                 state.upsert_node(d["n"], dict(d["anno"]))
+            elif kind == "cordon":
+                # drain choreography: cordon/uncordon is a plain ledger
+                # mutation — idempotent, unknown names skipped by the
+                # mutator itself
+                state.set_cordon(list(d["n"]), bool(d["c"]))
+            elif kind == "unnodes":
+                # un-ingest batch: nodes with live allocations are
+                # skipped loudly inside remove_nodes (WAL order places
+                # releases first, so replay normally finds them free)
+                state.remove_nodes(list(d["n"]))
             elif kind == "nodes":
                 # one bulk-ingest batch: replay through the
                 # same fast path; per-item errors are logged by the
@@ -762,16 +772,14 @@ def recover_extender(extender, api) -> dict[str, Any]:
             snap_doc = ckpt.get("snap")
             if snap_doc is not None and set(snap_doc) == set(
                 state.slice_ids()
-            ) and not any(sd.get("crd") for sd in snap_doc.values()):
+            ):
                 # seed the scheduling snapshot: the first lookups HIT
                 # instead of forcing the O(chips) rebuild that would
                 # eagerly materialize every lazy node; the audit
                 # sentinel (below, and sampled at runtime) holds the
-                # seed to ledger truth. A reference checkpoint with
-                # cordoned chips ("crd", the drain plane the port lacks)
-                # is not seeded: the first lookup rebuilds instead. The
-                # geometry mask is not in the file: it is derived from
-                # the restored host maps, as the snapshot build does.
+                # seed to ledger truth. The geometry mask is not in the
+                # file: it is derived from the restored host maps, as
+                # the snapshot build does.
                 slices = {}
                 for sid, sd in snap_doc.items():
                     slices[sid] = SliceSnapshot(
@@ -789,6 +797,10 @@ def recover_extender(extender, api) -> dict[str, Any]:
                             canonical_link(a, b) for a, b in sd["brk"]),
                         used_shares=int(sd["used"]),
                         total_shares=int(sd["total"]),
+                        # "crd" is written only when non-empty (drain
+                        # off: checkpoint bytes unchanged)
+                        cordoned=frozenset(
+                            TopologyCoord(*c) for c in sd.get("crd", ())),
                         absent=frozenset(state.absent_coords(sid)),
                     )
                 extender.snapshots.seed(ClusterSnapshot(

@@ -24,8 +24,9 @@ marker or a log gap. The audit sentinel (``snapshot_audit_rate``)
 rebuilds a sampled fraction of cache hits from the ledger and raises
 :class:`SnapshotAuditError` on any divergence.
 
-Drain's cordon mask is not ported (drain waits), so a slice's blocked
-set is occupied | reserved | absent.
+A slice's blocked set is occupied | reserved | cordoned | absent: the
+drain plane's cordoned chips (``sched/drain.py``) keep serving their live
+allocations but take nothing new.
 """
 
 from __future__ import annotations
@@ -138,7 +139,7 @@ class SliceSnapshot:
 
     __slots__ = (
         "slice_id", "mesh", "occupied", "reserved", "unhealthy",
-        "terminating", "absent", "broken", "used_shares",
+        "terminating", "cordoned", "absent", "broken", "used_shares",
         "total_shares",
         "_occ_sweep", "_blocked_sweep", "_frag", "_largest",
     )
@@ -154,6 +155,7 @@ class SliceSnapshot:
         broken: frozenset[Link],
         used_shares: int,
         total_shares: int,
+        cordoned: frozenset[TopologyCoord] = frozenset(),
         absent: frozenset[TopologyCoord] = frozenset(),
     ):
         self.slice_id = slice_id
@@ -166,6 +168,12 @@ class SliceSnapshot:
         #: evicted-but-still-terminating victims' chips (preemption
         #: planners treat these like unhealthy: nothing frees them sooner)
         self.terminating = terminating
+        #: drain mask: chips of cordoned nodes — excluded from every NEW
+        #: placement, while chips they already serve stay accounted
+        #: through ``occupied`` as usual. Cordon transitions travel as
+        #: full-rebuild markers (rare by design), so the delta-advance
+        #: path carries this set through untouched.
+        self.cordoned = cordoned
         #: geometry mask: chips of the slice's mesh that no node claims
         #: (a partially advertised fleet). There is nothing behind these
         #: coords — every sweep and capacity count must treat them as
@@ -205,15 +213,31 @@ class SliceSnapshot:
         return sweep
 
     def blocked_sweep(self) -> "slicefit._Sweep":
-        """Sweep over occupied | reserved | absent — what every placement
-        search (gang reservation, prioritize scoring) masks against.
+        """Sweep over occupied | reserved | cordoned | absent — what
+        every placement search (gang reservation, prioritize scoring)
+        masks against. Cordoned chips are drain-blocked: live
+        allocations on them keep serving, but nothing NEW lands there.
         Absent chips have no host at all."""
         sweep = self._blocked_sweep
         if sweep is None:
             sweep = self._blocked_sweep = sweep_for(
-                self.mesh, self.occupied | self.reserved | self.absent
+                self.mesh,
+                self.occupied | self.reserved | self.cordoned
+                | self.absent
             )
         return sweep
+
+    def uncordoned_sweep(self) -> "slicefit._Sweep":
+        """Sweep over occupied | reserved | absent ONLY — the
+        drain-pressure counterfactual (obs/capacity.py: would this
+        demand fit if the cordoned chips were given back?). Absent
+        chips stay masked: cancelling a drain does not resurrect a host
+        that already left. Uncached: probed only while a drain is in
+        flight."""
+        if not self.cordoned:
+            return self.blocked_sweep()
+        return sweep_for(
+            self.mesh, self.occupied | self.reserved | self.absent)
 
     # -- derived numbers ---------------------------------------------------
     @property
@@ -225,12 +249,13 @@ class SliceSnapshot:
 
     @property
     def blocked_free_chips(self) -> int:
-        """Chips free for a NEW placement (occupied, reserved and absent
-        all masked) — the gang layer's capacity-ranking number. The union
-        handles the (normally disjoint) sets overlapping, exactly as the
-        OR'd grid the blocked sweep is built from would."""
+        """Chips free for a NEW placement (occupied, reserved, cordoned
+        and absent all masked) — the gang layer's capacity-ranking
+        number. The union handles the (normally disjoint) sets
+        overlapping, exactly as the OR'd grid the blocked sweep is built
+        from would."""
         return self.mesh.num_chips - len(
-            self.occupied | self.reserved | self.absent)
+            self.occupied | self.reserved | self.cordoned | self.absent)
 
     def largest_free_box(self) -> int:
         if self._largest is None:
@@ -299,7 +324,7 @@ def _audit_divergence(cached: ClusterSnapshot,
     for sid in sorted(cached.slices):
         a, b = cached.slices[sid], rebuilt.slices[sid]
         for attr in ("occupied", "reserved", "unhealthy", "terminating",
-                     "absent", "broken"):
+                     "cordoned", "absent", "broken"):
             va, vb = getattr(a, attr), getattr(b, attr)
             if va != vb:
                 extra = sorted(tuple(x) if not isinstance(x, tuple) else x
@@ -554,8 +579,10 @@ class SnapshotCache:
                 broken=old.broken,
                 used_shares=old.used_shares + used.get(sid, 0),
                 total_shares=old.total_shares + total.get(sid, 0),
-                # topology transitions are full markers (ingest), so the
-                # carried set is exact across any delta chain
+                # cordon and topology transitions are full markers
+                # (set_cordon, ingest, un-ingest), so the carried sets
+                # are exact across any delta chain
+                cordoned=old.cordoned,
                 absent=old.absent,
             )
         return ClusterSnapshot(key=key, slices=slices)
@@ -720,8 +747,10 @@ class SnapshotCache:
                 broken=frozenset(broken),
                 used_shares=used,
                 total_shares=total,
-                # no incremental cache to bypass: absent_coords IS the
-                # single derivation (audit and build share it)
+                # no incremental cache to bypass: cordoned_coords and
+                # absent_coords ARE the single derivations (audit and
+                # build share them)
+                cordoned=frozenset(self._state.cordoned_coords(sid)),
                 absent=frozenset(self._state.absent_coords(sid)),
             )
         return ClusterSnapshot(key=key, slices=slices)

@@ -497,6 +497,18 @@ class ClusterState:
         self._ingest_seconds: deque[float] = deque(maxlen=64)
         self.ingest_seconds_total = 0.0
         self._warming = False
+        # Cordoned node names (the drain plane, sched/drain.py): excluded
+        # from every placement sweep while their live allocations keep
+        # serving — the drain choreography's first act. Rides the WAL
+        # ("cordon" records) and the checkpoint head ("cordoned", only
+        # when non-empty, so journal bytes stay byte-identical with the
+        # drain plane off). No incremental coord cache: cordons are
+        # rare, and the snapshot derives coords on demand
+        # (cordoned_coords) for build and audit alike.
+        self._cordoned: set[str] = set()
+        # decommission counters (the /statusz "ingest" section's twin)
+        self.removed_nodes_total = 0
+        self.removed_batches = 0
 
     def set_delta_sink(self, sink) -> None:
         """Attach the snapshot cache's delta log (None detaches)."""
@@ -1288,6 +1300,81 @@ class ClusterState:
         threading.Thread(target=run, daemon=True,
                          name="tpukube-ingest-warmer").start()
 
+    # -- cordon / decommission (the drain plane) -----------------------------
+    def cordoned_nodes(self) -> frozenset:
+        """The cordoned node-name set as a frozen copy (one lock
+        round-trip for per-request membership checks)."""
+        with self._lock:
+            return frozenset(self._cordoned)
+
+    def is_cordoned(self, name: str) -> bool:
+        with self._lock:
+            return name in self._cordoned
+
+    def set_cordon(self, names, cordoned: bool = True) -> list[str]:
+        """Cordon (or uncordon) known nodes: their chips leave every
+        placement sweep while live allocations keep serving. Unknown
+        names are ignored (idempotent — WAL replay may re-apply a
+        cordon whose nodes were since removed). Returns the names
+        whose state actually changed; one epoch/delta/journal seam per
+        changed batch, none when nothing changed."""
+        with self._lock:
+            # decide first, mutate second: the set write and the epoch
+            # bump share every exit path
+            changed: list[str] = []
+            for name in names:
+                if self._slice_of_any_locked(name) is None:
+                    continue
+                if (name in self._cordoned) != cordoned:
+                    changed.append(name)
+            if not changed:
+                return changed
+            if cordoned:
+                self._cordoned.update(changed)
+            else:
+                self._cordoned.difference_update(changed)
+            self._epoch += 1
+            # a cordon moves whole nodes in/out of the placement mask —
+            # structural for the snapshot (rare by design: one marker
+            # per drain act, not per chip)
+            self._note_delta_locked(
+                full=True,
+                why=(f"{'cordon' if cordoned else 'uncordon'} "
+                     f"{len(changed)} node(s)"))
+            self._note_journal_locked(
+                "cordon", {"n": sorted(changed), "c": bool(cordoned)})
+            return changed
+
+    def _slice_of_any_locked(self, name: str) -> Optional[str]:
+        """The slice of a known node, materialized or lazy (None for an
+        unknown name); callers hold ``self._lock``."""
+        view = self._nodes.get(name)
+        if view is not None:
+            return view.info.slice_id
+        lazy = self._lazy_payloads.get(name)
+        if lazy is not None:
+            return lazy[2]
+        entry = self._lazy_index.get(name)
+        return entry[3] if entry is not None else None
+
+    def cordoned_coords(self, slice_id: Optional[str] = None):
+        """Chip coords of cordoned nodes in one slice — derived on
+        demand (cordons are rare and small; no incremental cache to
+        keep honest, so the snapshot's normal build and its audit
+        sentinel share this one derivation)."""
+        with self._lock:
+            sid = self._resolve_sid_locked(slice_id)
+            out: set[TopologyCoord] = set()
+            if sid is None or not self._cordoned:
+                return out
+            for name in self._cordoned:
+                if self._slice_of_any_locked(name) != sid:
+                    continue
+                view = self._view_locked(name)
+                if view is not None:
+                    out.update(c.coord for c in view.info.chips)
+            return out
+
     # -- geometry mask -------------------------------------------------------
     def absent_coords(self, slice_id: Optional[str] = None):
         """Chip coords of the slice's geometry with NO live host claim —
@@ -1313,6 +1400,79 @@ class ClusterState:
             if len(hosts) >= sl.mesh.num_chips:
                 return set()
             return {c for c in sl.mesh.all_coords() if c not in hosts}
+
+    def remove_nodes(self, names) -> dict:
+        """Un-ingest: the inverse of ``ingest_nodes``. Phase 1 probes (a
+        node with live allocations is SKIPPED loudly — drain it first;
+        unknown names are ignored for replay idempotence), phase 2 drops
+        the views/lazy payloads/lazy index entries, clears the host-map
+        claims, retires the per-slice incremental caches (the next
+        reader re-seeds with one walk — never a full rebuild here), and
+        deletes slices left empty. ONE epoch bump + one delta + one
+        journal record per batch, the ingest seam's shape. Returns
+        ``{"removed": [...], "skipped": {...}, "slices_dropped":
+        [...]}``."""
+        with self._lock:
+            live: set[str] = {a.node_name for a in self._allocs.values()}
+            removed: list[str] = []
+            skipped: dict[str, str] = {}
+            by_slice: dict[str, list[str]] = {}
+            for name in names:
+                if name in live:
+                    skipped[name] = "live allocations"
+                    log.error(
+                        "remove_nodes: %s still serves live "
+                        "allocations — drain it first; skipped", name)
+                    continue
+                sid = self._slice_of_any_locked(name)
+                if sid is None:
+                    continue  # unknown: replay idempotence
+                removed.append(name)
+                by_slice.setdefault(sid, []).append(name)
+            if not removed:
+                return {"removed": [], "skipped": skipped,
+                        "slices_dropped": []}
+            gone = set(removed)
+            for name in removed:
+                self._nodes.pop(name, None)
+                self._lazy_payloads.pop(name, None)
+                self._lazy_index.pop(name, None)
+                self._lazy_allocs.pop(name, None)
+                self._cordoned.discard(name)
+            dropped: list[str] = []
+            for sid in by_slice:
+                sl = self._slices.get(sid)
+                if sl is None:
+                    continue
+                hosts = self._hosts_locked(sl)
+                for coord in [c for c, h in hosts.items() if h in gone]:
+                    del hosts[coord]
+                sl.hosts_blob = None
+                self._hosts_cache.pop(sid, None)
+                # the departed views' contributions to the slice's
+                # incremental caches are unknown without materializing
+                # them: RETIRE the caches, the next reader re-seeds
+                # with one walk
+                self._occ_cache.pop(sid, None)
+                self._unhealthy_cache.pop(sid, None)
+                self._broken_cache.pop(sid, None)
+                self._share_cache.pop(sid, None)
+                if not hosts:
+                    # every claim left with the batch: the slice is
+                    # empty — drop it (a future arrival re-registers)
+                    dropped.append(sid)
+                    del self._slices[sid]
+            self._drop_lazy_fd_locked()
+            self._names_cache = None
+            self.removed_nodes_total += len(removed)
+            self.removed_batches += 1
+            self._epoch += 1
+            self._note_delta_locked(
+                full=True, why=f"un-ingest ({len(removed)} nodes)")
+            self._note_journal_locked(
+                "unnodes", {"n": sorted(removed)})
+            return {"removed": removed, "skipped": skipped,
+                    "slices_dropped": dropped}
 
     # -- views -------------------------------------------------------------
     @property
@@ -1898,6 +2058,10 @@ class ClusterState:
                 "alloc_index": {k: list(v)
                                 for k, v in alloc_index.items()},
             }
+            if self._cordoned:
+                # only when non-empty: checkpoint bytes stay identical
+                # with the drain plane off
+                head["cordoned"] = sorted(self._cordoned)
             return head, entries
 
     def _hosts_blob_locked(self, sl: SliceView) -> str:
@@ -1934,6 +2098,7 @@ class ClusterState:
                 )
             self._epoch = int(head.get("epoch", 0))
             self._generation = int(head.get("gen", 0))
+            self._cordoned = set(head.get("cordoned", ()))
             for sid, (dims, block, torus) in head["slices"].items():
                 self._slices[sid] = SliceView(
                     mesh=MeshSpec(

@@ -34,6 +34,12 @@ pods from the store and confirms them gone (``victim_gone``), the
 through the recorded ``release`` decision, and the PDB precheck asks the
 store (which has no PDBs).
 
+Fleet elasticity: :meth:`SimCluster.add_slice` mints a new slice's nodes
+(the autoscaler's provisioner, :meth:`SimCluster.make_slice_provisioner`,
+feeds them to ``upsert_nodes``), and :meth:`SimCluster.forget_nodes` /
+:meth:`SimCluster.remove_slice` drop nodes a drain un-ingested so the next
+full node send cannot re-register them.
+
 :meth:`SimCluster.crash_extender` kills the extender mid-flight (its
 journal loses what it had not drained) and
 :meth:`SimCluster.restart_extender` starts a fresh one the way a restarted
@@ -344,6 +350,8 @@ class SimCluster:
         self._stop_serving()
         if self.extender.trace is not None:
             self.extender.trace.close()
+        if self.extender.capacity is not None:
+            self.extender.capacity.close()
         self.extender.events.close()
         if self.extender.journal is not None:
             self.extender.journal.close()
@@ -778,6 +786,93 @@ class SimCluster:
         server.intents.put(alloc.pod_key, list(alloc.device_ids))
         kubelet.register_plugin(server)
         kubelet.wait_for_devices(server.resource_name, len(device.device_list()))
+
+    # -- fleet elasticity ----------------------------------------------------
+    def add_slice(self, slice_id: str, mesh: MeshSpec) -> list[dict[str, Any]]:
+        """Mint the nodes of a NEW slice into the harness's world
+        (node names are always "<slice>-<host>" prefixed so they stay
+        unique cluster-wide) and return their ``upsert_nodes`` items —
+        the autoscaler's provisioner feeds these straight to the
+        extender; a webhook-driven cluster picks them up on the next
+        full node send. The extender learns nothing here."""
+        if slice_id in self.slices:
+            raise ValueError(f"slice {slice_id!r} already exists")
+        self.slices[slice_id] = mesh
+        self._prefixed = True
+        self.mesh = (next(iter(self.slices.values()))
+                     if len(self.slices) == 1 else None)
+        items: list[dict[str, Any]] = []
+        for host in mesh.all_hosts():
+            name = f"{slice_id}-{host}"
+            if name in self.nodes:
+                raise ValueError(f"node {name!r} already exists")
+            chips = [
+                ChipInfo(
+                    chip_id=f"{name}-chip-{i}",
+                    index=i,
+                    coord=coord,
+                    hbm_bytes=self.config.hbm_bytes_per_chip,
+                    num_cores=self.config.cores_per_chip,
+                )
+                for i, coord in enumerate(mesh.coords_of_host(host))
+            ]
+            info = NodeInfo(name=name, chips=chips, shares_per_chip=1,
+                            slice_id=slice_id)
+            self.nodes[name] = info
+            items.append({
+                "name": name,
+                "annotations": codec.annotate_node(info, mesh),
+            })
+        self._node_objs_list = None
+        return items
+
+    def forget_nodes(self, names) -> list[str]:
+        """Drop nodes from the harness's world AFTER a drain
+        un-ingested them from the extender — the node objects stop
+        riding webhook sends, so the next full sync cannot silently
+        re-register decommissioned capacity. Slices left empty are
+        forgotten too. Returns the names actually dropped."""
+        dropped: list[str] = []
+        touched: set[str] = set()
+        for name in names:
+            info = self.nodes.pop(name, None)
+            if info is None:
+                continue
+            dropped.append(name)
+            touched.add(info.slice_id)
+            self._node_obj_cache.pop(name, None)
+        for sid in touched:
+            if not any(i.slice_id == sid for i in self.nodes.values()):
+                self.slices.pop(sid, None)
+        if dropped:
+            self._node_objs_list = None
+            self.mesh = (next(iter(self.slices.values()))
+                         if len(self.slices) == 1 else None)
+        return dropped
+
+    def remove_slice(self, slice_id: str) -> list[str]:
+        """``forget_nodes`` for one whole slice (the scale-down /
+        maintenance bookkeeping after its drain completes)."""
+        return self.forget_nodes([
+            n for n, i in self.nodes.items() if i.slice_id == slice_id
+        ])
+
+    def make_slice_provisioner(self, mesh: MeshSpec, prefix: str = "as"):
+        """An :class:`~tpukube_torch.sched.autoscale.Autoscaler` provisioner
+        closure: each call mints one fresh slice of ``mesh`` geometry
+        (ids "<prefix>1", "<prefix>2", ...) and returns its upsert
+        items — the sim stand-in for a cloud instance API."""
+        import itertools
+
+        counter = itertools.count(1)
+
+        def provision() -> list[dict[str, Any]]:
+            sid = f"{prefix}{next(counter)}"
+            while sid in self.slices:
+                sid = f"{prefix}{next(counter)}"
+            return self.add_slice(sid, mesh)
+
+        return provision
 
     # -- metrics ------------------------------------------------------------
     def utilization(self) -> float:

@@ -1,5 +1,5 @@
 """Runnable BASELINE scenarios on the port — its own copy of
-``tpukube/sim/scenarios.py``'s scenarios 1-13.
+``tpukube/sim/scenarios.py``'s scenarios 1-13 and 15.
 
 Each scenario replays one BASELINE.json config against the port's stack
 (the extender over HTTP inside ``SimCluster``'s ``with`` block; configs
@@ -16,10 +16,14 @@ journal (``sched/journal.py``) carrying recovery. Scenario 7 drives chip
 and link faults through a node agent's telemetry into the extender's
 fleet rollup and the SLO evaluator (``obs/slo.py``); scenario 11 is the
 multi-tenant serving plane (``tenancy/``) under scenario 8's fault
-storm.
+storm. Scenario 15 is fleet elasticity (``sched/drain.py``,
+``sched/autoscale.py``, ``chaos/maintenance.py``): a maintenance storm of
+drains, crashes and spot kills (phase A) and the autoscaler's up and down
+(phase B).
 
 Not ported (``run`` raises, naming the plane): scenario 14 (the shard
-router) and 15 (drain); each waits in ROADMAP.md Queue 1.
+router), and scenario 15's phase C (``PARTLY_PORTED``: the sharded
+rebalance-away), each waiting in ROADMAP.md Queue 1, item 5.
 """
 
 from __future__ import annotations
@@ -77,7 +81,11 @@ _PASSTHROUGH_KEYS = (
 #: scenario -> the plane it needs that the port has not ported yet
 NOT_PORTED = {
     14: "the shard router (ROADMAP.md Queue 1)",
-    15: "drain and the autoscaler (ROADMAP.md Queue 1)",
+}
+#: what of a ported scenario still waits on an unported plane
+PARTLY_PORTED = {
+    15: "phase C (the sharded rebalance-away) needs the shard router "
+        "(ROADMAP.md Queue 1, item 5)",
 }
 
 
@@ -123,6 +131,7 @@ def run(scenario: int, config: GpuKubeConfig | None = None) -> dict[str, Any]:
         11: tenant_serving,
         12: kilonode10k_churn,
         13: crash_storm,
+        15: maintenance_storm,
     }[scenario]
     t0 = time.perf_counter()
     result = fn(config)
@@ -1719,3 +1728,373 @@ def crash_storm(config: GpuKubeConfig | None) -> dict[str, Any]:
                 raise RuntimeError("scenario 13 invariants violated: "
                                    + "; ".join(problems[:6]))
             return result
+
+
+def maintenance_storm(config: GpuKubeConfig | None) -> dict[str, Any]:
+    """Scenario 15: region-scale fleet elasticity under chaos —
+    maintenance events and spot churn rip capacity out of a live fleet
+    while the drain choreography, the WAL, and the autoscaler put it
+    back. The reference runs three phases; the port runs A and B:
+
+    **A — maintenance storm.** A 4-slice fleet (64 chips) carries a
+    committed training gang plus burst fillers on the fake clock with
+    the journal on. Each cycle the seeded
+    :class:`~tpukube_torch.chaos.maintenance.MaintenanceSchedule` picks a
+    slice to drain (graceful: cordon → budgeted migrate-or-preempt →
+    un-ingest); every other cycle the extender CRASHES mid-choreography
+    (mid-drain or mid-un-ingest — wherever the cycle's clock lands)
+    and recovery must carry the cordon state through checkpoint + WAL
+    replay; the :class:`~tpukube_torch.chaos.maintenance.SpotChurnSchedule`
+    additionally rips individual nodes out with no notice. Per-cycle
+    invariants: the gang is allocated all-or-nothing (never partial),
+    zero ledger divergence, zero leaked reservations, and the drain's
+    per-tick disruption never exceeds ``drain_max_concurrent_moves``.
+    Slices the schedule marks as returning are re-ingested through the
+    bulk path.
+
+    **B — autoscaler loop.** A fresh 2-slice batched cluster: a queue
+    burst beyond ``autoscale_up_queue_depth`` must provision + bulk-
+    ingest a new slice (time-to-capacity = one decision), and the
+    post-burst idle fleet must drain the emptiest slice back down.
+
+    The reference's **C — sharded rebalance-away** (``planner_replicas=2``:
+    draining one replica's whole slice set under the router's drain
+    intent) needs the shard router, which the port has not ported
+    (ROADMAP.md Queue 1, item 5): the port's result has no ``sharded``
+    key, and its ``value`` counts phases A and B only.
+
+    Raises on any invariant violation. ``TPUKUBE_MAINT_CYCLES`` scales
+    phase A (default 6 — at least one maintenance event per slice plus
+    both crash arms); the acceptance drive runs the whole scenario at
+    ``TPUKUBE_SNAPSHOT_AUDIT_RATE=1.0`` asserting zero divergences."""
+    import os
+    import tempfile
+
+    from tpukube_torch.chaos import (
+        MaintenanceSchedule,
+        SpotChurnSchedule,
+        converge,
+        leaked_reservations,
+        ledger_divergence,
+    )
+    from tpukube_torch.core.clock import FakeClock
+    from tpukube_torch.core.mesh import MeshSpec
+
+    cycles = int(os.environ.get("TPUKUBE_MAINT_CYCLES", "6"))
+    seed = (config.chaos_seed if config is not None
+            else int(os.environ.get("TPUKUBE_CHAOS_SEED") or 0)) or 1337
+    mesh = MeshSpec(dims=(4, 4, 1), host_block=(2, 2, 1))
+    gang_size = 8
+    problems: list[str] = []
+    audit_checks = audit_divergences = 0
+    peak_moves = 0
+
+    def _drive_drain(c, ext, budget_ticks: int = 40) -> None:
+        """Tick every active drain to completion (evictions drained
+        between ticks — the effector loop a real deployment runs)."""
+        for _ in range(budget_ticks):
+            if ext.drain is None or not ext.drain.active():
+                return
+            c.clock.advance(1.0)
+            ext.drain.tick()
+            converge(c, rounds=3)
+        raise RuntimeError("drain never completed within the tick "
+                           "budget")
+
+    def _gang_alloc_count(ext, prefix: str) -> int:
+        return sum(1 for a in ext.state.allocations()
+                   if a.pod_key.startswith(f"default/{prefix}"))
+
+    def _drop_gang(c, prefix: str) -> None:
+        """Tear a gang fully down: pods deleted, then the reservation
+        TTL runs out on the fake clock and the sweep reclaims it — a
+        dissolved gang must leave NOTHING for the leak check to find."""
+        for i in range(gang_size):
+            c.delete_pod(f"{prefix}{i}")
+        converge(c, rounds=3)
+        clock.advance(cfg.reservation_ttl_seconds + 1.0)
+        c.extender.gang.sweep()
+        converge(c, rounds=3)
+
+    # ---- phase A: the maintenance storm --------------------------------
+    with tempfile.TemporaryDirectory(prefix="tpukube-maint-") as td:
+        wal_path = os.path.join(td, "wal.jsonl")
+        cfg = config or load_config(env=_env({
+            "TPUKUBE_DRAIN_ENABLED": "1",
+            "TPUKUBE_DRAIN_MAX_CONCURRENT_MOVES": "2",
+            "TPUKUBE_JOURNAL_ENABLED": "1",
+            "TPUKUBE_JOURNAL_PATH": wal_path,
+            "TPUKUBE_CHECKPOINT_INTERVAL_SECONDS": "600",
+            # the storm asserts cordons SURVIVE the crash; a buffered
+            # tail would shed the latest cordon seam by design
+            "TPUKUBE_JOURNAL_FSYNC": "always",
+        }))
+        if not cfg.drain_enabled:
+            raise RuntimeError("scenario 15 needs drain_enabled (a "
+                               "--config must set it)")
+        maint = MaintenanceSchedule(seed, [f"s{i}" for i in range(4)],
+                                    return_rate=0.5)
+        spot = SpotChurnSchedule(seed + 3, kill_rate=0.5)
+        clock = FakeClock()
+        slices = {f"s{i}": mesh for i in range(4)}
+        gang_gen = 0
+        with SimCluster(cfg, slices=dict(slices), clock=clock,
+                        in_process=True) as c:
+
+            def commit_gang() -> str:
+                """All-or-nothing by construction: a half-placed gang
+                (fleet too small this cycle) is torn down so its
+                reservations can't masquerade as a partial survival."""
+                nonlocal gang_gen
+                gang_gen += 1
+                prefix = f"et{gang_gen}-"
+                group = PodGroup(f"elastictrain{gang_gen}",
+                                 min_member=gang_size)
+                try:
+                    for i in range(gang_size):
+                        c.schedule(c.make_pod(f"{prefix}{i}", tpu=2,
+                                              priority=100,
+                                              group=group))
+                except RuntimeError:
+                    _drop_gang(c, prefix)
+                    raise
+                return prefix
+
+            gang_prefix = commit_gang()
+            fillers = []
+            for i in range(6):
+                name = f"fill-{i}"
+                c.schedule(c.make_pod(name, tpu=1))
+                fillers.append(name)
+
+            drains_completed = 0
+            spot_kills = 0
+            returned_slices = 0
+            refill_failures: list[str] = []
+            for cycle in range(cycles):
+                ext = c.extender
+                event = maint.next_event()
+                if event is None:
+                    break
+                sid, returns = event
+                nodes = [n for n in ext.state.node_names()
+                         if ext.state.slice_of_node(n) == sid]
+                if not nodes:
+                    # the slice left in an earlier cycle and never
+                    # returned — the draw stands (determinism), the
+                    # cycle's churn still runs below
+                    pass
+                else:
+                    ext.drain.begin(nodes, reason="maintenance")
+                    ext.drain.tick()
+                    converge(c, rounds=3)
+                    if cycle % 2 == 1:
+                        # the crash arm: die mid-choreography; the
+                        # cordon must ride the WAL into the fresh
+                        # incarnation. When the first tick already
+                        # finished the drain this is the mid-UN-INGEST
+                        # crash: the provider has the capacity, so the
+                        # store stops advertising it BEFORE the restart
+                        # (else the O(Δ) reconcile would faithfully
+                        # re-ingest what the apiserver still claims).
+                        if not ext.drain.active():
+                            c.forget_nodes(nodes)
+                        audit_checks += ext.snapshots.audit_checks
+                        audit_divergences += \
+                            ext.snapshots.audit_divergences
+                        c.crash_extender()
+                        c.restart_extender()
+                        ext = c.extender
+                        still = sorted(
+                            n for n in ext.state.cordoned_nodes())
+                        missing = (set(nodes)
+                                   & set(ext.state.node_names())
+                                   ) - set(still)
+                        if missing:
+                            problems.append(
+                                f"cycle {cycle}: cordon lost in "
+                                f"recovery for {sorted(missing)[:2]}")
+                        if still:
+                            # the operator's resume: a fresh
+                            # coordinator adopts the recovered cordon
+                            ext.drain.begin(still, reason="maintenance")
+                    _drive_drain(c, ext)
+                    drains_completed += 1
+                    peak_moves = max(peak_moves,
+                                     ext.drain.peak_tick_moves)
+                    if ext.drain.peak_tick_moves > \
+                            cfg.drain_max_concurrent_moves:
+                        problems.append(
+                            f"cycle {cycle}: drain moved "
+                            f"{ext.drain.peak_tick_moves} workloads in "
+                            f"one tick (budget "
+                            f"{cfg.drain_max_concurrent_moves})")
+                    c.forget_nodes(nodes)
+                    if returns:
+                        items = c.add_slice(sid, mesh)
+                        res = ext.handle("upsert_nodes",
+                                         {"items": items})["results"]
+                        errs = [r for r in res
+                                if isinstance(r, dict) and r.get("error")]
+                        if errs:
+                            problems.append(
+                                f"cycle {cycle}: re-ingest of {sid} "
+                                f"failed: {errs[:1]}")
+                        returned_slices += 1
+
+                # spot churn: no cordon, no budget — the node is gone
+                victim = spot.draw_kill(ext.state.node_names())
+                if victim is not None:
+                    doomed = [a.pod_key for a in ext.state.allocations()
+                              if a.node_name == victim]
+                    for key in doomed:
+                        ns, name = key.split("/", 1)
+                        c.delete_pod(name, namespace=ns)
+                    converge(c, rounds=3)
+                    out = ext.state.remove_nodes([victim])
+                    if victim not in out["removed"]:
+                        problems.append(
+                            f"cycle {cycle}: spot victim {victim} not "
+                            f"removable: {out['skipped']}")
+                    c.forget_nodes([victim])
+                    spot_kills += 1
+
+                # the all-or-nothing invariant, then refill
+                got = _gang_alloc_count(ext, gang_prefix)
+                if got not in (0, gang_size):
+                    problems.append(
+                        f"cycle {cycle}: gang partially allocated "
+                        f"({got}/{gang_size})")
+                if got == 0:
+                    _drop_gang(c, gang_prefix)
+                    try:
+                        gang_prefix = commit_gang()
+                    except RuntimeError as e:
+                        # fleet too small/fragmented this cycle — the
+                        # next one retries after capacity returns
+                        refill_failures.append(
+                            f"cycle {cycle} (fleet "
+                            f"{sorted(ext.state.slice_ids())}, "
+                            f"{len(ext.state.node_names())} nodes): "
+                            f"{str(e)[:200]}")
+                for name in list(fillers):
+                    if f"default/{name}" not in c.pods or not c.pods[
+                            f"default/{name}"]["spec"].get("nodeName"):
+                        c.delete_pod(name)
+                        fillers.remove(name)
+                div = ledger_divergence(c)
+                if div:
+                    problems.append(
+                        f"cycle {cycle}: ledger divergence {div[:2]}")
+                leaks = leaked_reservations(c)
+                if leaks:
+                    problems.append(
+                        f"cycle {cycle}: leaked reservations "
+                        f"{[str(p) for p in leaks[:2]]}")
+                clock.advance(120.0)
+
+            maint.stop()
+            spot.stop()
+            converge(c)
+            audit_checks += c.extender.snapshots.audit_checks
+            audit_divergences += c.extender.snapshots.audit_divergences
+            drain_stats = c.extender.drain.stats() \
+                if c.extender.drain is not None else {}
+            storm_report = {
+                "maintenance": maint.report(),
+                "spot": spot.report(),
+                "drains_completed": drains_completed,
+                "spot_kills": spot_kills,
+                "returned_slices": returned_slices,
+                "gang_refill_failures": refill_failures,
+                "final_slices": sorted(c.extender.state.slice_ids()),
+                "last_incarnation_drain": drain_stats,
+            }
+
+    # ---- phase B: the autoscaler loop ----------------------------------
+    cfg_b = load_config(env=_env({
+        "TPUKUBE_DRAIN_ENABLED": "1",
+        "TPUKUBE_DRAIN_MAX_CONCURRENT_MOVES": "2",
+        "TPUKUBE_AUTOSCALE_ENABLED": "1",
+        "TPUKUBE_AUTOSCALE_MIN_SLICES": "2",
+        "TPUKUBE_AUTOSCALE_MAX_SLICES": "4",
+        "TPUKUBE_AUTOSCALE_UP_QUEUE_DEPTH": "4",
+        "TPUKUBE_AUTOSCALE_DOWN_UTILIZATION": "0.25",
+        "TPUKUBE_AUTOSCALE_COOLDOWN_SECONDS": "30",
+        "TPUKUBE_BATCH_ENABLED": "1",
+    }))
+    clock_b = FakeClock()
+    with SimCluster(cfg_b, slices={"s0": mesh, "s1": mesh},
+                    clock=clock_b, in_process=True) as c:
+        from tpukube_torch.sched import kube
+
+        ext = c.extender
+        ext.autoscaler.set_provisioner(c.make_slice_provisioner(mesh))
+        # saturate: 8 x 4-chip pods fill both 16-chip slices exactly
+        held = [c.make_pod(f"hold-{i}", tpu=4) for i in range(8)]
+        c.schedule_pending(held)
+        # the burst beyond capacity: queue depth crosses the up
+        # threshold; the next autoscaler decision must provision + bulk-
+        # ingest a slice (time-to-capacity = one decision)
+        burst = [c.make_pod(f"burst-{i}", tpu=4) for i in range(4)]
+        for obj in burst:
+            ext.admit(kube.pod_from_k8s(obj))
+        up = ext.autoscaler.tick()
+        if up != "up":
+            problems.append(
+                f"phase B: queued burst decided {up!r}, wanted 'up' "
+                f"(depth {ext.cycle.queue_depth()})")
+        n_after_up = len(ext.state.slice_ids())
+        placed = c.schedule_pending(burst, retries=6)
+        if len(placed) != len(burst):
+            problems.append(
+                f"phase B: only {len(placed)}/{len(burst)} burst pods "
+                f"placed after scale-up")
+        # idle down: everything completes, utilization collapses
+        for obj in held + burst:
+            _complete_quiet(c, obj["metadata"]["name"])
+        converge(c, rounds=5)
+        clock_b.advance(60.0)
+        decision = ext.autoscaler.tick()
+        if decision != "down":
+            problems.append(
+                f"phase B: idle fleet decided {decision!r}, wanted "
+                f"'down'")
+        _drive_drain(c, ext)
+        gone = [sid for sid in list(c.slices)
+                if sid not in ext.state.slice_ids()]
+        c.forget_nodes([n for n in list(c.nodes)
+                        if c.nodes[n].slice_id in gone])
+        scale_report = {
+            "scale_ups": ext.autoscaler.scale_ups,
+            "scale_downs": ext.autoscaler.scale_downs,
+            "slices_after_up": n_after_up,
+            "slices_final": sorted(ext.state.slice_ids()),
+        }
+        audit_checks += ext.snapshots.audit_checks
+        audit_divergences += ext.snapshots.audit_divergences
+
+    result = {
+        "metric": "maintenance_storm",
+        "value": storm_report["drains_completed"]
+        + scale_report["scale_downs"],
+        "unit": "graceful drains survived",
+        "cycles": cycles,
+        "seed": seed,
+        "storm": storm_report,
+        "autoscale": scale_report,
+        "peak_tick_moves": peak_moves,
+        "budget_moves": cfg.drain_max_concurrent_moves,
+        "snapshot_audit": {
+            "rate": cfg.snapshot_audit_rate,
+            "checks": audit_checks,
+            "divergences": audit_divergences,
+        },
+    }
+    if audit_divergences:
+        problems.append(
+            f"{audit_divergences} snapshot audit divergence(s)")
+    if problems:
+        raise RuntimeError("scenario 15 invariants violated: "
+                           + "; ".join(problems[:6]))
+    return result

@@ -292,9 +292,37 @@ Drives the port's main path the way a cluster does, on the card:
       released;
    c. the ``elasticity:`` line (host clock; serve-1's forward beside step
       8's two shared pods);
-18. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+18. decision provenance (``obs/decisions.py``, the cycle's phase
+   profiling, ``/explain``, ``obs explain``; host work but b's pods):
+   a. the reference's decisions smoke on the port: scenario 12 at 10,240
+      nodes and tools/perf_floor.json's 4,000 pods with
+      ``TPUKUBE_DECISIONS_ENABLED=1`` at sample rate 1.0: records made,
+      the record wall at most the file's ``overhead_pct_max`` (15%) of
+      the drive's, and every bind equal to the same drive's with the
+      plane off;
+   b. ``explain_life``: an ``extender`` daemon as step 14 starts it,
+      behind a bearer token, its config adding batching and
+      ``decisions_enabled`` at sample rate 1.0 with a ``decisions_path``
+      sink, over step 12's REST stand-in holding this machine's Node
+      annotated by the real-backend node agent: ``why-0``, admitted by
+      the feed and planned on its /filter, is bound to ``tpu-0`` from the
+      plan and serves Llama-3-8B (B=1, S=2048) for three requests with
+      the plugin's Allocate env; ``obs explain --url --token-file`` exits
+      0 naming this node, the fast arm and the chain admit -> cycle_plan
+      -> bind; ``why-1`` asks for one GPU while the card is taken: /filter
+      refuses it with the node's pruning reason, and it explains as
+      pending with a queue age above 0; /statusz shows
+      ``decisions.enabled``, /metrics ``tpukube_decisions_total`` and
+      every phase of ``tpukube_cycle_phase_seconds``; 100 /explain round
+      trips are timed; why-0 ends and explains ``release``; why-1 binds
+      ``tpu-0`` and serves one request; SIGTERM exits 0, and ``obs
+      explain --file`` on the sink renders what the live route did;
+   c. the ``provenance:`` line (host clock: the overhead with the
+      drive's pods/s on and off, each phase's p50, the /explain median,
+      why-0's forward beside step 8's two shared pods);
+19. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-19. prints the kernels line: the JAX package has no Pallas kernel, so the
+20. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -309,6 +337,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import queue
 import signal
@@ -3348,6 +3377,380 @@ def elasticity_phase(card: str, c0, step8: list):
     return line
 
 
+# -- decision provenance (step 18) ----------------------------------------------
+
+# the reference's decisions smoke: scenario 12's pod count and the
+# overhead ceiling (tools/perf_floor.json's "decisions" entry)
+PERF_FLOOR = os.path.join(ROOT, "tools", "perf_floor.json")
+EXPLAIN_TOKEN = "chip-smoke-explain"  # the daemon's bearer token
+EXPLAIN_ROUNDS = 100  # /explain round trips timed
+PHASES = ("queue", "pin", "plan", "answer", "commit")
+# step 14's config with the batch cycle and decision provenance on, every
+# pod sampled, the provenance sink in the temp dir
+EXPLAIN_CONFIG = DAEMON_CONFIG + """\
+batch_enabled: true
+decisions_enabled: true
+decisions_sample_rate: 1.0
+decisions_path: {decisions}
+"""
+
+
+@contextlib.contextmanager
+def recorded_binds(ext_mod=None):
+    """Every placement the extenders of ``ext_mod`` (the port's extender
+    module by default) answer at /bind while the block runs, in order:
+    (pod key, node, alloc annotation); a refused bind places nothing."""
+    if ext_mod is None:
+        from tpukube_torch.sched import extender as ext_mod
+
+    binds: list = []
+    real = ext_mod.Extender._handle_bind
+
+    def handle_bind(self, body):
+        resp = real(self, body)
+        if not resp.get("Error"):
+            binds.append((f"{body['PodNamespace']}/{body['PodName']}",
+                          body["Node"], resp.get("Annotations")))
+        return resp
+
+    ext_mod.Extender._handle_bind = handle_bind
+    try:
+        yield binds
+    finally:
+        ext_mod.Extender._handle_bind = real
+
+
+def decisions_smoke() -> dict:
+    """Step 18a: the reference's decisions smoke on the port: scenario 12
+    at 10,240 nodes and tools/perf_floor.json's pod count, with decision
+    provenance on at sample rate 1.0, then the same drive with it off.
+    Provenance must record, cost at most the file's ``overhead_pct_max``
+    of the drive's wall, and move no pod: the two drives' placements must
+    be equal, bind by bind. Returns the ``provenance:`` line's drive
+    numbers; raises RuntimeError when a check fails."""
+    from tpukube_torch.sim import scenarios
+
+    with open(PERF_FLOOR) as f:
+        floor = json.load(f)["decisions"]
+    runs = {}
+    for on in ("1", "0"):
+        with scenario_env({"TPUKUBE_KILONODE10K_PODS": str(floor["pods"]),
+                           "TPUKUBE_DECISIONS_ENABLED": on,
+                           "TPUKUBE_DECISIONS_SAMPLE_RATE": "1.0"}), \
+                recorded_binds() as binds:
+            runs[on] = (scenarios.run(12), binds)
+    (r_on, binds_on), (r_off, binds_off) = runs["1"], runs["0"]
+    d = r_on["decisions"]
+    if not d["recorded"] or d["overhead_pct"] is None \
+            or d["overhead_pct"] > floor["overhead_pct_max"]:
+        raise RuntimeError(f"decisions smoke: recorded {d['recorded']}, "
+                           f"overhead {d['overhead_pct']}% (ceiling "
+                           f"{floor['overhead_pct_max']}%)")
+    if "decisions" in r_off:
+        raise RuntimeError("provenance recorded with decisions_enabled off")
+    if not binds_on or binds_on != binds_off:
+        raise RuntimeError(f"placements with provenance on ({len(binds_on)} "
+                           f"binds) differ from those with it off "
+                           f"({len(binds_off)})")
+    return {
+        "pods": r_on["pods_total"], "nodes": r_on["nodes"],
+        "recorded": d["recorded"], "record_seconds": d["record_seconds"],
+        "overhead_pct": d["overhead_pct"],
+        "overhead_pct_max": floor["overhead_pct_max"],
+        "pods_per_s_on": r_on["pods_per_sec"],
+        "pods_per_s_off": r_off["pods_per_sec"],
+        "wall_s_on": r_on["wall_s"], "wall_s_off": r_off["wall_s"],
+        "binds_compared": len(binds_on),
+    }
+
+
+def explain_life(card_agent, serve=None) -> dict:
+    """Step 18b: one card pod's placement, pending wait and release
+    explained live and from the provenance sink. An ``extender`` daemon
+    started as step 14 starts it (config file, the REST stand-in), behind
+    a bearer token, its config adding the batch cycle and decision
+    provenance at sample rate 1.0 with a sink in the temp dir; the
+    stand-in holds this machine's Node, annotated by ``card_agent()``'s
+    node agent. ``serve(env, requests)`` runs a pod's container on the
+    Allocate env and returns its report (None: no container).
+
+    why-0 is admitted by the daemon's admission feed, planned on its
+    /filter and bound to tpu-0 from the plan; ``obs explain --url`` (a
+    child) names this node, the batch arm and the chain admit ->
+    cycle_plan -> bind. why-1 asks for one GPU while the card is taken:
+    /filter refuses it with the node's pruning reason, and it explains as
+    pending with a queue age above 0. /statusz shows the decisions
+    section, /metrics counts the records and every cycle phase. why-0
+    ends, is released and explains so; why-1 binds tpu-0 and runs. On
+    SIGTERM the daemon exits 0, and ``obs explain --file`` on its sink
+    renders what the live route did. Returns the decisions and the
+    host-clock times; raises RuntimeError when a check fails."""
+    import tempfile
+    from urllib.parse import quote
+
+    from tpukube_torch.core import codec
+    from tpukube_torch.graft import ENV_ALLOC
+    from tpukube_torch.obs import decisions as decisions_mod
+    from tpukube_torch.sched import client
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sim.harness import _free_port
+    from tpukube_torch.sim.kube_rest import KubeRestServer
+
+    out: dict = {"binds": {}, "pods": {}}
+    t_step = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td, \
+            KubeRestServer(token=REST_TOKEN) as kube, \
+            contextlib.ExitStack() as stack:
+        kids = Children(td)
+        stack.callback(kids.close)
+        sink = os.path.join(td, "decisions.jsonl")
+        cfg_path = os.path.join(td, "config.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(EXPLAIN_CONFIG.format(
+                hosts=1, poll=REST_POLL_S,
+                trace=os.path.join(td, "trace.jsonl"),
+                events=os.path.join(td, "events.jsonl"), decisions=sink))
+        kube_token, auth = (os.path.join(td, n) for n in ("kube-token", "auth"))
+        for path, text in ((kube_token, REST_TOKEN), (auth, EXPLAIN_TOKEN)):
+            with open(path, "w") as f:
+                f.write(text + "\n")
+        agent = stack.enter_context(card_agent())
+        node = agent.mgr.host
+        kube.store.patch_node_annotations(
+            node, codec.annotate_node(agent.mgr.node_info(), agent.mgr.mesh))
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        t = time.perf_counter()
+        proc = kids.spawn("extender-explain", [
+            "extender", "--config", cfg_path, "--host", "127.0.0.1",
+            "--port", str(port), "--auth-token-file", auth,
+            "--kube-api", kube.base_url, "--kube-token-file", kube_token])
+        t_ready = daemon_wait("the extender ready", lambda: https_get(
+            f"{base}/healthz")["nodes"] == [node], proc)
+        out["spawn_to_ready_ms"] = (t_ready - t) * 1e3
+
+        def get(path: str, raw: bool = False):
+            req = urllib.request.Request(f"{base}{path}")
+            req.add_header("Authorization", f"Bearer {EXPLAIN_TOKEN}")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                body = r.read()
+            return body if raw else json.loads(body)
+
+        def explain(name: str) -> dict:
+            return get(f"/explain?pod={quote('default/' + name, safe='/')}")
+
+        def stages(name: str) -> list:
+            return [ev["stage"] for ev in explain(name)["stages"]]
+
+        def settled(name: str) -> list:
+            """The pod's stages once three reads 0.1 s apart agree (the
+            admission feed may still be re-admitting it after a bind)."""
+            seen = [stages(name)]
+            while len(seen) < 3 or seen[-1] != seen[-2] or seen[-2] != seen[-3]:
+                time.sleep(0.1)
+                seen.append(stages(name))
+            return seen[-1]
+
+        def obs_explain(*args: str) -> tuple:
+            return kids.run("obs-explain", ["obs", "explain", *args])
+
+        def admitted(name: str) -> None:
+            t = time.perf_counter()
+            kube.store.upsert_pod(pod_object(name, tpu=1))
+            t_adm = daemon_wait(f"{name}'s admission",
+                                lambda: "admit" in stages(name), proc)
+            out[f"{name}_added_to_admitted_ms"] = (t_adm - t) * 1e3
+
+        def bind(name: str, requests: int) -> None:
+            host, alloc, ms = client.place(port, pod_object(name, tpu=1), [node],
+                                           token=EXPLAIN_TOKEN)
+            out["binds"][name] = alloc.device_ids
+            out[f"{name}_webhook_ms"] = ms
+            if host != node or alloc.device_ids != ["tpu-0"]:
+                raise RuntimeError(f"{name} bound {alloc.device_ids} on {host}")
+            payload = kube.store.get_pod("default", name)["metadata"][
+                "annotations"][codec.ANNO_ALLOC]
+            if serve is not None:
+                env = {**allocate(agent, alloc), ENV_ALLOC: payload}
+                out["pods"][name] = serve(env, requests)
+
+        def ended(name: str) -> None:
+            done = dict(kube.store.get_pod("default", name))
+            done["status"] = {"phase": "Succeeded"}
+            t = time.perf_counter()
+            kube.store.upsert_pod(done)
+            t_rel = daemon_wait(f"{name}'s release",
+                                lambda: "release" in stages(name), proc)
+            out[f"{name}_succeeded_to_release_ms"] = (t_rel - t) * 1e3
+
+        # why-0: admitted by the feed, planned on its /filter, bound from
+        # the plan; its explain names the node, the arm and the chain
+        admitted("why-0")
+        bind("why-0", 3)
+        rc, text = obs_explain("--url", base, "--token-file", auth,
+                               "default/why-0")
+        doc0 = explain("why-0")
+        chain = [ev["stage"] for ev in doc0["stages"]]
+        plan = next(ev for ev in doc0["stages"] if ev["stage"] == "cycle_plan")
+        bound = next(ev for ev in doc0["stages"] if ev["stage"] == "bind")
+        out.update(why0_rc=rc, why0_text=text.strip().splitlines(),
+                   why0_chain=chain, why0_arm=plan["arm"],
+                   why0_served_from=bound["served_from"])
+        if (rc != 0 or doc0["verdict"] != "placed" or doc0["node"] != node
+                or chain[:3] != ["admit", "cycle_plan", "bind"]
+                or f"PLACED on {node}" not in text
+                or f"arm={plan['arm']}" not in text or plan["arm"] != "fast"
+                or bound["served_from"] != "plan"):
+            raise RuntimeError(f"why-0's explain (exit {rc}): {doc0}\n{text}")
+        # why-1 while the card is taken: pending, pruned, aging
+        admitted("why-1")
+        fres = client.filter_nodes(port, pod_object("why-1", tpu=1), [node],
+                                   token=EXPLAIN_TOKEN)
+        doc1 = explain("why-1")
+        plan1 = [ev for ev in doc1["stages"] if ev["stage"] == "cycle_plan"]
+        out.update(why1_verdict=doc1["verdict"],
+                   why1_reasons=(fres.get("FailedNodes") or {}).get(node, ""),
+                   why1_pending_age_s=(plan1[-1].get("queue_age_s")
+                                       if plan1 else None),
+                   why1_text=decisions_mod.format_explain(doc1).splitlines())
+        if (fres["NodeNames"] or doc1["verdict"] != "pending" or not plan1
+                or plan1[-1]["node"] is not None
+                or not out["why1_reasons"]
+                or not (out["why1_pending_age_s"] or 0) > 0):
+            raise RuntimeError(f"why-1 while the card is taken: {fres}, {doc1}")
+        statusz = get("/statusz")["decisions"]
+        page = metric_lines(https_get(f"{base}/metrics", raw=True).decode())
+        out["statusz"] = {k: statusz[k] for k in (
+            "enabled", "sample_rate", "events", "pods", "recorded",
+            "sink_path")}
+        out["decisions_total"] = page.get("tpukube_decisions_total", 0)
+        out["phases_observed"] = {
+            p: page.get(f'tpukube_cycle_phase_seconds_count{{phase="{p}"}}', 0)
+            for p in PHASES}
+        out["phases"] = phase_stats(page)
+        if (statusz["enabled"] is not True or statusz["sink_path"] != sink
+                or not out["decisions_total"] > 0
+                or not all(v > 0 for v in out["phases_observed"].values())):
+            raise RuntimeError(f"/statusz decisions {statusz}, /metrics "
+                               f"{out['decisions_total']} records, phases "
+                               f"{out['phases_observed']}")
+        walls = []
+        for _ in range(EXPLAIN_ROUNDS):
+            t = time.perf_counter()
+            explain("why-0")
+            walls.append((time.perf_counter() - t) * 1e3)
+        out["explain_ms_median"] = statistics.median(walls)
+        # why-0 ends and is released; why-1 takes the card
+        ended("why-0")
+        bind("why-1", 1)
+        if explain("why-1")["verdict"] != "placed":
+            raise RuntimeError(f"why-1 bound but explains {explain('why-1')}")
+        live = {}
+        for name in ("why-0", "why-1"):
+            settled(name)
+            rc, text = obs_explain("--url", base, "--token-file", auth,
+                                   "--json", f"default/{name}")
+            if rc != 0:
+                raise RuntimeError(f"obs explain --url {name} exited {rc}")
+            live[name] = json.loads(text)
+        out["why0_stages_final"] = [ev["stage"] for ev in live["why-0"]["stages"]]
+        rc, out["sigterm_s"] = kids.stop(proc)
+        out["sigterm_rc"] = rc
+        if rc != 0:
+            raise RuntimeError(f"the extender exited {rc} on SIGTERM: "
+                               f"{Children.tail(proc)}")
+        same = []
+        for name in ("why-0", "why-1"):
+            rc, text = obs_explain("--file", sink, "--json", f"default/{name}")
+            same.append(rc == 0 and json.loads(text) == live[name])
+        out["sink_same_stages"] = all(same)
+        if not out["sink_same_stages"]:
+            raise RuntimeError(f"the sink's explain differs from the live "
+                               f"route's: {same}")
+        out["sink_lines"] = len(decisions_mod.load(sink))
+        out["routes"] = dict(kube.requests)
+    out["step_s"] = time.perf_counter() - t_step
+    return out
+
+
+def phase_stats(page: dict) -> dict:
+    """Each cycle phase's count, mean and p50 from a /metrics page's
+    ``tpukube_cycle_phase_seconds`` histogram. The histogram keeps bucket
+    counts only, so the p50 is the upper bound of the bucket the median
+    observation falls in (ms)."""
+    import re
+
+    out = {}
+    for p in PHASES:
+        count = page.get(f'tpukube_cycle_phase_seconds_count{{phase="{p}"}}', 0)
+        total = page.get(f'tpukube_cycle_phase_seconds_sum{{phase="{p}"}}', 0)
+        bounds = sorted(
+            (float(m.group(1)), v) for k, v in page.items()
+            if (m := re.fullmatch(r'tpukube_cycle_phase_seconds_bucket'
+                                  rf'\{{le="([^"]+)",phase="{p}"\}}', k))
+            and m.group(1) != "+Inf")
+        p50 = next((le for le, n in bounds if count and n >= count / 2),
+                   math.inf)
+        out[p] = {"count": count,
+                  "mean_ms": total / count * 1e3 if count else None,
+                  "p50_le_ms": p50 * 1e3}
+    return out
+
+
+def provenance_phase(card: str, c0, step8: list):
+    """Step 18 on the card: the decisions smoke (18a), then
+    ``explain_life`` with the card's node agent, why-0 a Llama-3-8B B=1
+    pod of three requests and why-1 one of one (18b); prints the
+    ``provenance:`` line's text. ``step8`` is step 8's shared pods'
+    reports. Returns the line's object, or None when a check failed."""
+    host = host_cpu()
+
+    def serve(env, requests):
+        r = run_pod(["--requests", str(requests), "--batch", "1"], env, "pod")
+        if r is None or r["uuid"] != c0.chip_id or r["batch"] != 1:
+            raise RuntimeError(f"a pod of explain_life failed: {r}")
+        return r
+
+    try:
+        smoke = decisions_smoke()
+        life = explain_life(lambda: node_agent({}, host=DAEMON_NODE),
+                            serve=serve)
+    except (RuntimeError, subprocess.SubprocessError, OSError) as e:
+        fail(f"provenance: {e}")
+        return None
+    pods = life.pop("pods")
+    for name, r in pods.items():
+        print(f"{name}: " + json.dumps(r, sort_keys=True), flush=True)
+    why0 = pods["why-0"]
+    step8_pods = [{"forward_ms_median": r["forward_ms_median"],
+                   "tokens_per_s": r["tokens_per_s"]} for r in step8]
+    phases = life["phases"]
+    line = {"card": card, "host": host, "smoke": smoke, **life,
+            "why0_pod": {"forward_ms_median": why0["forward_ms_median"],
+                         "tokens_per_s": why0["tokens_per_s"]},
+            "step8_pods": step8_pods}
+    print(
+        f"provenance: scenario 12 at {smoke['nodes']} nodes, "
+        f"{smoke['pods']} pods, sample rate 1.0: overhead "
+        f"{smoke['overhead_pct']}% of the drive (ceiling "
+        f"{smoke['overhead_pct_max']}%), {smoke['recorded']} records, "
+        f"{smoke['pods_per_s_on']} pods/s on vs {smoke['pods_per_s_off']} "
+        f"off, {smoke['binds_compared']} binds equal; daemon phases (p50 "
+        f"bucket bound / mean) "
+        + ", ".join(f"{p} <= {v['p50_le_ms']:g} / {v['mean_ms']:.4f} ms"
+                    for p, v in phases.items())
+        + f"; /explain round trip median {life['explain_ms_median']:.3f} ms "
+        f"({EXPLAIN_ROUNDS} rounds); why-0 Llama-3-8B B=1 S=2048 "
+        f"{why0['forward_ms_median']:.3f} ms, {why0['tokens_per_s']:.1f} "
+        f"tokens/s (step 8's two shared pods: "
+        + ", ".join(f"{v['forward_ms_median']:.3f} ms {v['tokens_per_s']:.1f} "
+                    f"tokens/s" for v in step8_pods)
+        + f"); step {life['step_s']:.1f} s [host CPU times; {host}; {card}]",
+        flush=True,
+    )
+    return line
+
+
 def mps_daemon_running() -> bool:
     """Whether an MPS control daemon runs on this machine: without one,
     CUDA_MPS_ACTIVE_THREAD_PERCENTAGE binds nothing."""
@@ -3807,6 +4210,12 @@ def main() -> int:
         return 1
     print("elasticity: " + json.dumps(elastic, sort_keys=True), flush=True)
 
+    # -- decision provenance: the decisions smoke, a card pod explained ----
+    prov = provenance_phase(card, c0, step8_shared)
+    if prov is None:
+        return 1
+    print("provenance: " + json.dumps(prov, sort_keys=True), flush=True)
+
     # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -3845,8 +4254,8 @@ def main() -> int:
                 "cudaguard (CUDA driver quota guard); the scheduler extender, "
                 "its durable journal (WAL, CRC, checkpoints), the tenancy "
                 "plane (quotas, DRF order, SLO-burn shedding), the SLO "
-                "evaluator, drain, the autoscaler and capacity analytics are "
-                "host Python (numpy)",
+                "evaluator, drain, the autoscaler, capacity analytics and "
+                "decision provenance are host Python (numpy)",
     }), flush=True)
     print(json.dumps({
         "ok": True,

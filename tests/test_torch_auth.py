@@ -31,6 +31,7 @@ import sys
 import time
 import urllib.error
 import urllib.request
+from typing import Optional
 
 import pytest
 
@@ -105,13 +106,25 @@ def _request(base: str, method: str, path: str, body=None, token=TOKEN,
     return status, None
 
 
+def _text(base: str, path: str, token=TOKEN) -> tuple[int, str]:
+    """(status, body text) of a GET, for routes that answer text/plain."""
+    req = urllib.request.Request(f"{base}{path}")
+    req.add_header("Authorization", f"Bearer {token}")
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
 @contextlib.contextmanager
-def _both_apps():
+def _both_apps(extra: Optional[dict] = None):
     """The reference's app and the port's, each over a sim fleet of 8 GPUs
-    per host (8,2,1) and an extender of the same config, behind the same
-    bearer token. Yields (port base URL, reference base URL, nodes)."""
+    per host (8,2,1) and an extender of the same config (``extra`` on top),
+    behind the same bearer token. Yields (port base URL, reference base
+    URL, nodes)."""
     env = {**REF_SIM_DEFAULTS, "TPUKUBE_SIM_MESH_DIMS": "8,2,1",
-           "TPUKUBE_SIM_HOST_BLOCK": "8,1,1"}
+           "TPUKUBE_SIM_HOST_BLOCK": "8,1,1", **(extra or {})}
     with RefSim(ref_load_config(env=env), in_process=True) as sim:
         nodes = sim.node_objects()
     port_ext = Extender(load_config(env=env))
@@ -130,6 +143,8 @@ def _both_apps():
         for ext in (port_ext, ref_ext):
             ext.trace.close()
             ext.events.close()
+            if ext.decisions is not None:
+                ext.decisions.close()
 
 
 def test_every_route_answers_as_the_reference():
@@ -198,12 +213,65 @@ def test_every_route_answers_as_the_reference():
         assert ({k: got["snapshot"][k] for k in keep}
                 == {k: want["snapshot"][k] for k in keep})
         assert got["ingest"]["nodes_total"] == want["ingest"]["nodes_total"]
-        # /explain (decision provenance, not ported) and /capacity with
-        # its plane off: 404 on both
+        # /explain and /capacity with their planes off: 404 on both, with
+        # the reference's text
         for path in ("/explain?pod=default/a", "/capacity",
                      "/capacity/probe?count=4"):
             assert same("GET", path)[0] == 404
+            assert _text(port_url, path) == _text(ref_url, path)
+        assert "decisions_enabled" in _text(port_url, "/explain?pod=a")[1]
         assert compared > 40
+
+
+def test_explain_answers_as_the_reference_with_the_plane_on():
+    """/explain with decision provenance on: the same webhooks to both
+    apps, then each pod's explain document is the reference's (less the
+    host times ``ts`` of each stage), behind the same bearer gate; a
+    missing pod parameter is the reference's 400, and /statusz's
+    ``decisions`` section matches but for its host-time fields."""
+    from tpukube_torch.sched.kube import pod_object
+
+    pods = [pod_object("a", tpu=2), pod_object("b", tpu=4),
+            pod_object("big", tpu=64)]
+    on = {"TPUKUBE_DECISIONS_ENABLED": "1"}
+    with _both_apps(on) as (port_url, ref_url, nodes):
+        names = [n["metadata"]["name"] for n in nodes]
+        for pod in pods:
+            meta = pod["metadata"]
+            fres = [_request(u, "POST", "/filter",
+                             {"Pod": pod, "Nodes": {"Items": nodes}})
+                    for u in (port_url, ref_url)]
+            assert fres[0] == fres[1]
+            if not fres[0][1]["NodeNames"]:
+                continue
+            for u in (port_url, ref_url):
+                _request(u, "POST", "/prioritize",
+                         {"Pod": pod, "NodeNames": names})
+                _request(u, "POST", "/bind", {
+                    "PodName": meta["name"], "PodNamespace": "default",
+                    "PodUID": meta["uid"],
+                    "Node": fres[0][1]["NodeNames"][0]})
+        verdicts = {}
+        for path in ("/explain?pod=default/a", "/explain?pod=b",
+                     "/explain?pod=big", "/explain?pod=default/ghost"):
+            got = _request(port_url, "GET", path)
+            assert got == _request(ref_url, "GET", path), path
+            assert got[0] == 200
+            verdicts[got[1]["pod"]] = got[1]["verdict"]
+        assert verdicts == {"default/a": "placed", "default/b": "placed",
+                            "default/big": "pending",
+                            "default/ghost": "unknown"}
+        assert _text(port_url, "/explain") == _text(ref_url, "/explain")
+        assert _text(port_url, "/explain")[0] == 400
+        for kw in ({"token": None}, {"token": "wrong"}):
+            assert _request(port_url, "GET", "/explain?pod=a", **kw)[0] \
+                == _request(ref_url, "GET", "/explain?pod=a", **kw)[0] == 401
+        host = ("record_seconds",)
+        got = _request(port_url, "GET", "/statusz")[1]["decisions"]
+        want = _request(ref_url, "GET", "/statusz")[1]["decisions"]
+        assert ({k: v for k, v in got.items() if k not in host}
+                == {k: v for k, v in want.items() if k not in host})
+        assert got["enabled"] is True and got["recorded"] > 0
 
 
 # -- the extender daemon over mTLS --------------------------------------------

@@ -43,9 +43,6 @@ from torch_twin import (
 use_private_tpuinfo()
 
 CAPACITY_SKIPS = {
-    "test_explain_chain_carries_the_stranded_stage":
-        "reads the stranded stage from /explain: decision provenance "
-        "(ROADMAP.md Queue 1, item 4)",
     "test_router_capacity_doc_degrades_loudly_on_dead_replica":
         "the shard router's federated /capacity (ROADMAP.md Queue 1, "
         "item 5)",

@@ -8,6 +8,7 @@ crash seams on both packages, and scenarios 8, 9 and 13 give the
 reference's results on the fields the reference's tests assert."""
 
 import random
+import time
 
 import pytest
 
@@ -96,3 +97,42 @@ def test_chaos_scenarios_give_the_reference_results(scenario, monkeypatch):
         assert got["seams"] == ["torn_tail", "clean", "lost_tail"]
         assert got["recovery_modes"] == ["warm"] * 3
         assert got["snapshot_audit"]["checks"] > 0
+
+
+# scenario 8 on an idle host injects 18 faults at seed 1337 (8 errors, 5
+# slow, 2 timeouts, 3 torn writes) on both packages
+IDLE_HOST_INJECTED = 18
+# past the chaos circuit's 20 ms reset window (ChaosSimCluster.CIRCUIT_RESET_S)
+STALL_S = 0.025
+
+
+def _stalled_sleep(seconds: float) -> None:
+    time.sleep(max(seconds, STALL_S))
+
+
+def test_a_late_wakeup_draws_the_same_extra_faults_on_both_packages(
+        monkeypatch):
+    """Why test_scenario8_is_deterministic_for_a_seed can fail on a loaded
+    host, on either package: the apiserver channel's retry backoff sleeps
+    1-10 ms, and the chaos circuit reopens 20 ms after it trips. A sleep
+    that wakes late (a busy CPU) finds the circuit half-open, so the retry
+    is a probe that draws one more fault, where an idle host's retry is
+    refused by the open circuit without a draw. Every backoff here wakes
+    25 ms late: both packages then draw the same faults, more than on an
+    idle host. The race is the reference's own (the port copies its
+    scenario, circuit and retrier), so the port draws as it does."""
+    from tpukube.core import retry as ref_retry
+    from tpukube_torch.core import retry as port_retry
+
+    monkeypatch.setenv("TPUKUBE_CHAOS_SEED", "1337")
+    for mod in (ref_retry, port_retry):
+        defaults = list(mod.Retrier.__init__.__defaults__)
+        defaults[defaults.index(time.sleep)] = _stalled_sleep
+        monkeypatch.setattr(mod.Retrier.__init__, "__defaults__",
+                            tuple(defaults))
+    want = ref_scenarios.run(8)
+    got = scenarios.run(8)
+    assert got["faults"] == want["faults"]
+    assert got["preemptions"] == want["preemptions"]
+    assert got["faults"]["injected"] > IDLE_HOST_INJECTED
+    assert got["leaked_reservations"] == 0 and got["ledger_divergence"] == 0

@@ -447,7 +447,7 @@ REFUSED_FILES = {
     "journal-path-without-journal": "journal_path: /var/lib/wal\n",
     "tenancy-quotas-without-tenancy": "tenancy_quotas: a=1\n",
     "unported-resync": "generation_log_capacity: 0\n",
-    "unported-plane-on": "decisions_enabled: true\n",
+    "unported-plane-on": "lock_monitor: true\n",
     "bad-int": "extender_port: twelve\n",
     "bad-range": "extender_port: 70000\n",
     "short-tuple": "sim_mesh_dims: [8, 1]\n",
@@ -702,8 +702,7 @@ print(json.dumps({{"rc": rc, "loaded": bad}}))
 
 
 def test_unported_tools_exit_2_naming_their_plane(capsys):
-    for argv, word in ((["obs", "explain", "default/p"], "provenance"),
-                       (["shard-worker"], "shard router"),
+    for argv, word in ((["shard-worker"], "shard router"),
                        (["sim", "14"], "shard router")):
         assert cli.main(argv) == 2, argv
         assert word in capsys.readouterr().err, argv
@@ -715,13 +714,24 @@ def test_unported_tools_exit_2_naming_their_plane(capsys):
 
 
 @pytest.mark.parametrize("argv", [["obs", "slo", "--snapshot"], ["sim", "7"],
-                                  ["obs", "capacity"], ["sim", "15"]],
-                         ids=["obs-slo", "sim-7", "obs-capacity", "sim-15"])
+                                  ["obs", "capacity"], ["sim", "15"],
+                                  ["obs", "explain", "default/p"]],
+                         ids=["obs-slo", "sim-7", "obs-capacity", "sim-15",
+                              "obs-explain"])
 def test_tools_once_refused_run_and_exit_0(tmp_path, capsys, monkeypatch,
                                            argv):
     # ``obs slo`` and ``sim 7`` exited 2 while the SLO evaluator was not
     # ported, ``obs capacity`` and ``sim 15`` while capacity analytics and
-    # drain were not; they run now
+    # drain were not, ``obs explain`` while decision provenance was not;
+    # they run now (``obs explain`` against a provenance sink capture)
+    if argv[:2] == ["obs", "explain"]:
+        sink = tmp_path / "decisions.jsonl"
+        sink.write_text("".join(json.dumps(ev) + "\n" for ev in (
+            {"seq": 1, "ts": 1.7e9, "pod": "default/p", "stage": "filter",
+             "candidates": 2, "feasible": 1, "pruned": {"full": 1}},
+            {"seq": 2, "ts": 1.7e9, "pod": "default/p", "stage": "bind",
+             "node": "host-0-0-0", "ok": True, "served_from": "legacy"})))
+        argv = [*argv, "--file", str(sink)]
     if argv == ["obs", "capacity"]:
         capture = tmp_path / "capacity.jsonl"
         capture.write_text(json.dumps({"ts": 1.7e9, "fleet": {
@@ -741,6 +751,9 @@ def test_tools_once_refused_run_and_exit_0(tmp_path, capsys, monkeypatch,
         assert json.loads(text)["gang-schedule-latency"]["burn_rate"] == 1.0
     elif argv[:2] == ["obs", "capacity"]:
         assert "utilization" in text and "(last 50.0% over 1 samples)" in text
+    elif argv[:2] == ["obs", "explain"]:
+        assert text.splitlines()[0] == "default/p: PLACED on host-0-0-0"
+        assert "1x full" in text
     elif argv[1] == "15":
         out = json.loads(text.strip().splitlines()[-1])
         assert out["scenario"] == 15 and out["storm"]["drains_completed"] >= 1

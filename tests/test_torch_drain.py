@@ -55,9 +55,6 @@ from torch_twin import (
 use_private_tpuinfo()
 
 DRAIN_SKIPS = {
-    "test_drain_evict_provenance_stage":
-        "reads the drain_evict stage from the decision log: decision "
-        "provenance (ROADMAP.md Queue 1, item 4)",
     "test_drain_intent_shields_replica_from_dead_marking":
         "the shard router's drain intent (ROADMAP.md Queue 1, item 5)",
 }

@@ -134,6 +134,6 @@ def test_once_unported_scenario_15_runs(monkeypatch):
 def test_passthrough_of_an_unported_plane_is_refused(monkeypatch):
     # a refused plane's knob reaches load_config through the passthrough
     # and is refused there, never ignored
-    monkeypatch.setenv("TPUKUBE_DECISIONS_ENABLED", "1")
+    monkeypatch.setenv("TPUKUBE_LOCK_MONITOR", "1")
     with pytest.raises(ValueError, match="is not ported yet"):
         scenarios.run(2)

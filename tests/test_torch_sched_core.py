@@ -172,7 +172,6 @@ def test_config_defaults_are_the_reference_s():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("TPUKUBE_DECISIONS_ENABLED", "1"),
     ("TPUKUBE_LOCK_MONITOR", "1"),
     ("TPUKUBE_PLANNER_REPLICAS", "2"),
     ("TPUKUBE_SHARD_TRANSPORT", "subprocess"),
@@ -190,11 +189,13 @@ def test_every_opt_in_plane_is_refused(key, value):
     ("TPUKUBE_CAPACITY_ENABLED", "capacity"),
     ("TPUKUBE_DRAIN_ENABLED", "drain"),
     ("TPUKUBE_AUTOSCALE_ENABLED", "autoscaler"),
+    ("TPUKUBE_DECISIONS_ENABLED", "decisions"),
 ])
 def test_once_refused_elasticity_planes_load_and_build(key, plane):
-    # refused until capacity, drain and the autoscaler were ported: on,
-    # each builds its plane on the extender as the reference's does
-    # (the autoscaler with drain, which it requires); off, none is built
+    # refused until capacity, drain, the autoscaler and decision
+    # provenance were ported: on, each builds its plane on the extender
+    # as the reference's does (the autoscaler with drain, which it
+    # requires); off, none is built
     from tpukube_torch.sched.extender import Extender
 
     env = {key: "1"}

@@ -83,15 +83,17 @@ def test_scenario_11_gives_the_reference_results(monkeypatch):
     monkeypatch.setenv("TPUKUBE_TENANCY_WAVES", "7")
     monkeypatch.setenv("TPUKUBE_CHAOS_SEED", "1337")
     monkeypatch.delenv("TPUKUBE_TENANCY_ENABLED", raising=False)
+    # both scenarios turn decision provenance on, so each result carries
+    # the explain_shed check of a shed pod's provenance
     got = scenarios.run(11)
-    # the reference's scenario turns decision provenance on; the port has
-    # none yet, and the numbers do not hang on it
-    monkeypatch.setenv("TPUKUBE_DECISIONS_ENABLED", "0")
     want = ref_scenarios.run(11)
     assert {k: got[k] for k in SCENARIO11_SAME} == \
         {k: want[k] for k in SCENARIO11_SAME}
     assert _tenants_without_hbm(got) == _tenants_without_hbm(want)
-    assert "explain_shed" not in got and "explain_shed" not in want
+    assert got["explain_shed"] == want["explain_shed"]
+    assert got["explain_shed"]["verdict"] == "denied"
+    assert got["explain_shed"]["slo_named"] is True
+    assert got["decisions"]["recorded"] > 0
     assert got["preemptions"] > 0 and got["quota_violations"] == 0
     assert sum(got["sheds_by_tenant"].values()) > 0
 

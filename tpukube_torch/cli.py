@@ -41,11 +41,17 @@ or several per-replica files with ``--merge``) or a live ``/capacity``
 (``--url``; ``--probe-count``/``--probe-shape`` ask ``/capacity/probe``
 instead) as a sparkline, csv or json.
 
+``obs explain <pod>`` answers why one pod is placed, pending, denied,
+preempted or released, from a live extender's ``/explain`` (``--url``,
+with ``--token-file`` for a bearer-gated one) or a ``decisions_path`` sink
+capture (``--file``); ``--json`` prints the raw document. It exits 1 for
+a pod with no provenance. The ``extender`` daemon closes the provenance
+sink on SIGTERM, so a capture holds every stage.
+
 Left out or refused, each naming its plane (ROADMAP.md Queue 1):
-``shard-worker`` (the shard router, item 5); ``obs explain`` (decision
-provenance, item 4) and ``obs timeline --merge`` (the federated captures,
-item 5) exit 2; ``sim N`` for a scenario whose plane is not ported fails
-with the scenario runner's message.
+``shard-worker`` (the shard router, item 5) and ``obs timeline --merge``
+(the federated captures, item 5) exit 2; ``sim N`` for a scenario whose
+plane is not ported fails with the scenario runner's message.
 """
 
 from __future__ import annotations
@@ -554,6 +560,8 @@ def main_extender(argv: Optional[list[str]] = None) -> int:
         # drain the capture sinks so a post-mortem read sees every event
         if extender.trace is not None:
             extender.trace.close()
+        if extender.decisions is not None:
+            extender.decisions.close()
         if extender.capacity is not None:
             extender.capacity.close()
         extender.events.close()
@@ -605,13 +613,6 @@ def _since_arg(text: str) -> float:
         raise argparse.ArgumentTypeError(str(e)) from None
 
 
-# obs subcommands of planes the port has not ported: exit 2, naming them
-_OBS_UNPORTED = {
-    "explain": "decision provenance is not ported yet (ROADMAP.md Queue 1, "
-               "item 4)",
-}
-
-
 def main_obs(argv: Optional[list[str]] = None) -> int:
     """Offline observability tooling: ``timeline`` converts a JSONL
     decision trace to Chrome trace-event JSON (Perfetto-loadable per-pod
@@ -619,13 +620,14 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
     (the events_path sink, or an /events dump saved one JSON object per
     line) with pod/node/reason/since filters; ``capacity`` renders the
     capacity flight recorder (a capture or a live /capacity) and asks
-    /capacity/probe; ``slo`` evaluates the burn-rate SLOs against a live
-    /metrics endpoint or a captured snapshot (exit 1 while any SLO burns
-    at page rate)."""
+    /capacity/probe; ``explain`` answers why-pending / why-here /
+    why-denied for one pod from a live /explain or a provenance sink;
+    ``slo`` evaluates the burn-rate SLOs against a live /metrics endpoint
+    or a captured snapshot (exit 1 while any SLO burns at page rate)."""
     p = argparse.ArgumentParser(
         prog="tpukube-obs",
         description="offline observability tooling (timeline / events / "
-                    "capacity / slo)",
+                    "capacity / explain / slo)",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
     tp = sub.add_parser(
@@ -689,6 +691,27 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
     cp.add_argument("--probe-shape", default=None, metavar="XxYxZ",
                     help="with --url: what-if probe for a shaped box "
                          "(e.g. 4x4x4)")
+
+    xp = sub.add_parser(
+        "explain",
+        help="why-pending / why-here / why-denied for one pod, from "
+             "the decision-provenance layer (decisions_enabled)",
+    )
+    xp.add_argument("pod",
+                    help="pod key (namespace/name; a bare name means "
+                         "default/<name>)")
+    xsrc = xp.add_mutually_exclusive_group(required=True)
+    xsrc.add_argument("--url", default=None,
+                      help="live extender base URL (reads /explain)")
+    xsrc.add_argument("--file", default=None, metavar="JSONL",
+                      help="decisions_path JSONL sink capture to "
+                           "assemble offline")
+    xp.add_argument("--token-file", default=None, metavar="FILE",
+                    help="bearer token file for an --auth-token-file "
+                         "extender (/explain sits behind its auth)")
+    xp.add_argument("--json", action="store_true", dest="as_json",
+                    help="raw explain document instead of text")
+
     sp = sub.add_parser(
         "slo",
         help="evaluate the latency SLOs (burn rates) from /metrics",
@@ -702,13 +725,6 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
                     help="with --url: scrape twice this far apart and "
                          "report the windowed burn rate (0 = single "
                          "scrape, lifetime burn)")
-    for name, why in _OBS_UNPORTED.items():
-        sub.add_parser(name, help=f"not ported: {why}")
-    argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] in _OBS_UNPORTED:
-        print(f"tpukube-obs {argv[0]}: {_OBS_UNPORTED[argv[0]]}",
-              file=sys.stderr)
-        return 2
     args = p.parse_args(argv)
 
     if args.cmd == "timeline":
@@ -737,6 +753,8 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
         return _obs_slo(args)
     if args.cmd == "capacity":
         return _obs_capacity(p, args)
+    if args.cmd == "explain":
+        return _obs_explain(args)
 
     from tpukube_torch.obs import events as events_mod
 
@@ -755,6 +773,33 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
         else:
             print(events_mod.format_event(ev))
     return 0
+
+
+def _obs_explain(args: argparse.Namespace) -> int:
+    """``obs explain``: one pod's provenance document from a live
+    /explain (``--url``) or a sink capture (``--file``), as text or
+    ``--json``. Exit 1 for a pod with no provenance (unsampled, rotated
+    out, or provenance off), so the command composes into scripts."""
+    from urllib.parse import quote
+
+    from tpukube_torch.obs import decisions as decisions_mod
+
+    pod = args.pod if "/" in args.pod else f"default/{args.pod}"
+    if args.url:
+        req = urllib.request.Request(
+            f"{args.url}/explain?pod={quote(pod, safe='/')}")
+        if args.token_file:
+            with open(args.token_file) as f:
+                req.add_header("Authorization", f"Bearer {f.read().strip()}")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            doc = json.loads(r.read())
+    else:
+        doc = decisions_mod.explain_doc(decisions_mod.load(args.file), pod)
+    if args.as_json:
+        print(json.dumps(doc, indent=2, sort_keys=True))
+    else:
+        print(decisions_mod.format_explain(doc))
+    return 0 if doc.get("stages") else 1
 
 
 def _obs_capacity(p: argparse.ArgumentParser, args) -> int:

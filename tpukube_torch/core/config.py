@@ -174,6 +174,26 @@ class GpuKubeConfig:
     # inference traffic; committed training gangs are never shed)
     tenancy_shed_priority_max: int = 0
 
+    # Decision provenance (obs/decisions.py). With decisions_enabled the
+    # extender keeps a bounded, sampled ring of per-pod stage events
+    # (admit -> queue wait -> cycle pin -> candidate pruning -> gang /
+    # preemption -> tenancy verdict -> bind), serves them on /explain,
+    # the /statusz "decisions" section and `obs explain`, and turns on
+    # cycle phase profiling (tpukube_cycle_phase_seconds). false (the
+    # default) builds NOTHING: no stage is built, no series renders,
+    # placements and exposition stay byte-identical.
+    decisions_enabled: bool = False
+    decisions_capacity: int = 8192
+    # fraction of pods sampled into the ring, selected by a seeded hash
+    # of the pod key — 0.01 on a kilonode fleet keeps 1% of pods FULLY
+    # explained
+    decisions_sample_rate: float = 1.0
+    decisions_seed: int = 0
+    # optional JSONL sink for `obs explain --file` (size-capped like the
+    # trace/events sinks)
+    decisions_path: str = ""
+    decisions_sink_max_bytes: int = 64 * 1024**2
+
     # Capacity analytics & demand forensics (obs/capacity.py). With
     # capacity_enabled the extender keeps a bounded flight-recorder ring
     # of periodic fleet samples (per-slice utilization / fragmentation /
@@ -231,7 +251,6 @@ class GpuKubeConfig:
     # a config that turns one on.
     planner_replicas: int = 1
     shard_transport: str = "inprocess"
-    decisions_enabled: bool = False
     lock_monitor: bool = False
 
     def sim_mesh(self) -> MeshSpec:
@@ -252,7 +271,6 @@ _TUPLE_FIELDS = {"sim_mesh_dims", "sim_host_block", "sim_torus"}
 
 # opt-in field -> the plane it would turn on (refused until ported)
 _NOT_PORTED = {
-    "decisions_enabled": "decision provenance",
     "lock_monitor": "the lock-order monitor",
 }
 # the reference's alloc change log for incremental resync (on by default
@@ -266,7 +284,6 @@ _RESYNC_LOG_KEY = ENV_PREFIX + "GENERATION_LOG_CAPACITY"
 # config file that sets one is refused, naming the plane (ROADMAP.md
 # Queue 1 item of each)
 _UNPORTED_KEY_PREFIXES = {
-    "decisions_": "decision provenance (Queue 1, item 4)",
     "wire_": "the shard router's wire codec (Queue 1, item 5)",
 }
 _UNPORTED_KEYS = {
@@ -618,6 +635,19 @@ def load_config(yaml_path: Optional[str] = None,
         raise ValueError("journal_max_bytes must be >= 0 (0 = uncapped)")
     if cfg.checkpoint_interval_seconds <= 0:
         raise ValueError("checkpoint_interval_seconds must be positive")
+    if cfg.decisions_path and not cfg.decisions_enabled:
+        raise ValueError(
+            "decisions_path is set but decisions_enabled is false — "
+            "enable decision provenance or drop the path"
+        )
+    if cfg.decisions_enabled and cfg.decisions_capacity < 1:
+        raise ValueError("decisions_capacity must be >= 1 when enabled")
+    if not 0.0 <= cfg.decisions_sample_rate <= 1.0:
+        raise ValueError("decisions_sample_rate must be in [0, 1]")
+    if cfg.decisions_seed < 0 or cfg.decisions_sink_max_bytes < 0:
+        raise ValueError(
+            "decisions_seed and decisions_sink_max_bytes must be >= 0"
+        )
     if cfg.tenancy_quotas and not cfg.tenancy_enabled:
         # quotas without the plane would be silently unenforced — an
         # operator who wrote caps believes they are live; fail loudly

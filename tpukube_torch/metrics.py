@@ -34,6 +34,9 @@ Extender series, under the reference's names and types:
   tpukube_tenant_{admission,commit}_seconds_bucket{tenant,le},
   tpukube_tenancy_burn_rate{slo}, tpukube_tenant_slo_burn{tenant,slo},
   tpukube_tenancy_shedding;
+  with decision provenance built (``decisions_enabled``):
+  tpukube_decisions_total, tpukube_decisions_record_seconds_total and
+  tpukube_cycle_phase_seconds_bucket{phase,le};
   with the capacity recorder built (``capacity_enabled``):
   tpukube_capacity_{samples,sample_seconds}_total,
   tpukube_capacity_{fleet,recoverable}_chips,
@@ -80,9 +83,8 @@ With the journal on: tpukube_journal_{appends,bytes}_total,
 tpukube_checkpoint_seconds{quantile}, tpukube_recovery_seconds{quantile}
 and tpukube_recovery_replayed_deltas_total.
 
-Absent, because the port lacks their source (each listed in ROADMAP.md,
-none faked): the incremental-resync series and the decision-provenance
-section.
+Absent, because the port lacks their source (listed in ROADMAP.md, not
+faked): the incremental-resync series.
 
 :class:`MetricsServer` serves a page (and optionally a /statusz
 document) for the plugin and syncer daemons.
@@ -217,6 +219,12 @@ def build_extender_registry(extender, reconcile=None, evictions=None,
     tenants = getattr(extender, "tenants", None)
     if tenants is not None:
         _add_tenant_metrics(reg, tenants)
+    # decision provenance + cycle phase profiling (obs/decisions.py):
+    # series render only when decisions_enabled built a DecisionLog —
+    # provenance-off exposition stays byte-identical
+    decisions = getattr(extender, "decisions", None)
+    if decisions is not None:
+        _add_decision_metrics(reg, extender, decisions)
     # capacity analytics & demand forensics (obs/capacity.py): series
     # render only when capacity_enabled built a CapacityRecorder —
     # capacity-off exposition stays byte-identical
@@ -514,6 +522,26 @@ def _add_tenant_metrics(reg: Registry, tenants) -> None:
         fn=lambda: 1.0 if tenants.burn.last_page_burning() else 0.0,
         help_text="1 while SLO burn is at the page threshold and "
                   "over-share low-priority admissions are being shed.")
+
+
+def _add_decision_metrics(reg: Registry, extender, decisions) -> None:
+    """Decision-provenance families (obs/decisions.py): recording volume,
+    the measured record overhead (scenario 12's ``overhead_pct``
+    numerator), and the cycle phase histogram — queue / pin / plan /
+    answer / commit wall."""
+    reg.counter(
+        "tpukube_decisions_total",
+        fn=lambda: decisions.recorded,
+        help_text="Provenance stage events recorded (sampled pods "
+                  "only).")
+    reg.counter(
+        "tpukube_decisions_record_seconds_total",
+        fn=lambda: decisions.record_seconds,
+        help_text="Cumulative wall spent recording provenance — the "
+                  "measured overhead the check.sh decisions smoke "
+                  "guards against a floor.")
+    if extender.phase_hist is not None:
+        reg.register(extender.phase_hist)
 
 
 def _add_capacity_metrics(reg: Registry, capacity) -> None:

@@ -44,9 +44,9 @@ Everything is gated on ``capacity_enabled`` (default off): nothing is
 constructed, sampled, or rendered when the flag is off, so the
 exposition stays byte-identical.
 
-In the port, decision provenance and the shard router are not ported
-yet: the ``stranded`` stage is recorded only while ``ext.decisions`` is
-set (never, for now), and :func:`merge_capacity_docs` /
+Each root-caused demand records a ``stranded`` stage into the pod's
+provenance chain while decision provenance is on (``ext.decisions``). The
+shard router is not ported yet: :func:`merge_capacity_docs` /
 :func:`merge_probe_docs` are the pure merges a router will call.
 """
 

@@ -22,7 +22,6 @@ from typing import Any
 # the reference's /statusz sections of planes not ported, as it renders
 # them with the plane off
 _RESYNC_OFF = {"enabled": False}     # incremental resync log, Queue 1 item 5
-_DECISIONS_OFF = {"enabled": False}  # decision provenance, Queue 1 item 4
 
 
 def device_health_counts(device) -> tuple[int, int]:
@@ -183,7 +182,12 @@ def extender_statusz(
         "tenants": (extender.tenants.stats()
                     if getattr(extender, "tenants", None) is not None
                     else {"enabled": False}),
-        "decisions": _DECISIONS_OFF,
+        # decision provenance (obs/decisions.py): ring occupancy, sample
+        # rate, and the measured record overhead — the data behind
+        # /explain and `obs explain`
+        "decisions": (extender.decisions.stats()
+                      if getattr(extender, "decisions", None)
+                      is not None else {"enabled": False}),
         "events": _events_section(extender.events),
     }
     # capacity analytics (obs/capacity.py): the key itself is

@@ -51,10 +51,12 @@ With the capacity recorder on (``ext.capacity``) every plan that found no
 node is root-caused into its stranded-demand ledger, and each cycle's end
 is a sampling seam.
 
-Left out, because their planes are not ported (ROADMAP.md Queue 1): the
-decision-provenance records (``ext.decisions``) and cycle phase profiling
-with its timeline spans (``ext.phase_hist``). With those planes off the
-reference never takes these branches, so leaving them out keeps parity.
+With decision provenance on (``ext.decisions``) each planned pod records
+a ``cycle_plan`` stage (arm, cycle, epoch, queue age and how the snapshot
+advanced: cached, delta or rebuild), and an undone assume or an expired
+plan records its own stage. With it on, ``ext.phase_hist`` times the
+cycle's queue, pin, plan and answer phases, and the trace carries the
+cycle spans for the timeline.
 """
 
 from __future__ import annotations
@@ -474,10 +476,18 @@ class SchedulingCycle:
                 return mk(feasible, failed)
             self.plan_misses += 1  # planned now, not answered from cache
         if entry.error is not None:
+            dlog = ext.decisions
+            if dlog is not None and dlog.wants(key):
+                # the planned refusal the scheduler will see (the tenancy
+                # gate recorded its own verdict at plan time)
+                dlog.record(key, "refusal", kind="filter_error",
+                            reason=entry.error)
             return mk([], {}, error=entry.error)
         # answer materialization: serving the wire lists from the plan
         # — a dict lookup plus O(feasible) list builds (vs the legacy
         # O(nodes) re-plan this path replaced)
+        ph = ext.phase_hist
+        a0 = time.perf_counter() if ph is not None else None
         feasible = entry.feasible
         if feasible is None:
             # planned without materialized answers — a driver-enqueued
@@ -492,6 +502,10 @@ class SchedulingCycle:
                           dict(entry.failed))
         else:
             response = mk(list(feasible), dict(entry.failed))
+        if a0 is not None:
+            ph.labels(phase="answer").observe(time.perf_counter() - a0)
+            if ext.trace is not None:
+                ext.trace.span("cycle_answer", key, cycle=self.cycles)
         return response
 
     def prioritize_response(
@@ -645,6 +659,40 @@ class SchedulingCycle:
         if not batch:
             return 0
         t0 = time.perf_counter()
+        # cycle phase profiling (None = off): pin wall accumulates around
+        # the fast-state ensure; the snapshot counters before the cycle
+        # attribute this pin as a delta advance, a forced rebuild, or a
+        # cache hit in the provenance records below
+        ph = ext.phase_hist
+        dlog = ext.decisions
+        pin_s = 0.0
+        ages: list[float] = []
+        d0, r0 = ext.snapshots.delta_applies, ext.snapshots.rebuilds
+
+        def _advance() -> str:
+            # computed FRESH per record (never memoized): a batch whose
+            # first pods plan before any snapshot work honestly reads
+            # "cached", and the records after a delta advance / forced
+            # rebuild — and the end-of-cycle span — attribute it
+            if ext.snapshots.rebuilds > r0:
+                return "rebuild"
+            if ext.snapshots.delta_applies > d0:
+                return "delta"
+            return "cached"
+
+        def _note_plan(key: str, entry: PodPlan, arm: str,
+                       age: Optional[float]) -> None:
+            if dlog is None or not dlog.wants(key):
+                return
+            dlog.record(
+                key, "cycle_plan", cycle=self.cycles + 1, arm=arm,
+                node=entry.node, assumed=entry.assumed,
+                error=entry.error, bind_error=entry.bind_error,
+                queue_age_s=(round(age, 6) if age is not None else None),
+                snapshot=_advance(),
+                epoch=(list(entry.epoch_key) if entry.epoch_key
+                       else None),
+            )
 
         def _age_of(key: str) -> Optional[float]:
             # READ, never pop: the first-admit stamp outlives the plan
@@ -654,6 +702,7 @@ class SchedulingCycle:
             if qt is None:
                 return None
             age = max(0.0, now - qt)
+            ages.append(age)
             self.queue_age_hist.observe(age)
             return age
 
@@ -703,13 +752,13 @@ class SchedulingCycle:
                     self._queue.pop(key2, None)
                     self._plans[key2] = entry
                     self.pods_planned += 1
-                    _age_of(key2)
+                    _note_plan(key2, entry, "gang_batch", _age_of(key2))
                     _note_stranded(p2, entry)
                 i = j
                 continue
             key = pod.key()
             self._queue.pop(key, None)
-            _age_of(key)
+            age = _age_of(key)
             if pod_names is not None:
                 names = list(pod_names)
                 # a webhook will read the answers — unless plan-served
@@ -727,18 +776,26 @@ class SchedulingCycle:
                 # BEFORE the staleness check — a TTL/fault rollback
                 # bumps the epoch and must advance/rebuild the overlay
                 ext.gang.sweep()
-                fast_state = self._ensure_fast_state()
+                if ph is not None:
+                    p0 = time.perf_counter()
+                    fast_state = self._ensure_fast_state()
+                    pin_s += time.perf_counter() - p0
+                else:
+                    fast_state = self._ensure_fast_state()
                 entry = self._plan_fast(pod, seq, names, fast_state,
                                         needs_answers)
                 if entry.assumed:
                     # commit moved the ledger epoch exactly as planned
                     # (the overlay was patched in-place by _plan_fast)
                     fast_state["key"] = ext.snapshots.epoch_key()
+                arm = "fast"
             else:
                 entry = self._plan_general(pod, seq, names)
+                arm = "general"
             entry.epoch_key = ext.snapshots.epoch_key()
             self._plans[key] = entry
             self.pods_planned += 1
+            _note_plan(key, entry, arm, age)
             _note_stranded(pod, entry)
             i += 1
         self.cycles += 1
@@ -752,6 +809,21 @@ class SchedulingCycle:
         # — one clock read when the interval has not elapsed
         if ext.capacity is not None:
             ext.capacity.maybe_sample()
+        if ph is not None:
+            # additive phases: queue wait (the batch's longest), the
+            # snapshot/fast-state pin, and the planning remainder
+            if ages:
+                ph.labels(phase="queue").observe(max(ages))
+            ph.labels(phase="pin").observe(pin_s)
+            ph.labels(phase="plan").observe(max(0.0, wall - pin_s))
+            if ext.trace is not None:
+                # timeline spans (cluster track): Chrome-trace exports
+                # show the batch structure cycle by cycle
+                ext.trace.span("cycle_pin", "", cycle=self.cycles,
+                               wall_s=round(pin_s, 6),
+                               snapshot=_advance())
+                ext.trace.span("cycle_plan", "", cycle=self.cycles,
+                               pods=len(batch), wall_s=round(wall, 6))
         return len(batch)
 
     def _pin_snapshot(self):
@@ -868,6 +940,7 @@ class SchedulingCycle:
         # before reservation reads); per-member re-sweeps inside
         # ensure_reservation are cheap once the reservation exists
         ext.gang.sweep()
+        dlog = ext.decisions
         entries: list[PodPlan] = []
         counts: Optional[dict[str, tuple[int, int]]] = None
         general = False  # sticky: preemption routed this gang legacy
@@ -914,6 +987,16 @@ class SchedulingCycle:
                     entry.epoch_key = ext.snapshots.epoch_key()
                     entries.append(entry)
                     continue
+                if dlog is not None and dlog.wants(pod.key()):
+                    # the gang rendezvous leg of the provenance chain (the
+                    # per-pod filter records it inline; this arm reserves
+                    # directly)
+                    dlog.record(
+                        pod.key(), "gang_reserve",
+                        gang=f"{pod.namespace}/{pod.group.name}",
+                        chips=res.total_chips(),
+                        committed=res.committed,
+                    )
                 if (ext.gang.peek_pending_victims(res)
                         or ext.gang.terminating_victims_of(res)):
                     general = True
@@ -1287,6 +1370,8 @@ class SchedulingCycle:
             ext.binds_total -= 1
             self.assume_undos += 1
             log.warning("assumed allocation for %s undone (re-plan)", key)
+        if ext.decisions is not None and ext.decisions.wants(key):
+            ext.decisions.record(key, "assume_undo", node=entry.node)
         entry.assumed = False
         entry.alloc = None
 
@@ -1306,6 +1391,9 @@ class SchedulingCycle:
                     "releasing", key, self._ttl,
                 )
                 self._undo_assume(entry)
+            elif (self._ext.decisions is not None
+                    and self._ext.decisions.wants(key)):
+                self._ext.decisions.record(key, "plan_expired")
             self._plans.pop(key, None)
             # the TTL horizon also retires the admit stamp: a pod whose
             # plan expired unbound restarts its pending-age clock if it

@@ -17,8 +17,8 @@ service in three phases, none of which is a full rebuild:
      ``drain_max_concurrent_moves`` workloads per tick, cheapest
      priority first, at most ``drain_tenant_budget`` pods per tenant
      per tick (0 = uncapped). Each evicted pod's provenance chain gains
-     a ``drain_evict`` stage naming the drain (``Extender._note_decision``,
-     which records nothing until decision provenance is ported).
+     a ``drain_evict`` stage naming the drain (``Extender._note_decision``)
+     — "where did my chips go" answers "maintenance", not silence.
   3. **Un-ingest** — once no resident remains, ``remove_nodes`` (the
      inverse of ``ingest_nodes``) drops views/lazy payloads, retires
      the per-slice incremental caches, deletes empty slices, and emits

@@ -45,7 +45,8 @@ apiserver circuit), /filter and /bind fail safe before any mutation.
 The HTTP surface (:func:`make_app`, :func:`run_server`, :func:`serve`):
 the webhooks, ``GET /healthz``, ``/metrics``
 (``tpukube_torch.metrics``), ``/state/topology|allocs|gangs``,
-``/trace?since=``, ``/events?reason=&pod=&node=&since=`` and ``/statusz``
+``/trace?since=``, ``/events?reason=&pod=&node=&since=``, ``/explain?pod=``
+and ``/statusz``
 (``tpukube_torch.obs.statusz``), behind an optional bearer token and
 TLS; :func:`make_probe_app` is the plain-HTTP listener for /healthz and
 /metrics only. ``python -m tpukube_torch.cli extender`` is the daemon.
@@ -69,10 +70,14 @@ With ``autoscale_enabled`` the autoscaler (``sched/autoscale.py``) grows
 the fleet on queue depth or SLO burn and shrinks it through a drain.
 Drain and autoscaler ticks ride the decision path, as checkpoints do.
 
-Not ported yet (each refused or absent, none faked): decision provenance
-and cycle phase profiling (``/explain`` answers 404 naming the plane; the
-provenance calls go through ``_note_decision``, which records nothing
-while ``decisions`` is None), and the shard router.
+With ``decisions_enabled`` the decision-provenance ring
+(``obs/decisions.py``, ``self.decisions``) records each sampled pod's
+stages (admit, cycle plan, filter pruning, scores, refusals, bind,
+preemption, release) for ``/explain``, and ``tpukube_cycle_phase_seconds``
+(``self.phase_hist``) times the cycle's queue / pin / plan / answer /
+commit phases. Off, neither is built and nothing is recorded.
+
+Not ported yet (absent, not faked): the shard router.
 """
 
 from __future__ import annotations
@@ -168,6 +173,36 @@ class Extender:
             path=config.events_path or None,
             max_sink_bytes=config.events_sink_max_bytes,
         )
+        # Decision provenance (obs/decisions.py): a bounded, sampled,
+        # lock-free-on-record ring of per-pod stage events — the "why did
+        # this pod land there / stay Pending / get refused" chain —
+        # served on /explain, /statusz "decisions" and `obs explain`.
+        # None (the config default) builds nothing: no stage is
+        # constructed, no series renders, and every placement path is
+        # untouched.
+        self.decisions = None
+        # cycle phase profiling rides the same flag: queue / pin / plan /
+        # answer / commit wall per cycle, plus the webhook-answer
+        # materialization timer that attributes the O(nodes) filter
+        # response cost. None = no observation anywhere.
+        self.phase_hist = None
+        if config.decisions_enabled:
+            from tpukube_torch.obs.decisions import DecisionLog
+
+            self.decisions = DecisionLog(
+                capacity=config.decisions_capacity,
+                sample_rate=config.decisions_sample_rate,
+                seed=config.decisions_seed,
+                path=config.decisions_path or None,
+                max_sink_bytes=config.decisions_sink_max_bytes,
+            )
+            self.phase_hist = Histogram(
+                "tpukube_cycle_phase_seconds",
+                buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025,
+                         0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1.0),
+                help_text="Wall time per scheduling phase: queue wait, "
+                          "snapshot pin, batch plan, webhook-answer "
+                          "materialization, bind commit.")
         # Cluster-wide eviction bus: pods whose chips were taken back
         # (gang rollback/dissolve, preemption) and must be deleted by the
         # pod-lifecycle owner (the EvictionExecutor of apiserver.py, which
@@ -285,11 +320,10 @@ class Extender:
             # gang reservations carry their tenant so reserved-but-
             # unbound chips are charged to the right owner
             self.gang.tenant_of = self.tenants.tenant_of
-            # the plane's decision-provenance hook (plane.decisions)
-            # stays None: the port has no provenance ring yet
-        # Decision provenance is not ported: None records nothing, and
-        # the call sites that would record go through _note_decision
-        self.decisions = None
+            # tenancy refusals (quota denial / SLO shed) record their
+            # verdict — shares and tenant-local burn at decision time —
+            # into the provenance ring (None = no recording)
+            self.tenants.decisions = self.decisions
         # Capacity analytics & demand forensics (obs/capacity.py):
         # flight-recorder ring + stranded-demand forensics + what-if
         # probes. None (the config default) constructs nothing — no
@@ -370,8 +404,9 @@ class Extender:
             log.exception("event emit failed: %s %s", reason, obj)
 
     def _note_decision(self, pod_key: str, stage: str, **fields) -> None:
-        """Guarded provenance record: nothing while ``decisions`` is None
-        (decision provenance is not ported)."""
+        """Guarded provenance record — the one place the sampling gate
+        lives for the extender's cold refusal/lifecycle seams (hot paths
+        gate explicitly so unsampled pods never build kwargs)."""
         dlog = self.decisions
         if dlog is not None and dlog.wants(pod_key):
             dlog.record(pod_key, stage, **fields)
@@ -481,6 +516,8 @@ class Extender:
                 if refusal is not None:
                     raise ExtenderError(refusal)
             self._remember(pod)
+            dlog = self.decisions
+            wants = dlog is not None and dlog.wants(pod.key())
             res: Optional[GangReservation] = None
             if pod.group is not None:
                 if resource != RESOURCE_TPU:
@@ -508,6 +545,13 @@ class Extender:
                         gang=f"{pod.namespace}/{pod.group.name}",
                         chips=res.total_chips(), committed=res.committed,
                     )
+                if res is not None and wants:
+                    dlog.record(
+                        pod.key(), "gang_reserve",
+                        gang=f"{pod.namespace}/{pod.group.name}",
+                        chips=res.total_chips(),
+                        committed=res.committed,
+                    )
             else:
                 self.gang.sweep()
             reserved = self._reserved_by_slice() if res is None else None
@@ -515,6 +559,13 @@ class Extender:
             # node (hot: 64-member gang x 32 nodes x 64 reserved coords)
             gang_counts = (self.gang.node_availability(res)
                            if res is not None else None)
+            # the webhook-answer materialization — the O(nodes) loop that
+            # builds the wire lists; at 10k nodes THIS is the filter p99,
+            # and the phase timer attributes it (suppressed for plan-time
+            # internal calls, which answer no webhook)
+            at0 = (time.perf_counter()
+                   if self.phase_hist is not None
+                   and not self._suppress_latency else None)
             feasible, failed = [], {}
             for name in names:
                 if res is not None:
@@ -528,6 +579,21 @@ class Extender:
                                     else name)
                 else:
                     failed[name] = reason
+            if at0 is not None:
+                self.phase_hist.labels(phase="answer").observe(
+                    time.perf_counter() - at0
+                )
+            if wants:
+                # per-stage candidate pruning: which reason rejected how
+                # many nodes — the why-pending data
+                pruned: dict[str, int] = {}
+                for r in failed.values():
+                    pruned[r] = pruned.get(r, 0) + 1
+                dlog.record(
+                    pod.key(), "filter",
+                    candidates=len(names), feasible=len(feasible),
+                    pruned=pruned,
+                )
             return feasible, failed
         finally:
             self._observe_latency("filter", time.monotonic() - t0)
@@ -630,6 +696,12 @@ class Extender:
                             gang=f"{pod.namespace}/{pod.group.name}",
                             victims=len(victims), slices=sorted(split),
                         )
+                    self._note_decision(
+                        pod.key(), "preemption_plan",
+                        gang=f"{pod.namespace}/{pod.group.name}",
+                        victims=len(victims), slices=sorted(split),
+                        overshare_bias=sorted(overshare or {}),
+                    )
                     self._emit_event(
                         "PreemptionPlanned",
                         f"gang/{pod.namespace}/{pod.group.name}",
@@ -661,6 +733,14 @@ class Extender:
                 cost_priority_sum=plan.cost_priority_sum,
                 slices=[plan_slice],
             )
+        self._note_decision(
+            pod.key(), "preemption_plan",
+            gang=f"{pod.namespace}/{pod.group.name}",
+            victims=plan.victim_count,
+            cost_priority_sum=plan.cost_priority_sum,
+            slices=[plan_slice],
+            overshare_bias=sorted(overshare or {}),
+        )
         self._emit_event(
             "PreemptionPlanned",
             f"gang/{pod.namespace}/{pod.group.name}",
@@ -773,6 +853,12 @@ class Extender:
 
         evicted_pods = 0
         dissolved: set[tuple[str, str]] = set()
+
+        def note_preempted(pk: str) -> None:
+            # provenance: the victim's own chain must answer "where did my
+            # chips go" — not just the preemptor's
+            self._note_decision(pk, "preempted")
+
         for victim in victims:
             if victim.gang_key is not None:
                 if victim.gang_key in dissolved:
@@ -784,12 +870,15 @@ class Extender:
                         note_held(pk)
                 gone = self.gang.dissolve(victim.gang_key)
                 evicted_pods += len(gone)
+                for pk in gone:
+                    note_preempted(pk)
             else:
                 for pk in victim.pod_keys:
                     note_held(pk)
                     if self.state.release(pk) is not None:
                         self.pending_evictions.append(pk)
                         evicted_pods += 1
+                        note_preempted(pk)
                         self._emit_event(
                             "VictimEvicted", f"pod/{pk}",
                             "released and queued for eviction "
@@ -965,10 +1054,10 @@ class Extender:
                 res = self.gang.reservation(pod.namespace, pod.group.name)
                 if res is not None and self.gang.assignable(res, count):
                     counts = self.gang.node_availability(res)
-                    return {
+                    return self._record_scores(pod, {
                         n: self.gang.score_from(counts, n)
                         for n in names
-                    }
+                    })
                 if res is None:
                     return {n: 0 for n in names}
                 # overflow replica of a full gang: fall through to normal
@@ -989,9 +1078,23 @@ class Extender:
             scores: dict[str, int] = {}
             for name in names:
                 scores[name] = self._score_node(name, resource, count, sweeps, reserved)
-            return scores
+            return self._record_scores(pod, scores)
         finally:
             self._observe_latency("prioritize", time.monotonic() - t0)
+
+    def _record_scores(self, pod: PodInfo,
+                       scores: dict[str, int]) -> dict[str, int]:
+        """Provenance for the scoring decision: the top-k nodes and their
+        scores (the why-here data — which candidates the pick actually
+        beat). Pass-through when provenance is off or the pod is
+        unsampled."""
+        dlog = self.decisions
+        if dlog is not None and scores and dlog.wants(pod.key()):
+            top = sorted(scores.items(),
+                         key=lambda kv: (-kv[1], kv[0]))[:5]
+            dlog.record(pod.key(), "prioritize", nodes=len(scores),
+                        top=[[n, s] for n, s in top])
+        return scores
 
     def _score_node(
         self,
@@ -1326,6 +1429,8 @@ class Extender:
                     self.cycle.note_pending(pod.key())
                     return False
             self.cycle.enqueue(pod)
+            self._note_decision(pod.key(), "admit",
+                                queue_depth=self.cycle.queue_depth())
             return True
 
     def plan_pending(self) -> int:
@@ -1384,6 +1489,10 @@ class Extender:
                 self._emit_event(
                     "DegradedMode", "extender/filter",
                     f"failing filter requests safe: {reason}",
+                )
+                self._note_decision(
+                    pod.key(), "refusal", kind="degraded",
+                    reason=f"degraded mode: {reason}",
                 )
                 return mk([], {}, error=f"degraded mode: {reason}")
         with self._decision_lock:
@@ -1472,6 +1581,7 @@ class Extender:
                     self.cycle.on_release(pod_key)
                 with self._pending_lock:
                     self._pending.pop(pod_key, None)
+                self._note_decision(pod_key, "release")
                 response = None
             elif kind == "victim_gone":
                 # an evicted pod's object is confirmed gone: unmask its
@@ -1620,17 +1730,24 @@ class Extender:
                 "DegradedMode", "extender/bind",
                 f"failing bind requests safe: {degraded}",
             )
+            self._note_decision(key, "refusal", kind="degraded",
+                                reason=f"degraded mode: {degraded}")
             return kube.binding_result(f"{key}: degraded mode: {degraded}")
         blocked = self._precheck_preemption(key)
         if blocked:
             # refused BEFORE any mutation, so nothing is recorded in the
             # trace (same contract as schema errors): the plan stays
             # pending and the reservation TTLs out if the PDB never lifts
-            # — no victim is half-evicted, no gang half-binds
-            return kube.binding_result(
+            # — no victim is half-evicted, no gang half-binds. The refusal
+            # still lands in the provenance chain: a pod stuck behind a
+            # PDB is exactly the incident `explain` must answer.
+            reason = (
                 f"{key}: preemption plan refused — PodDisruptionBudget "
                 f"blocks eviction of {sorted(blocked)[:3]}"
             )
+            self._note_decision(key, "refusal", kind="pdb_precheck",
+                                reason=reason)
+            return kube.binding_result(reason)
         alloc = None
         gang_info = None
         with self._decision_lock:
@@ -1644,6 +1761,12 @@ class Extender:
                 planned = self.cycle.take_for_bind(key, uid, node)
                 if planned is not None:
                     self._observe_latency("bind", time.monotonic() - t0)
+                    if self.phase_hist is not None:
+                        # commit phase: consuming the plan's assumed
+                        # allocation (or its planned error) at /bind
+                        self.phase_hist.labels(phase="commit").observe(
+                            time.monotonic() - t0
+                        )
             try:
                 if planned is not None:
                     verdict, payload = planned
@@ -1680,6 +1803,15 @@ class Extender:
                 # the pod bound (plan-served OR per-pod fallback):
                 # retire its first-admit stamp
                 self.cycle.on_bound(key)
+            if self.decisions is not None and self.decisions.wants(key):
+                err = (response.get("Error")
+                       if isinstance(response, dict) else None)
+                self.decisions.record(
+                    key, "bind", node=node, ok=not err,
+                    error=err or None,
+                    served_from=("plan" if planned is not None
+                                 else "legacy"),
+                )
             if self.trace is not None:
                 self.trace.record("bind", body, response)
             if self.journal is not None:
@@ -1718,6 +1850,15 @@ class Extender:
                     self.gang.undo_commit(gang_info[0])
                 self.handle("release", {"pod_key": key})
                 self.binds_total -= 1  # the bind did not survive
+                # the earlier bind record said ok=True (the ledger commit
+                # succeeded); the pod is NOT bound on the cluster — without
+                # this stage its explain would read "bound ... released"
+                # for a pod Pending on retry
+                self._note_decision(
+                    key, "bind", node=node, ok=False,
+                    error=f"apiserver bind failed: {e}",
+                    served_from="effector",
+                )
             return kube.binding_result(f"{key}: apiserver bind failed: {e}")
         return response
 
@@ -1994,12 +2135,6 @@ _PROBE_ROUTES = ("/healthz", "/metrics")
 _GET_ROUTES = _PROBE_ROUTES + (
     "/state/topology", "/state/allocs", "/state/gangs", "/trace", "/events",
     "/explain", "/capacity", "/capacity/probe", "/statusz")
-# routes of planes the port has not ported: 404, as the reference answers
-# them with the plane off (ROADMAP.md Queue 1 item of each)
-_UNPORTED_ROUTES = {
-    "/explain": "decision provenance is not ported yet "
-                "(ROADMAP.md Queue 1, item 4)",
-}
 _CAPACITY_OFF = "capacity analytics disabled (set capacity_enabled)"
 
 
@@ -2082,6 +2217,19 @@ class App:
                 node=query.get("node") or None,
                 since=since,
             )
+        if path == "/explain":
+            # behind the bearer gate: provenance discloses placement,
+            # candidate sets and tenant shares
+            if ext.decisions is None:
+                return 404, ("decision provenance disabled "
+                             "(set decisions_enabled)")
+            pod = query.get("pod", "")
+            if not pod:
+                return 400, ("pod query parameter required "
+                             "(namespace/name)")
+            if "/" not in pod:
+                pod = f"default/{pod}"
+            return 200, ext.decisions.explain(pod)
         if path == "/capacity":
             # samples disclose utilization, tenant shares and the
             # stranded-demand ledger: behind the bearer gate
@@ -2128,8 +2276,6 @@ class App:
                 ext, evictions=self.evictions, informer=self.informer,
                 node_refresh=self.node_refresh, lifecycle=self.lifecycle,
                 reconcile=self.reconcile)
-        if path in _UNPORTED_ROUTES:
-            return 404, _UNPORTED_ROUTES[path]
         return 404, "not found"
 
 

@@ -443,10 +443,13 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
     snapshot-maintenance numbers (delta-apply p50 vs a forced full
     rebuild p50 measured on the SAME loaded cluster at drive end).
 
+    With decision provenance on the result carries ``decisions``: the
+    ring's stats and ``overhead_pct``, the record wall as a share of the
+    drive wall.
+
     The reference's multi-slice fleet and setup-excluding options exist
-    for its sharded scenario 14, and its shard, wire, decisions and
-    capacity result keys for planes the port has not ported; all are
-    left out here."""
+    for its sharded scenario 14, and its shard, wire and capacity result
+    keys for planes the port has not ported; all are left out here."""
     from collections import deque as _deque
 
     from tpukube_torch.chaos import leaked_reservations, ledger_divergence
@@ -548,6 +551,15 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
         # the per-wave lifecycle reconcile's read counts (every read of
         # the port is a full one: it has no alloc change log)
         result["resync"] = c._lifecycle.resync_stats()
+        if ext.decisions is not None:
+            # the measured-overhead guard: provenance's cumulative
+            # record wall as a fraction of the drive wall
+            ds = ext.decisions.stats()
+            result["decisions"] = {
+                **ds,
+                "overhead_pct": (round(100.0 * ds["record_seconds"]
+                                       / wall, 3) if wall else None),
+            }
         if delta_stats:
             # the snapshot-maintenance numbers: the O(Δ) delta-advance
             # p50 against a FORCED full-rebuild p50 on the same loaded
@@ -1102,11 +1114,10 @@ def tenant_serving(config: GpuKubeConfig | None) -> dict[str, Any]:
         # window wide enough that a wave gap is not an "idle reset"
         # (BurnMonitor resets past two windows of silence)
         "TPUKUBE_TENANCY_BURN_WINDOW_SECONDS": "3600",
-        # the reference also turns decision provenance on here, for
-        # the explain_shed check below; the port has no provenance
-        # ring yet (ROADMAP.md Queue 1, item 4), so the check stays
-        # behind ext.decisions and is skipped (the sheds, denials and
-        # shares are the same either way)
+        # decision provenance on: a shed pod's explain output must name
+        # the burning SLO and the tenant's share — asserted below
+        # against the actual sheds
+        "TPUKUBE_DECISIONS_ENABLED": "1",
     }))
     waves = int(os.environ.get("TPUKUBE_TENANCY_WAVES", "8"))
     steady = [w for w in (2, 3, 4) if w < waves]
@@ -1343,10 +1354,8 @@ def tenant_serving(config: GpuKubeConfig | None) -> dict[str, Any]:
         problems = list(violations) + [str(p) for p in leaks] + div
         # a shed pod's decision provenance must answer why-denied
         # naming the burning SLO and the tenant's share (the explain
-        # layer's whole point — refusals are never silent in it); the
-        # port's extender has no decisions ring until provenance is
-        # ported, so ``decisions`` is None there
-        decisions = getattr(ext, "decisions", None)
+        # layer's whole point — refusals are never silent in it)
+        decisions = ext.decisions
         if decisions is not None and shed_total:
             # a shed pod may schedule in a later retry round once the
             # burn subsides; the assertion wants one whose FINAL state

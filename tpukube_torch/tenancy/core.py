@@ -50,9 +50,9 @@ quotas, no burn — changes no placement either).
 
 Parity with the reference rests on iteration order and float rounding
 (``drf_order``'s tie-breaks, ``overshare_map``'s ``round(..., 9)``), so
-the code below follows the reference line for line. ``decisions`` (the
-decision-provenance hook) stays None in the port until that plane is
-ported; its branches are kept.
+the code below follows the reference line for line. ``decisions`` is the
+decision-provenance hook: the extender hands its ``DecisionLog`` here
+when ``decisions_enabled`` is on, so each refusal records its verdict.
 
 Locking: the plane owns one leaf lock for its counters and the burn
 monitor's window state; usage snapshots build OUTSIDE it by reading
@@ -614,8 +614,7 @@ class TenantPlane:
         # decision-provenance hook: an Extender with a DecisionLog
         # wires it here so every refusal's verdict — shares and
         # tenant-local burn at decision time — lands in the refused
-        # pod's provenance chain. None = no recording (always, until
-        # the port has decision provenance).
+        # pod's provenance chain. None = no recording.
         self.decisions = None
         self._lock = threading.Lock()  # leaf: counters only
         self.sheds: dict[str, int] = {}

@@ -13,6 +13,7 @@ reports every divergence (``python -m tpukube_torch.cli ctl replay``).
 
 from __future__ import annotations
 
+import contextvars
 import io
 import json
 import logging
@@ -22,6 +23,16 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Iterable, Optional
+
+#: Cross-process trace context: a trace id and parent span id that a
+#: fan-out router stamps on a request it forwards. The provenance ring
+#: (``obs/decisions.py``) tags each stage event recorded while it is set,
+#: so a stitched explain can join the replica's stages to the router's.
+#: A contextvar, not a thread local: concurrent requests on one thread
+#: never share one context. Unset (None, as it stays until the shard
+#: router is ported) means no tagging at all.
+TRACE_CONTEXT: contextvars.ContextVar[Optional[dict]] = \
+    contextvars.ContextVar("tpukube_trace_context", default=None)
 
 # Event kinds. filter/prioritize/bind carry the webhook request/response
 # verbatim; release carries the pod key; reconcile carries a kubelet

@@ -155,7 +155,9 @@ Drives the port's main path the way a cluster does, on the card:
       a 512-member gang, 40,000 pods, with the leak check and the
       snapshot-maintenance numbers; each drive raises on its own
       invariants (gang uncommitted, ledger divergence, leaked
-      reservations, a pod shortfall);
+      reservations, a pod shortfall); scenario 12's lifecycle resyncs
+      ride the alloc change log: their incremental hit ratio must reach
+      tools/perf_floor.json's ``coldstart.resync_hit_ratio_min``;
    d. one card pod from a batch plan, over the REST stand-in of step 12:
       an extender with batching on, its ``PodInformer`` carrying the
       lifecycle loop and a ``PodAdmissionFeed``; a pending
@@ -264,10 +266,12 @@ Drives the port's main path the way a cluster does, on the card:
 17. fleet elasticity and capacity forensics (``sched/drain.py``,
    ``sched/autoscale.py``, ``obs/capacity.py``, ``chaos/maintenance.py``;
    host work but b's pods):
-   a. scenario 15 of the port, phases A and B (the maintenance storm of
-      drains, crashes and spot kills on 4 slices of 4x4x1 with an
+   a. scenario 15 of the port, phases A, B and C (the maintenance storm
+      of drains, crashes and spot kills on 4 slices of 4x4x1 with an
       8-member gang and 6 fillers, 6 cycles; the autoscaler's burst -> up
-      -> idle -> down), seed 1337, every snapshot lookup audited, held to
+      -> idle -> down; one replica's slices drained under the shard
+      router while the other restarts), seed 1337, every snapshot lookup
+      audited, held to
       the reference's invariants: the gang all-or-nothing, zero leaks and
       divergences, no tick over the budget, every cordon surviving its
       crash; then one graceful drain of a resident-loaded 64-GPU slice
@@ -320,9 +324,44 @@ Drives the port's main path the way a cluster does, on the card:
    c. the ``provenance:`` line (host clock: the overhead with the
       drive's pods/s on and off, each phase's p50, the /explain median,
       why-0's forward beside step 8's two shared pods);
-19. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+19. the sharded plane (``sched/shard.py``'s in-process router, the
+   incremental resync log; host work but c's pods):
+   a. the reference's shard smoke on the port: scenario 14 with 4 slices
+      of 8x8x16 (1,024 nodes, 4,096 GPU slots) behind 2 planner
+      replicas, tools/perf_floor.json's 6,000 pods; zero leaks, zero
+      divergence and both replicas alive (the scenario raises
+      otherwise), and pods/s at least the file's ``shard`` floor;
+   b. the acceptance fleet: scenario 14 at its defaults, 10 slices of
+      32x32x40 (102,400 nodes, 409,600 slots) behind 4 replicas, the
+      pods cut from 40,000 to 6,000; the one-time ingest reported apart
+      as ``setup_s``;
+   c. ``shard_life``: an in-process ``ShardRouter`` (2 replicas, batching,
+      provenance at rate 1.0, the journal in per-replica segments) over
+      step 12's REST stand-in and its loops, holding this machine's Node
+      (annotated by the real-backend node agent) and a sim HGX host of 8
+      GPUs, each its own slice, on different replicas: a 9-member DCN
+      gang of one-GPU pods goes through the two-phase rendezvous (8 on
+      the sim host, 1 on ``tpu-0``) and commits; the card member's env
+      (its annotation and the plugin's Allocate) carries the global gang
+      env and it serves Llama-3-8B (B=1, S=2048) for three requests; its
+      stitched ``router.explain`` shows the router's route and rendezvous
+      stages and its replica's chain through bind; while it serves, the
+      card's replica is killed (``shard-x`` not placed, the dead
+      replica's pods out of the federated ledger) and restarted warm from
+      its journal segment with the member back on ``tpu-0``, zero leaked
+      reservations, zero divergence; the lifecycle's next resync is a
+      full read, the next incremental; the gang's end reaches each
+      replica as one ``release_many``; ``shard-x`` binds ``tpu-0`` and
+      serves one request; ``router_statusz`` and the federated /metrics
+      show both replicas, the committed rendezvous and the resync
+      counters;
+   d. the ``shard:`` line (host clock: a's and b's pods/s, b's setup, the
+      /filter median through the router beside the replica's, the
+      rendezvous' prepare -> commit, kill -> restart -> ready, the resync
+      counters, the member's forward beside step 18's why-0);
+20. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-20. prints the kernels line: the JAX package has no Pallas kernel, so the
+21. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -1761,10 +1800,23 @@ def batch_phase(card: str, c0):
                 fail(f"scenario {n}: {r}")
                 return None
             line[f"scenario_{n}"] = drive_line(r)
+            line[f"scenario_{n}"]["resync"] = r["resync"]
+            if n == 12:
+                # the lifecycle's per-wave reconcile rides the alloc
+                # change log: at least the reference's coldstart floor of
+                # its reads incremental (tools/perf_floor.json)
+                with open(PERF_FLOOR) as f:
+                    hit_min = json.load(f)["coldstart"]["resync_hit_ratio_min"]
+                ratio = r["resync"]["incremental_hit_ratio"]
+                if ratio is None or ratio < hit_min:
+                    fail(f"scenario 12 resync hit ratio {ratio} < {hit_min}: "
+                         f"{r['resync']}")
+                    return None
             print(f"scenario {n}: {r['nodes']} nodes, {r['chips']} GPUs, "
                   f"{r['pods_total']} pods in {r['wall_s']} s "
                   f"({r['pods_per_sec']} pods/s, {r['sim_seconds']} simulated s); "
-                  f"cycle {json.dumps(r['cycle'], sort_keys=True)} "
+                  f"cycle {json.dumps(r['cycle'], sort_keys=True)}; resync "
+                  f"{json.dumps(r['resync'], sort_keys=True)} "
                   f"[host CPU times; {line['host']}]", flush=True)
         # d. one card pod admitted, planned and bound from the plan
         life = batch_pod_life(port_pkg(), lambda: node_agent({}),
@@ -2919,7 +2971,7 @@ DRAIN_LIFE_ENV = {
 
 
 def elasticity_scenarios() -> dict:
-    """Step 17a: scenario 15 of the port (phases A and B) at the
+    """Step 17a: scenario 15 of the port (phases A, B and C) at the
     reference's size and seed, every snapshot lookup audited, held to the
     invariants the reference asserts (the scenario raises on a partial
     gang, a leak, a divergence, a lost cordon or a tick over the budget;
@@ -2940,12 +2992,14 @@ def elasticity_scenarios() -> dict:
     if (r15["peak_tick_moves"] > r15["budget_moves"] or audit["divergences"]
             or not audit["checks"] or not storm["drains_completed"]
             or not storm["spot_kills"] or scale["scale_ups"] != 1
-            or scale["scale_downs"] != 1 or "sharded" in r15):
+            or scale["scale_downs"] != 1
+            or not r15["sharded"]["drained_slices"]):
         raise RuntimeError(f"scenario 15: {r15}")
     out = {
         "s15_wall_s": r15["wall_s"], "s15_cycles": r15["cycles"],
         "s15_drains_completed": storm["drains_completed"],
         "s15_scale_downs": scale["scale_downs"],
+        "s15_rebalanced_slices": len(r15["sharded"]["drained_slices"]),
         "s15_last_incarnation_evictions":
             storm["last_incarnation_drain"].get("evictions", 0),
         "s15_spot_kills": storm["spot_kills"],
@@ -3349,10 +3403,11 @@ def elasticity_phase(card: str, c0, step8: list):
                        "tokens_per_s": solo["tokens_per_s"]},
             "step8_pods": step8_pods}
     print(
-        f"elasticity: scenario 15 A+B ({scen['s15_cycles']} cycles, seed "
+        f"elasticity: scenario 15 A+B+C ({scen['s15_cycles']} cycles, seed "
         f"{CHAOS_SEED}, audit 1.0) {scen['s15_wall_s']:.3f} s, "
         f"{scen['s15_drains_completed']} storm drains + "
-        f"{scen['s15_scale_downs']} scale-down, "
+        f"{scen['s15_scale_downs']} scale-down + "
+        f"{scen['s15_rebalanced_slices']} slices rebalanced away, "
         f"{scen['s15_last_incarnation_evictions']} evictions (last "
         f"incarnation), {scen['s15_spot_kills']} spot kills, peak "
         f"{scen['s15_peak_tick_moves']} moves a tick (budget "
@@ -3746,6 +3801,528 @@ def provenance_phase(card: str, c0, step8: list):
         + ", ".join(f"{v['forward_ms_median']:.3f} ms {v['tokens_per_s']:.1f} "
                     f"tokens/s" for v in step8_pods)
         + f"); step {life['step_s']:.1f} s [host CPU times; {host}; {card}]",
+        flush=True,
+    )
+    return line
+
+
+# -- the sharded control plane (step 19) -----------------------------------------
+
+# the reference's shard smoke (tools/check.sh): 4 slices of 8x8x16 (1,024
+# nodes, 4,096 GPUs) behind two planner replicas, tools/perf_floor.json's
+# "shard" pods and pods/s floor
+SHARD_SMOKE_ENV = {"TPUKUBE_SHARD_SLICES": "4", "TPUKUBE_SIM_MESH_DIMS": "8,8,16",
+                   "TPUKUBE_PLANNER_REPLICAS": "2"}
+# the acceptance fleet at scenario 14's defaults (10 slices of 32x32x40,
+# 102,400 nodes, behind 4 replicas), its 40,000 pods cut to bound the step
+SHARD_FLEET_PODS = 6000
+# shard_life's router: two replicas, the batch cycle, every pod's
+# provenance, the journal (one segment per replica)
+SHARD_LIFE_ENV = {"TPUKUBE_PLANNER_REPLICAS": "2", "TPUKUBE_BATCH_ENABLED": "1",
+                  "TPUKUBE_DECISIONS_ENABLED": "1",
+                  "TPUKUBE_DECISIONS_SAMPLE_RATE": "1.0",
+                  "TPUKUBE_JOURNAL_ENABLED": "1"}
+SHARD_SIM_HOST = "hgx-0-host-0"  # a sim HGX host of 8 GPUs, slice hgx-0
+SHARD_GANG = 9  # one-GPU members: the sim host takes 8, no replica all 9
+SHARD_FILTER_ROUNDS = 100  # /filter handles timed, router and replica
+
+
+def shard_scenarios() -> dict:
+    """Step 19a and 19b: scenario 14 at the reference's shard smoke size
+    (its pods/s at least tools/perf_floor.json's ``shard`` floor), then
+    at its defaults with the pods cut to ``SHARD_FLEET_PODS``. Each run
+    raises on its own invariants (a leak, a divergence, a dead replica,
+    a shortfall). Returns the ``shard:`` line's drive numbers."""
+    from tpukube_torch.sim import scenarios
+
+    with open(PERF_FLOOR) as f:
+        floor = json.load(f)["shard"]
+    out = {}
+    for tag, env in (("smoke", {**SHARD_SMOKE_ENV,
+                                "TPUKUBE_KILONODE100K_PODS": str(floor["pods"])}),
+                     ("fleet", {"TPUKUBE_KILONODE100K_PODS":
+                                str(SHARD_FLEET_PODS)})):
+        with scenario_env(env):
+            r = scenarios.run(14)
+        if r["ledger_divergence"] or not r["gang_committed"]:
+            raise RuntimeError(f"scenario 14 ({tag}): {r}")
+        out[tag] = {k: r[k] for k in ("nodes", "chips", "pods_total",
+                                      "pods_per_sec", "wall_s", "setup_s",
+                                      "sim_seconds", "webhook_p99_ms",
+                                      "resync")}
+        out[tag]["replicas"] = len(r["shard"]["replicas"])
+        out[tag]["slice_assignment"] = r["shard"]["slice_assignment"]
+        out[tag]["rendezvous"] = r["shard"]["rendezvous"]
+    out["smoke"]["pods_per_sec_min"] = floor["pods_per_sec_min"]
+    if out["smoke"]["pods_per_sec"] < floor["pods_per_sec_min"]:
+        raise RuntimeError(f"scenario 14 smoke: {out['smoke']['pods_per_sec']} "
+                           f"pods/s < the floor's {floor['pods_per_sec_min']}")
+    return out
+
+
+def shard_sim_host(codec) -> dict:
+    """The Node annotations of a sim HGX host of 8 GPUs (as step 11a's
+    hosts), alone in its slice ``hgx-0``."""
+    from tpukube_torch.core.mesh import MeshSpec
+    from tpukube_torch.core.types import ChipInfo, NodeInfo, TopologyCoord
+
+    mesh = MeshSpec(dims=(8, 1, 1), host_block=(8, 1, 1),
+                    torus=(False, False, False))
+    chips = [ChipInfo(chip_id=f"{SHARD_SIM_HOST}-gpu-{i}", index=i,
+                      coord=TopologyCoord(i, 0, 0), hbm_bytes=80 << 30,
+                      num_cores=132) for i in range(8)]
+    return codec.annotate_node(NodeInfo(name=SHARD_SIM_HOST, chips=chips,
+                                        slice_id="hgx-0"), mesh)
+
+
+def _source(ev: dict) -> str:
+    """Who recorded a stitched explain's stage: "router", or a replica's
+    name."""
+    return ev.get("replica_source") or ev.get("replica", "")
+
+
+def route_cycle(router, codec, pod: dict, nodes: list):
+    """kube-scheduler's cycle for ``pod`` through the router, in process:
+    /filter over the node names, /prioritize, /bind the best. Returns
+    (node, the bound alloc); raises RuntimeError when it is refused."""
+    fres = router.handle("filter", {"Pod": pod, "NodeNames": list(nodes)})
+    if fres.get("Error") or not fres["NodeNames"]:
+        raise RuntimeError(f"{pod['metadata']['name']} unschedulable: "
+                           f"{fres.get('Error') or fres['FailedNodes']}")
+    pres = router.handle("prioritize", {"Pod": pod,
+                                        "NodeNames": fres["NodeNames"]})
+    scores = {e["Host"]: e["Score"] for e in pres}
+    best = max(sorted(scores), key=lambda h: scores[h])
+    meta = pod["metadata"]
+    bres = router.handle("bind", {"PodName": meta["name"],
+                                  "PodNamespace": meta["namespace"],
+                                  "PodUID": meta["uid"], "Node": best})
+    if bres.get("Error"):
+        raise RuntimeError(f"{meta['name']} bind: {bres['Error']}")
+    return best, codec.decode_alloc(bres["Annotations"][codec.ANNO_ALLOC])
+
+
+def shard_life(card_agent, start_serving=None, run_solo=None) -> dict:
+    """Step 19c: a DCN gang through the shard router's two-phase
+    rendezvous with one member on this machine's GPU, every effect
+    through the REST channel of step 12 (the stand-in apiserver,
+    ``rest_loops``: the lifecycle's resyncs ride the router's federated
+    ``allocs_since``). An in-process ``ShardRouter`` with
+    ``SHARD_LIFE_ENV`` (two replicas, batching, provenance at rate 1.0,
+    the journal with a segment per replica); the stand-in holds two
+    nodes, each its own slice: this machine's Node, annotated by
+    ``card_agent()``'s node agent, and a sim HGX host of 8 GPUs. The
+    slices go to different replicas.
+
+    A 9-member gang of one-GPU pods that opts into DCN fits no replica
+    whole: its webhooks go through the rendezvous (8 members on the sim
+    host, one on tpu-0) and it commits; the card member's env is its
+    bind's annotation (the global gang env: two slices, its own index)
+    and the plugin's Allocate. ``start_serving(env)`` starts it (a Popen
+    that prints a ``serving`` line, then serves and exits); None: no
+    container (the tests). Its stitched ``router.explain`` shows the
+    router's route and rendezvous stages and its replica's chain through
+    bind, under one trace id. While it serves, the replica owning the
+    card's slice is killed: ``shard-x`` is not placed, the federated
+    ledger drops the dead replica's pods; ``restart_replica`` with the
+    stand-in's pod objects restarts it warm from its segment, the member
+    back on tpu-0, zero leaked reservations, zero divergence. The
+    lifecycle's next resync is a full read (a new incarnation), the next
+    incremental. The gang ends while the pod stream delivers nothing
+    (its pods' events lost): one resync finds them terminal and each
+    replica gets one ``release_many``. ``shard-x`` binds tpu-0 and runs
+    (``run_solo(env)``, its report). The router's /statusz and /metrics
+    show both replicas, the rendezvous and the resync counters. Returns
+    the decisions and host-clock times; raises RuntimeError when a check
+    fails. No container outlives the call."""
+    import tempfile
+
+    from tpukube_torch.apiserver import FakeApiServer, live_alloc_pods
+    from tpukube_torch.chaos import leaked_reservations, ledger_divergence
+    from tpukube_torch.device.gpu import (
+        ENV_GANG_NUM_SLICES,
+        ENV_GANG_SLICE_INDEX,
+        ENV_GANG_SLICES,
+    )
+    from tpukube_torch.graft import ENV_ALLOC
+    from tpukube_torch.metrics import render_federated_metrics
+    from tpukube_torch.obs.slo import parse_metrics, validate_exposition
+    from tpukube_torch.obs.statusz import router_statusz
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sched.shard import ShardRouter
+    from tpukube_torch.sim.kube_rest import KubeRestServer
+
+    pkg = port_pkg()
+    a, codec = pkg.api, pkg.codec
+
+    class GapApi(FakeApiServer):
+        """The stand-in's store, with a watch gap: pods that end while
+        the pod stream delivers nothing (their events lost, as across a
+        stream's reconnect window); only a list sees them."""
+
+        def end_unseen(self, keys: list) -> None:
+            with self._lock:
+                for key in keys:
+                    self._pods[key] = {**self._pods[key],
+                                       "status": {"phase": "Succeeded"}}
+
+    out: dict = {}
+    t_step = time.perf_counter()
+    store = GapApi()
+    procs: list = []
+    with tempfile.TemporaryDirectory() as td, \
+            KubeRestServer(store=store, token=REST_TOKEN) as kube, \
+            contextlib.ExitStack() as stack:
+
+        def stop_containers() -> None:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+
+        stack.callback(stop_containers)
+        cfg = pkg.load_config(env={**SHARD_LIFE_ENV, "TPUKUBE_JOURNAL_PATH":
+                                   os.path.join(td, "wal.jsonl")})
+        api = pkg.rest_api(cfg, kube.base_url, token=REST_TOKEN)
+        router = ShardRouter(cfg)
+        stack.callback(router.shutdown)
+        agent = stack.enter_context(card_agent())
+        node = agent.mgr.host
+        out["node"] = node
+        res = agent.server.resource_name
+        nodes = [node, SHARD_SIM_HOST]
+        api.patch_node_annotations(node, codec.annotate_node(
+            agent.mgr.node_info(), agent.mgr.mesh))
+        api.patch_node_annotations(SHARD_SIM_HOST, shard_sim_host(codec))
+        loops = stack.enter_context(rest_loops(pkg, router, api))
+        intents = a.AllocIntentWatcher(api, node, agent.server,
+                                       poll_seconds=REST_POLL_S)
+        intents.start()
+        stack.callback(intents.stop)
+        wait_for("the intent watch", intents.stream_connected)
+        wait_for("both nodes' topology", lambda: all(
+            router.state.node(n) is not None for n in nodes))
+        with router._lock:
+            assignment = dict(router._slice_replica)
+        out["slice_assignment"] = {s: f"r{i}" for s, i in
+                                   sorted(assignment.items())}
+        print(f"shard: slice -> replica {out['slice_assignment']}", flush=True)
+        card_idx = router._node_replica[node]
+        if sorted(assignment.values()) != [0, 1] \
+                or router._node_replica[SHARD_SIM_HOST] == card_idx:
+            raise RuntimeError(f"slices on one replica: {assignment}")
+        out["card_replica"] = f"r{card_idx}"
+
+        def pods_now() -> dict:
+            return {f"{p['metadata'].get('namespace', 'default')}/"
+                    f"{p['metadata']['name']}": p for p in api.list_pods()}
+
+        def resync() -> dict:
+            loops.informer.check_once()
+            return loops.lifecycle.resync_stats()
+
+        def env_of(name: str, alloc) -> dict:
+            """The bound pod's container env: its alloc annotation as the
+            stand-in holds it (the downward API's source) under the
+            plugin's Allocate of the ids the intent watch delivered."""
+            key = f"default/{name}"
+            wait_for(f"{name}'s intent", lambda: agent.server.intents
+                     .snapshot().get(key) == alloc.device_ids)
+            payload = (api.get_pod("default", name)["metadata"]
+                       ["annotations"][codec.ANNO_ALLOC])
+            return {**codec.decode_alloc(payload).env,
+                    **agent.kubelet.allocate(res, alloc.device_ids),
+                    ENV_ALLOC: payload}
+
+        # the gang: fits no replica whole, goes through the rendezvous
+        group = pkg.PodGroup("shard-gang", min_member=SHARD_GANG,
+                             allow_dcn=True)
+        members = [pod_object(f"gang-{i}", tpu=1,
+                              annotations=codec.pod_group_annotations(group))
+                   for i in range(SHARD_GANG)]
+        for pod in members:
+            kube.store.upsert_pod(pod)
+        out["resync_before_gang"] = resync()
+        binds = {}
+        t_prepare = time.perf_counter()
+        for pod in members:
+            host, alloc = route_cycle(router, codec, pod, nodes)
+            binds[pod["metadata"]["name"]] = (host, alloc)
+            if router.rendezvous_committed and "rendezvous_ms" not in out:
+                out["rendezvous_ms"] = (time.perf_counter() - t_prepare) * 1e3
+        on_card = [n for n, (h, _) in binds.items() if h == node]
+        on_sim = [n for n, (h, _) in binds.items() if h == SHARD_SIM_HOST]
+        out["rendezvous"] = {"prepared": router.rendezvous_prepared,
+                             "committed": router.rendezvous_committed,
+                             "aborted": router.rendezvous_aborted}
+        if (len(on_card) != 1 or len(on_sim) != SHARD_GANG - 1
+                or out["rendezvous"] != {"prepared": 1, "committed": 1,
+                                         "aborted": 0}):
+            raise RuntimeError(f"the gang: {len(on_card)} on the card, "
+                               f"{len(on_sim)} on the sim host, rendezvous "
+                               f"{out['rendezvous']}")
+        member = on_card[0]
+        member_key = f"default/{member}"
+        alloc = binds[member][1]
+        if alloc.device_ids != ["tpu-0"]:
+            raise RuntimeError(f"{member} bound {alloc.device_ids}")
+        env = env_of(member, alloc)
+        gang_env = {k: env.get(k) for k in (
+            ENV_GANG_NUM_SLICES, ENV_GANG_SLICES, ENV_GANG_SLICE_INDEX)}
+        want_slices = sorted(assignment)
+        out["member"] = member
+        out["member_gang_env"] = gang_env
+        if gang_env != {ENV_GANG_NUM_SLICES: "2",
+                        ENV_GANG_SLICES: ",".join(want_slices),
+                        ENV_GANG_SLICE_INDEX:
+                            str(want_slices.index(agent.mgr.node_info().slice_id))}:
+            raise RuntimeError(f"{member}'s gang env {gang_env}")
+        print(f"shard: {member} bound tpu-0 of {node}, gang env {gang_env}; "
+              f"{len(on_sim)} members on {SHARD_SIM_HOST}", flush=True)
+        # the member's stitched explain: the router's stages and its
+        # replica's chain through bind, one trace id
+        doc = router.explain(member_key)
+        stages = [(_source(ev), ev["stage"]) for ev in doc["stages"]]
+        trace_of = {}  # (source, stage) -> the first such stage's trace id
+        for ev in doc["stages"]:
+            trace_of.setdefault((_source(ev), ev["stage"]),
+                                (ev.get("ctx") or {}).get("trace"))
+        out["explain_stages"] = [[src, stage, trace_of[(src, stage)]]
+                                 for src, stage in stages]
+        # the member's /filter webhook is one trace: the router's route
+        # and its replica's gang reserve and filter; the rendezvous (the
+        # gang's, under the trace of the webhook that prepared it) is in
+        # the chain, and the replica's chain runs through bind (its own
+        # webhook's trace)
+        rep = out["card_replica"]
+        trace = trace_of.get(("router", "route"))
+        out["explain_trace"] = trace
+        if (trace is None
+                or {trace_of.get(k) for k in (
+                    (rep, "gang_reserve"), (rep, "filter"))} != {trace}
+                or not trace_of.get(("router", "rendezvous"))
+                or not trace_of.get((rep, "bind"))):
+            raise RuntimeError(f"{member}'s explain: "
+                               f"{out['explain_stages']}")
+        if start_serving is not None:
+            proc = start_serving(env)
+            procs.append(proc)
+            lines: queue.Queue = queue.Queue()
+            threading.Thread(target=pump, args=(proc.stdout, lines),
+                             daemon=True).start()
+            while True:
+                line = lines.get(timeout=POD_TIMEOUT_S)
+                if line is None:
+                    raise RuntimeError(f"{member} exited {proc.wait()} "
+                                       f"before serving")
+                print(f"{member}: {line.rstrip()}", flush=True)
+                if line.startswith('{"serving"'):
+                    break
+        out["resync_before_kill"] = resync()
+        # the kill, while the member serves: the journal's drain thread
+        # has landed the member's bind (it bound seconds ago)
+        router.replicas[card_idx].extender.journal.sync()
+        t_kill = time.perf_counter()
+        router.kill_replica(card_idx)
+        out["member_serving_at_kill"] = (start_serving is not None
+                                         and procs[0].poll() is None)
+        if start_serving is not None and not out["member_serving_at_kill"]:
+            raise RuntimeError(f"{member} ended before the kill")
+        # shard-x must run on this machine (kube-scheduler's own
+        # predicates leave this node alone as its candidate)
+        x = pod_object("shard-x", tpu=1)
+        kube.store.upsert_pod(x)
+        fres = router.handle("filter", {"Pod": x, "NodeNames": [node]})
+        out["shard_x_while_dead"] = fres["NodeNames"]
+        ledger = {al.pod_key for al in router.state.allocations()}
+        if fres["NodeNames"] or member_key in ledger:
+            raise RuntimeError(f"while r{card_idx} is dead: shard-x feasible "
+                               f"on {fres['NodeNames']}, member in the "
+                               f"ledger: {member_key in ledger}")
+        # the warm restart from the replica's segment, fed the stand-in's
+        # node and pod objects
+        t_restart = time.perf_counter()
+        pods = pods_now()
+        owned = router.replica_pods(card_idx, pods)
+        node_annos = [(n, kube.store.get_node_annotations(n)) for n in nodes
+                      if router._node_replica.get(n) == card_idx]
+        restored = router.restart_replica(
+            card_idx, node_annos,
+            [annos for annos, _, _ in live_alloc_pods(owned)],
+            pod_objects=owned)
+        t_ready = time.perf_counter()
+        out["kill_to_restart_ms"] = (t_restart - t_kill) * 1e3
+        out["restart_ms"] = (t_ready - t_restart) * 1e3
+        out["last_restart"] = dict(router.last_restart)
+        back = router.state.allocation(member_key)
+        view = types.SimpleNamespace(extender=router, pods=pods_now())
+        out["leaked_reservations"] = len(leaked_reservations(view))
+        out["ledger_divergence"] = len(ledger_divergence(view))
+        if (not out["last_restart"]["warm"] or restored < 1
+                or back is None or back.node_name != node
+                or back.device_ids != ["tpu-0"]
+                or out["leaked_reservations"] or out["ledger_divergence"]):
+            raise RuntimeError(f"the restart: {out['last_restart']}, member "
+                               f"{back}, {out['leaked_reservations']} leaked, "
+                               f"{out['ledger_divergence']} diverged")
+        # the lifecycle's next resync reads in full (the new incarnation),
+        # the one after it incrementally
+        r1, r2 = resync(), resync()
+        out["resync_after_restart"] = [r1, r2]
+        before = out["resync_before_kill"]
+        if (r1["full"] != before["full"] + 1
+                or r1["incremental"] != before["incremental"]
+                or r2["full"] != r1["full"]
+                or r2["incremental"] != r1["incremental"] + 1):
+            raise RuntimeError(f"resyncs around the restart: {before} -> "
+                               f"{r1} -> {r2}")
+        if start_serving is not None:
+            proc = procs[0]
+            report = None
+            while True:
+                line = lines.get(timeout=POD_TIMEOUT_S)
+                if line is None:
+                    break
+                report = line
+            if proc.wait() != 0 or report is None:
+                raise RuntimeError(f"{member} exited {proc.returncode}")
+            out["member_pod"] = json.loads(report)["pod"]
+        # the gang ends unseen; one resync releases it, one release_many
+        # a replica
+        calls: list = []
+        for rep in router.replicas:
+            real = rep.transport.release_many
+
+            def counted(keys, _real=real, _name=rep.name):
+                calls.append((_name, sorted(keys)))
+                return _real(keys)
+
+            rep.transport.release_many = counted
+        kube.store.end_unseen([f"default/{p['metadata']['name']}"
+                               for p in members])
+        resync()
+        ledger = {al.pod_key for al in router.state.allocations()}
+        out["release_many"] = {name: len(keys) for name, keys in calls}
+        want_calls = {f"r{card_idx}": 1,
+                      f"r{1 - card_idx}": SHARD_GANG - 1}
+        if (out["release_many"] != want_calls or len(calls) != 2
+                or any(f"default/{n}" in ledger for n in binds)):
+            raise RuntimeError(f"the gang's releases: {calls}")
+        # shard-x binds the card, runs, ends
+        host, xalloc = route_cycle(router, codec, x, [node])
+        if host != node or xalloc.device_ids != ["tpu-0"]:
+            raise RuntimeError(f"shard-x bound {xalloc.device_ids} on {host}")
+        xenv = env_of("shard-x", xalloc)
+        if run_solo is not None:
+            out["shard_x_pod"] = run_solo(xenv)
+        done = dict(kube.store.get_pod("default", "shard-x"))
+        done["status"] = {"phase": "Succeeded"}
+        kube.store.upsert_pod(done)
+        wait_for("shard-x's release",
+                 lambda: router.state.allocation("default/shard-x") is None)
+        # the router's /statusz and /metrics
+        z = router_statusz(router)
+        out["statusz"] = {"replicas": [(r["replica"], r["alive"])
+                                       for r in z["replicas"]],
+                          "rendezvous_counters": z["rendezvous_counters"]}
+        page = render_federated_metrics(router, lifecycle=loops.lifecycle)
+        errors = validate_exposition(page)
+        samples = {s.name + ("{" + ",".join(f'{k}="{v}"' for k, v in
+                                             sorted(s.labels)) + "}"
+                             if s.labels else ""): s.value
+                   for s in parse_metrics(page)}
+        out["metrics"] = {k: v for k, v in samples.items() if k.startswith((
+            "tpukube_replica_up", "tpukube_router_rendezvous_total",
+            "tpukube_resync_"))}
+        want = {'tpukube_replica_up{replica="r0"}': 1.0,
+                'tpukube_replica_up{replica="r1"}': 1.0,
+                'tpukube_router_rendezvous_total{outcome="committed"}': 1.0}
+        if (errors or any(out["metrics"].get(k) != v for k, v in want.items())
+                or out["statusz"]["rendezvous_counters"]["committed"] != 1
+                or [r[1] for r in out["statusz"]["replicas"]] != [True, True]
+                or not out["metrics"].get("tpukube_resync_incremental_total")):
+            raise RuntimeError(f"the router's pages: {errors}, "
+                               f"{out['metrics']}, {out['statusz']}")
+        out["resync"] = loops.lifecycle.resync_stats()
+        # host-clock /filter handles: the router's beside its replica's
+        probe, solo = (pod_object(n, tpu=1) for n in ("probe-r", "probe-e"))
+        ext = router.replicas[card_idx].extender
+        for who, target, pod in (("router", router, probe),
+                                 ("replica", ext, solo)):
+            body = {"Pod": pod, "NodeNames": nodes}
+            walls = []
+            for _ in range(SHARD_FILTER_ROUNDS):
+                t = time.perf_counter()
+                target.handle("filter", body)
+                walls.append((time.perf_counter() - t) * 1e3)
+            out[f"filter_ms_{who}"] = statistics.median(walls)
+        out["routes"] = dict(kube.requests)
+    out["step_s"] = time.perf_counter() - t_step
+    return out
+
+
+def shard_phase(card: str, c0, prov: dict):
+    """Step 19 on the card: scenario 14 at the reference's smoke size and
+    at its defaults (19a, 19b), then ``shard_life`` with the card's node
+    agent, the member a Llama-3-8B B=1 pod of three requests and shard-x
+    one of one (19c); prints the ``shard:`` line's text (19d). ``prov``
+    is step 18's line (why-0's forward). Returns the line's object, or
+    None when a check failed."""
+    host = host_cpu()
+
+    def start_serving(env):
+        return subprocess.Popen(
+            [sys.executable, "-m", "tpukube_torch.graft", "--requests", "3",
+             "--batch", "1"],
+            cwd=ROOT, env=pod_env(env), stdout=subprocess.PIPE, text=True)
+
+    def run_solo(env):
+        r = run_pod(["--requests", "1", "--batch", "1"], env, "pod")
+        if r is None or r["uuid"] != c0.chip_id or r["batch"] != 1:
+            raise RuntimeError(f"shard-x's pod failed: {r}")
+        return r
+
+    try:
+        drives = shard_scenarios()
+        life = shard_life(lambda: node_agent({}), start_serving=start_serving,
+                          run_solo=run_solo)
+    except (RuntimeError, subprocess.SubprocessError, OSError,
+            queue.Empty) as e:
+        fail(f"shard: {e}")
+        return None
+    member = life.pop("member_pod")
+    if member["uuid"] != c0.chip_id or member["batch"] != 1:
+        fail(f"the card member's pod: {member}")
+        return None
+    print(f"{life['member']}: " + json.dumps(member, sort_keys=True), flush=True)
+    print("shard-x: " + json.dumps(life.pop("shard_x_pod"), sort_keys=True),
+          flush=True)
+    why0 = prov["why0_pod"]
+    line = {"card": card, "host": host, **drives, **life,
+            "member_forward_ms": member["forward_ms_median"],
+            "member_tokens_per_s": member["tokens_per_s"],
+            "why0_pod": why0}
+    sm, fl, rs = drives["smoke"], drives["fleet"], life["resync"]
+    print(
+        f"shard: scenario 14 smoke ({sm['nodes']} nodes, {sm['replicas']} "
+        f"replicas, {sm['pods_total']} pods) {sm['pods_per_sec']} pods/s "
+        f"(floor {sm['pods_per_sec_min']}); fleet ({fl['nodes']} nodes, "
+        f"{fl['chips']} GPUs, {fl['replicas']} replicas, {fl['pods_total']} "
+        f"pods) {fl['pods_per_sec']} pods/s, setup {fl['setup_s']} s; /filter "
+        f"median {life['filter_ms_router']:.3f} ms through the router vs "
+        f"{life['filter_ms_replica']:.3f} ms on the replica "
+        f"({SHARD_FILTER_ROUNDS} rounds); rendezvous prepare -> commit "
+        f"{life['rendezvous_ms']:.3f} ms; kill -> restart "
+        f"{life['kill_to_restart_ms']:.3f} ms -> ready "
+        f"{life['restart_ms']:.3f} ms ({life['last_restart']['restored']} "
+        f"allocations restored warm); resync {rs['full']} full, "
+        f"{rs['incremental']} incremental, {rs['bytes']} bytes, hit ratio "
+        f"{rs['incremental_hit_ratio']}; {life['member']} Llama-3-8B B=1 "
+        f"S=2048 {member['forward_ms_median']:.3f} ms, "
+        f"{member['tokens_per_s']:.1f} tokens/s (step 18's why-0: "
+        f"{why0['forward_ms_median']:.3f} ms, {why0['tokens_per_s']:.1f} "
+        f"tokens/s); step {life['step_s']:.1f} s [host CPU times; {host}; "
+        f"{card}]",
         flush=True,
     )
     return line
@@ -4216,6 +4793,12 @@ def main() -> int:
         return 1
     print("provenance: " + json.dumps(prov, sort_keys=True), flush=True)
 
+    # -- the sharded plane: scenario 14, a DCN gang through the router -----
+    shard = shard_phase(card, c0, prov)
+    if shard is None:
+        return 1
+    print("shard: " + json.dumps(shard, sort_keys=True), flush=True)
+
     # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -4254,8 +4837,9 @@ def main() -> int:
                 "cudaguard (CUDA driver quota guard); the scheduler extender, "
                 "its durable journal (WAL, CRC, checkpoints), the tenancy "
                 "plane (quotas, DRF order, SLO-burn shedding), the SLO "
-                "evaluator, drain, the autoscaler, capacity analytics and "
-                "decision provenance are host Python (numpy)",
+                "evaluator, drain, the autoscaler, capacity analytics, "
+                "decision provenance, the shard router and the incremental "
+                "resync log are host Python (numpy)",
     }), flush=True)
     print(json.dumps({
         "ok": True,

@@ -3,7 +3,7 @@
 reference's.
 
 Twins (``run_twin``, both packages, decision by decision): test_capacity.py
-but the tests named in ``CAPACITY_SKIPS``, each with its reason. The
+whole, the shard router's federated ``/capacity`` included. The
 port's own: on one sim sequence (fragmented, unhealthy, draining and
 quota demands) the stranded taxonomy, ``/capacity`` and
 ``/capacity/probe`` answer as the reference's; the query validation and
@@ -42,18 +42,8 @@ from torch_twin import (
 
 use_private_tpuinfo()
 
-CAPACITY_SKIPS = {
-    "test_router_capacity_doc_degrades_loudly_on_dead_replica":
-        "the shard router's federated /capacity (ROADMAP.md Queue 1, "
-        "item 5)",
-    "test_sole_router_serves_the_extender_doc_verbatim":
-        "the shard router's federated /capacity (ROADMAP.md Queue 1, "
-        "item 5)",
-}
-
-
 @pytest.mark.parametrize("fn,params",
-                         reference_cases(test_capacity, CAPACITY_SKIPS))
+                         reference_cases(test_capacity, {}))
 def test_reference_capacity_tests_hold_on_the_port(fn, params):
     run_twin(fn, {**TMP_PATH, **value_fixtures(params)})
 

@@ -246,7 +246,7 @@ def test_reference_ingest_tests_hold_on_the_port(name):
 def test_ingest_statusz_and_series_as_the_reference(bulk):
     # the ingest halves of test_ingest's test_ingest_and_resync_statusz_
     # sections and test_ingest_resync_series_render_only_when_on, on both
-    # packages (their resync halves need the incremental resync log)
+    # packages (their resync halves are in tests/test_torch_resync.py)
     from tpukube.metrics import render_extender_metrics as ref_render
     from tpukube.obs.statusz import extender_statusz as ref_statusz
     from tpukube.sim import SimCluster as RefSim
@@ -413,6 +413,11 @@ ACCEPTED_FILES = {
     ),
     "empty": "# nothing but a comment\n\n",
     "chaos-seed": "chaos_seed: 7\n",
+    "sharded-resync": (
+        "planner_replicas: 2\n"
+        "shard_transport: inprocess\n"
+        "generation_log_capacity: 1024\n"
+    ),
     "journal": (
         "journal_enabled: true\n"
         "journal_path: /var/lib/tpukube/wal.jsonl\n"
@@ -446,7 +451,8 @@ REFUSED_FILES = {
     "unknown-key": "no_such_field: 1\n",
     "journal-path-without-journal": "journal_path: /var/lib/wal\n",
     "tenancy-quotas-without-tenancy": "tenancy_quotas: a=1\n",
-    "unported-resync": "generation_log_capacity: 0\n",
+    "unported-wire-codec": "wire_codec: binary\n",
+    "unported-process-transport": "shard_transport: subprocess\n",
     "unported-plane-on": "lock_monitor: true\n",
     "bad-int": "extender_port: twelve\n",
     "bad-range": "extender_port: 70000\n",
@@ -702,28 +708,59 @@ print(json.dumps({{"rc": rc, "loaded": bad}}))
 
 
 def test_unported_tools_exit_2_naming_their_plane(capsys):
-    for argv, word in ((["shard-worker"], "shard router"),
-                       (["sim", "14"], "shard router")):
-        assert cli.main(argv) == 2, argv
-        assert word in capsys.readouterr().err, argv
+    assert cli.main(["shard-worker"]) == 2
+    assert "process transport" in capsys.readouterr().err
     assert cli.main(["nope"]) == 2
+    # several captures without --merge are refused, as the reference's
     trace_file = pathlib.Path(tempfile.mkdtemp()) / "t.jsonl"
     trace_file.write_text("")
-    assert cli.main(["obs", "timeline", "--merge", str(trace_file),
-                     str(trace_file)]) == 2
+    with pytest.raises(SystemExit):
+        cli.main(["obs", "timeline", str(trace_file), str(trace_file)])
+
+
+def test_obs_timeline_merge_as_the_reference(tmp_path, capsys):
+    # a router capture (a fan-out span with explicit bounds) and a
+    # replica capture (a decision tagged with the router's trace
+    # context): both packages' tools stitch them into the same trace
+    from tpukube.cli import main_obs as ref_main_obs
+
+    router = tmp_path / "trace.jsonl.router"
+    replica = tmp_path / "trace.jsonl.r0"
+    router.write_text(json.dumps({
+        "seq": 1, "ts": 100.5, "kind": "span", "response": None,
+        "request": {"name": "route_filter", "pod_key": "default/p",
+                    "trace": "t1", "span": "t1.0", "t0": 100.0,
+                    "t1": 100.5}}) + "\n")
+    replica.write_text(json.dumps({
+        "seq": 1, "ts": 100.2, "kind": "filter",
+        "ctx": {"trace": "t1", "parent": "t1.0"},
+        "request": {"Pod": {"metadata": {"name": "p",
+                                         "namespace": "default"}}},
+        "response": {"NodeNames": ["n0"]}}) + "\n")
+    outs = []
+    for main in (cli.main_obs, ref_main_obs):
+        assert main(["timeline", "--merge", str(router), str(replica)]) == 0
+        outs.append(json.loads(capsys.readouterr().out))
+    assert outs[0] == outs[1]
+    lanes = [e["args"]["name"] for e in outs[0]["traceEvents"]
+             if e["name"] == "process_name"]
+    assert lanes == ["trace.jsonl.router", "trace.jsonl.r0"]
 
 
 @pytest.mark.parametrize("argv", [["obs", "slo", "--snapshot"], ["sim", "7"],
                                   ["obs", "capacity"], ["sim", "15"],
-                                  ["obs", "explain", "default/p"]],
+                                  ["obs", "explain", "default/p"],
+                                  ["sim", "14"]],
                          ids=["obs-slo", "sim-7", "obs-capacity", "sim-15",
-                              "obs-explain"])
+                              "obs-explain", "sim-14"])
 def test_tools_once_refused_run_and_exit_0(tmp_path, capsys, monkeypatch,
                                            argv):
     # ``obs slo`` and ``sim 7`` exited 2 while the SLO evaluator was not
     # ported, ``obs capacity`` and ``sim 15`` while capacity analytics and
-    # drain were not, ``obs explain`` while decision provenance was not;
-    # they run now (``obs explain`` against a provenance sink capture)
+    # drain were not, ``obs explain`` while decision provenance was not,
+    # ``sim 14`` while the shard router was not; they run now (``obs
+    # explain`` against a provenance sink capture, ``sim 14`` at the
+    # reference's tier-1 smoke size)
     if argv[:2] == ["obs", "explain"]:
         sink = tmp_path / "decisions.jsonl"
         sink.write_text("".join(json.dumps(ev) + "\n" for ev in (
@@ -739,6 +776,12 @@ def test_tools_once_refused_run_and_exit_0(tmp_path, capsys, monkeypatch,
         argv = [*argv, str(capture)]
     if argv == ["sim", "15"]:
         monkeypatch.setenv("TPUKUBE_MAINT_CYCLES", "2")
+    if argv == ["sim", "14"]:
+        for k, v in (("TPUKUBE_SHARD_SLICES", "2"),
+                     ("TPUKUBE_SIM_MESH_DIMS", "4,4,4"),
+                     ("TPUKUBE_PLANNER_REPLICAS", "2"),
+                     ("TPUKUBE_KILONODE100K_PODS", "400")):
+            monkeypatch.setenv(k, v)
     if argv[:2] == ["obs", "slo"]:
         snap = tmp_path / "metrics.txt"
         snap.write_text('# TYPE gang_schedule_latency_seconds_bucket counter\n'
@@ -757,6 +800,10 @@ def test_tools_once_refused_run_and_exit_0(tmp_path, capsys, monkeypatch,
     elif argv[1] == "15":
         out = json.loads(text.strip().splitlines()[-1])
         assert out["scenario"] == 15 and out["storm"]["drains_completed"] >= 1
+    elif argv[1] == "14":
+        out = json.loads(text.strip().splitlines()[-1])
+        assert out["scenario"] == 14 and out["gang_committed"]
+        assert len(out["shard"]["replicas"]) == 2
     else:
         out = json.loads(text.strip().splitlines()[-1])
         assert out["scenario"] == 7

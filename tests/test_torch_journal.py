@@ -3,10 +3,9 @@ against the reference's.
 
 Twins (``run_twin``, both packages, decision by decision): test_journal.py
 whole (the crash-at-every-record-boundary property once per
-``with_checkpoint`` case) and test_ingest.py's two checkpoint tests. Left
-out, with the reason: test_ingest.py's ``test_generation_rides_checkpoint``
-(it reads ``allocs_since`` and the shard module's list API: the
-incremental resync log and the shard router, ROADMAP.md Queue 1 item 5).
+``with_checkpoint`` case) and test_ingest.py's three checkpoint tests
+(``test_generation_rides_checkpoint`` among them: the generation and the
+resync cursor ride the checkpoint).
 
 The port's own: the same decisions write byte-identical WAL files and
 checkpoints equal apart from the head's clock field ``ts``; journal files
@@ -72,6 +71,7 @@ def test_reference_crash_at_every_boundary_holds_on_the_port(
 @pytest.mark.parametrize("name", [
     "test_bulk_ingest_checkpoint_roundtrip_keeps_lazy",
     "test_mid_ingest_crash_replays_or_reconciles",
+    "test_generation_rides_checkpoint",
 ])
 def test_reference_ingest_checkpoint_tests_hold_on_the_port(name):
     run_twin(vars(test_ingest)[name], TMP_PATH)

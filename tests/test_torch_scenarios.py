@@ -8,6 +8,8 @@ states it) and scenario 3's per-share memory limit, half of each
 package's own default memory per card (80 GiB for an H100, 95 GiB for
 the reference's chip)."""
 
+import json
+
 import pytest
 
 import chip_smoke
@@ -84,10 +86,11 @@ DRIVE_KEYS = ("metric", "nodes", "chips", "pods_total",
 
 
 def _decisions(result: dict) -> dict:
-    # resync is left out: the reference reads its ledger through an alloc
-    # change log (incremental after the first read), the port always in
-    # full, so their read counters differ by design
+    # resync is compared whole: both packages read their ledger through
+    # the alloc change log (full once, then incremental), and the bytes
+    # are encoded alloc lengths, equal as the codecs are byte-equal
     out = {k: result[k] for k in DRIVE_KEYS}
+    out["resync"] = result["resync"]
     out["cycle"] = {k: result["cycle"][k] for k in CYCLE_COUNTS}
     if "snapshot" in result:
         out["snapshot"] = {k: result["snapshot"][k]
@@ -108,25 +111,38 @@ def test_kilonode_drive_matches_the_reference(n, knob, pods, monkeypatch):
     assert _decisions(got) == _decisions(want)
     assert got["pods_total"] == int(pods) and got["gang_committed"]
     assert got["ledger_divergence"] == 0
-    assert set(got["resync"]) == {"full"} and got["resync"]["full"] >= 1
+    assert set(got["resync"]) == {"full", "incremental", "bytes",
+                                  "incremental_hit_ratio"}
+    # one bootstrap full read; every later wave reads incrementally
+    assert got["resync"]["full"] == 1
     assert set(got["webhook_p99_ms"]) == {"filter", "prioritize", "bind"}
 
 
-@pytest.mark.parametrize("n,plane", [
-    (14, "shard router"),
-])
-def test_unported_scenario_raises_naming_its_plane(n, plane):
-    with pytest.raises(NotImplementedError, match=plane):
-        scenarios.run(n)
+def test_once_unported_scenario_14_runs_from_the_cli(monkeypatch, capsys):
+    # scenario 14 raised while the shard router was not ported; it runs
+    # now, from the port's CLI, at the reference's tier-1 smoke size
+    # (tests/test_torch_shard.py holds it against the reference's)
+    from tpukube_torch import cli
+
+    for k, v in {"TPUKUBE_SHARD_SLICES": "2", "TPUKUBE_SIM_MESH_DIMS": "4,4,4",
+                 "TPUKUBE_PLANNER_REPLICAS": "2",
+                 "TPUKUBE_KILONODE100K_PODS": "400"}.items():
+        monkeypatch.setenv(k, v)
+    assert cli.main(["sim", "14"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["scenario"] == 14 and got["pods_total"] >= 400
+    assert got["gang_committed"] and got["ledger_divergence"] == 0
+    assert set(got["shard"]["slice_assignment"].values()) == {"r0", "r1"}
+    assert "setup_s" in got and "lock_graph" not in got["shard"]
 
 
 def test_once_unported_scenario_15_runs(monkeypatch):
     # scenario 15 raised while drain and the autoscaler were not ported;
-    # phases A and B run now (tests/test_torch_drain.py holds them
-    # against the reference's), phase C still waits on the shard router
+    # all three phases run now (tests/test_torch_drain.py holds them
+    # against the reference's), phase C on the shard router
     monkeypatch.setenv("TPUKUBE_MAINT_CYCLES", "2")
     got = scenarios.run(15)
-    assert got["scenario"] == 15 and "sharded" not in got
+    assert got["scenario"] == 15 and got["sharded"]["drained_slices"]
     assert got["storm"]["drains_completed"] >= 1
     assert got["autoscale"]["scale_ups"] == 1
 

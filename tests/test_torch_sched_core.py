@@ -25,7 +25,7 @@ from tpukube.core.types import AllocResult as RefAllocResult
 from tpukube.core.types import TopologyCoord as RefCoord
 from tpukube.device import TpuDeviceManager
 from tpukube.sched.extender import Extender as RefExtender
-from tpukube.obs.timeline import merged_chrome_trace as ref_merged
+from tpukube.sched.shard import SubprocessTransport as RefProcessTransport
 from tpukube_torch.core import codec
 from tpukube_torch.core.clock import FakeClock
 from tpukube_torch.core.config import load_config
@@ -71,17 +71,17 @@ def _builds_a_reference_extender():
 
 
 def _imports_what_the_port_lacks():
-    from tpukube.sched.shard import ShardRouter  # noqa: F401
+    from tpukube.sched.wirecodec import WireCodecError  # noqa: F401
 
 
 def _uses_a_global_the_port_lacks():
-    assert ref_merged([]) is not None
+    assert RefProcessTransport.mode == "subprocess"
 
 
 @pytest.mark.parametrize("fn,error,match", [
     (_builds_a_reference_extender, AssertionError, "built the reference's Extender"),
-    (_imports_what_the_port_lacks, ImportError, "no module tpukube_torch.sched.shard"),
-    (_uses_a_global_the_port_lacks, AssertionError, "no tpukube_torch.obs.timeline.merged_chrome_trace"),
+    (_imports_what_the_port_lacks, ImportError, "no module tpukube_torch.sched.wirecodec"),
+    (_uses_a_global_the_port_lacks, AssertionError, "no tpukube_torch.sched.shard.SubprocessTransport"),
 ])
 def test_twin_port_run_cannot_fall_back_to_the_reference(fn, error, match):
     with pytest.raises(error, match=match):
@@ -171,18 +171,48 @@ def test_config_defaults_are_the_reference_s():
         load_config(env={"TPUKUBE_SCORE_MODE": "random"})
 
 
+@pytest.mark.parametrize("key,value,item", [
+    ("TPUKUBE_LOCK_MONITOR", "1", "item 6"),
+    ("TPUKUBE_SHARD_TRANSPORT", "subprocess", "item 5b"),
+])
+def test_every_opt_in_plane_is_refused(key, value, item):
+    with pytest.raises(ValueError, match="is not ported yet") as e:
+        load_config(env={key: value})
+    assert item in str(e.value)
+    # off, the same key is accepted
+    off = {"TPUKUBE_SHARD_TRANSPORT": "inprocess"}
+    load_config(env={key: off.get(key, "0")})
+
+
 @pytest.mark.parametrize("key,value", [
-    ("TPUKUBE_LOCK_MONITOR", "1"),
     ("TPUKUBE_PLANNER_REPLICAS", "2"),
-    ("TPUKUBE_SHARD_TRANSPORT", "subprocess"),
     ("TPUKUBE_GENERATION_LOG_CAPACITY", "65536"),
 ])
-def test_every_opt_in_plane_is_refused(key, value):
-    with pytest.raises(ValueError, match="is not ported yet"):
-        load_config(env={key: value})
-    # off, the same key is accepted
-    off = {"TPUKUBE_PLANNER_REPLICAS": "1", "TPUKUBE_SHARD_TRANSPORT": "inprocess"}
-    load_config(env={key: off.get(key, "0")})
+def test_once_refused_shard_planes_load_and_build(key, value):
+    # refused until the in-process shard router and the incremental
+    # resync log were ported: on, each loads as the reference's does
+    # and builds its plane (a ShardRouter over two replicas; the
+    # ledger's change log, whose allocs_since answers a cursor)
+    from tpukube_torch.sched.extender import Extender
+    from tpukube_torch.sched.shard import ShardRouter
+
+    cfg, ref = load_config(env={key: value}), ref_load_config(env={key: value})
+    name = key[len("TPUKUBE_"):].lower()
+    assert getattr(cfg, name) == getattr(ref, name) == int(value)
+    if name == "planner_replicas":
+        router = ShardRouter(cfg)
+        try:
+            assert len(router.replicas) == 2
+            assert all(r.extender is not None for r in router.replicas)
+        finally:
+            router.shutdown()
+        return
+    state = Extender(cfg).state
+    assert state.allocs_since(None)["full"] == []
+    state.set_generation_log(0)
+    assert state.allocs_since(None) is None
+    with pytest.raises(ValueError, match="generation_log_capacity"):
+        load_config(env={key: "-1"})
 
 
 @pytest.mark.parametrize("key,plane", [

@@ -191,6 +191,7 @@ def test_port_pulls_in_no_control_plane_dependency():
         "import tpukube_torch.tenancy, tpukube_torch.obs.slo\n"
         "import tpukube_torch.obs.capacity, tpukube_torch.sched.drain, "
         "tpukube_torch.sched.autoscale, tpukube_torch.chaos.maintenance\n"
+        "import tpukube_torch.sched.shard\n"
         "import tpukube_torch.plugin, tpukube_torch.plugin.server, "
         "tpukube_torch.plugin.proto.deviceplugin, tpukube_torch.plugin.fake_kubelet\n"
         "bad = ('yaml', 'grpc', 'google.protobuf', 'aiohttp', 'jax', 'jaxlib', 'optax', "
@@ -250,7 +251,7 @@ def test_scheduler_is_host_code_without_torch():
         "tpukube_torch.sched.journal, tpukube_torch.tenancy, "
         "tpukube_torch.obs.slo, tpukube_torch.obs.capacity, "
         "tpukube_torch.sched.drain, tpukube_torch.sched.autoscale, "
-        "tpukube_torch.chaos.maintenance\n"
+        "tpukube_torch.chaos.maintenance, tpukube_torch.sched.shard\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'tpukube', 'aiohttp', 'grpc', 'yaml') "
         "or m.startswith('google.protobuf'))))\n"

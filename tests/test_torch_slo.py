@@ -4,8 +4,8 @@ slo`` command and scenario 7 held against the reference's.
 Twins (``run_twin``, both packages): test_slo.py but one test,
 test_promlint.py, and test_telemetry.py's scenario-7 test. Left out, with
 the reason: test_slo.py's ``test_prometheus_rules_reference_only_rendered_series``
-(the series it cross-checks include the shard router's: ROADMAP.md
-Queue 1, item 5). The port's own: the
+(the rules read the router's process-transport series: ROADMAP.md
+Queue 1, item 5b). The port's own: the
 parser, the linter and the evaluator agree with the reference's on pages
 of both packages; scenario 7 gives the reference's result."""
 
@@ -34,8 +34,10 @@ use_private_tpuinfo()
 
 SLO_SKIPS = {
     "test_prometheus_rules_reference_only_rendered_series":
-        "renders the shard router's series (ROADMAP.md Queue 1, item 5); "
-        "the capacity series it also reads render on the port",
+        "the rules read tpukube_replica_rtt_seconds, which the router "
+        "renders only over its process transport (ROADMAP.md Queue 1, "
+        "item 5b); the router, replica and capacity series it also "
+        "reads render on the port",
 }
 
 

@@ -16,8 +16,12 @@ ledger/apiserver divergence after the dust settles. The maintenance and
 spot-churn schedules (``chaos/maintenance.py``) take capacity out of a
 live fleet in scenario 15.
 
-Not ported yet: ``replica_crash_recover`` (the shard router, ROADMAP
-Queue 1 item 5).
+Sharded-plane chaos: on a ``planner_replicas > 1`` cluster,
+``replica_crash_recover`` kills ONE planner replica mid-flight — e.g.
+mid-gang-commit of a two-phase DCN rendezvous — drives the router's
+all-or-nothing abort, restarts the replica, and reports the zero-leak
+convergence; ``SimCluster.partition_replica``/``heal_replica`` cover the
+partition half.
 """
 
 from tpukube_torch.apiserver import transient_api_error
@@ -27,6 +31,7 @@ from tpukube_torch.chaos.cluster import (
     converge,
     leaked_reservations,
     ledger_divergence,
+    replica_crash_recover,
 )
 from tpukube_torch.chaos.crash import CrashSchedule
 from tpukube_torch.chaos.maintenance import (
@@ -46,5 +51,6 @@ __all__ = [
     "converge",
     "leaked_reservations",
     "ledger_divergence",
+    "replica_crash_recover",
     "transient_api_error",
 ]

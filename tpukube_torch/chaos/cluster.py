@@ -18,8 +18,9 @@ The chaos cluster wires what a hardened production extender wires:
     circuit is open, /filter and /bind fail safe (no bind, no preemption
     plan) and ``DegradedMode`` lands in the event journal.
 
-The sharded plane's ``replica_crash_recover`` is not ported (it comes
-with the shard router).
+On a sharded cluster (``planner_replicas > 1``) ``replica_crash_recover``
+kills one planner replica mid-flight and restarts it, reporting the
+zero-leak convergence.
 """
 
 from __future__ import annotations
@@ -179,6 +180,32 @@ def ledger_divergence(cluster: SimCluster) -> list[str]:
             f"alloc annotation"
         )
     return problems
+
+
+def replica_crash_recover(cluster: SimCluster, idx: int,
+                          rounds: int = 50) -> dict[str, Any]:
+    """Replica chaos: kill ONE planner replica of a sharded cluster
+    mid-flight, let the router's rendezvous janitor abort any
+    uncommitted rendezvous holding a part there, converge the
+    effectors, restart the replica (``SimCluster.restart_replica``),
+    and converge again. Returns a report with the aborted rendezvous
+    keys, allocations restored, and the post-recovery leak/divergence
+    counts — the zero-leak acceptance the caller asserts on."""
+    cluster.crash_replica(idx)
+    aborted = cluster.extender.sweep()
+    converge(cluster, rounds=rounds)
+    restored = cluster.restart_replica(idx)
+    converge(cluster, rounds=rounds)
+    cluster.extender.sweep()
+    converge(cluster, rounds=rounds)
+    return {
+        "replica": idx,
+        "rendezvous_aborted": [list(k) for k in aborted],
+        "restored_allocs": restored,
+        "leaked_reservations": len(leaked_reservations(cluster)),
+        "ledger_divergence": len(ledger_divergence(cluster)),
+        "audit": cluster.extender.audit_stats(),
+    }
 
 
 def converge(cluster: SimCluster, rounds: int = 50) -> int:

@@ -48,10 +48,12 @@ capture (``--file``); ``--json`` prints the raw document. It exits 1 for
 a pod with no provenance. The ``extender`` daemon closes the provenance
 sink on SIGTERM, so a capture holds every stage.
 
-Left out or refused, each naming its plane (ROADMAP.md Queue 1):
-``shard-worker`` (the shard router, item 5) and ``obs timeline --merge``
-(the federated captures, item 5) exit 2; ``sim N`` for a scenario whose
-plane is not ported fails with the scenario runner's message.
+``obs timeline --merge`` stitches the shard router's trace capture and
+each replica's into one Chrome trace.
+
+Left out, naming its plane (ROADMAP.md Queue 1): ``shard-worker`` (the
+shard router's process transport, item 5b) exits 2. The ``extender``
+daemon refuses ``planner_replicas > 1``, as the reference's does.
 """
 
 from __future__ import annotations
@@ -372,6 +374,21 @@ def main_extender(argv: Optional[list[str]] = None) -> int:
     args = p.parse_args(argv)
     cfg = _setup(args)
 
+    if cfg.planner_replicas > 1:
+        # the slice-partitioned plane (sched/shard.py) deploys as ONE
+        # extender daemon per replica — each with its slice set and
+        # journal segment — behind the routing contract the in-process
+        # ShardRouter defines; a single daemon asked to be N replicas
+        # would shard nothing (one process, one GIL, one failure
+        # domain)
+        p.error(
+            "planner_replicas > 1 is a deployment topology, not a "
+            "daemon flag: run one `tpukube-shard-worker` per replica "
+            "behind the router webhook front (deploy/README's "
+            "multi-daemon sketch; the in-process ShardRouter serves "
+            "the sim/bench plane — `tpukube-sim 14`)"
+        )
+
     ssl_ctx = None
     if args.tls_cert or args.tls_key:
         import ssl
@@ -580,21 +597,15 @@ def main_sim(argv: Optional[list[str]] = None) -> int:
         "run a BASELINE config scenario against the real control-plane stack",
     )
     p.add_argument("scenario", type=int, choices=range(1, 16),
-                   help="BASELINE scenario number; the port runs 1-13 and "
-                        "15's phases A and B (14's plane, and 15's phase "
-                        "C, are not ported yet)")
+                   help="BASELINE scenario number")
     args = p.parse_args(argv)
     cfg = _setup(args)
 
     from tpukube_torch.sim import scenarios
 
-    try:
-        # without --config each scenario uses its canonical BASELINE
-        # topology; with it, the user's topology/config drives it
-        result = scenarios.run(args.scenario, cfg if args.config else None)
-    except NotImplementedError as e:
-        print(f"tpukube-sim: {e}", file=sys.stderr)
-        return 2
+    # without --config each scenario uses its canonical BASELINE
+    # topology; with it, the user's topology/config drives it
+    result = scenarios.run(args.scenario, cfg if args.config else None)
     print(json.dumps(result))
     return 0
 
@@ -634,11 +645,19 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
         "timeline",
         help="convert a JSONL decision trace (trace_path capture, or a "
              "/trace dump) to Chrome trace-event JSON")
-    tp.add_argument("trace_file", nargs="+", help="JSONL capture")
+    tp.add_argument("trace_file", nargs="+",
+                    help="JSONL capture(s); pass several with --merge "
+                         "(the router's .router sink plus each "
+                         "replica's own capture)")
     tp.add_argument("-o", "--out", default="-", metavar="FILE",
                     help="output file ('-' = stdout)")
     tp.add_argument("--merge", action="store_true",
-                    help="stitch several per-process captures (not ported)")
+                    help="stitch several per-process captures into ONE "
+                         "Chrome trace: one process lane per file "
+                         "(named for it), a shared time zero, and the "
+                         "router's fan-out spans rendered as true "
+                         "wall-clock slices enclosing the replica spans "
+                         "they fanned out to")
     tp.add_argument("--stats", action="store_true",
                     help="also print per-phase timing stats (JSON) to stderr")
 
@@ -728,16 +747,30 @@ def main_obs(argv: Optional[list[str]] = None) -> int:
     args = p.parse_args(argv)
 
     if args.cmd == "timeline":
+        import os as os_mod
+
         from tpukube_torch import trace as trace_mod
         from tpukube_torch.obs import timeline
 
-        if args.merge:
-            print("tpukube-obs timeline --merge: the federated captures of "
-                  "the shard router are not ported yet (ROADMAP.md Queue 1, "
-                  "item 5)", file=sys.stderr)
-            return 2
-        if len(args.trace_file) > 1:
+        if len(args.trace_file) > 1 and not args.merge:
             p.error("multiple trace files require --merge")
+        if args.merge:
+            captures = [
+                (os_mod.path.basename(path), trace_mod.load(path))
+                for path in args.trace_file
+            ]
+            text = json.dumps(timeline.merged_chrome_trace(captures),
+                              sort_keys=True) + "\n"
+            if args.out == "-":
+                sys.stdout.write(text)
+            else:
+                with open(args.out, "w") as f:
+                    f.write(text)
+            if args.stats:
+                merged = [e for _, evs in captures for e in evs]
+                print(json.dumps(timeline.phase_stats(merged),
+                                 indent=2), file=sys.stderr)
+            return 0
         events = trace_mod.load(args.trace_file[0])
         if args.out == "-":
             timeline.dump_chrome_trace(events, sys.stdout)
@@ -1056,8 +1089,8 @@ def main_ctl(argv: Optional[list[str]] = None) -> int:
 
 
 def main_shard_worker(argv: Optional[list[str]] = None) -> int:
-    print("tpukube shard-worker: the shard router is not ported yet "
-          "(ROADMAP.md Queue 1, item 5)", file=sys.stderr)
+    print("tpukube shard-worker: the shard router's process transport is "
+          "not ported yet (ROADMAP.md Queue 1, item 5b)", file=sys.stderr)
     return 2
 
 

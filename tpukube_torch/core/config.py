@@ -16,8 +16,8 @@ with a dot, ``yes/no/on/off/true/false``, quoted and plain strings).
 Anything else (nesting, block lists, anchors, tags, block scalars,
 several documents, a null) raises ValueError naming the line.
 
-The reference's opt-in planes that are not ported yet (decision
-provenance, the shard router and its wire codec, the lock-order monitor):
+The reference's opt-in planes that are not ported yet (the shard
+router's process transport and its wire codec, the lock-order monitor):
 a config that turns one on, or a file that sets one of their keys, is
 refused by :func:`load_config` rather than silently ignored.
 """
@@ -111,6 +111,15 @@ class GpuKubeConfig:
     snapshot_delta_enabled: bool = True
     # batched node upserts with lazy decode on first touch
     bulk_ingest_enabled: bool = True
+    # Generation-based incremental resync: the ledger stamps a
+    # generation on every alloc mutation and keeps a bounded
+    # per-generation change log; allocs_since(cursor) then serves a
+    # churn wave's resync as O(changed-allocs) adds/removes instead of
+    # the full ledger. The capacity must exceed the deepest alloc churn
+    # between two resync reads (commits + releases of one wave) — a gap
+    # degrades to a counted FULL read, never a stale answer. 0 disables
+    # the log (full reads; no tpukube_resync_* series render).
+    generation_log_capacity: int = 65536
 
     # Batched scheduling cycles (sched/cycle.py SchedulingCycle): when
     # batch_enabled is true the extender admits pending pods into a
@@ -247,10 +256,21 @@ class GpuKubeConfig:
     # scheduling-clock seconds between scale actions (either direction)
     autoscale_cooldown_seconds: float = 120.0
 
-    # The reference's opt-in planes, not ported yet: load_config refuses
-    # a config that turns one on.
+    # Slice-partitioned control plane (sched/shard.py): >1 runs N
+    # planner replicas behind a ShardRouter — each replica a full
+    # Extender owning a disjoint slice set, with its own ledger, gang
+    # manager, snapshot chain, queue and journal segment
+    # (<journal_path>.r<i>). Gangs that fit no single replica go
+    # through the router's two-phase rendezvous. 1 (the default) is
+    # the unsharded planner, byte for byte.
     planner_replicas: int = 1
+    # How the router reaches its replicas: inprocess (Extender objects
+    # in the router's process, direct dispatch). subprocess (one planner
+    # daemon per replica) is refused until the process transport is
+    # ported.
     shard_transport: str = "inprocess"
+    # The reference's lock-order monitor, not ported yet: load_config
+    # refuses a config that turns it on.
     lock_monitor: bool = False
 
     def sim_mesh(self) -> MeshSpec:
@@ -271,23 +291,17 @@ _TUPLE_FIELDS = {"sim_mesh_dims", "sim_host_block", "sim_torus"}
 
 # opt-in field -> the plane it would turn on (refused until ported)
 _NOT_PORTED = {
-    "lock_monitor": "the lock-order monitor",
+    "lock_monitor": "the lock-order monitor (Queue 1, item 6)",
 }
-# the reference's alloc change log for incremental resync (on by default
-# there, capacity 65536): its readers, the shard router and the
-# apiserver resync, are not ported, so the port has no such field and
-# refuses a positive capacity
-_RESYNC_LOG_KEY = ENV_PREFIX + "GENERATION_LOG_CAPACITY"
 
 
 # keys of the reference's config whose planes the port has not ported: a
 # config file that sets one is refused, naming the plane (ROADMAP.md
 # Queue 1 item of each)
 _UNPORTED_KEY_PREFIXES = {
-    "wire_": "the shard router's wire codec (Queue 1, item 5)",
+    "wire_": "the shard router's wire codec (Queue 1, item 5b)",
 }
 _UNPORTED_KEYS = {
-    "generation_log_capacity": "the incremental resync log (Queue 1, item 5)",
     "libtpu_path": "the TPU backend (the port's real backend is NVML: "
                    "nvml_path)",
     "real_torus": "the TPU backend (an NVLink domain has no torus)",
@@ -619,6 +633,11 @@ def load_config(yaml_path: Optional[str] = None,
         )
     if cfg.batch_max_pods < 1:
         raise ValueError("batch_max_pods must be >= 1")
+    if cfg.generation_log_capacity < 0:
+        raise ValueError(
+            "generation_log_capacity must be >= 0 (0 = incremental "
+            "resync off)"
+        )
     if cfg.journal_enabled and not cfg.journal_path:
         # a journal with nowhere to write would provide no durability
         raise ValueError("journal_enabled requires journal_path")
@@ -725,11 +744,26 @@ def load_config(yaml_path: Optional[str] = None,
     for name, plane in _NOT_PORTED.items():
         if getattr(cfg, name):
             raise ValueError(f"{name}: {plane} is not ported yet")
-    if int(env.get(_RESYNC_LOG_KEY, "0")) != 0:
-        raise ValueError("generation_log_capacity: the incremental resync "
-                         "log is not ported yet")
-    if cfg.planner_replicas != 1 or cfg.shard_transport != "inprocess":
+    if cfg.planner_replicas < 1:
+        raise ValueError("planner_replicas must be >= 1")
+    if cfg.shard_transport not in ("inprocess", "subprocess"):
         raise ValueError(
-            "planner_replicas/shard_transport: the shard router is not "
-            "ported yet")
+            f"unknown shard_transport {cfg.shard_transport!r} "
+            f"(inprocess | subprocess)"
+        )
+    if cfg.shard_transport == "subprocess":
+        raise ValueError(
+            "shard_transport: subprocess: the shard router's process "
+            "transport (Queue 1, item 5b) is not ported yet")
+    if cfg.planner_replicas > 1 and cfg.tenancy_quotas:
+        # each replica's TenantLedger sees only its own slice set, so a
+        # cluster-wide chip cap split across N replicas would silently
+        # enforce N x the written quota — refuse at load rather than
+        # under-enforce (same contract as quotas-without-the-plane)
+        raise ValueError(
+            "tenancy_quotas with planner_replicas > 1 is not yet "
+            "shard-aware (each replica would enforce the full cap "
+            "against its own slices) — run quotas unsharded, or drop "
+            "them for the sharded plane"
+        )
     return cfg

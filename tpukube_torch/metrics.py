@@ -83,8 +83,16 @@ With the journal on: tpukube_journal_{appends,bytes}_total,
 tpukube_checkpoint_seconds{quantile}, tpukube_recovery_seconds{quantile}
 and tpukube_recovery_replayed_deltas_total.
 
-Absent, because the port lacks their source (listed in ROADMAP.md, not
-faked): the incremental-resync series.
+With the generation log on and a lifecycle loop:
+tpukube_resync_{full,incremental,bytes}_total.
+
+Router series (``render_router_metrics``, planner_replicas > 1):
+tpukube_router_replicas, tpukube_router_rendezvous_total{outcome},
+tpukube_replica_{up,nodes,slices,allocs,utilization,queue_depth}{replica},
+tpukube_replica_{pods_routed,binds}_total{replica};
+``render_federated_metrics`` merges them with every alive replica's
+extender exposition under a ``replica`` label (the sole extender's page
+verbatim at one replica).
 
 :class:`MetricsServer` serves a page (and optionally a /statusz
 document) for the plugin and syncer daemons.
@@ -102,6 +110,8 @@ from tpukube_torch.obs.registry import format_sample as _fmt  # noqa: F401
 from tpukube_torch.obs.statusz import device_health_counts
 
 __all__ = ["build_extender_registry", "render_extender_metrics",
+           "build_router_registry", "render_router_metrics",
+           "render_federated_metrics",
            "build_plugin_registry", "render_plugin_metrics",
            "build_syncer_registry", "render_syncer_metrics",
            "MetricsServer"]
@@ -192,7 +202,8 @@ def build_extender_registry(extender, reconcile=None, evictions=None,
     # byte-identical with the journal off
     if extender.journal is not None:
         _add_journal_metrics(reg, extender.journal)
-    # bulk cold-start ingestion: series render only while it is on
+    # bulk cold-start ingestion and generation-based incremental
+    # resync: series render only while the features are on
     if extender.bulk_ingest:
         st = extender.state
         reg.counter(
@@ -207,6 +218,27 @@ def build_extender_registry(extender, reconcile=None, evictions=None,
             help_text="Wall time per bulk-ingest batch (probe + "
                       "seeding; the deferred decode drains on the "
                       "background warmer).")
+    if (lifecycle is not None
+            and getattr(extender, "resync_incremental", False)
+            and hasattr(lifecycle, "resync_full")):
+        reg.counter(
+            "tpukube_resync_full_total",
+            fn=lambda: lifecycle.resync_full,
+            help_text="Lifecycle resyncs that read the FULL ledger "
+                      "(the one bootstrap read, plus any generation-"
+                      "log gap/restart fallback).")
+        reg.counter(
+            "tpukube_resync_incremental_total",
+            fn=lambda: lifecycle.resync_incremental,
+            help_text="Lifecycle resyncs served O(Δ) from the "
+                      "generation log (allocs_since adds/removes).")
+        reg.counter(
+            "tpukube_resync_bytes_total",
+            fn=lambda: lifecycle.resync_bytes,
+            help_text="Wire-shape bytes the resync reads moved "
+                      "(encoded alloc lengths) — O(changed-allocs) "
+                      "per churn wave when the incremental path "
+                      "holds.")
     # batched scheduling cycles (sched/cycle.py): series render only
     # when batch_enabled actually built a planner — the default
     # exposition stays byte-identical with batching off
@@ -675,6 +707,176 @@ def _add_events_counter(reg: Registry, events) -> None:
     for reason in sorted(events.counts_by_reason()):
         counter.labels(reason=reason).set_function(
             lambda r=reason: events.counts_by_reason().get(r, 0))
+
+
+def build_router_registry(router, lifecycle=None) -> Registry:
+    """Registry for a :class:`~tpukube_torch.sched.shard.ShardRouter`
+    (planner_replicas > 1): router topology, routed volume, the
+    two-phase rendezvous ledger, and one summary row per replica — the
+    per-replica observability leg of the sharded plane; the
+    router-level series are the cross-shard rollup. With the daemon's
+    ``lifecycle`` loop (whose resyncs ride the router's federated
+    ``allocs_since``) its release and resync counters render too. The
+    process transport's telemetry (round-trip times, health checks,
+    wire bytes) is not ported: the in-process router has no wire."""
+    reg = Registry()
+    reg.gauge("tpukube_router_replicas",
+              fn=lambda: len(router.replicas))
+    rdv = reg.counter("tpukube_router_rendezvous_total")
+    rdv.labels(outcome="prepared").set_function(
+        lambda: router.rendezvous_prepared)
+    rdv.labels(outcome="committed").set_function(
+        lambda: router.rendezvous_committed)
+    rdv.labels(outcome="aborted").set_function(
+        lambda: router.rendezvous_aborted)
+    up = reg.gauge("tpukube_replica_up")
+    nodes = reg.gauge("tpukube_replica_nodes")
+    slices = reg.gauge("tpukube_replica_slices")
+    allocs = reg.gauge("tpukube_replica_allocs")
+    routed = reg.counter("tpukube_replica_pods_routed_total")
+    binds = reg.counter("tpukube_replica_binds_total")
+    util = reg.gauge("tpukube_replica_utilization")
+    depth = reg.gauge("tpukube_replica_queue_depth")
+
+    # one summary read per replica feeds the whole row, memoized for
+    # this REGISTRY's lifetime: render_router_metrics builds a fresh
+    # registry per scrape, so each scrape reads each replica once —
+    # not once per gauge (6 HTTP round-trips per replica per scrape in
+    # process mode). A dead/unreachable replica renders zeros (its
+    # liveness gauge carries the signal).
+    summary_memo: dict[int, dict] = {}
+
+    def _summary(rep) -> dict:
+        from tpukube_torch.sched.shard import ReplicaUnavailable
+
+        cached = summary_memo.get(rep.index)
+        if cached is not None:
+            return cached
+        if rep.killed:
+            doc = {}
+        else:
+            try:
+                doc = rep.transport.summary()
+            except ReplicaUnavailable:
+                doc = {}
+        summary_memo[rep.index] = doc
+        return doc
+
+    if lifecycle is not None:
+        reg.counter("tpukube_lifecycle_releases_total",
+                    fn=lambda: lifecycle.released)
+        if all(r.extender is not None and r.extender.resync_incremental
+               for r in router.replicas):
+            reg.counter("tpukube_resync_full_total",
+                        fn=lambda: lifecycle.resync_full)
+            reg.counter("tpukube_resync_incremental_total",
+                        fn=lambda: lifecycle.resync_incremental)
+            reg.counter("tpukube_resync_bytes_total",
+                        fn=lambda: lifecycle.resync_bytes)
+    for rep in router.replicas:
+        name = rep.name
+        up.labels(replica=name).set_function(
+            lambda r=rep: 1.0 if r.alive else 0.0)
+        nodes.labels(replica=name).set_function(
+            lambda r=rep: _summary(r).get("nodes", 0))
+        slices.labels(replica=name).set_function(
+            lambda r=rep: len(_summary(r).get("slices", ())))
+        allocs.labels(replica=name).set_function(
+            lambda r=rep: _summary(r).get("allocs", 0))
+        routed.labels(replica=name).set_function(
+            lambda r=rep: r.pods_routed)
+        binds.labels(replica=name).set_function(
+            lambda r=rep: _summary(r).get("binds_total", 0))
+        util.labels(replica=name).set_function(
+            lambda r=rep: _summary(r).get("utilization", 0.0))
+        depth.labels(replica=name).set_function(
+            lambda r=rep: _summary(r).get("queue_depth", 0))
+    return reg
+
+
+def render_router_metrics(router, lifecycle=None) -> str:
+    """Prometheus text for a ShardRouter — see build_router_registry."""
+    return build_router_registry(router, lifecycle=lifecycle).render()
+
+
+def _with_replica_label(line: str, replica: str) -> str:
+    """One exposition sample line with ``replica="<name>"`` appended to
+    its label set (added when absent — a worker never labels itself)."""
+    if "{" in line:
+        close = line.rindex("}")
+        inner = line[line.index("{") + 1:close]
+        if 'replica="' in inner:
+            return line
+        head = line[:line.index("{")]
+        return (f'{head}{{{inner},replica="{replica}"}}'
+                + line[close + 1:])
+    name, _, value = line.partition(" ")
+    return f'{name}{{replica="{replica}"}} {value}'
+
+
+def _merge_exposition(acc: dict, text: str,
+                      replica: Optional[str]) -> None:
+    """Fold one exposition into the family accumulator: HELP/TYPE are
+    kept from the FIRST source that declared them (the replicas run
+    identical code, so later declarations are identical), samples
+    append under their family so the merged render keeps each family
+    contiguous with exactly one TYPE line — the promlint contract."""
+    fam: Optional[str] = None
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            name = line.split(None, 3)[2]
+            cell = acc.setdefault(
+                name, {"help": None, "type": None, "samples": []})
+            kind = "help" if line.startswith("# HELP ") else "type"
+            if cell[kind] is None:
+                cell[kind] = line
+            fam = name
+            continue
+        if line.startswith("#"):
+            continue
+        name = line.split("{", 1)[0].split(None, 1)[0]
+        family = fam if fam is not None and name.startswith(fam) \
+            else name
+        cell = acc.setdefault(
+            family, {"help": None, "type": None, "samples": []})
+        if replica is not None:
+            line = _with_replica_label(line, replica)
+        cell["samples"].append(line)
+
+
+def render_federated_metrics(router, lifecycle=None) -> str:
+    """The router's aggregated /metrics: the router's own
+    registry plus every alive replica's FULL worker exposition merged
+    in with a ``replica`` label — one scrape target for the whole
+    sharded control plane, replacing N per-replica scrape configs.
+    With ``planner_replicas: 1`` in-process this returns the sole
+    planner's exposition verbatim (off-is-off: byte-identical to the
+    unsharded scrape)."""
+    sole = getattr(router, "_sole", None)
+    if sole is not None:
+        return render_extender_metrics(sole, lifecycle=lifecycle)
+    from tpukube_torch.sched.shard import ReplicaUnavailable, ShardError
+
+    acc: dict = {}
+    _merge_exposition(acc, render_router_metrics(router, lifecycle), None)
+    for rep in router.replicas:
+        if not rep.alive:
+            continue
+        try:
+            text = rep.transport.metrics_text()
+        except (ReplicaUnavailable, ShardError):
+            continue  # liveness is tpukube_replica_up's job
+        _merge_exposition(acc, text, rep.name)
+    parts: list[str] = []
+    for cell in acc.values():
+        if cell["help"] is not None:
+            parts.append(cell["help"])
+        if cell["type"] is not None:
+            parts.append(cell["type"])
+        parts.extend(cell["samples"])
+    return "\n".join(parts) + "\n"
 
 
 def build_plugin_registry(server, health=None, kubelet_watch=None,

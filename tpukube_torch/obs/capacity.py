@@ -46,8 +46,8 @@ exposition stays byte-identical.
 
 Each root-caused demand records a ``stranded`` stage into the pod's
 provenance chain while decision provenance is on (``ext.decisions``). The
-shard router is not ported yet: :func:`merge_capacity_docs` /
-:func:`merge_probe_docs` are the pure merges a router will call.
+shard router federates ``/capacity`` and ``/capacity/probe`` over
+:func:`merge_capacity_docs` / :func:`merge_probe_docs`.
 """
 
 from __future__ import annotations

@@ -8,20 +8,13 @@ reconnect backoff is not a live stream), trace-ring stats, and the node
 agent's inventory source. Served by the extender's HTTP app and the node
 agent's ``MetricsServer``.
 
-The sections of planes the port has not ported are written as the
-reference writes them with the plane off (``{"enabled": False}``, or the
-key absent), each constant below naming its ROADMAP.md Queue 1 item. The
-router's document (``router_statusz``) comes with the shard router.
+``router_statusz`` is the shard router's document (planner_replicas > 1).
 """
 
 from __future__ import annotations
 
 import time
 from typing import Any
-
-# the reference's /statusz sections of planes not ported, as it renders
-# them with the plane off
-_RESYNC_OFF = {"enabled": False}     # incremental resync log, Queue 1 item 5
 
 
 def device_health_counts(device) -> tuple[int, int]:
@@ -164,7 +157,13 @@ def extender_statusz(
         # hit rate, and the lazy backlog the warmer still drains
         "ingest": ({"enabled": True, **state.ingest_stats()}
                    if extender.bulk_ingest else {"enabled": False}),
-        "resync": _RESYNC_OFF,
+        # generation-based incremental resync: full vs incremental
+        # lifecycle reads and the wire-shape bytes moved
+        "resync": ({"enabled": True, **lifecycle.resync_stats()}
+                   if lifecycle is not None
+                   and getattr(extender, "resync_incremental", False)
+                   and hasattr(lifecycle, "resync_stats")
+                   else {"enabled": False}),
         # durable-state journal (sched/journal.py): WAL position,
         # append/checkpoint counters, and the last recovery's stats
         # (mode "cold-fallback" means the journal could not produce a
@@ -212,6 +211,26 @@ def extender_statusz(
     if reconcile is not None:
         out["reconciles"] = reconcile.reconciled
     return out
+
+
+def router_statusz(router) -> dict[str, Any]:
+    """The sharded control plane's /statusz document:
+    slice→replica assignment, per-replica summary rows (liveness,
+    nodes, allocs, queue depth, snapshot counters), and the two-phase
+    rendezvous ledger. Each replica's FULL ``extender_statusz`` stays
+    its own listener's document in a real deployment; this is the
+    cross-shard rollup the router serves."""
+    return {
+        "time": time.time(),
+        "sharded": True,
+        **router.statusz(),
+        "pending_evictions": len(router.pending_evictions),
+        "rendezvous_counters": {
+            "prepared": router.rendezvous_prepared,
+            "committed": router.rendezvous_committed,
+            "aborted": router.rendezvous_aborted,
+        },
+    }
 
 
 def plugin_statusz(

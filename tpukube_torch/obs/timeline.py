@@ -17,9 +17,8 @@ event — so a wide "bind" slice literally is the wait between filter and
 bind, the quantity an incident investigation needs.
 
 ``dump_chrome_trace`` writes the trace for ``python -m tpukube_torch.cli
-obs timeline``. Left out until their reader is ported:
-``merged_chrome_trace`` and ``_span_bounds`` (the federated, sharded
-captures of the shard router).
+obs timeline``; ``merged_chrome_trace`` stitches the shard router's
+capture and each replica's into one (``obs timeline --merge``).
 """
 
 from __future__ import annotations
@@ -142,6 +141,92 @@ def chrome_trace(events: Iterable[dict]) -> dict[str, Any]:
                 "args": _event_args(ev),
             })
             prev_us = us
+    return {"traceEvents": trace_events, "displayTimeUnit": "ms"}
+
+
+def _span_bounds(ev: dict) -> Optional[tuple[float, float]]:
+    """Explicit wall-clock bounds on a span event, when recorded. The
+    router's fan-out spans (sched/shard.py ``_traced``) stamp t0/t1 so
+    the merged timeline can render them as true enclosing slices
+    instead of width-since-previous-event slices."""
+    req = ev.get("request")
+    if ev.get("kind") == "span" and isinstance(req, dict) \
+            and isinstance(req.get("t0"), (int, float)) \
+            and isinstance(req.get("t1"), (int, float)):
+        return float(req["t0"]), float(req["t1"])
+    return None
+
+
+def merged_chrome_trace(
+    captures: list[tuple[str, list[dict]]],
+) -> dict[str, Any]:
+    """One Chrome trace stitched from several per-process captures
+    (the sharded plane's federated observability): each capture renders as its own
+    process (pid; process_name metadata carries the label — router,
+    r0, r1, ...), sharing ONE time zero, so the router's fan-out spans
+    visibly enclose/overlap the worker slices they fanned out to.
+    Events tagged with a propagated trace context (``ctx``) surface
+    ``trace``/``parent`` in their args — the join key across
+    processes. Span events carrying explicit t0/t1 bounds render as
+    true wall-clock slices; everything else keeps the
+    width-since-previous-event semantics of :func:`chrome_trace`."""
+    all_ts: list[float] = []
+    for _, events in captures:
+        for ev in events:
+            if not isinstance(ev, dict):
+                continue
+            bounds = _span_bounds(ev)
+            if bounds is not None:
+                all_ts.append(bounds[0])
+            elif isinstance(ev.get("ts"), (int, float)):
+                all_ts.append(ev["ts"])
+    zero = min(all_ts) if all_ts else 0.0
+    trace_events: list[dict[str, Any]] = []
+    for pid, (label, events) in enumerate(captures, start=1):
+        trace_events.append({
+            "ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+            "args": {"name": label},
+        })
+        tracks = correlate(events)
+        for tid, pod_key in enumerate(sorted(tracks), start=1):
+            trace_events.append({
+                "ph": "M", "name": "thread_name", "pid": pid,
+                "tid": tid, "args": {"name": pod_key},
+            })
+            prev_us: Optional[float] = None
+            for ev in tracks[pod_key]:
+                args = _event_args(ev)
+                ctx = ev.get("ctx")
+                if isinstance(ctx, dict):
+                    args["trace"] = ctx.get("trace")
+                    args["parent"] = ctx.get("parent")
+                bounds = _span_bounds(ev)
+                if bounds is not None:
+                    start = (bounds[0] - zero) * 1e6
+                    end = (bounds[1] - zero) * 1e6
+                    trace_events.append({
+                        "name": event_phase(ev),
+                        "ph": "X",
+                        "ts": round(start, 3),
+                        "dur": round(max(end - start, 1.0), 3),
+                        "pid": pid,
+                        "tid": tid,
+                        "args": args,
+                    })
+                    prev_us = end
+                    continue
+                us = (ev["ts"] - zero) * 1e6
+                start = us if prev_us is None else prev_us
+                trace_events.append({
+                    "name": event_phase(ev),
+                    "ph": "X",
+                    "ts": round(start, 3),
+                    "dur": round(max(us - start, 1.0), 3),
+                    "pid": pid,
+                    "tid": tid,
+                    "args": args,
+                })
+                prev_us = us
     return {"traceEvents": trace_events, "displayTimeUnit": "ms"}
 
 

@@ -30,10 +30,11 @@ pattern), so drains progress with traffic; the sim and the autoscaler
 call ``tick()`` directly, which takes the decision lock itself.
 
 On a sharded plane the replica being drained registers **drain
-intent** with the shard router so its health check never dead-marks
-it mid-choreography. The port has no shard router yet: nothing calls
-``attach_router``, so the intent calls do nothing, as the reference's
-do without a router.
+intent** with the shard router (``sched/shard.py``, which calls
+``attach_router`` for each in-process replica) so its health check
+never dead-marks it mid-choreography — eviction latency during a drain
+is expected, not a liveness failure. Without a router the intent calls
+do nothing.
 
 Nothing here is constructed unless ``drain_enabled``; the flag off
 leaves placements, exposition, and journal bytes byte-identical.
@@ -89,8 +90,8 @@ class DrainCoordinator:
 
     # -- router intent (drain/health-check race fix) -----------------------
     def attach_router(self, router, idx: int) -> None:
-        """Called by a shard router when it builds in-process replicas:
-        ``idx`` is this replica's shard index."""
+        """Called by the shard router when it builds in-process
+        replicas: ``idx`` is this replica's shard index."""
         self._router = router
         self._router_idx = idx
 

@@ -77,7 +77,8 @@ preemption, release) for ``/explain``, and ``tpukube_cycle_phase_seconds``
 (``self.phase_hist``) times the cycle's queue / pin / plan / answer /
 commit phases. Off, neither is built and nothing is recorded.
 
-Not ported yet (absent, not faked): the shard router.
+The shard router (``sched/shard.py``) runs N of these behind one
+decision surface; ``eviction_sink`` hands them one shared eviction bus.
 """
 
 from __future__ import annotations
@@ -150,6 +151,7 @@ class Extender:
         state: Optional[ClusterState] = None,
         trace: Optional["DecisionTrace"] = None,
         clock=None,
+        eviction_sink: Optional[deque] = None,
     ):
         self._config = config
         # scheduling-semantic time (pending-webhook TTL, gang
@@ -206,8 +208,13 @@ class Extender:
         # Cluster-wide eviction bus: pods whose chips were taken back
         # (gang rollback/dissolve, preemption) and must be deleted by the
         # pod-lifecycle owner (the EvictionExecutor of apiserver.py, which
-        # the sim harness's drain_evictions wraps).
-        self.pending_evictions: deque[str] = deque()
+        # the sim harness's drain_evictions wraps). ``eviction_sink``
+        # lets the shard router (sched/shard.py) hand all replicas ONE
+        # shared bus so a single EvictionExecutor drains every
+        # replica's victims.
+        self.pending_evictions: deque[str] = (
+            eviction_sink if eviction_sink is not None else deque()
+        )
         self.gang = GangManager(
             self.state,
             ttl_seconds=config.reservation_ttl_seconds,
@@ -232,6 +239,13 @@ class Extender:
         # ClusterState.ingest_nodes — probe-validated lazy ingest, one
         # epoch/delta seam per batch. Off = per-item upserts.
         self.bulk_ingest = config.bulk_ingest_enabled
+        # generation-based incremental resync: size the ledger's alloc
+        # change log so lifecycle resyncs read O(Δ) via allocs_since
+        # instead of the full ledger per wave (capacity 0 keeps the
+        # full read and the exposition free of the tpukube_resync_*
+        # series)
+        self.state.set_generation_log(config.generation_log_capacity)
+        self.resync_incremental = config.generation_log_capacity > 0
         # Durable control-plane state (sched/journal.py): with
         # journal_enabled every ledger/gang mutation seam appends one
         # WAL record (enqueue-only — the journal's drain thread owns the
@@ -1454,6 +1468,13 @@ class Extender:
     # -- pod lifecycle ------------------------------------------------------
     def release(self, pod_key: str) -> None:
         self.handle("release", {"pod_key": pod_key})
+
+    def release_many(self, pod_keys: list[str]) -> None:
+        """Batched releases (the lifecycle resync's flush surface — the
+        ShardRouter fans these out per replica; here each is the same
+        recorded release decision the per-key path dispatches)."""
+        for key in pod_keys:
+            self.handle("release", {"pod_key": key})
 
     def upsert_nodes_many(self, items: list[dict[str, Any]]) -> list[Any]:
         """Batched node ingest: one ``upsert_nodes`` decision for the

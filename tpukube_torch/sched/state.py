@@ -13,6 +13,7 @@ n=1 case of a vTPU node, so one ledger covers both resources.
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -40,6 +41,14 @@ from tpukube_torch.core.types import (
 
 
 log = logging.getLogger("tpukube_torch.state")
+
+
+#: per-process ledger-incarnation stream: ``allocs_since`` cursors embed
+#: (pid, count) so a cursor minted against one ledger incarnation can
+#: never read another incarnation's change log as its own — a restarted
+#: process gets a fresh pid, a fresh in-process ledger a fresh count,
+#: and either way the mismatch degrades to a full read.
+_INCARNATIONS = itertools.count(1)
 
 
 class StateError(RuntimeError):
@@ -192,6 +201,13 @@ def _health_only_change(a: NodeInfo, b: NodeInfo) -> bool:
 #: nodes that is 200k regex calls for nothing. Payloads that DO carry
 #: surrounding whitespace fall back to json.loads below.
 _PROBE_DECODER = json.JSONDecoder()
+
+
+def _alloc_bytes(allocs: list[AllocResult]) -> int:
+    """Wire-shape size of an alloc list (encoded annotation lengths) —
+    the honest byte count a remote resync consumer would move. O(n)
+    encodes, paid only on resync reads (Δ-sized in steady state)."""
+    return sum(len(codec.encode_alloc(a)) for a in allocs)
 
 #: NamedTuple's generated __new__ is a Python-level lambda; at 4 chips
 #: per node the probe constructs ~400k coords per 100k-node fleet, so
@@ -426,11 +442,20 @@ class ClusterState:
         # on the journal's drain thread, so this lock never blocks on
         # disk. None (the default) journals nothing.
         self._journal = None
-        # alloc generation: bumped on every commit/release and carried
-        # by the checkpoint head ("gen"), so a warm recovery resumes the
-        # numbering (the reference's change log that reads it is not
-        # ported)
+        # Generation-based incremental resync: a monotonically
+        # increasing generation stamped on every ALLOC mutation seam
+        # (commit/release — exactly the set ``allocations()`` serves),
+        # plus a bounded per-generation change log ``allocs_since``
+        # answers adds/removes from. The log is None until
+        # set_generation_log() sizes it (the Extender wires
+        # config.generation_log_capacity; 0 keeps it off) — disabled,
+        # allocs_since answers None and consumers keep the full read.
+        # A cursor the log cannot cover (gap, restart, overflow) gets a
+        # FULL answer — never a stale one. The checkpoint head carries
+        # the generation ("gen"), so a warm recovery resumes numbering.
         self._generation = 0
+        self._incarnation = f"{os.getpid():x}.{next(_INCARNATIONS):x}"
+        self._gen_log: Optional[deque] = None
         # cached sorted node-name tuple, invalidated when the node SET
         # changes (a new node registers / a checkpoint restore) — NOT on
         # occupancy or health churn. node_names() runs per batch cycle;
@@ -559,6 +584,93 @@ class ClusterState:
         """Monotonic mutation counter (the snapshot cache's key half)."""
         with self._lock:
             return self._epoch
+
+    # -- generation-based incremental resync ----------------------
+    def set_generation_log(self, capacity: int) -> None:
+        """Size (and enable) the per-generation alloc change log; 0
+        disables it — ``allocs_since`` then answers None and consumers
+        keep the legacy full read. The capacity must exceed the deepest
+        alloc churn between two consumer reads (a churn wave's commits
+        plus its releases) or steady-state resyncs degrade to full
+        reads (counted, never wrong)."""
+        with self._lock:
+            self._gen_log = deque(maxlen=capacity) if capacity > 0 \
+                else None
+
+    def _note_gen_locked(self, kind: str, alloc=None,
+                         pod_key: Optional[str] = None) -> None:
+        """Stamp one alloc mutation (callers hold ``self._lock`` and
+        call this right where the ``_allocs`` map changed)."""
+        self._generation += 1
+        gen_log = self._gen_log
+        if gen_log is not None:
+            gen_log.append((
+                self._generation, kind,
+                alloc if kind == "add" else pod_key,
+            ))
+
+    def generation(self):
+        """The opaque resync cursor: (ledger incarnation, generation).
+        Feed it back into ``allocs_since`` to read only what changed."""
+        with self._lock:
+            return (self._incarnation, self._generation)
+
+    def allocs_since(self, cursor) -> Optional[dict]:
+        """The alloc changes since ``cursor`` (a prior answer's
+        ``cursor``, or None to bootstrap). None when the log is
+        disabled (legacy full-read consumers); otherwise a dict:
+
+          * ``{"cursor": C, "adds": [AllocResult...], "removes":
+            [pod_key...], "bytes": n}`` — the incremental answer;
+            apply removes, then adds, to a mirror of the ledger.
+          * ``{"cursor": C, "full": [AllocResult...], "bytes": n}`` —
+            bootstrap, wrong incarnation (a restart), or a log gap
+            (overflow): the full ledger. A gap ALWAYS degrades to this
+            — never to a stale or partial answer.
+
+        ``bytes`` is the wire-shape size of the answer (encoded alloc
+        lengths) — what a remote consumer would actually move; the
+        tpukube_resync_bytes_total feed."""
+        with self._lock:
+            gen_log = self._gen_log
+            if gen_log is None:
+                return None
+            cur = (self._incarnation, self._generation)
+            gen: Optional[int] = None
+            if cursor is not None:
+                try:
+                    inc, gen = cursor[0], int(cursor[1])
+                except (TypeError, ValueError, IndexError):
+                    gen = None
+                else:
+                    if inc != self._incarnation or gen > self._generation:
+                        gen = None  # another incarnation's cursor
+            if gen is None or (
+                gen < self._generation
+                and (not gen_log or gen_log[0][0] > gen + 1)
+            ):
+                # bootstrap or gap: the log cannot cover (gen, now]
+                allocs = list(self._allocs.values())
+                return {"cursor": cur, "full": allocs,
+                        "bytes": _alloc_bytes(allocs)}
+            # net effect per pod key, in generation order (an add after
+            # a remove of the same key is an add, and vice versa)
+            merged: dict[str, tuple[str, Optional[AllocResult]]] = {}
+            for g, kind, payload in gen_log:
+                if g <= gen:
+                    continue
+                if kind == "add":
+                    merged[payload.pod_key] = ("add", payload)
+                else:
+                    merged[payload] = ("remove", None)
+            adds = [a for kind, a in merged.values() if kind == "add"]
+            removes = [k for k, (kind, _) in merged.items()
+                       if kind == "remove"]
+            return {
+                "cursor": cur, "adds": adds, "removes": removes,
+                "bytes": _alloc_bytes(adds) + sum(
+                    len(k) for k in removes),
+            }
 
     # -- lazy materialization (checkpoint warm restore) ---------------------
     def _view_locked(self, name: str) -> Optional[NodeView]:
@@ -1869,7 +1981,7 @@ class ClusterState:
             )
             view.add_ids(adding)
             self._allocs[alloc.pod_key] = alloc
-            self._generation += 1
+            self._note_gen_locked("add", alloc=alloc)
             self._occ_apply_locked(view.info.slice_id, add=newly_occupied)
             # all committed chips are healthy (validated above), so the
             # counted share delta is exactly the added weight
@@ -1897,7 +2009,7 @@ class ClusterState:
             if alloc is None:
                 return None
             self._allocs.pop(pod_key, None)
-            self._generation += 1
+            self._note_gen_locked("remove", pod_key=pod_key)
             view = self._view_locked(alloc.node_name)
             if view is None:
                 # node view gone: its chips are in no slice's occupied

@@ -250,7 +250,18 @@ class SimCluster:
                     name=name, chips=chips, shares_per_chip=shares,
                     slice_id=sid,
                 )
-        self.extender = Extender(self.config, clock=self.clock)
+        if self.config.planner_replicas > 1:
+            # Slice-partitioned control plane (sched/shard.py): N full
+            # planner replicas behind the router, each owning a
+            # disjoint slice set. The router speaks the Extender
+            # decision surface, so everything downstream (effectors,
+            # schedulers, chaos checkers) runs unchanged.
+            from tpukube_torch.sched.shard import ShardRouter
+
+            self.extender: Any = ShardRouter(self.config,
+                                             clock=self.clock)
+        else:
+            self.extender = Extender(self.config, clock=self.clock)
         self.pods: dict[str, dict[str, Any]] = {}  # key -> pod object
         # stats of the last restart_extender() recovery (None before)
         self.last_recovery: Optional[dict[str, Any]] = None
@@ -321,6 +332,9 @@ class SimCluster:
                 "advance() needs a FakeClock (pass clock=FakeClock())"
             )
         advance(seconds)
+        fan = getattr(self.extender, "advance_replicas", None)
+        if fan is not None:
+            fan(seconds)
 
     def start(self) -> None:
         """Serve the extender's HTTP app (webhooks, /healthz, /metrics
@@ -328,6 +342,13 @@ class SimCluster:
         nothing for an ``in_process`` cluster."""
         if self._in_process:
             return
+        if self.config.planner_replicas > 1:
+            raise RuntimeError(
+                "a sharded SimCluster (planner_replicas > 1) runs "
+                "in_process=True — the in-process router is the "
+                "sim/bench plane; production replicas serve as "
+                "separate extender daemons"
+            )
         if self._http is None:
             self._serve()
 
@@ -348,14 +369,18 @@ class SimCluster:
         """Stop serving, then close the trace and event sinks and the
         journal (their drain threads)."""
         self._stop_serving()
-        if self.extender.trace is not None:
-            self.extender.trace.close()
-        if self.extender.capacity is not None:
-            self.extender.capacity.close()
-        self.extender.events.close()
-        if self.extender.journal is not None:
-            self.extender.journal.close()
-            self.extender.state.retire()
+        shutdown = getattr(self.extender, "shutdown", None)
+        if shutdown is not None:
+            shutdown()  # ShardRouter: closes every replica's sinks
+        else:
+            if self.extender.trace is not None:
+                self.extender.trace.close()
+            if self.extender.capacity is not None:
+                self.extender.capacity.close()
+            self.extender.events.close()
+            if self.extender.journal is not None:
+                self.extender.journal.close()
+                self.extender.state.retire()
         self._serving_port = None
 
     def __enter__(self) -> "SimCluster":
@@ -365,12 +390,70 @@ class SimCluster:
     def __exit__(self, *exc) -> None:
         self.stop()
 
+    # -- replica chaos (sharded plane) -----------------------------------------
+    def _router(self):
+        from tpukube_torch.sched.shard import ShardRouter
+
+        if not isinstance(self.extender, ShardRouter):
+            raise RuntimeError(
+                "replica chaos needs a sharded cluster "
+                "(planner_replicas > 1)"
+            )
+        return self.extender
+
+    def crash_replica(self, idx: int) -> None:
+        """Kill ONE planner replica: its in-memory shard state —
+        ledger, reservations, queue, plans — is gone, nothing flushed;
+        the router keeps serving around it and the rendezvous janitor
+        aborts any uncommitted rendezvous holding a part there."""
+        self._router().kill_replica(idx)
+
+    def partition_replica(self, idx: int) -> None:
+        """Partition ONE replica away from the router (state survives,
+        unreachable); ``heal_replica`` ends the partition."""
+        self._router().partition_replica(idx)
+
+    def heal_replica(self, idx: int) -> None:
+        self._router().heal_replica(idx)
+
+    def restart_replica(self, idx: int) -> int:
+        """Restart a killed replica the way a restarted shard daemon
+        does: fresh Extender, warm from its journal segment when the
+        journal is on, else its node subset re-ingested and its ledger
+        + gangs rebuilt from the pod store's annotations
+        (``rebuild_from_pods``). Returns allocations restored."""
+        from tpukube_torch.apiserver import live_alloc_pods
+
+        router = self._router()
+        node_annos = [
+            (obj["metadata"]["name"], obj["metadata"]["annotations"])
+            for obj in self.node_objects()
+            if router._node_replica.get(obj["metadata"]["name"]) == idx
+        ]
+        # the SAME lifecycle filter every restart path applies:
+        # terminal-phase pods' annotation residue must not be restored
+        full_pods = router.replica_pods(idx, self.pods)
+        pods = [
+            annotations for annotations, _alloc, _key in
+            live_alloc_pods(full_pods)
+        ]
+        # the full pod objects ride along so a journal-enabled replica
+        # can replay its own segment (warm restart) and reconcile
+        # against the same truth the cold rebuild would consume
+        return router.restart_replica(idx, node_annos, pods,
+                                      pod_objects=full_pods)
+
     # -- crash / cold restart (chaos scenarios 9 and 13) ----------------------
     def crash_extender(self) -> None:
         """Simulate extender process death mid-flight: the HTTP listener
         disappears and every piece of in-memory scheduler state — ledger,
         gang reservations, pending webhook context, queued evictions — is
         gone. Nothing is flushed or unwound; that is the point."""
+        if self.config.planner_replicas > 1:
+            raise RuntimeError(
+                "sharded cluster: crash/restart individual replicas "
+                "(crash_replica/restart_replica), not the whole plane"
+            )
         self._stop_serving()
         if self.extender.journal is not None:
             # a real crash loses the journal's queued-but-undrained

@@ -21,9 +21,10 @@ storm. Scenario 15 is fleet elasticity (``sched/drain.py``,
 drains, crashes and spot kills (phase A) and the autoscaler's up and down
 (phase B).
 
-Not ported (``run`` raises, naming the plane): scenario 14 (the shard
-router), and scenario 15's phase C (``PARTLY_PORTED``: the sharded
-rebalance-away), each waiting in ROADMAP.md Queue 1, item 5.
+Scenario 14 is the sharded control plane (``sched/shard.py``): a
+multi-slice fleet behind N planner replicas and the router, the same
+churn drive as 10 and 12; scenario 15's phase C drains one replica's
+whole slice set under the router.
 """
 
 from __future__ import annotations
@@ -78,17 +79,6 @@ _PASSTHROUGH_KEYS = (
     "TPUKUBE_WIRE_COMPRESS_MIN_BYTES",
 )
 
-#: scenario -> the plane it needs that the port has not ported yet
-NOT_PORTED = {
-    14: "the shard router (ROADMAP.md Queue 1)",
-}
-#: what of a ported scenario still waits on an unported plane
-PARTLY_PORTED = {
-    15: "phase C (the sharded rebalance-away) needs the shard router "
-        "(ROADMAP.md Queue 1, item 5)",
-}
-
-
 def _env(defaults: dict[str, str]) -> dict[str, str]:
     import os
 
@@ -111,12 +101,7 @@ def _audit_stats(c: SimCluster) -> dict[str, Any]:
 
 
 def run(scenario: int, config: GpuKubeConfig | None = None) -> dict[str, Any]:
-    """Run one scenario. Raises ``NotImplementedError`` for a scenario
-    whose plane is not ported."""
-    if scenario in NOT_PORTED:
-        raise NotImplementedError(
-            f"scenario {scenario} needs {NOT_PORTED[scenario]}, which "
-            f"the port does not have yet")
+    """Run one scenario."""
     fn = {
         1: smoke_single_pod,
         2: dp_fanout,
@@ -131,6 +116,7 @@ def run(scenario: int, config: GpuKubeConfig | None = None) -> dict[str, Any]:
         11: tenant_serving,
         12: kilonode10k_churn,
         13: crash_storm,
+        14: kilonode_sharded,
         15: maintenance_storm,
     }[scenario]
     t0 = time.perf_counter()
@@ -430,12 +416,75 @@ def kilonode10k_churn(config: GpuKubeConfig | None) -> dict[str, Any]:
                            delta_stats=True)
 
 
+def kilonode_sharded(config: GpuKubeConfig | None) -> dict[str, Any]:
+    """Scenario 14: the 100k-node sharded drive —
+    ``TPUKUBE_SHARD_SLICES`` (default 10) ICI slices of
+    ``TPUKUBE_SIM_MESH_DIMS`` (default 32x32x40, i.e. 10,240 nodes /
+    40,960 chips each: ~102k nodes / ~410k chips total), partitioned
+    across ``TPUKUBE_PLANNER_REPLICAS`` (default 4) planner replicas
+    behind the ShardRouter, burst-churned through the batched cycles
+    on the fake clock with plan-served filter answers
+    (filter_from_plan). The committed training gang routes whole to
+    one replica (ICI-contiguous placement stays first choice); the
+    webhook-sampled pods measure real p99s through the router.
+
+    The measured wall EXCLUDES fleet minting + the one-time node
+    ingest (reported separately as ``setup_s``): at 100k nodes the
+    annotation encode/decode is a fixed startup cost, not the
+    steady-state throughput the scenario records. Raises on: gang
+    uncommitted, ledger/store divergence, leaked reservations, a dead
+    replica, or a pod shortfall. ``TPUKUBE_KILONODE100K_PODS`` scales
+    the trace (default 40000; a smoke runs a much smaller fleet via the
+    env knobs). The reference's ``lock_graph`` result key is left out:
+    the lock-order monitor is not ported (load_config refuses it)."""
+    import os
+
+    from tpukube_torch.core.mesh import MeshSpec
+
+    cfg = config or load_config(env=_env({
+        "TPUKUBE_SIM_MESH_DIMS": os.environ.get(
+            "TPUKUBE_SIM_MESH_DIMS", "32,32,40"),
+        "TPUKUBE_SIM_HOST_BLOCK": "2,2,1",
+        "TPUKUBE_BATCH_ENABLED": "1",
+        "TPUKUBE_BATCH_MAX_PODS": "2048",
+        "TPUKUBE_FILTER_FROM_PLAN": "1",
+        "TPUKUBE_PLANNER_REPLICAS": os.environ.get(
+            "TPUKUBE_PLANNER_REPLICAS", "4"),
+    }))
+    n_slices = int(os.environ.get("TPUKUBE_SHARD_SLICES", "10"))
+    mesh = cfg.sim_mesh()
+    slices = {
+        f"s{i:02d}": MeshSpec(dims=mesh.dims,
+                              host_block=mesh.host_block,
+                              torus=mesh.torus)
+        for i in range(n_slices)
+    }
+    total_target = int(os.environ.get("TPUKUBE_KILONODE100K_PODS",
+                                      "40000"))
+    total_chips = n_slices * mesh.num_chips
+    result = _kilonode_drive(
+        cfg, metric="kilonode_sharded", total_target=total_target,
+        gang_size=min(512, total_chips // 8),
+        max_alive=8192, check_leaks=True,
+        slices=slices, include_setup=False,
+    )
+    problems = []
+    if any(not r["alive"] for r in result["shard"]["replicas"]):
+        problems.append("a planner replica died during the drive")
+    if problems:
+        raise RuntimeError("kilonode_sharded invariants violated: "
+                           + "; ".join(problems))
+    return result
+
+
 def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
                     gang_size: int,
                     max_alive: Optional[int] = None,
                     check_leaks: bool = False,
-                    delta_stats: bool = False) -> dict[str, Any]:
-    """The shared kilonode churn driver (scenarios 10 and 12): a
+                    delta_stats: bool = False,
+                    slices: Optional[dict] = None,
+                    include_setup: bool = True) -> dict[str, Any]:
+    """The shared kilonode churn driver (scenarios 10, 12 and 14): a
     committed training gang pins a contiguous block while burst waves
     arrive, run five simulated minutes, and complete, on the fake
     clock through the batched cycles. ``check_leaks`` adds the
@@ -443,13 +492,20 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
     snapshot-maintenance numbers (delta-apply p50 vs a forced full
     rebuild p50 measured on the SAME loaded cluster at drive end).
 
+    ``slices`` drives a multi-slice fleet (the sharded scenario's
+    shape; the extender is then the ShardRouter when
+    planner_replicas > 1), and ``include_setup=False`` excludes fleet
+    minting + the initial node sync from the measured wall (reported
+    as ``setup_s``) — at 100k nodes the one-time annotation
+    encode/decode would otherwise swamp the steady-state number.
+
     With decision provenance on the result carries ``decisions``: the
     ring's stats and ``overhead_pct``, the record wall as a share of the
-    drive wall.
-
-    The reference's multi-slice fleet and setup-excluding options exist
-    for its sharded scenario 14, and its shard, wire and capacity result
-    keys for planes the port has not ported; all are left out here."""
+    drive wall. On the sharded plane it carries ``shard`` (replica rows,
+    slice assignment, rendezvous ledger, transport section) and
+    ``wire`` (all zeros over the in-process transport); the reference's
+    ``lock_graph`` and ``capacity`` keys are left out (the lock-order
+    monitor is not ported; the capacity rollup is not carried here)."""
     from collections import deque as _deque
 
     from tpukube_torch.chaos import leaked_reservations, ledger_divergence
@@ -461,8 +517,13 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
     t0 = time.perf_counter()
     # NodesCached sampled-webhook bodies: after the one-time ingest the
     # kilonode drives stop re-listing O(nodes) names per sampled webhook
-    with SimCluster(cfg, clock=clock, in_process=True,
+    with SimCluster(cfg, clock=clock, in_process=True, slices=slices,
                     cached_node_body=True, transport="inprocess") as c:
+        setup_s = None
+        if not include_setup:
+            c._sync_nodes()  # the one-time node ingest, off the clock
+            setup_s = round(time.perf_counter() - t0, 3)
+            t0 = time.perf_counter()
         n_nodes = len(c.nodes)
         n_chips = sum(m.num_chips for m in c.slices.values())
 
@@ -548,9 +609,48 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
             "cycle": ext.cycle.stats() if ext.cycle is not None else None,
             "utilization_percent": round(100 * c.utilization(), 2),
         }
-        # the per-wave lifecycle reconcile's read counts (every read of
-        # the port is a full one: it has no alloc change log)
+        if setup_s is not None:
+            result["setup_s"] = setup_s
+        # generation-based incremental resync: the per-wave lifecycle
+        # reconcile's full-vs-incremental read counts and the
+        # wire-shape bytes they moved
         result["resync"] = c._lifecycle.resync_stats()
+        statusz = getattr(ext, "statusz", None)
+        if statusz is not None:
+            # sharded plane: the router topology + rendezvous ledger +
+            # per-replica summary rows ride the result
+            doc = statusz()
+            result["shard"] = {
+                "replicas": [
+                    {k: r[k] for k in ("replica", "alive", "nodes",
+                                       "allocs", "pods_routed",
+                                       "binds_total", "utilization")}
+                    for r in doc["replicas"]
+                ],
+                "slice_assignment": doc["slice_assignment"],
+                "rendezvous": doc["rendezvous"],
+                # the router's transport section (its process-mode
+                # RTTs and health checks are not ported)
+                "transport": doc["transport"],
+            }
+        wire_fn = getattr(ext, "wire_totals", None)
+        if wire_fn is not None:
+            # federated wire-cost accounting: the transport byte bill
+            # normalized per churn wave (all zeros over the in-process
+            # transport, which moves no bytes)
+            wt = wire_fn()
+            top = sorted(wt["by_op"].items(),
+                         key=lambda kv: -(kv[1]["tx"] + kv[1]["rx"]))
+            result["wire"] = {
+                "tx_bytes": wt["tx"],
+                "rx_bytes": wt["rx"],
+                "total_bytes": wt["total"],
+                "waves": waves,
+                "bytes_per_wave": (round(wt["total"] / waves, 1)
+                                   if waves else 0.0),
+                "per_replica": wt["per_replica"],
+                "top_ops": dict(top[:8]),
+            }
         if ext.decisions is not None:
             # the measured-overhead guard: provenance's cumulative
             # record wall as a fraction of the drive wall
@@ -1743,7 +1843,7 @@ def maintenance_storm(config: GpuKubeConfig | None) -> dict[str, Any]:
     """Scenario 15: region-scale fleet elasticity under chaos —
     maintenance events and spot churn rip capacity out of a live fleet
     while the drain choreography, the WAL, and the autoscaler put it
-    back. The reference runs three phases; the port runs A and B:
+    back, in three phases:
 
     **A — maintenance storm.** A 4-slice fleet (64 chips) carries a
     committed training gang plus burst fillers on the fake clock with
@@ -1766,11 +1866,11 @@ def maintenance_storm(config: GpuKubeConfig | None) -> dict[str, Any]:
     ingest a new slice (time-to-capacity = one decision), and the
     post-burst idle fleet must drain the emptiest slice back down.
 
-    The reference's **C — sharded rebalance-away** (``planner_replicas=2``:
-    draining one replica's whole slice set under the router's drain
-    intent) needs the shard router, which the port has not ported
-    (ROADMAP.md Queue 1, item 5): the port's result has no ``sharded``
-    key, and its ``value`` counts phases A and B only.
+    **C — sharded rebalance-away.** ``planner_replicas=2`` in-process:
+    draining one replica's ENTIRE slice set registers drain intent
+    with the router (the health-check race fix's observable), survives
+    crashing + restarting the OTHER replica mid-drain, and converges
+    with zero leaks.
 
     Raises on any invariant violation. ``TPUKUBE_MAINT_CYCLES`` scales
     phase A (default 6 — at least one maintenance event per slice plus
@@ -2083,15 +2183,80 @@ def maintenance_storm(config: GpuKubeConfig | None) -> dict[str, Any]:
         audit_checks += ext.snapshots.audit_checks
         audit_divergences += ext.snapshots.audit_divergences
 
+    # ---- phase C: sharded rebalance-away -------------------------------
+    cfg_c = load_config(env=_env({
+        "TPUKUBE_DRAIN_ENABLED": "1",
+        "TPUKUBE_DRAIN_MAX_CONCURRENT_MOVES": "2",
+        "TPUKUBE_PLANNER_REPLICAS": "2",
+    }))
+    clock_c = FakeClock()
+    with SimCluster(cfg_c, slices={f"s{i}": mesh for i in range(4)},
+                    clock=clock_c, in_process=True) as c:
+        router = c.extender
+        for i in range(8):
+            c.schedule(c.make_pod(f"sp-{i}", tpu=2))
+        with router._lock:
+            assign = dict(router._slice_replica)
+        # drain EVERY slice the second replica owns (rebalance-away)
+        target_idx = 1
+        target_slices = sorted(s for s, i in assign.items()
+                               if i == target_idx)
+        rext = router.replicas[target_idx].extender
+        drained_nodes: list[str] = []
+        if not target_slices:
+            problems.append("phase C: replica 1 owns no slices")
+        else:
+            for sid in target_slices:
+                drained_nodes.extend(
+                    n for n in rext.state.node_names()
+                    if rext.state.slice_of_node(n) == sid)
+            rext.drain.begin(drained_nodes, reason="rebalance-away")
+            if "drain_intent" not in router.statusz():
+                problems.append(
+                    "phase C: drain intent missing from router statusz")
+            # the OTHER replica dies and cold-restarts mid-drain
+            c.crash_replica(0)
+            c.restart_replica(0)
+            for _ in range(40):
+                if not rext.drain.active():
+                    break
+                clock_c.advance(1.0)
+                rext.drain.tick()
+                converge(c, rounds=3)
+            if rext.drain.active():
+                problems.append("phase C: rebalance drain never "
+                                "completed")
+            if "drain_intent" in router.statusz():
+                problems.append(
+                    "phase C: drain intent not cleared at completion")
+            c.forget_nodes(drained_nodes)
+        converge(c)
+        div = ledger_divergence(c)
+        if div:
+            problems.append(f"phase C: ledger divergence {div[:2]}")
+        leaks = leaked_reservations(c)
+        if leaks:
+            problems.append(
+                f"phase C: leaked reservations "
+                f"{[str(p) for p in leaks[:2]]}")
+        shard_report = {
+            "slice_assignment": assign,
+            "drained_slices": target_slices,
+            "drained_nodes": len(drained_nodes),
+            "health_skips_draining":
+                router.health_skips_draining_total,
+        }
+
     result = {
         "metric": "maintenance_storm",
         "value": storm_report["drains_completed"]
-        + scale_report["scale_downs"],
+        + scale_report["scale_downs"] + len(target_slices),
         "unit": "graceful drains survived",
         "cycles": cycles,
         "seed": seed,
         "storm": storm_report,
         "autoscale": scale_report,
+        "sharded": shard_report,
         "peak_tick_moves": peak_moves,
         "budget_moves": cfg.drain_max_concurrent_moves,
         "snapshot_audit": {

@@ -24,13 +24,15 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Iterable, Optional
 
-#: Cross-process trace context: a trace id and parent span id that a
-#: fan-out router stamps on a request it forwards. The provenance ring
-#: (``obs/decisions.py``) tags each stage event recorded while it is set,
-#: so a stitched explain can join the replica's stages to the router's.
-#: A contextvar, not a thread local: concurrent requests on one thread
-#: never share one context. Unset (None, as it stays until the shard
-#: router is ported) means no tagging at all.
+#: Cross-process trace context: a trace id and parent span id that the
+#: shard router (``sched/shard.py``'s ``_traced``) sets around each
+#: fanned operation. The decision trace (``record`` below) and the
+#: provenance ring (``obs/decisions.py``) tag what they record while it
+#: is set, so ``obs timeline --merge`` can nest replica spans under the
+#: router's and a stitched explain can join the replica's stages to the
+#: router's. A contextvar, not a thread local: concurrent requests on
+#: one thread never share one context. Unset (None: one replica, or no
+#: router) means no tagging at all.
 TRACE_CONTEXT: contextvars.ContextVar[Optional[dict]] = \
     contextvars.ContextVar("tpukube_trace_context", default=None)
 
@@ -186,6 +188,7 @@ class DecisionTrace:
 
     def record(self, kind: str, request: Any, response: Any) -> dict:
         assert kind in KINDS or kind in ANNOTATION_KINDS, kind
+        ctx = TRACE_CONTEXT.get()
         with self._lock:
             self._seq += 1
             ev = {
@@ -195,6 +198,12 @@ class DecisionTrace:
                 "request": request,
                 "response": response,
             }
+            if ctx is not None:
+                # router-originated request: tag the event so merged
+                # timelines can parent this decision under the fan-out
+                # span (absent outside the sharded plane — replay
+                # ignores it)
+                ev["ctx"] = dict(ctx)
             self._events.append(ev)
             if self._sink is not None:
                 # enqueue under the ring lock so sink order IS seq order

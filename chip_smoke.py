@@ -359,9 +359,37 @@ Drives the port's main path the way a cluster does, on the card:
       /filter median through the router beside the replica's, the
       rendezvous' prepare -> commit, kill -> restart -> ready, the resync
       counters, the member's forward beside step 18's why-0);
-20. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+20. the process-parallel sharded plane, every replica a ``shard-worker``
+   daemon (``SubprocessTransport``); first the live threads and child
+   processes of this process are printed, then in a fresh interpreter
+   (``shard_proc_child``, so nothing earlier steps left running shares
+   its interpreter lock):
+   a. tools/check.sh's process-mode smoke: scenario 14's drive on 4
+      slices of 8x8x16, host block 2,2,1 (1,024 nodes), the ``shard_mp``
+      block's 6,000 pods, a 128-gang, at most 2,048 alive, at N=1 and N=2
+      workers; N=2 at least the block's 800 pods/s, the parallel
+      efficiency at least 0.55 where ``schedulable_cores`` (affinity and
+      cgroup quota) counts 3 or more;
+   b. the wire codec: a mixed workload placed the same with ``wire_codec``
+      json and binary, TKW1 frames moved, the 1,024-node drive at audit
+      rate 1.0 at the ``wire`` block's bytes-per-wave ratio (3.0), and the
+      micro point's encode / decode µs and size ratio;
+   c. ``shard_proc_life``: step 19c's DCN gang and card member over two
+      worker daemons, the bind effector applied by the router from each
+      bind answer (the member's annotation carries the global gang env);
+      the card's worker SIGKILLed while the member serves and a fresh one
+      restarted warm from its journal segment with the federated state
+      as before the kill; shard-x placed after; the router's listener
+      serving federated /metrics, /statusz and the member's stitched
+      /explain citing both replicas over HTTP; no worker left alive;
+   d. the ``shard_proc:`` line (spawn -> ready, replica RTTs, wire bytes
+      and ratios, health checks, N=1/N=2 pods/s and efficiency with the
+      cores counted, kill -> respawn -> ready, the member's forward, the
+      parent's threads and children, the step's and the run's seconds);
+   ``shard_proc_phase(card, c0, prov, t_start)`` runs step 20 alone;
+21. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-21. prints the kernels line: the JAX package has no Pallas kernel, so the
+22. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -4328,6 +4356,809 @@ def shard_phase(card: str, c0, prov: dict):
     return line
 
 
+# -- the process-parallel sharded plane (step 20) ------------------------------
+
+# tools/check.sh's process-mode shard smoke: 4 slices of 8x8x16 with host
+# block 2,2,1 (1,024 nodes), the batch cycle with plan-served /filter
+# answers, every replica a worker daemon
+SHARD_MP_ENV = {"TPUKUBE_SIM_MESH_DIMS": "8,8,16", "TPUKUBE_SIM_HOST_BLOCK": "2,2,1",
+                "TPUKUBE_BATCH_ENABLED": "1", "TPUKUBE_BATCH_MAX_PODS": "2048",
+                "TPUKUBE_FILTER_FROM_PLAN": "1",
+                "TPUKUBE_SHARD_TRANSPORT": "subprocess"}
+SHARD_MP_GANG = 128  # check.sh's training gang and alive cap
+SHARD_MP_ALIVE = 2048
+# drives of each point, taken in turns (N=1, N=2, N=1, ...): one drive is
+# under 2 s of wall on the card host, and one N=2 drive read 3,556.2 pods/s
+# in a whole run and 4,225.3 with step 20 alone (PERF.md §6), so each point
+# is the median of its drives
+SHARD_MP_ROUNDS = 3
+SHARD_MP_CHILD_S = 600  # the drive child's time limit
+WIRE_MICRO_ROUNDS = 25  # the micro point's p50 rounds, as bench.sched_micro's
+# step 19c's router over worker daemons
+SHARD_PROC_LIFE_ENV = {**SHARD_LIFE_ENV, "TPUKUBE_SHARD_TRANSPORT": "subprocess"}
+
+
+def schedulable_cores(affinity=None, cgroup: str = "/sys/fs/cgroup") -> dict:
+    """The cores this process may run on: the smaller of its CPU affinity
+    and its cgroup's CPU quota (cgroup v2 ``cpu.max``, else v1
+    ``cpu.cfs_quota_us`` / ``cpu.cfs_period_us``), the quota rounded up.
+    ``os.cpu_count()`` counts the host's CPUs, which a container may not
+    get. Returns the affinity count, the quota in cores (None: no
+    quota), the result and ``os.cpu_count()``."""
+    aff = len(os.sched_getaffinity(0)) if affinity is None else affinity
+    quota = None
+    with contextlib.suppress(OSError, ValueError):
+        with open(os.path.join(cgroup, "cpu.max")) as f:
+            q, period = f.read().split()[:2]
+        if q != "max":
+            quota = int(q) / int(period)
+    if quota is None:
+        with contextlib.suppress(OSError, ValueError):
+            with open(os.path.join(cgroup, "cpu", "cpu.cfs_quota_us")) as f:
+                q = int(f.read())
+            with open(os.path.join(cgroup, "cpu", "cpu.cfs_period_us")) as f:
+                period = int(f.read())
+            if q > 0 and period > 0:
+                quota = q / period
+    cores = aff if quota is None else min(aff, math.ceil(quota))
+    return {"affinity": aff, "quota": quota, "cores": cores,
+            "os_cpu_count": os.cpu_count()}
+
+
+def live_children(pid=None) -> list:
+    """(pid, command line) of each live child process of ``pid`` (this
+    process by default), read from /proc."""
+    pid = os.getpid() if pid is None else pid
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        with contextlib.suppress(OSError, ValueError, IndexError):
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            # the command name may hold spaces: fields follow its ")"
+            fields = stat[stat.rindex(")") + 2:].split()
+            if int(fields[1]) != pid or fields[0] == "Z":
+                continue
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            out.append((int(entry), cmd.strip()))
+    return sorted(out)
+
+
+def _shard_mp_slices(cfg) -> dict:
+    from tpukube_torch.core.mesh import MeshSpec
+
+    mesh = cfg.sim_mesh()
+    return {f"s{i:02d}": MeshSpec(dims=mesh.dims, host_block=mesh.host_block,
+                                  torus=mesh.torus) for i in range(4)}
+
+
+def shard_mp_sweep() -> dict:
+    """Step 20a: tools/check.sh's process-mode smoke on the port —
+    ``_kilonode_drive`` over 1,024 nodes with the ``shard_mp`` block's
+    pods at N=1 and N=2 worker daemons (each drive raises on a leak, a
+    divergence or a shortfall), ``SHARD_MP_ROUNDS`` drives of each in
+    turns. Every N=2 drive's pods/s must reach the block's floor, and the
+    parallel efficiency (N=2's median pods/s over N=1's, halved) its
+    floor where ``schedulable_cores`` counts 3 or more (two workers and
+    the router). Raises RuntimeError naming the gate."""
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.sim import scenarios
+
+    with open(PERF_FLOOR) as f:
+        floor = json.load(f)["shard_mp"]
+    cores = schedulable_cores()
+    print(f"shard_proc 20a: schedulable cores {cores['cores']} (affinity "
+          f"{cores['affinity']}, cgroup quota {cores['quota']}, "
+          f"os.cpu_count() {cores['os_cpu_count']})", flush=True)
+    runs: dict = {1: [], 2: []}
+    for _ in range(SHARD_MP_ROUNDS):
+        for n in (1, 2):
+            cfg = load_config(env={**SHARD_MP_ENV,
+                                   "TPUKUBE_PLANNER_REPLICAS": str(n)})
+            r = scenarios._kilonode_drive(
+                cfg, metric=f"shard_mp_n{n}", total_target=floor["pods"],
+                gang_size=SHARD_MP_GANG, max_alive=SHARD_MP_ALIVE,
+                check_leaks=True, slices=_shard_mp_slices(cfg),
+                include_setup=False)
+            if (r["ledger_divergence"] or not r["gang_committed"]
+                    or r["shard"]["transport"]["mode"] != "subprocess"):
+                raise RuntimeError(f"N={n}: {r}")
+            runs[n].append(r)
+            print(f"shard_proc 20a: N={n} {r['pods_total']} pods "
+                  f"{r['pods_per_sec']} pods/s (wall {r['wall_s']} s, setup "
+                  f"{r['setup_s']} s)", flush=True)
+    per_run = {n: [r["pods_per_sec"] for r in runs[n]] for n in (1, 2)}
+    p1, p2 = (statistics.median(per_run[n]) for n in (1, 2))
+    eff = (p2 / p1) / 2 if p1 else 0.0
+    last = runs[2][-1]
+    tr = last["shard"]["transport"]
+    out = {"nodes": last["nodes"], "pods": last["pods_total"],
+           "n1_pods_per_sec": p1, "n2_pods_per_sec": p2,
+           "pods_per_sec_by_run": per_run,
+           "walls_s": {n: [r["wall_s"] for r in runs[n]] for n in (1, 2)},
+           "parallel_efficiency": round(eff, 4), "cores": cores,
+           "pods_per_sec_min": floor["pods_per_sec_min"],
+           "parallel_efficiency_min": floor["parallel_efficiency_min"],
+           "efficiency_gated": cores["cores"] >= 3,
+           "transport": tr, "wire": last["wire"]}
+    if min(per_run[2]) < floor["pods_per_sec_min"]:
+        raise RuntimeError(f"N=2 {per_run[2]} pods/s: one under the "
+                           f"shard_mp floor {floor['pods_per_sec_min']}")
+    if out["efficiency_gated"]:
+        if eff < floor["parallel_efficiency_min"]:
+            raise RuntimeError(
+                f"parallel efficiency {eff:.4f} < the shard_mp floor "
+                f"{floor['parallel_efficiency_min']} on {cores['cores']} "
+                f"schedulable cores")
+    else:
+        print(f"parallel-efficiency floor SKIPPED: {cores['cores']} "
+              f"schedulable CPU(s) — workers time-slice, the ratio measures "
+              f"contention, not parallelism", flush=True)
+    return out
+
+
+def wire_micro() -> dict:
+    """bench.sched_micro's wire point on the port's codec: a fleet-shaped
+    upsert wave of the 16x16x16 mesh's 64 hosts (host block 4,4,4), TKW1
+    encode and decode p50 µs and the compact-JSON / frame size ratio."""
+    from tpukube_torch.core.mesh import MeshSpec
+    from tpukube_torch.sched import wirecodec
+
+    mesh = MeshSpec(dims=(16, 16, 16), host_block=(4, 4, 4))
+    names = sorted(mesh.all_hosts())
+    wave = {"items": [
+        {"name": name, "slice": "slice-0", "topology": "16x16x16",
+         "chips": mesh.chips_per_host,
+         "device_ids": [f"{name}-chip-{i}" for i in range(mesh.chips_per_host)],
+         "badLinks": ([] if i % 7 else
+                      [{"from": f"{name}-chip-0", "to": f"{name}-chip-1"}]),
+         "free": mesh.chips_per_host, "epoch": 3, "healthy": True}
+        for i, name in enumerate(names)]}
+
+    def p50_us(fn) -> float:
+        walls = []
+        for _ in range(WIRE_MICRO_ROUNDS):
+            t = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t)
+        return sorted(walls)[len(walls) // 2] * 1e6
+
+    json_len = len(wirecodec.dumps_json(wave))
+    frame, _ = wirecodec.encode_frame(wave, 1024)
+    if wirecodec.decode_frame(frame) != wave:
+        raise RuntimeError("the micro wave does not round-trip")
+    return {"encode_us": p50_us(lambda: wirecodec.encode_frame(wave, 1024)),
+            "decode_us": p50_us(lambda: wirecodec.decode_frame(frame)),
+            "json_bytes": json_len, "frame_bytes": len(frame),
+            "ratio": json_len / len(frame)}
+
+
+def wire_codec_smoke() -> dict:
+    """Step 20b: tools/check.sh's wire-codec smoke on the port. A fixed
+    mixed workload over 2 worker daemons places the same with
+    ``wire_codec`` json and binary, and the binary run moves TKW1 frames;
+    the 1,024-node drive at ``snapshot_audit_rate`` 1.0 over 2 workers
+    with the ``wire`` block's pods, once per codec: json's bytes per wave
+    over binary's must reach the block's ratio. Then the micro point
+    (:func:`wire_micro`) against the block's µs ceilings times
+    ``allowed_regression`` and its size-ratio floor. Raises RuntimeError
+    naming the gate."""
+    from tpukube_torch.core.clock import FakeClock
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.core.mesh import MeshSpec
+    from tpukube_torch.core.types import PodGroup
+    from tpukube_torch.sim import SimCluster, scenarios
+
+    with open(PERF_FLOOR) as f:
+        floors = json.load(f)
+    floor, slack = floors["wire"], floors["allowed_regression"]
+
+    def mixed(codec: str):
+        cfg = load_config(env={
+            "TPUKUBE_PLANNER_REPLICAS": "2", "TPUKUBE_SHARD_TRANSPORT": "subprocess",
+            "TPUKUBE_BATCH_ENABLED": "1", "TPUKUBE_BACKEND": "sim",
+            "TPUKUBE_WIRE_CODEC": codec, "TPUKUBE_WIRE_COMPRESS_MIN_BYTES": "256"})
+        slices = {sid: MeshSpec(dims=(2, 2, 2), host_block=(2, 2, 1),
+                                torus=(False, False, False)) for sid in ("s0", "s1")}
+        placed = {}
+        with SimCluster(cfg, clock=FakeClock(), in_process=True,
+                        slices=slices) as c:
+            def put(pod):
+                node, alloc = c.schedule(pod)
+                placed[alloc.pod_key] = (node, sorted(alloc.device_ids))
+
+            put(c.make_pod("solo-0", tpu=1))
+            put(c.make_pod("multi-0", tpu=2))
+            grp = PodGroup("pg", min_member=2)
+            for i in range(2):
+                put(c.make_pod(f"pg-{i}", tpu=1, group=grp, priority=10))
+            c.complete_pod("solo-0")
+            put(c.make_pod("solo-1", tpu=1))
+            return placed, c.extender.wire_totals()
+
+    placed_json, small_json = mixed("json")
+    placed_bin, small_bin = mixed("binary")
+    if placed_json != placed_bin:
+        raise RuntimeError(f"json placements {placed_json} != binary "
+                           f"{placed_bin}")
+    if small_bin.get("codec") != "binary" or "codec" in small_json:
+        raise RuntimeError("the binary run moved no TKW1 frame (or the json "
+                           "run did)")
+
+    def drive(codec: str) -> dict:
+        cfg = load_config(env={**SHARD_MP_ENV, "TPUKUBE_PLANNER_REPLICAS": "2",
+                               "TPUKUBE_SNAPSHOT_AUDIT_RATE": "1.0",
+                               "TPUKUBE_WIRE_CODEC": codec})
+        r = scenarios._kilonode_drive(
+            cfg, metric=f"wire_{codec}", total_target=floor["pods"],
+            gang_size=SHARD_MP_GANG, max_alive=SHARD_MP_ALIVE,
+            check_leaks=True, slices=_shard_mp_slices(cfg), include_setup=False)
+        if r["ledger_divergence"] or not r["gang_committed"]:
+            raise RuntimeError(f"the {codec} drive: {r}")
+        return r["wire"]
+
+    wj, wb = drive("json"), drive("binary")
+    ratio = wj["bytes_per_wave"] / wb["bytes_per_wave"] if wb["bytes_per_wave"] else 0.0
+    micro = wire_micro()
+    out = {"placements_equal": True, "mixed_pods": len(placed_json),
+           "json_bytes_per_wave": wj["bytes_per_wave"],
+           "binary_bytes_per_wave": wb["bytes_per_wave"],
+           "bytes_per_wave_ratio": round(ratio, 4),
+           "bytes_per_wave_ratio_min": floor["bytes_per_wave_ratio_min"],
+           "binary_compress_ratio": wb.get("compress_ratio"),
+           "binary_saved_bytes": wb.get("saved_bytes"),
+           "json_top_ops": wj["top_ops"], "binary_top_ops": wb["top_ops"],
+           "micro": micro,
+           "encode_us_max": floor["encode_us_max"] * slack,
+           "decode_us_max": floor["decode_us_max"] * slack,
+           "micro_ratio_min": floor["micro_ratio_min"]}
+    if wb.get("codec") != "binary":
+        raise RuntimeError("the binary drive recorded no codec")
+    if ratio < floor["bytes_per_wave_ratio_min"]:
+        raise RuntimeError(f"bytes/wave ratio {ratio:.4f} < the wire floor "
+                           f"{floor['bytes_per_wave_ratio_min']}")
+    for key in ("encode", "decode"):
+        if micro[f"{key}_us"] > out[f"{key}_us_max"]:
+            raise RuntimeError(f"micro {key} {micro[f'{key}_us']:.1f} us > "
+                               f"{out[f'{key}_us_max']:.1f} us")
+    if micro["ratio"] < floor["micro_ratio_min"]:
+        raise RuntimeError(f"micro size ratio {micro['ratio']:.4f} < "
+                           f"{floor['micro_ratio_min']}")
+    return out
+
+
+def shard_proc_child() -> int:
+    """Steps 20a and 20b in this (fresh) interpreter: prints their
+    results as one JSON line, last; on a failed gate prints
+    ``shard_proc 20a: ...`` or ``20b: ...`` on stderr and returns 1. No
+    worker daemon outlives it (its live children are read from /proc)."""
+    out = {}
+    for tag, fn in (("20a", shard_mp_sweep), ("20b", wire_codec_smoke)):
+        t = time.perf_counter()
+        try:
+            out[tag] = fn()
+        except Exception as e:  # noqa: BLE001 (every failure fails the step)
+            import traceback
+
+            traceback.print_exc()
+            return fail(f"shard_proc {tag}: {type(e).__name__}: {e}")
+        out[tag]["step_s"] = time.perf_counter() - t
+    left = live_children()
+    if left:
+        return fail(f"shard_proc 20b: processes left alive: {left}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def wait_journaled(path: str, key: str, timeout: float = REST_WAIT_S) -> None:
+    """Wait until the WAL segment at ``path`` holds a record naming
+    ``key`` (a worker's drain thread writes it moments after the bind)."""
+    needle = json.dumps(key).encode()
+
+    def landed() -> bool:
+        with contextlib.suppress(OSError):
+            with open(path, "rb") as f:
+                return needle in f.read()
+        return False
+
+    wait_for(f"{key} in {path}", landed, timeout)
+
+
+def shard_proc_life(card_agent, start_serving=None, run_solo=None) -> dict:
+    """Step 20c: step 19c's card pod under a router over worker daemons.
+    A ``ShardRouter`` with ``SHARD_PROC_LIFE_ENV`` (two replicas, each a
+    ``shard-worker`` process; batching, provenance at rate 1.0, the
+    journal with a segment per worker) over the REST stand-in and its
+    loops, holding this machine's Node (``card_agent()``'s node agent)
+    and a sim HGX host of 8 GPUs, their slices on different workers; the
+    router applies the REST bind effector from each bind answer. A
+    9-member DCN gang goes through the rendezvous, the member on tpu-0
+    with the global gang env in its annotation and its container env
+    (the plugin's Allocate merged over it); ``start_serving(env)`` starts
+    it (None: no container). While it serves, the card's worker process
+    is SIGKILLed (``kill_replica``): ``shard-x`` is not placed, the
+    federated ledger drops the dead worker's pods; a fresh worker is
+    spawned and restarted warm from its journal segment: the federated
+    state is what it was before the kill, zero leaked reservations and
+    divergence. The member exits 0; the gang ends and reaches each worker
+    as one ``release_many``; ``shard-x`` binds tpu-0 and runs
+    (``run_solo(env)``). The router's listener (``make_router_app`` on
+    the extender's threaded server) serves federated /metrics with both
+    workers' series under a ``replica`` label and the transport series,
+    /statusz with the wire bill and flights, and the member's stitched
+    /explain citing both replicas. Every worker spawned has ended when
+    the call returns. Returns the decisions and host-clock times; raises
+    RuntimeError when a check fails."""
+    import tempfile
+
+    from tpukube_torch.apiserver import FakeApiServer, live_alloc_pods
+    from tpukube_torch.chaos import leaked_reservations, ledger_divergence
+    from tpukube_torch.device.gpu import (
+        ENV_GANG_NUM_SLICES,
+        ENV_GANG_SLICE_INDEX,
+        ENV_GANG_SLICES,
+    )
+    from tpukube_torch.graft import ENV_ALLOC
+    from tpukube_torch.obs.slo import parse_metrics, validate_exposition
+    from tpukube_torch.sched.extender import run_server
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sched.shard import ShardRouter
+    from tpukube_torch.sched.shardworker import make_router_app
+    from tpukube_torch.sim.kube_rest import KubeRestServer
+
+    pkg = port_pkg()
+    a, codec = pkg.api, pkg.codec
+
+    class GapApi(FakeApiServer):
+        def end_unseen(self, keys: list) -> None:
+            with self._lock:
+                for key in keys:
+                    self._pods[key] = {**self._pods[key],
+                                       "status": {"phase": "Succeeded"}}
+
+    out: dict = {}
+    t_step = time.perf_counter()
+    store = GapApi()
+    procs: list = []
+    spawned: list = []
+    with tempfile.TemporaryDirectory() as td, \
+            KubeRestServer(store=store, token=REST_TOKEN) as kube, \
+            contextlib.ExitStack() as stack:
+
+        def stop_containers() -> None:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+
+        stack.callback(stop_containers)
+        wal = os.path.join(td, "wal.jsonl")
+        cfg = pkg.load_config(env={**SHARD_PROC_LIFE_ENV,
+                                   "TPUKUBE_JOURNAL_PATH": wal})
+        api = pkg.rest_api(cfg, kube.base_url, token=REST_TOKEN)
+        t_spawn = time.perf_counter()
+        router = ShardRouter(cfg)
+        out["router_ready_ms"] = (time.perf_counter() - t_spawn) * 1e3
+        spawned = router.spawned
+        stack.callback(router.close)
+        out["spawn_ready_ms"] = {f"r{t.index}": t.spawn_ready_s * 1e3
+                                 for t in router.spawned}
+        out["worker_pids"] = {f"r{t.index}": t.pid for t in router.spawned}
+        agent = stack.enter_context(card_agent())
+        node = agent.mgr.host
+        out["node"] = node
+        res = agent.server.resource_name
+        nodes = [node, SHARD_SIM_HOST]
+        api.patch_node_annotations(node, codec.annotate_node(
+            agent.mgr.node_info(), agent.mgr.mesh))
+        api.patch_node_annotations(SHARD_SIM_HOST, shard_sim_host(codec))
+        loops = stack.enter_context(rest_loops(pkg, router, api))
+        intents = a.AllocIntentWatcher(api, node, agent.server,
+                                       poll_seconds=REST_POLL_S)
+        intents.start()
+        stack.callback(intents.stop)
+        wait_for("the intent watch", intents.stream_connected)
+        wait_for("both nodes' topology", lambda: all(
+            n in router._node_replica for n in nodes))
+        with router._lock:
+            assignment = dict(router._slice_replica)
+        out["slice_assignment"] = {s: f"r{i}" for s, i in sorted(assignment.items())}
+        card_idx = router._node_replica[node]
+        if sorted(assignment.values()) != [0, 1] \
+                or router._node_replica[SHARD_SIM_HOST] == card_idx:
+            raise RuntimeError(f"slices on one worker: {assignment}")
+        out["card_replica"] = f"r{card_idx}"
+        print(f"shard_proc: slice -> worker {out['slice_assignment']}, "
+              f"workers {out['worker_pids']}", flush=True)
+
+        def pods_now() -> dict:
+            return {f"{p['metadata'].get('namespace', 'default')}/"
+                    f"{p['metadata']['name']}": p for p in api.list_pods()}
+
+        def resync() -> dict:
+            loops.informer.check_once()
+            return loops.lifecycle.resync_stats()
+
+        def ledger() -> list:
+            return sorted((al.pod_key, al.node_name, tuple(al.device_ids))
+                          for al in router.state.allocations())
+
+        def env_of(name: str, alloc) -> dict:
+            key = f"default/{name}"
+            wait_for(f"{name}'s intent", lambda: agent.server.intents
+                     .snapshot().get(key) == alloc.device_ids)
+            payload = (api.get_pod("default", name)["metadata"]
+                       ["annotations"][codec.ANNO_ALLOC])
+            return {**codec.decode_alloc(payload).env,
+                    **agent.kubelet.allocate(res, alloc.device_ids),
+                    ENV_ALLOC: payload}
+
+        group = pkg.PodGroup("shard-proc-gang", min_member=SHARD_GANG,
+                             allow_dcn=True)
+        members = [pod_object(f"gang-{i}", tpu=1,
+                              annotations=codec.pod_group_annotations(group))
+                   for i in range(SHARD_GANG)]
+        for pod in members:
+            kube.store.upsert_pod(pod)
+        out["resync_before_gang"] = resync()
+        binds = {}
+        t_prepare = time.perf_counter()
+        for pod in members:
+            host, alloc = route_cycle(router, codec, pod, nodes)
+            binds[pod["metadata"]["name"]] = (host, alloc)
+            if router.rendezvous_committed and "rendezvous_ms" not in out:
+                out["rendezvous_ms"] = (time.perf_counter() - t_prepare) * 1e3
+        on_card = [n for n, (h, _) in binds.items() if h == node]
+        on_sim = [n for n, (h, _) in binds.items() if h == SHARD_SIM_HOST]
+        out["rendezvous"] = {"prepared": router.rendezvous_prepared,
+                             "committed": router.rendezvous_committed,
+                             "aborted": router.rendezvous_aborted}
+        if (len(on_card) != 1 or len(on_sim) != SHARD_GANG - 1
+                or out["rendezvous"] != {"prepared": 1, "committed": 1,
+                                         "aborted": 0}):
+            raise RuntimeError(f"the gang: {len(on_card)} on the card, "
+                               f"{len(on_sim)} on the sim host, rendezvous "
+                               f"{out['rendezvous']}")
+        member = on_card[0]
+        member_key = f"default/{member}"
+        alloc = binds[member][1]
+        if alloc.device_ids != ["tpu-0"]:
+            raise RuntimeError(f"{member} bound {alloc.device_ids}")
+        env = env_of(member, alloc)
+        gang_env = {k: env.get(k) for k in (
+            ENV_GANG_NUM_SLICES, ENV_GANG_SLICES, ENV_GANG_SLICE_INDEX)}
+        want_slices = sorted(assignment)
+        out["member"] = member
+        out["member_gang_env"] = gang_env
+        if gang_env != {ENV_GANG_NUM_SLICES: "2",
+                        ENV_GANG_SLICES: ",".join(want_slices),
+                        ENV_GANG_SLICE_INDEX:
+                            str(want_slices.index(agent.mgr.node_info().slice_id))}:
+            raise RuntimeError(f"{member}'s gang env {gang_env} (its "
+                               f"annotation must carry the global gang env)")
+        print(f"shard_proc: {member} bound tpu-0 of {node}, gang env "
+              f"{gang_env}; {len(on_sim)} members on {SHARD_SIM_HOST}",
+              flush=True)
+        # the router's listener (make_router_app on the extender's threaded
+        # server); the member's stitched /explain while its worker holds
+        # its chain: the router's route and rendezvous stages (the parts
+        # on both workers) and its worker's own stages through bind
+        server = run_server(make_router_app(router), "127.0.0.1", 0)
+        stack.callback(server.server_close)
+        stack.callback(server.shutdown)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def get(path: str) -> str:
+            with urllib.request.urlopen(base + path, timeout=REST_WAIT_S) as r:
+                return r.read().decode()
+
+        if get("/healthz") != "ok":
+            raise RuntimeError("the router listener's /healthz")
+        doc = json.loads(get(f"/explain?pod={member_key}"))
+        rdv = [ev for ev in doc["stages"] if ev.get("stage") == "rendezvous"]
+        cited = sorted({p["replica"] for ev in rdv for p in (ev.get("parts") or [])})
+        sources = sorted({_source(ev) for ev in doc["stages"]})
+        stages = {(_source(ev), ev["stage"]) for ev in doc["stages"]}
+        why = "\n".join(doc.get("why") or [])
+        out["explain"] = {"verdict": doc["verdict"], "parts_replicas": cited,
+                          "sources": sources, "stages": len(doc["stages"])}
+        rep_name = out["card_replica"]
+        if (doc["verdict"] != "placed" or cited != ["r0", "r1"]
+                or "replica r0" not in why or "replica r1" not in why
+                or not {("router", "route"), (rep_name, "filter"),
+                        (rep_name, "bind")} <= stages):
+            raise RuntimeError(f"{member}'s stitched /explain: {out['explain']}, "
+                               f"stages {sorted(stages)}")
+        if start_serving is not None:
+            proc = start_serving(env)
+            procs.append(proc)
+            lines: queue.Queue = queue.Queue()
+            threading.Thread(target=pump, args=(proc.stdout, lines),
+                             daemon=True).start()
+            while True:
+                line = lines.get(timeout=POD_TIMEOUT_S)
+                if line is None:
+                    raise RuntimeError(f"{member} exited {proc.wait()} "
+                                       f"before serving")
+                print(f"{member}: {line.rstrip()}", flush=True)
+                if line.startswith('{"serving"'):
+                    break
+        out["resync_before_kill"] = resync()
+        # the kill, while the member serves: its worker's drain thread has
+        # landed the member's bind in the worker's journal segment
+        wait_journaled(f"{wal}.r{card_idx}", member_key)
+        before = ledger()
+        victim = router.replicas[card_idx].transport
+        t_kill = time.perf_counter()
+        router.kill_replica(card_idx)
+        out["kill_ms"] = (time.perf_counter() - t_kill) * 1e3
+        out["killed_worker_exit"] = victim._proc.returncode
+        if victim._proc.returncode != -signal.SIGKILL:
+            raise RuntimeError(f"the killed worker exited "
+                               f"{victim._proc.returncode}")
+        out["member_serving_at_kill"] = (start_serving is not None
+                                         and procs[0].poll() is None)
+        if start_serving is not None and not out["member_serving_at_kill"]:
+            raise RuntimeError(f"{member} ended before the kill")
+        x = pod_object("shard-x", tpu=1)
+        kube.store.upsert_pod(x)
+        fres = router.handle("filter", {"Pod": x, "NodeNames": [node]})
+        out["shard_x_while_dead"] = fres["NodeNames"]
+        if fres["NodeNames"] or member_key in {k for k, _, _ in ledger()}:
+            raise RuntimeError(f"while r{card_idx} is dead: shard-x feasible "
+                               f"on {fres['NodeNames']}, the member in the "
+                               f"federated ledger")
+        t_restart = time.perf_counter()
+        pods = pods_now()
+        owned = router.replica_pods(card_idx, pods)
+        node_annos = [(n, kube.store.get_node_annotations(n)) for n in nodes
+                      if router._node_replica.get(n) == card_idx]
+        restored = router.restart_replica(
+            card_idx, node_annos,
+            [annos for annos, _, _ in live_alloc_pods(owned)],
+            pod_objects=owned)
+        t_ready = time.perf_counter()
+        fresh = router.replicas[card_idx].transport
+        out["kill_to_respawn_ms"] = (t_restart - t_kill) * 1e3
+        out["respawn_ready_ms"] = (t_ready - t_restart) * 1e3
+        out["respawn_spawn_ready_ms"] = fresh.spawn_ready_s * 1e3
+        out["respawned_pid"] = fresh.pid
+        out["last_restart"] = dict(router.last_restart)
+        after = ledger()
+        view = types.SimpleNamespace(extender=router, pods=pods_now())
+        out["leaked_reservations"] = len(leaked_reservations(view))
+        out["ledger_divergence"] = len(ledger_divergence(view))
+        out["state_equal_after_restart"] = after == before
+        back = router.state.allocation(member_key)
+        if (not out["last_restart"]["warm"] or restored < 1
+                or after != before or back is None
+                or back.device_ids != ["tpu-0"]
+                or out["leaked_reservations"] or out["ledger_divergence"]
+                or fresh.pid == victim.pid or victim._proc.poll() is None):
+            raise RuntimeError(f"the respawn: {out['last_restart']}, state "
+                               f"equal {after == before}, member {back}, "
+                               f"{out['leaked_reservations']} leaked, "
+                               f"{out['ledger_divergence']} diverged")
+        out["health_check_dead"] = router.health_check()
+        if out["health_check_dead"]:
+            raise RuntimeError(f"health check after the respawn marked "
+                               f"{out['health_check_dead']} dead")
+        r1, r2 = resync(), resync()
+        out["resync_after_restart"] = [r1, r2]
+        rb = out["resync_before_kill"]
+        if (r1["full"] != rb["full"] + 1 or r1["incremental"] != rb["incremental"]
+                or r2["full"] != r1["full"]
+                or r2["incremental"] != r1["incremental"] + 1):
+            raise RuntimeError(f"resyncs around the respawn: {rb} -> {r1} "
+                               f"-> {r2}")
+        if start_serving is not None:
+            proc = procs[0]
+            report = None
+            while True:
+                line = lines.get(timeout=POD_TIMEOUT_S)
+                if line is None:
+                    break
+                report = line
+            if proc.wait() != 0 or report is None:
+                raise RuntimeError(f"{member} exited {proc.returncode}")
+            out["member_pod"] = json.loads(report)["pod"]
+        # the router's pages over its listener, the gang still bound and
+        # the respawned worker serving
+        page = get("/metrics")
+        errors = validate_exposition(page)
+        samples = list(parse_metrics(page))
+        names = {s.name for s in samples}
+        binds_by = {s.label("replica") for s in samples
+                    if s.name == "tpukube_binds_total"}
+        out["metrics"] = {
+            "errors": errors, "families": len(names),
+            "binds_total_replicas": sorted(r for r in binds_by if r),
+            "rtt_count": {s.label("replica"): s.value for s in samples
+                          if s.name == "tpukube_replica_rtt_seconds_count"},
+            "health_checks": {s.label("replica"): s.value for s in samples
+                              if s.name == "tpukube_replica_health_checks_total"},
+            "health_failures": {s.label("replica"): s.value for s in samples
+                                if s.name
+                                == "tpukube_replica_health_check_failures_total"},
+        }
+        if (errors or out["metrics"]["binds_total_replicas"] != ["r0", "r1"]
+                or not {"tpukube_replica_rtt_seconds_count",
+                        "tpukube_router_wire_bytes_total",
+                        "tpukube_replica_up"} <= names):
+            raise RuntimeError(f"the federated /metrics: {out['metrics']}")
+        z = json.loads(get("/statusz"))
+        out["statusz"] = {"sharded": z.get("sharded"),
+                          "replicas": [(r["replica"], r["alive"])
+                                       for r in z["replicas"]],
+                          "wire_total": z["wire"]["total"],
+                          "flights": len(z.get("flights") or []),
+                          "transport_mode": z["transport"]["mode"]}
+        if (not z.get("sharded") or z["wire"]["total"] <= 0 or not z.get("flights")
+                or [r[1] for r in out["statusz"]["replicas"]] != [True, True]):
+            raise RuntimeError(f"the router's /statusz: {out['statusz']}")
+        # the gang ends unseen; one resync releases it, one release_many a
+        # worker
+        calls: list = []
+        for rep in router.replicas:
+            real = rep.transport.release_many
+
+            def counted(keys, _real=real, _name=rep.name):
+                calls.append((_name, sorted(keys)))
+                return _real(keys)
+
+            rep.transport.release_many = counted
+        kube.store.end_unseen([f"default/{p['metadata']['name']}"
+                               for p in members])
+        resync()
+        out["release_many"] = {name: len(keys) for name, keys in calls}
+        if (out["release_many"] != {f"r{card_idx}": 1,
+                                    f"r{1 - card_idx}": SHARD_GANG - 1}
+                or len(calls) != 2
+                or any(f"default/{n}" == k for n in binds for k, _, _ in ledger())):
+            raise RuntimeError(f"the gang's releases: {calls}")
+        host, xalloc = route_cycle(router, codec, x, [node])
+        if host != node or xalloc.device_ids != ["tpu-0"]:
+            raise RuntimeError(f"shard-x bound {xalloc.device_ids} on {host}")
+        xenv = env_of("shard-x", xalloc)
+        if run_solo is not None:
+            out["shard_x_pod"] = run_solo(xenv)
+        done = dict(kube.store.get_pod("default", "shard-x"))
+        done["status"] = {"phase": "Succeeded"}
+        kube.store.upsert_pod(done)
+        wait_for("shard-x's release",
+                 lambda: router.state.allocation("default/shard-x") is None)
+        walls = []
+        probe = pod_object("probe-r", tpu=1)
+        for _ in range(SHARD_FILTER_ROUNDS):
+            t = time.perf_counter()
+            router.handle("filter", {"Pod": probe, "NodeNames": nodes})
+            walls.append((time.perf_counter() - t) * 1e3)
+        out["filter_ms_router"] = statistics.median(walls)
+        rtts = {}
+        for rep in router.replicas:
+            w = sorted(rep.transport.rtt_snapshot())
+            rtts[rep.name] = {"n": len(w), "p50_ms": w[len(w) // 2] * 1e3,
+                              "p99_ms": w[min(len(w) - 1, int(0.99 * len(w)))] * 1e3}
+        out["rtt"] = rtts
+        out["health"] = {rep.name: [rep.transport.health_checks,
+                                    rep.transport.health_failures]
+                         for rep in router.replicas}
+        out["wire"] = router.wire_totals()
+        out["resync"] = loops.lifecycle.resync_stats()
+        out["routes"] = dict(kube.requests)
+    out["workers_alive_after"] = [t.pid for t in spawned if t._proc.poll() is None]
+    if out["workers_alive_after"]:
+        raise RuntimeError(f"workers alive after the router closed: "
+                           f"{out['workers_alive_after']}")
+    out["step_s"] = time.perf_counter() - t_step
+    return out
+
+
+def shard_proc_phase(card: str, c0, prov: dict, t_start: float):
+    """Step 20 on the card machine: the parent's live threads and child
+    processes, then 20a and 20b in a fresh interpreter
+    (``shard_proc_child``), then ``shard_proc_life`` with the card's node
+    agent, the member a Llama-3-8B B=1 pod of three requests and shard-x
+    one of one (20c), and the ``shard_proc:`` line (20d). Every check
+    fails through ``fail("shard_proc 20x: ...")``; no worker it spawned
+    may be alive at its end. ``prov`` is step 18's line. Returns the
+    line's object, or None when a check failed."""
+    t_step = time.perf_counter()
+    host = host_cpu()
+    threads = threading.active_count()
+    children = live_children()
+    print(f"shard_proc: before the drive child, {threads} live threads in "
+          f"this process and {len(children)} live child processes "
+          f"{[c[1][:80] for c in children]}", flush=True)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.shard_proc_child())"],
+        cwd=ROOT, env=pod_env({}), stdout=subprocess.PIPE, text=True,
+        timeout=SHARD_MP_CHILD_S)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0 or not lines:
+        print(proc.stdout, flush=True)
+        fail(f"shard_proc 20a/20b: the drive child exited {proc.returncode} "
+             f"(its stderr above names the gate)")
+        return None
+    drives = json.loads(lines[-1])
+
+    def start_serving(env):
+        return subprocess.Popen(
+            [sys.executable, "-m", "tpukube_torch.graft", "--requests", "3",
+             "--batch", "1"],
+            cwd=ROOT, env=pod_env(env), stdout=subprocess.PIPE, text=True)
+
+    def run_solo(env):
+        r = run_pod(["--requests", "1", "--batch", "1"], env, "pod")
+        if r is None or r["uuid"] != c0.chip_id or r["batch"] != 1:
+            raise RuntimeError(f"shard-x's pod failed: {r}")
+        return r
+
+    try:
+        life = shard_proc_life(lambda: node_agent({}), start_serving=start_serving,
+                               run_solo=run_solo)
+    except Exception as e:  # noqa: BLE001 (every failure fails the step)
+        import traceback
+
+        traceback.print_exc()
+        fail(f"shard_proc 20c: {type(e).__name__}: {e}")
+        return None
+    member = life.pop("member_pod")
+    if member["uuid"] != c0.chip_id or member["batch"] != 1:
+        fail(f"shard_proc 20c: the card member's pod: {member}")
+        return None
+    print(f"{life['member']}: " + json.dumps(member, sort_keys=True), flush=True)
+    print("shard-x: " + json.dumps(life.pop("shard_x_pod"), sort_keys=True),
+          flush=True)
+    left = [c for c in live_children() if "shard-worker" in c[1]]
+    if left:
+        fail(f"shard_proc 20c: worker daemons left alive: {left}")
+        return None
+    a, b = drives["20a"], drives["20b"]
+    tr = a["transport"]
+    line = {"card": card, "host": host, "sweep": a, **life, "wire_codec": b,
+            "member_forward_ms": member["forward_ms_median"],
+            "member_tokens_per_s": member["tokens_per_s"],
+            "why0_forward_ms": prov["why0_pod"]["forward_ms_median"],
+            "parent_threads": threads, "parent_children": len(children),
+            "step20c_s": life["step_s"], "step_s": time.perf_counter() - t_step,
+            "run_s": time.monotonic() - t_start}
+    by_op = {op: c["tx"] + c["rx"] for op, c in sorted(
+        life["wire"]["by_op"].items(), key=lambda kv: -(kv[1]["tx"] + kv[1]["rx"]))}
+    print(
+        f"shard_proc: spawn -> ready {json.dumps({k: round(v, 3) for k, v in life['spawn_ready_ms'].items()})} ms, "
+        f"respawn {life['respawn_spawn_ready_ms']:.3f} ms; replica RTT p50/p99 "
+        f"{json.dumps({k: [round(v['p50_ms'], 3), round(v['p99_ms'], 3)] for k, v in life['rtt'].items()})} ms "
+        f"(20a N=2: {json.dumps({r['replica']: [r.get('rtt_p50_ms'), r.get('rtt_p99_ms')] for r in tr['replicas']})}); "
+        f"wire bytes by op {json.dumps(dict(list(by_op.items())[:6]))}; bytes/wave json "
+        f"{b['json_bytes_per_wave']} / binary {b['binary_bytes_per_wave']} = "
+        f"{b['bytes_per_wave_ratio']:.4f} (floor {b['bytes_per_wave_ratio_min']}), "
+        f"micro ratio {b['micro']['ratio']:.4f} (floor {b['micro_ratio_min']}), "
+        f"encode {b['micro']['encode_us']:.1f} / decode {b['micro']['decode_us']:.1f} us "
+        f"(ceilings {b['encode_us_max']:.0f} / {b['decode_us_max']:.0f}); health checks "
+        f"and failures {json.dumps(life['health'])}; N=1 {a['n1_pods_per_sec']} and N=2 "
+        f"{a['n2_pods_per_sec']} pods/s, medians of {json.dumps(a['pods_per_sec_by_run'])} "
+        f"(floor {a['pods_per_sec_min']}), efficiency "
+        f"{a['parallel_efficiency']:.4f} (floor {a['parallel_efficiency_min']}, "
+        f"{'gated' if a['efficiency_gated'] else 'not gated'} on {a['cores']['cores']} "
+        f"schedulable cores: affinity {a['cores']['affinity']}, quota "
+        f"{a['cores']['quota']}); kill -> respawn {life['kill_to_respawn_ms']:.3f} "
+        f"ms -> ready {life['respawn_ready_ms']:.3f} ms ({life['last_restart']['restored']} "
+        f"allocations restored warm); {life['member']} Llama-3-8B B=1 S=2048 "
+        f"{member['forward_ms_median']:.3f} ms (step 18's why-0: "
+        f"{prov['why0_pod']['forward_ms_median']:.3f} ms); parent {threads} threads, "
+        f"{len(children)} children; step {line['step_s']:.1f} s, run so far "
+        f"{line['run_s']:.1f} s [host CPU times; {host}; {card}]",
+        flush=True,
+    )
+    return line
+
+
 def mps_daemon_running() -> bool:
     """Whether an MPS control daemon runs on this machine: without one,
     CUDA_MPS_ACTIVE_THREAD_PERCENTAGE binds nothing."""
@@ -4799,6 +5630,13 @@ def main() -> int:
         return 1
     print("shard: " + json.dumps(shard, sort_keys=True), flush=True)
 
+    # -- the process-parallel plane: worker daemons, a card pod's worker
+    # killed and respawned --------------------------------------------------
+    shard_proc = shard_proc_phase(card, c0, prov, t_start)
+    if shard_proc is None:
+        return 1
+    print("shard_proc: " + json.dumps(shard_proc, sort_keys=True), flush=True)
+
     # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -4838,8 +5676,10 @@ def main() -> int:
                 "its durable journal (WAL, CRC, checkpoints), the tenancy "
                 "plane (quotas, DRF order, SLO-burn shedding), the SLO "
                 "evaluator, drain, the autoscaler, capacity analytics, "
-                "decision provenance, the shard router and the incremental "
-                "resync log are host Python (numpy)",
+                "decision provenance, the shard router, its process "
+                "transport, the shard-worker daemons and the TKW1 wire "
+                "codec, and the incremental resync log are host Python "
+                "(numpy)",
     }), flush=True)
     print(json.dumps({
         "ok": True,

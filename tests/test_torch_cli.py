@@ -50,7 +50,7 @@ from tpukube import trace as ref_trace
 from tpukube.core.config import load_config as ref_load_config
 from tpukube.sim import scenarios as ref_scenarios
 from tpukube_torch import cli, trace
-from tpukube_torch.core.config import load_config, read_yaml
+from tpukube_torch.core.config import load_config, read_yaml, write_yaml
 from tpukube_torch.obs.slo import parse_metrics, validate_exposition
 from tpukube_torch.sim import scenarios
 from torch_refnative import use_private_tpuinfo
@@ -369,6 +369,9 @@ _OWN_DEFAULTS = {"backend", "sim_mesh_dims", "sim_host_block",
 
 ACCEPTED_FILES = {
     "deploy": _deploy_config_yaml(),
+    # the shard router's process transport and its wire codec
+    "process-transport": "shard_transport: subprocess\n",
+    "wire-codec": "wire_codec: binary\nwire_compress_min_bytes: 256\n",
     "scalars": (
         "# every scalar form a flat file may use\n"
         "---\n"
@@ -451,8 +454,6 @@ REFUSED_FILES = {
     "unknown-key": "no_such_field: 1\n",
     "journal-path-without-journal": "journal_path: /var/lib/wal\n",
     "tenancy-quotas-without-tenancy": "tenancy_quotas: a=1\n",
-    "unported-wire-codec": "wire_codec: binary\n",
-    "unported-process-transport": "shard_transport: subprocess\n",
     "unported-plane-on": "lock_monitor: true\n",
     "bad-int": "extender_port: twelve\n",
     "bad-range": "extender_port: 70000\n",
@@ -707,9 +708,22 @@ print(json.dumps({{"rc": rc, "loaded": bad}}))
         "rc": 0, "loaded": []}
 
 
-def test_unported_tools_exit_2_naming_their_plane(capsys):
-    assert cli.main(["shard-worker"]) == 2
-    assert "process transport" in capsys.readouterr().err
+def test_unported_tools_exit_2_naming_their_plane(capsys, tmp_path):
+    # shard-worker is ported: it serves /healthz on the port it reports
+    write_yaml(str(tmp_path / "w.yaml"), {"planner_replicas": 1})
+    worker = subprocess.Popen(
+        [sys.executable, "-m", "tpukube_torch.cli", "shard-worker",
+         "--config", str(tmp_path / "w.yaml"), "--port", "0"],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
+        stdout=subprocess.PIPE, text=True)
+    try:
+        port = json.loads(worker.stdout.readline())["serving"]["port"]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=10) as r:
+            assert json.loads(r.read())["ok"] is True
+    finally:
+        worker.terminate()
+    assert worker.wait(timeout=10) == 0
     assert cli.main(["nope"]) == 2
     # several captures without --merge are refused, as the reference's
     trace_file = pathlib.Path(tempfile.mkdtemp()) / "t.jsonl"

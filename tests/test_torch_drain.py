@@ -4,7 +4,7 @@ seams of ``sched/state.py`` and their journal records) held against the
 reference's.
 
 Twins (``run_twin``, both packages, decision by decision): test_drain.py
-but the tests named in ``DRAIN_SKIPS``, each with its reason. The port's
+(its drain-intent test over the shard router's worker daemons). The port's
 own: scenario 15's phases A and B give the reference's result field by
 field at seed 1337, 6 cycles and audit rate 1.0; ``sim 15`` runs from
 both packages' CLIs; journal files written across ``set_cordon`` and
@@ -54,16 +54,9 @@ from torch_twin import (
 
 use_private_tpuinfo()
 
-DRAIN_SKIPS = {
-    "test_drain_intent_shields_replica_from_dead_marking":
-        "drives the shard router's process transport, whose health "
-        "checker the drain intent shields (ROADMAP.md Queue 1, item 5b); "
-        "the in-process intent runs in scenario 15's phase C",
-}
-
 
 @pytest.mark.parametrize("fn,params",
-                         reference_cases(test_drain, DRAIN_SKIPS))
+                         reference_cases(test_drain, {}))
 def test_reference_drain_tests_hold_on_the_port(fn, params):
     run_twin(fn, {**TMP_PATH, **value_fixtures(params)})
 

@@ -25,7 +25,7 @@ from tpukube.core.types import AllocResult as RefAllocResult
 from tpukube.core.types import TopologyCoord as RefCoord
 from tpukube.device import TpuDeviceManager
 from tpukube.sched.extender import Extender as RefExtender
-from tpukube.sched.shard import SubprocessTransport as RefProcessTransport
+from tpukube.sched.shard import _free_port as RefFreePort
 from tpukube_torch.core import codec
 from tpukube_torch.core.clock import FakeClock
 from tpukube_torch.core.config import load_config
@@ -71,17 +71,20 @@ def _builds_a_reference_extender():
 
 
 def _imports_what_the_port_lacks():
-    from tpukube.sched.wirecodec import WireCodecError  # noqa: F401
+    from tpukube.analysis.lockgraph import LockOrderMonitor  # noqa: F401
 
 
 def _uses_a_global_the_port_lacks():
-    assert RefProcessTransport.mode == "subprocess"
+    # the port's workers bind port 0 and report it: no free-port probe
+    assert RefFreePort() > 0
 
 
 @pytest.mark.parametrize("fn,error,match", [
     (_builds_a_reference_extender, AssertionError, "built the reference's Extender"),
-    (_imports_what_the_port_lacks, ImportError, "no module tpukube_torch.sched.wirecodec"),
-    (_uses_a_global_the_port_lacks, AssertionError, "no tpukube_torch.sched.shard.SubprocessTransport"),
+    (_imports_what_the_port_lacks, ImportError,
+     "no module tpukube_torch.analysis.lockgraph"),
+    (_uses_a_global_the_port_lacks, AssertionError,
+     "no tpukube_torch.sched.shard._free_port"),
 ])
 def test_twin_port_run_cannot_fall_back_to_the_reference(fn, error, match):
     with pytest.raises(error, match=match):
@@ -173,15 +176,13 @@ def test_config_defaults_are_the_reference_s():
 
 @pytest.mark.parametrize("key,value,item", [
     ("TPUKUBE_LOCK_MONITOR", "1", "item 6"),
-    ("TPUKUBE_SHARD_TRANSPORT", "subprocess", "item 5b"),
 ])
 def test_every_opt_in_plane_is_refused(key, value, item):
     with pytest.raises(ValueError, match="is not ported yet") as e:
         load_config(env={key: value})
     assert item in str(e.value)
     # off, the same key is accepted
-    off = {"TPUKUBE_SHARD_TRANSPORT": "inprocess"}
-    load_config(env={key: off.get(key, "0")})
+    load_config(env={key: "0"})
 
 
 @pytest.mark.parametrize("key,value", [

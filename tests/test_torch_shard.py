@@ -40,7 +40,7 @@ def test_reference_shard_tests_hold_on_the_port(fn, params):
 
 def test_n1_federated_exposition_is_sole_extender_verbatim():
     # test_federated_obs.py's one in-process test (its others drive the
-    # process transport, ROADMAP.md Queue 1 item 5b)
+    # process transport: tests/test_torch_federated_obs.py)
     run_twin(test_federated_obs.test_n1_federated_exposition_is_sole_extender_verbatim)
 
 

@@ -286,6 +286,53 @@ def test_scenarios_in_process_load_no_control_plane_dependency():
         [1, 3, 5, 7, 8, 9, 11, 13, 15, 300], []]
 
 
+def test_shard_worker_serves_without_the_control_plane_dependencies(tmp_path):
+    # the card machine has no yaml, aiohttp, grpc or protobuf: the process
+    # plane's modules import none of them, and a shard-worker whose
+    # interpreter refuses every one of them serves /healthz
+    from tpukube_torch.core.config import write_yaml
+
+    blocked = ("yaml", "aiohttp", "grpc", "google.protobuf")
+    code = (
+        "import json, sys\n"
+        "import tpukube_torch.sched.wirecodec, tpukube_torch.sched.shardworker\n"
+        f"print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{blocked!r} or m.startswith('google.protobuf'))))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                          capture_output=True, text=True, timeout=120)
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    write_yaml(str(tmp_path / "w.yaml"), {"planner_replicas": 1})
+    worker = (
+        "import runpy, sys\n"
+        "class Refuse:\n"
+        f"    blocked = {blocked!r}\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name in self.blocked or name.startswith(tuple(\n"
+        "                b + '.' for b in self.blocked)):\n"
+        "            raise ImportError(f'{name} is not on this machine')\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "sys.argv = ['tpukube_torch.cli', 'shard-worker', '--config', "
+        f"{str(tmp_path / 'w.yaml')!r}, '--port', '0']\n"
+        "runpy.run_module('tpukube_torch.cli', run_name='__main__')\n"
+    )
+    proc = subprocess.Popen([sys.executable, "-c", worker], cwd=REPO,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        port = json.loads(proc.stdout.readline())["serving"]["port"]
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=10) as r:
+            assert json.loads(r.read())["ok"] is True
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as r:
+            assert b"tpukube_" in r.read()
+    finally:
+        proc.terminate()
+    assert proc.wait(timeout=10) == 0
+
+
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
     # here there is no CUDA device: non-zero exit, no result line
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,

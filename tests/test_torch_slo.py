@@ -1,11 +1,10 @@
 """The port's SLO evaluator (``tpukube_torch/obs/slo.py``), its ``obs
 slo`` command and scenario 7 held against the reference's.
 
-Twins (``run_twin``, both packages): test_slo.py but one test,
-test_promlint.py, and test_telemetry.py's scenario-7 test. Left out, with
-the reason: test_slo.py's ``test_prometheus_rules_reference_only_rendered_series``
-(the rules read the router's process-transport series: ROADMAP.md
-Queue 1, item 5b). The port's own: the
+Twins (``run_twin``, both packages): test_slo.py, test_promlint.py, and
+test_telemetry.py's scenario-7 test (test_slo.py's rules test reads the
+router's process-transport series, which the port's router renders over
+its worker daemons). The port's own: the
 parser, the linter and the evaluator agree with the reference's on pages
 of both packages; scenario 7 gives the reference's result."""
 
@@ -32,21 +31,13 @@ from torch_twin import REF_SIM_DEFAULTS, TMP_PATH, reference_tests, run_twin
 
 use_private_tpuinfo()
 
-SLO_SKIPS = {
-    "test_prometheus_rules_reference_only_rendered_series":
-        "the rules read tpukube_replica_rtt_seconds, which the router "
-        "renders only over its process transport (ROADMAP.md Queue 1, "
-        "item 5b); the router, replica and capacity series it also "
-        "reads render on the port",
-}
-
 
 @pytest.fixture
 def fixtures(capsys):
     return {**TMP_PATH, "capsys": lambda g: contextlib.nullcontext(capsys)}
 
 
-@pytest.mark.parametrize("fn", reference_tests(test_slo, SLO_SKIPS)
+@pytest.mark.parametrize("fn", reference_tests(test_slo, {})
                          + reference_tests(test_promlint, {}),
                          ids=lambda f: f"{f.__module__}.{f.__name__}")
 def test_reference_slo_tests_hold_on_the_port(fn, fixtures):

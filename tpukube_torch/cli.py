@@ -51,9 +51,12 @@ sink on SIGTERM, so a capture holds every stage.
 ``obs timeline --merge`` stitches the shard router's trace capture and
 each replica's into one Chrome trace.
 
-Left out, naming its plane (ROADMAP.md Queue 1): ``shard-worker`` (the
-shard router's process transport, item 5b) exits 2. The ``extender``
-daemon refuses ``planner_replicas > 1``, as the reference's does.
+``shard-worker --config F --port P`` is one planner replica of the
+sharded plane as a daemon (``sched/shardworker.py``): the process the
+shard router's ``SubprocessTransport`` spawns per replica. With ``--port
+0`` it binds a free port and reports it on its first stdout line. The
+``extender`` daemon refuses ``planner_replicas > 1``, as the reference's
+does.
 """
 
 from __future__ import annotations
@@ -1089,9 +1092,9 @@ def main_ctl(argv: Optional[list[str]] = None) -> int:
 
 
 def main_shard_worker(argv: Optional[list[str]] = None) -> int:
-    print("tpukube shard-worker: the shard router's process transport is "
-          "not ported yet (ROADMAP.md Queue 1, item 5b)", file=sys.stderr)
-    return 2
+    from tpukube_torch.sched.shardworker import main_worker
+
+    return main_worker(argv)
 
 
 TOOLS = {

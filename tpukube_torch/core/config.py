@@ -16,10 +16,12 @@ with a dot, ``yes/no/on/off/true/false``, quoted and plain strings).
 Anything else (nesting, block lists, anchors, tags, block scalars,
 several documents, a null) raises ValueError naming the line.
 
-The reference's opt-in planes that are not ported yet (the shard
-router's process transport and its wire codec, the lock-order monitor):
-a config that turns one on, or a file that sets one of their keys, is
-refused by :func:`load_config` rather than silently ignored.
+:func:`write_yaml` writes a mapping in that subset (the per-replica
+config the shard router hands each worker daemon it spawns).
+
+The reference's opt-in plane that is not ported yet, the lock-order
+monitor: a config that turns it on is refused by :func:`load_config`
+rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -265,10 +267,19 @@ class GpuKubeConfig:
     # the unsharded planner, byte for byte.
     planner_replicas: int = 1
     # How the router reaches its replicas: inprocess (Extender objects
-    # in the router's process, direct dispatch). subprocess (one planner
-    # daemon per replica) is refused until the process transport is
-    # ported.
+    # in the router's process, direct dispatch) or subprocess (one
+    # planner daemon per replica, ``shard-worker``, over HTTP).
     shard_transport: str = "inprocess"
+    # Wire codec of the router's /worker/* calls (sched/wirecodec.py):
+    # json (the default and the parity oracle: compact JSON bodies) or
+    # binary (TKW1 frames, negotiated per request through Content-Type
+    # and Accept, so a JSON-only worker degrades its replica to JSON).
+    # Placements are the same either way. Meaningful only over the
+    # subprocess transport.
+    wire_codec: str = "json"
+    # binary payloads of at least this many encoded bytes are compressed
+    # (kept raw when compression does not shrink them)
+    wire_compress_min_bytes: int = 1024
     # The reference's lock-order monitor, not ported yet: load_config
     # refuses a config that turns it on.
     lock_monitor: bool = False
@@ -298,9 +309,6 @@ _NOT_PORTED = {
 # keys of the reference's config whose planes the port has not ported: a
 # config file that sets one is refused, naming the plane (ROADMAP.md
 # Queue 1 item of each)
-_UNPORTED_KEY_PREFIXES = {
-    "wire_": "the shard router's wire codec (Queue 1, item 5b)",
-}
 _UNPORTED_KEYS = {
     "libtpu_path": "the TPU backend (the port's real backend is NVML: "
                    "nvml_path)",
@@ -544,14 +552,53 @@ def read_yaml(path: str) -> dict[str, Any]:
     return doc
 
 
+def _y_scalar(value: Any) -> str:
+    """``value`` as a scalar :func:`read_yaml` reads back as itself, or as
+    the string :func:`load_config`'s coercion turns into it."""
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        # quoted: a float's repr may lack the dot YAML 1.1 needs
+        # ("1e-05"); the field's coercion parses the string
+        value = repr(value)
+    if not isinstance(value, str):
+        raise ValueError(f"not a config scalar: {value!r}")
+    # double-quoted, with only the escapes the reader knows
+    out = value.replace("\\", "\\\\").replace('"', '\\"')
+    for raw, esc in (("\n", "\\n"), ("\t", "\\t"), ("\r", "\\r"),
+                     ("\0", "\\0")):
+        out = out.replace(raw, esc)
+    if any(ord(c) < 0x20 for c in out):
+        raise ValueError(f"control character in config string {value!r}")
+    return f'"{out}"'
+
+
+def write_yaml(path: str, doc: Mapping[str, Any]) -> None:
+    """Write ``doc`` (a flat mapping of scalars and tuples or lists of ints
+    or bools) as a config file :func:`read_yaml` reads back."""
+    lines = []
+    for key, value in doc.items():
+        if not _Y_KEY.match(f"{key}:"):
+            raise ValueError(f"not a config key: {key!r}")
+        if isinstance(value, (list, tuple)):
+            text = "[" + ", ".join(_y_scalar(v) for v in value) + "]"
+            if any(not isinstance(v, (int, bool)) for v in value):
+                raise ValueError(f"{key}: only ints or bools in a sequence")
+        else:
+            text = _y_scalar(value)
+        lines.append(f"{key}: {text}\n")
+    with open(path, "w", encoding="utf-8") as f:
+        f.writelines(lines)
+
+
 def _file_updates(path: str) -> dict[str, Any]:
     known = {f_.name for f_ in fields(GpuKubeConfig)}
     updates = {}
     for key, value in read_yaml(path).items():
         if key not in known:
-            plane = _UNPORTED_KEYS.get(key) or next(
-                (p for pre, p in _UNPORTED_KEY_PREFIXES.items()
-                 if key.startswith(pre)), None)
+            plane = _UNPORTED_KEYS.get(key)
             if plane is not None:
                 raise ValueError(f"{path}: config key {key!r}: {plane} is "
                                  f"not ported yet")
@@ -751,10 +798,12 @@ def load_config(yaml_path: Optional[str] = None,
             f"unknown shard_transport {cfg.shard_transport!r} "
             f"(inprocess | subprocess)"
         )
-    if cfg.shard_transport == "subprocess":
+    if cfg.wire_codec not in ("json", "binary"):
         raise ValueError(
-            "shard_transport: subprocess: the shard router's process "
-            "transport (Queue 1, item 5b) is not ported yet")
+            f"unknown wire_codec {cfg.wire_codec!r} (json | binary)"
+        )
+    if cfg.wire_compress_min_bytes < 0:
+        raise ValueError("wire_compress_min_bytes must be >= 0")
     if cfg.planner_replicas > 1 and cfg.tenancy_quotas:
         # each replica's TenantLedger sees only its own slice set, so a
         # cluster-wide chip cap split across N replicas would silently

@@ -716,9 +716,11 @@ def build_router_registry(router, lifecycle=None) -> Registry:
     per-replica observability leg of the sharded plane; the
     router-level series are the cross-shard rollup. With the daemon's
     ``lifecycle`` loop (whose resyncs ride the router's federated
-    ``allocs_since``) its release and resync counters render too. The
-    process transport's telemetry (round-trip times, health checks,
-    wire bytes) is not ported: the in-process router has no wire."""
+    ``allocs_since``) its release and resync counters render too. Over
+    the process transport the router also renders its replicas'
+    round-trip times, health checks and wire bytes (and, with the binary
+    codec, the bytes it saved); the in-process router has no wire, and
+    its exposition carries none of them."""
     reg = Registry()
     reg.gauge("tpukube_router_replicas",
               fn=lambda: len(router.replicas))
@@ -765,8 +767,7 @@ def build_router_registry(router, lifecycle=None) -> Registry:
     if lifecycle is not None:
         reg.counter("tpukube_lifecycle_releases_total",
                     fn=lambda: lifecycle.released)
-        if all(r.extender is not None and r.extender.resync_incremental
-               for r in router.replicas):
+        if router.config.generation_log_capacity > 0:
             reg.counter("tpukube_resync_full_total",
                         fn=lambda: lifecycle.resync_full)
             reg.counter("tpukube_resync_incremental_total",
@@ -791,7 +792,69 @@ def build_router_registry(router, lifecycle=None) -> Registry:
             lambda r=rep: _summary(r).get("utilization", 0.0))
         depth.labels(replica=name).set_function(
             lambda r=rep: _summary(r).get("queue_depth", 0))
+    if getattr(router, "mode", "inprocess") == "subprocess":
+        _add_transport_series(reg, router)
     return reg
+
+
+def _add_transport_series(reg: Registry, router) -> None:
+    """The process transport's telemetry on a router's registry: per
+    replica RTTs and health checks, wire bytes per op and direction, and
+    the binary codec's saved bytes (only when a transport uses it)."""
+    rtt = reg.summary(
+        "tpukube_replica_rtt_seconds",
+        help_text="Router->replica request round-trip time over "
+                  "the subprocess transport, per replica.")
+    checks = reg.counter(
+        "tpukube_replica_health_checks_total",
+        help_text="Replica health checks run by the router "
+                  "(subprocess transport).")
+    fails = reg.counter(
+        "tpukube_replica_health_check_failures_total",
+        help_text="Health checks that failed and marked the "
+                  "replica dead (crash_replica semantics).")
+    for rep in router.replicas:
+        name = rep.name
+        rtt.labels(lambda r=rep: r.transport.rtt_snapshot(), replica=name)
+        checks.labels(replica=name).set_function(
+            lambda r=rep: r.transport.health_checks)
+        fails.labels(replica=name).set_function(
+            lambda r=rep: r.transport.health_failures)
+    wire = reg.counter(
+        "tpukube_router_wire_bytes_total",
+        help_text="Bytes over the router->replica subprocess "
+                  "transport, per op and direction (dir=tx is the "
+                  "request payload, dir=rx the response body).")
+    snaps = []
+    for rep in router.replicas:
+        # snapshot at registry build: the registry is rebuilt per
+        # scrape, so the values are scrape-current without taking the
+        # transport lock once per rendered sample
+        snap = rep.transport.wire_snapshot() \
+            if hasattr(rep.transport, "wire_snapshot") else None
+        if not snap:
+            continue
+        snaps.append((rep.name, snap))
+        for op, cell in sorted(snap["by_op"].items()):
+            for d in ("tx", "rx"):
+                wire.labels(op=op, dir=d, replica=rep.name) \
+                    .set_function(lambda v=cell[d]: v)
+    if any("codec" in snap for _, snap in snaps):
+        saved = reg.counter(
+            "tpukube_router_wire_saved_bytes_total",
+            help_text="Bytes the binary wire codec kept off the "
+                      "router->replica transport, per op and replica "
+                      "(pre-compression frame bytes minus bytes "
+                      "actually sent).")
+        for name, snap in snaps:
+            for op, cell in sorted(snap["by_op"].items()):
+                if "codec" not in cell:
+                    continue
+                delta = max(0, (cell.get("raw_tx", 0)
+                                + cell.get("raw_rx", 0))
+                            - (cell["tx"] + cell["rx"]))
+                saved.labels(op=op, replica=name) \
+                    .set_function(lambda v=delta: v)
 
 
 def render_router_metrics(router, lifecycle=None) -> str:

@@ -2417,12 +2417,13 @@ class Server(ThreadingHTTPServer):
 
     daemon_threads = True
     HANDSHAKE_TIMEOUT_S = 10.0
+    handler_class = _Handler
 
     def __init__(self, address: tuple[str, int], app: App,
                  ssl_context: Optional[ssl.SSLContext] = None) -> None:
         self.app = app
         self.ssl_context = ssl_context
-        super().__init__(address, _Handler)
+        super().__init__(address, self.handler_class)
 
     def finish_request(self, request, client_address) -> None:
         if self.ssl_context is None:

@@ -1,5 +1,5 @@
 """Slice-partitioned control plane — the port's copy of
-``tpukube/sched/shard.py`` less its process transport.
+``tpukube/sched/shard.py``.
 
 One planner process is the throughput ceiling of the unsharded plane:
 one ``ClusterState``/``GangManager`` owns the whole fleet — the
@@ -72,13 +72,20 @@ reservations (see ``rebuild_from_pods``).
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import os
+import shutil
+import signal
+import subprocess
+import sys
+import tempfile
 import threading
 import time
 import zlib
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace as dc_replace
 from typing import Any, Optional
 
@@ -91,7 +98,7 @@ from tpukube_torch.core.types import (
     PodInfo,
     TopologyCoord,
 )
-from tpukube_torch.sched import kube, slicefit
+from tpukube_torch.sched import kube, slicefit, wirecodec
 from tpukube_torch.sched.extender import Extender, ExtenderError
 from tpukube_torch.sched.gang import GangError
 from tpukube_torch.sched.state import StateError
@@ -277,9 +284,8 @@ def replica_summary(extender: Extender) -> dict[str, Any]:
 class InProcessTransport:
     """The parity oracle: the replica is a live Extender object in this
     process, every call a direct method dispatch — deterministic,
-    single-GIL. The reference's process transport carries the
-    identical surface over the extender webhook/HTTP contract; the port
-    has not ported it yet."""
+    single-GIL. :class:`SubprocessTransport` carries the identical
+    surface over the extender webhook/HTTP contract."""
 
     mode = "inprocess"
 
@@ -478,6 +484,685 @@ class InProcessTransport:
         if ext.journal is not None:
             ext.journal.close()
             ext.state.retire()
+
+
+#: the directory that holds the ``tpukube_torch`` package: a worker is
+#: spawned there with it first on ``PYTHONPATH``, so it imports this very
+#: package whatever the router's working directory is
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def _tail(path: Optional[str], lines: int) -> str:
+    """The last ``lines`` lines of a worker's log ("" when unreadable)."""
+    if not path:
+        return ""
+    try:
+        with open(path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            f.seek(max(0, f.tell() - (1 << 16)))
+            text = f.read().decode("utf-8", errors="replace")
+    except OSError:
+        return ""
+    return "\n".join(text.splitlines()[-lines:])
+
+
+class SubprocessTransport:
+    """One planner daemon per replica: spawns ``python -m
+    tpukube_torch.cli shard-worker`` (an Extender behind its HTTP surface
+    plus the ``/worker/*`` routes of ``sched/shardworker.py``) and speaks
+    the transport surface over HTTP. Requests on ONE replica are ordered
+    (one kept-alive connection behind a lock: binds and rendezvous
+    prepares arrive in call order); the router fans calls out to
+    distinct replicas concurrently, which is where the multi-core
+    speedup lives. A connection failure marks the replica dead through
+    ``on_down`` — ``crash_replica`` semantics.
+
+    The worker runs in the directory that holds this package, with it
+    first on ``PYTHONPATH``, from a per-replica config file written by
+    :func:`~tpukube_torch.core.config.write_yaml` (no inherited
+    ``TPUKUBE_*`` variable reaches it: the file is its one config
+    source). It binds a port the kernel picks and reports it on its first
+    stdout line, so no port is handed over between a probe and a bind.
+    Its stdout and stderr go to ``log_path`` in the transport's temp
+    directory; a worker that exits before serving, or does not serve in
+    ``SPAWN_TIMEOUT_S``, raises a ShardError that quotes the log's last
+    ``LOG_TAIL_LINES`` lines. The worker leads a process group of its
+    own, and ``kill``/``close`` signal the group."""
+
+    mode = "subprocess"
+    #: no live Extender object in this process (tests and the router's
+    #: in-process-only seams check for None)
+    extender = None
+
+    SPAWN_TIMEOUT_S = 30.0
+    RTT_WINDOW = 1024
+    LOG_TAIL_LINES = 40
+    _proc: Optional[subprocess.Popen] = None
+    _dir: Optional[str] = None
+
+    def __init__(self, index: int, config: GpuKubeConfig,
+                 fake_clock: bool, on_down=None):
+        self.index = index
+        self.on_down = on_down
+        self.down = False
+        self.health_checks = 0
+        self.health_failures = 0
+        self.rtt_window: deque[float] = deque(maxlen=self.RTT_WINDOW)
+        self.rtt_sum = 0.0
+        self.rtt_count = 0
+        # wire-cost accounting: request and response bytes as they cross
+        # this transport, total and per op (op = the /worker/* route
+        # tail), under _lock with the RTT stats; read via wire_snapshot()
+        self.wire_tx = 0
+        self.wire_rx = 0
+        self.wire_by_op: dict[str, dict[str, Any]] = {}
+        # wire codec (sched/wirecodec.py): json (the default, the parity
+        # oracle) or binary (TKW1 frames); the raw counters keep
+        # pre-compression frame bytes for the per-op compression ratio
+        self.wire_codec = config.wire_codec
+        self.wire_compress_min_bytes = config.wire_compress_min_bytes
+        self.wire_raw_tx = 0
+        self.wire_raw_rx = 0
+        # the connection's negotiated peer capability: None = unknown
+        # (requests go out as JSON with an Accept probe), True = the peer
+        # answered TKW1, so request bodies switch to binary too. Reset
+        # whenever the kept-alive connection is torn down: a respawned
+        # worker re-handshakes from JSON.
+        self._peer_binary: Optional[bool] = None
+        #: optional (index, op, tx_bytes, rx_bytes, rtt_s, codec) hook the
+        #: router feeds its fan-out flight recorder from; called outside
+        #: the transport lock, after each completed request
+        self.on_wire = None
+        self._lock = threading.Lock()
+        self._conn: Optional[http.client.HTTPConnection] = None
+        self._port = 0
+        t0 = time.perf_counter()
+        self._dir = tempfile.mkdtemp(prefix=f"tpukube-r{index}-")
+        self.log_path = os.path.join(self._dir, "worker.log")
+        # scrub TPUKUBE_* so the per-replica file is the ONE config source:
+        # an inherited TPUKUBE_PLANNER_REPLICAS=4 must not make each
+        # worker try to be a router itself
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("TPUKUBE_")}
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (_PKG_ROOT, env.get("PYTHONPATH", "")) if p)
+        try:
+            cmd = [sys.executable, "-m", "tpukube_torch.cli", "shard-worker",
+                   "--config", self._write_config(config), "--port", "0"]
+            if fake_clock:
+                cmd.append("--fake-clock")
+            with open(self.log_path, "wb") as log_file:
+                self._proc = subprocess.Popen(
+                    cmd, cwd=_PKG_ROOT, env=env, stdin=subprocess.DEVNULL,
+                    stdout=log_file, stderr=subprocess.STDOUT,
+                    start_new_session=True,
+                )
+            self._port = self._read_port()
+            self._wait_ready()
+        except BaseException:
+            self.kill()
+            raise
+        self.spawn_ready_s = time.perf_counter() - t0
+
+    def _write_config(self, config: GpuKubeConfig) -> str:
+        import dataclasses
+
+        from tpukube_torch.core.config import write_yaml
+
+        doc = dataclasses.asdict(config)
+        # the worker IS one planner: never a router, never recursive
+        doc["planner_replicas"] = 1
+        doc["shard_transport"] = "inprocess"
+        path = os.path.join(self._dir, "config.yaml")
+        write_yaml(path, doc)
+        return path
+
+    def _spawn_error(self, what: str) -> ShardError:
+        tail = _tail(self.log_path, self.LOG_TAIL_LINES)
+        return ShardError(
+            f"shard worker r{self.index} {what}; the last lines of its "
+            f"log ({self.log_path}):\n{tail or '(empty)'}")
+
+    def _read_port(self) -> int:
+        """The port the worker reports on its first stdout line."""
+        from tpukube_torch.sched.shardworker import READY_KEY
+
+        deadline = time.monotonic() + self.SPAWN_TIMEOUT_S
+        prefix = f'{{"{READY_KEY}"'.encode()
+        while time.monotonic() < deadline:
+            try:
+                with open(self.log_path, "rb") as f:
+                    for line in f:
+                        if line.startswith(prefix):
+                            return int(json.loads(line)[READY_KEY]["port"])
+            except (OSError, ValueError, KeyError, TypeError):
+                pass
+            if self._proc.poll() is not None:
+                raise self._spawn_error(
+                    f"exited with {self._proc.returncode} before serving")
+            time.sleep(0.02)
+        raise self._spawn_error(
+            f"reported no port within {self.SPAWN_TIMEOUT_S}s")
+
+    def _wait_ready(self) -> None:
+        deadline = time.monotonic() + self.SPAWN_TIMEOUT_S
+        while time.monotonic() < deadline:
+            if self._proc.poll() is not None:
+                raise self._spawn_error(
+                    f"exited with {self._proc.returncode} before serving")
+            try:
+                if self.healthz(timeout=1.0):
+                    # the spawn-wait probes are EXPECTED to fail until
+                    # the daemon serves: they are not health signal
+                    self.health_checks = 0
+                    self.health_failures = 0
+                    if self.wire_codec == "binary":
+                        # complete the codec handshake NOW with one cheap
+                        # op, or the first heavy call (the cold-start
+                        # ingest, the body the codec exists for) would
+                        # ride the JSON probe
+                        try:
+                            self._request("GET", "/worker/gauges",
+                                          timeout=5.0, mark_down=False)
+                        except ShardError:
+                            pass  # probe only; requests renegotiate
+                    return
+            except ReplicaUnavailable:
+                pass
+            time.sleep(0.05)
+        raise self._spawn_error(
+            f"did not serve /healthz within {self.SPAWN_TIMEOUT_S}s")
+
+    @property
+    def pid(self) -> Optional[int]:
+        return self._proc.pid if self._proc is not None else None
+
+    def _signal_group(self, sig: int) -> None:
+        try:
+            # the worker leads its own group (start_new_session)
+            os.killpg(self._proc.pid, sig)
+        except ProcessLookupError:
+            pass  # ended between the poll and the signal
+
+    # -- wire ---------------------------------------------------------------
+    def _request(self, method: str, path: str,
+                 body: Optional[dict] = None, timeout: float = 60.0,
+                 mark_down: bool = True, as_text: bool = False) -> Any:
+        # Only the /worker/* op surface negotiates the binary codec;
+        # exposition passthrough (/metrics, /statusz, /healthz, ...)
+        # stays JSON/text regardless.
+        wire_op = path.startswith("/worker/")
+        negotiate = (wire_op and not as_text
+                     and self.wire_codec == "binary")
+        # _peer_binary is read without the lock: requests on one
+        # replica serialize behind _lock anyway, and the worst a stale
+        # read costs is one more JSON-bodied probe request.
+        req_codec = "json"
+        raw_tx = 0
+        if body is not None:
+            if negotiate and self._peer_binary:
+                payload, raw_tx = wirecodec.encode_frame(
+                    body, self.wire_compress_min_bytes)
+                headers = {
+                    "Content-Type": wirecodec.WIRE_CONTENT_TYPE}
+                req_codec = "binary"
+            else:
+                payload = wirecodec.dumps_json(body)
+                headers = {
+                    "Content-Type": wirecodec.JSON_CONTENT_TYPE}
+                raw_tx = len(payload)
+        else:
+            payload = None
+            headers = {}
+        if negotiate:
+            # capability probe: a TKW1-speaking worker answers in
+            # kind; a JSON-only worker ignores it — the per-replica
+            # rolling-upgrade degrade
+            headers["Accept"] = wirecodec.WIRE_CONTENT_TYPE
+        ctx = trace_mod.TRACE_CONTEXT.get()
+        if ctx is not None:
+            # propagate the router's trace context so the worker tags
+            # its decision records and timeline spans with it
+            headers["X-Tpukube-Trace"] = \
+                f"{ctx.get('trace', '')}/{ctx.get('parent', '')}"
+        op = path.split("?", 1)[0].lstrip("/")
+        if op.startswith("worker/"):
+            op = op[len("worker/"):]
+        op = op.replace("/", "_")
+        t0 = time.perf_counter()
+        with self._lock:
+            if self.down:
+                raise ReplicaUnavailable(
+                    f"replica r{self.index} is down"
+                )
+            try:
+                conn = self._conn
+                if conn is None:
+                    conn = self._conn = http.client.HTTPConnection(
+                        "127.0.0.1", self._port, timeout=timeout
+                    )
+                elif conn.sock is not None:
+                    # the kept-alive socket's timeout is pinned at
+                    # connect time: re-arm it PER REQUEST, or a quick
+                    # health probe's 2s budget would cap every later
+                    # heavy call (a 10k-node upsert, a 2k-pod plan)
+                    # and read as replica death
+                    conn.sock.settimeout(timeout)
+                conn.request(method, path, body=payload, headers=headers)
+                resp = conn.getresponse()
+                raw = resp.read()
+            except (http.client.HTTPException, OSError) as e:
+                if self._conn is not None:
+                    self._conn.close()
+                    self._conn = None
+                # fresh connection means a possibly fresh peer (a
+                # respawned worker): renegotiate the codec from JSON
+                self._peer_binary = None
+                # bill the failed request too — an unaccounted retry
+                # storm is exactly the traffic this counter exists to
+                # expose (rx stays 0: nothing usable came back)
+                tx = len(payload or b"")
+                self.wire_tx += tx
+                self.wire_raw_tx += raw_tx
+                cell = self.wire_by_op.get(op)
+                if cell is None:
+                    cell = self.wire_by_op[op] = \
+                        {"tx": 0, "rx": 0, "calls": 0}
+                cell["tx"] += tx
+                cell["calls"] += 1
+                cell["failures"] = cell.get("failures", 0) + 1
+                if req_codec == "binary":
+                    cell["codec"] = "binary"
+                    cell["raw_tx"] = cell.get("raw_tx", 0) + raw_tx
+                    cell["raw_rx"] = cell.get("raw_rx", 0)
+                if mark_down:
+                    self._mark_down_locked(e)
+                raise ReplicaUnavailable(
+                    f"replica r{self.index} unreachable: {e}"
+                ) from e
+            dt = time.perf_counter() - t0
+            self.rtt_window.append(dt)
+            self.rtt_sum += dt
+            self.rtt_count += 1
+            resp_ct = (resp.getheader("Content-Type") or "").split(
+                ";", 1)[0].strip()
+            resp_binary = resp_ct == wirecodec.WIRE_CONTENT_TYPE
+            if negotiate and resp_binary and resp.status < 400:
+                # the worker answered TKW1: switch request bodies to
+                # binary for the rest of this connection
+                self._peer_binary = True
+            tx, rx = len(payload or b""), len(raw)
+            self.wire_tx += tx
+            self.wire_rx += rx
+            self.wire_raw_tx += raw_tx
+            if not resp_binary:
+                self.wire_raw_rx += rx
+            cell = self.wire_by_op.get(op)
+            if cell is None:
+                cell = self.wire_by_op[op] = \
+                    {"tx": 0, "rx": 0, "calls": 0}
+            cell["tx"] += tx
+            cell["rx"] += rx
+            cell["calls"] += 1
+            if req_codec == "binary" or resp_binary:
+                # tag the cell with the codec that actually crossed
+                # the wire (absence of the tag = pure JSON, so the
+                # default-codec cell shape is unchanged) and track
+                # pre-compression frame bytes for the ratio exposition
+                cell["codec"] = "binary"
+                cell["raw_tx"] = cell.get("raw_tx", 0) + raw_tx
+                cell.setdefault("raw_rx", 0)
+        if self.on_wire is not None:
+            self.on_wire(self.index, op, tx, rx, dt,
+                         "binary" if (req_codec == "binary"
+                                      or resp_binary) else "json")
+        if resp.status >= 400:
+            raise ShardError(
+                f"replica r{self.index} {path}: HTTP {resp.status}: "
+                f"{raw.decode(errors='replace')[:200]}"
+            )
+        if as_text:
+            return raw.decode("utf-8", errors="replace")
+        if not raw:
+            return None
+        if resp_binary:
+            # decode outside the transport lock (a fleet-sized audit
+            # read must not stall the next request behind its decode)
+            try:
+                out, raw_rx = wirecodec.decode_frame_ex(raw)
+            except wirecodec.WireCodecError as e:
+                raise ShardError(
+                    f"replica r{self.index} {path}: undecodable "
+                    f"wire frame: {e}"
+                ) from e
+            with self._lock:
+                self.wire_raw_rx += raw_rx
+                cell = self.wire_by_op.get(op)
+                if cell is not None:
+                    cell["raw_rx"] = cell.get("raw_rx", 0) + raw_rx
+            return out
+        return json.loads(raw)
+
+    def _mark_down_locked(self, err: Exception) -> None:
+        if not self.down:
+            self.down = True
+            log.error("replica r%d transport failed (%s); marking the "
+                      "replica dead", self.index, err)
+            if self.on_down is not None:
+                self.on_down(self.index)
+
+    # decision surface ------------------------------------------------------
+    def handle(self, kind: str, body: Any) -> Any:
+        out = self._request("POST", "/worker/handle",
+                            {"kind": kind, "body": body})
+        if isinstance(out, dict) and "schema_error" in out:
+            # re-raise the exception type the in-process dispatch would
+            # have propagated — the HTTP layer above maps it to 400
+            raise kube.KubeSchemaError(out["schema_error"])
+        return out
+
+    def upsert_nodes(self, items: list[dict[str, Any]]) -> list[Any]:
+        return self._request("POST", "/worker/upsert",
+                             {"items": items})["results"]
+
+    def admit_many(self, pods: list[PodInfo]) -> list[bool]:
+        return self._request("POST", "/worker/admit", {
+            "pods": [kube.pod_to_k8s(p) for p in pods],
+        })["admitted"]
+
+    def plan_pending(self) -> int:
+        return self._request("POST", "/worker/plan", {})["planned"]
+
+    def planned_nodes(self, keys: list[str]) -> dict[str, Optional[str]]:
+        return self._request("POST", "/worker/planned",
+                             {"keys": list(keys)})["nodes"]
+
+    def bind_many(self, bodies: list[dict]) -> list[dict]:
+        return self._request("POST", "/worker/bind",
+                             {"bodies": bodies})["results"]
+
+    def release_many(self, pod_keys: list[str]) -> None:
+        self._request("POST", "/worker/release",
+                      {"keys": list(pod_keys)})
+
+    # gang / rendezvous surface ---------------------------------------------
+    def gauges(self) -> dict[str, dict[str, Any]]:
+        return self._request("GET", "/worker/gauges")["slices"]
+
+    def _gang(self, op: str, **kw) -> Any:
+        out = self._request("POST", "/worker/gang", {"op": op, **kw})
+        err = out.get("error")
+        if err:
+            # the worker maps expected races (box re-occupied, slice
+            # gone) to typed errors so the router degrades exactly as
+            # the in-process prepare would
+            if out.get("kind") == "state":
+                raise StateError(err)
+            raise GangError(err)
+        return out
+
+    def gang_fit(self, pod: PodInfo, total: int) -> bool:
+        return self._gang("fit", pod=kube.pod_to_k8s(pod),
+                          total=total)["fits"]
+
+    def gang_prepare(self, pod: PodInfo, cpp: int,
+                     volumes: dict[str, int]) -> dict[str, list]:
+        out = self._gang("prepare", pod=kube.pod_to_k8s(pod), cpp=cpp,
+                         volumes=volumes)
+        return {
+            sid: [TopologyCoord.of(c) for c in coords]
+            for sid, coords in out["parts"].items()
+        }
+
+    def gang_drop(self, key: tuple[str, str]) -> None:
+        self._gang("drop", namespace=key[0], name=key[1])
+
+    def gang_dissolve(self, key: tuple[str, str]) -> None:
+        self._gang("dissolve", namespace=key[0], name=key[1])
+
+    def gang_reservation(self, key: tuple[str, str]) -> Optional[dict]:
+        out = self._gang("reservation", namespace=key[0],
+                         name=key[1])["reservation"]
+        if out is None:
+            return None
+        out["slices"] = {
+            sid: [TopologyCoord.of(c) for c in coords]
+            for sid, coords in (out.get("slices") or {}).items()
+        }
+        return out
+
+    def gang_sweep(self) -> None:
+        self._gang("sweep")
+
+    # read views ------------------------------------------------------------
+    def allocations(self) -> list[AllocResult]:
+        return self._decode_allocs(
+            self._request("GET", "/worker/allocs")["allocs"])
+
+    def _decode_allocs(self, objs: list) -> list[AllocResult]:
+        allocs = []
+        for obj in objs:
+            try:
+                allocs.append(codec.alloc_from_obj(obj))
+            except codec.CodecError as e:
+                log.error("replica r%d sent an undecodable alloc: %s",
+                          self.index, e)
+        return allocs
+
+    def allocs_since(self, cursor) -> Optional[dict]:
+        out = self._request("POST", "/worker/allocs_since",
+                            {"cursor": cursor})
+        if out is None or out.get("disabled"):
+            return None
+        res: dict[str, Any] = {
+            "cursor": out["cursor"],
+            "bytes": int(out.get("bytes", 0)),
+        }
+        if "full" in out:
+            res["full"] = self._decode_allocs(out["full"])
+        else:
+            res["adds"] = self._decode_allocs(out["adds"])
+            res["removes"] = [str(k) for k in out["removes"]]
+        return res
+
+    def allocation(self, pod_key: str) -> Optional[AllocResult]:
+        from urllib.parse import quote
+
+        out = self._request(
+            "GET", f"/worker/alloc?pod={quote(pod_key, safe='')}"
+        )["alloc"]
+        if out is None:
+            return None
+        try:
+            return codec.alloc_from_obj(out)
+        except codec.CodecError as e:
+            log.error("replica r%d sent an undecodable alloc for %s: "
+                      "%s", self.index, pod_key, e)
+            return None
+
+    def node(self, name: str):
+        # NodeView objects do not cross the process boundary; router
+        # callers needing node payloads read them from the pod/node
+        # store, not from a remote replica's in-memory view
+        return None
+
+    def node_names(self) -> tuple[str, ...]:
+        return tuple(self._request("GET", "/worker/nodes")["names"])
+
+    def slice_ids(self) -> list[str]:
+        return list(self._request("GET", "/worker/summary")["slices"])
+
+    def gang_snapshot(self) -> list[dict[str, Any]]:
+        return self._request("GET", "/state/gangs")
+
+    def alloc_snapshot(self) -> list[dict[str, Any]]:
+        return self._request("GET", "/state/allocs")
+
+    def summary(self) -> dict[str, Any]:
+        return self._request("GET", "/worker/summary")
+
+    def latencies(self) -> dict[str, list[float]]:
+        return self._request("GET", "/worker/summary")["latencies"]
+
+    def counts_by_reason(self) -> dict[str, int]:
+        return self._request("GET", "/worker/summary")["events"]
+
+    def events_emit(self, reason: str, obj: str = "", message: str = "",
+                    **kwargs) -> None:
+        self._request("POST", "/worker/emit", {
+            "reason": reason, "obj": obj, "message": message, **kwargs,
+        })
+
+    # federated observability -----------------------------------------------
+    def explain(self, pod_key: str) -> Optional[dict[str, Any]]:
+        from urllib.parse import quote
+
+        try:
+            return self._request(
+                "GET", f"/explain?pod={quote(pod_key, safe='')}")
+        except ShardError:
+            return None  # provenance disabled on the worker (404)
+
+    def events_query(self, reason=None, pod=None, node=None,
+                     since=None) -> list[dict[str, Any]]:
+        from urllib.parse import urlencode
+
+        q = {k: v for k, v in (("reason", reason), ("pod", pod),
+                               ("node", node), ("since", since))
+             if v is not None}
+        path = "/events" + (f"?{urlencode(q)}" if q else "")
+        return self._request("GET", path) or []
+
+    def metrics_text(self) -> str:
+        return self._request("GET", "/metrics", as_text=True)
+
+    def statusz_doc(self) -> dict[str, Any]:
+        return self._request("GET", "/statusz")
+
+    def trace_events(self, since_seq: int = 0) -> list[dict[str, Any]]:
+        try:
+            return self._request(
+                "GET", f"/trace?since={since_seq}") or []
+        except ShardError:
+            return []  # tracing disabled on the worker (404)
+
+    def capacity_doc(self, since=None) -> Optional[dict[str, Any]]:
+        path = "/capacity" + (f"?since={since}" if since is not None
+                              else "")
+        try:
+            return self._request("GET", path)
+        except ShardError:
+            return None  # capacity disabled on the worker (404)
+
+    def capacity_probe(self, count=None, shape=None,
+                       chips_per_pod=1) -> Optional[dict[str, Any]]:
+        from urllib.parse import urlencode
+
+        q: dict[str, Any] = {"chips_per_pod": chips_per_pod}
+        if count is not None:
+            q["count"] = count
+        if shape is not None:
+            q["shape"] = "x".join(str(d) for d in shape)
+        try:
+            return self._request(
+                "GET", f"/capacity/probe?{urlencode(q)}")
+        except ShardError:
+            return None  # capacity disabled on the worker (404)
+
+    def wire_snapshot(self) -> dict[str, Any]:
+        """Cumulative request/response byte counters, total and per op."""
+        with self._lock:
+            snap = {
+                "tx": self.wire_tx,
+                "rx": self.wire_rx,
+                "by_op": {op: dict(c)
+                          for op, c in self.wire_by_op.items()},
+            }
+            if self.wire_codec != "json":
+                # pre-compression frame bytes next to the wire bytes:
+                # saved = raw - wire, without re-serializing to JSON.
+                # Keys appear only with the codec on so the default
+                # plane's snapshot/statusz stays byte-identical.
+                snap["codec"] = self.wire_codec
+                snap["raw_tx"] = self.wire_raw_tx
+                snap["raw_rx"] = self.wire_raw_rx
+            return snap
+
+    # lifecycle -------------------------------------------------------------
+    def rebuild_from_pods(self, pods: list[dict[str, str]]) -> int:
+        return self._request("POST", "/worker/rebuild",
+                             {"pods": pods})["restored"]
+
+    def recover(self, node_objs: list[dict],
+                pod_objs: list[dict]) -> dict:
+        # recovery replays the worker's whole journal segment and
+        # reconciles a fleet-sized feed: give it the heavy-call budget
+        return self._request("POST", "/worker/recover",
+                             {"nodes": node_objs, "pods": pod_objs},
+                             timeout=300.0)
+
+    def drain_evictions(self) -> list[str]:
+        return self._request("POST", "/worker/evictions", {})["pods"]
+
+    def advance(self, seconds: float) -> None:
+        self._request("POST", "/worker/advance", {"seconds": seconds})
+
+    def healthz(self, timeout: float = 2.0) -> bool:
+        self.health_checks += 1
+        try:
+            out = self._request("GET", "/healthz", timeout=timeout,
+                                mark_down=False)
+        except (ReplicaUnavailable, ShardError):
+            self.health_failures += 1
+            raise ReplicaUnavailable(
+                f"replica r{self.index}: health check failed"
+            ) from None
+        return bool(out.get("ok"))
+
+    def set_evict_precheck(self, fn) -> None:
+        # the worker daemon owns its own apiserver wiring; the sim
+        # worker runs precheck-less (no PDBs), matching the harness's
+        # trivially-true precheck
+        pass
+
+    def set_binder(self, fn) -> None:
+        pass  # the router applies the bind effector from the bind answer
+
+    def set_degraded_gate(self, fn) -> None:
+        pass  # a real worker daemon wires its own circuit -> gate
+
+    def rtt_snapshot(self) -> list[float]:
+        with self._lock:
+            return list(self.rtt_window)
+
+    def kill(self) -> None:
+        """SIGKILL the worker's process group — process death, nothing
+        flushed (the chaos story's crash_replica over a real process)."""
+        self._stop(signal.SIGKILL, wait_s=10.0)
+
+    def close(self) -> None:
+        """Graceful stop (harness shutdown): SIGTERM, then SIGKILL after
+        5 s."""
+        self._stop(signal.SIGTERM, wait_s=5.0)
+
+    def _stop(self, sig: int, wait_s: float) -> None:
+        with self._lock:
+            self.down = True
+            if self._conn is not None:
+                self._conn.close()
+                self._conn = None
+        proc = self._proc
+        if proc is not None and proc.poll() is None:
+            self._signal_group(sig)
+            try:
+                proc.wait(timeout=wait_s)
+            except subprocess.TimeoutExpired:
+                self._signal_group(signal.SIGKILL)
+                proc.wait()
+        if self._dir is not None:
+            shutil.rmtree(self._dir, ignore_errors=True)
+            self._dir = None
 
 
 class PlannerReplica:
@@ -831,6 +1516,10 @@ class ShardRouter:
         self.pending_evictions: deque[str] = deque()
         self.replicas: list[PlannerReplica] = []
         self._replica_cfgs: list[GpuKubeConfig] = []
+        #: every worker transport this router spawned, the respawned ones
+        #: too (subprocess mode): a caller can hold each process to its
+        #: end after shutdown()
+        self.spawned: list[SubprocessTransport] = []
         fake_clock = hasattr(self.clock, "advance")
         for i in range(n):
             rcfg = config
@@ -841,15 +1530,35 @@ class ShardRouter:
                     config, journal_path=f"{config.journal_path}.r{i}"
                 )
             self._replica_cfgs.append(rcfg)
-            self.replicas.append(PlannerReplica(
-                i, self._make_transport(i, rcfg, fake_clock)
-            ))
+        if self.mode == "subprocess" and n > 1:
+            # the worker daemons start side by side (each spawn is an
+            # interpreter start and the package's imports)
+            with ThreadPoolExecutor(max_workers=n) as spawn:
+                futures = [spawn.submit(self._make_transport, i, rcfg,
+                                        fake_clock)
+                           for i, rcfg in enumerate(self._replica_cfgs)]
+            errors = [f.exception() for f in futures if f.exception()]
+            if errors:
+                # a worker that failed to spawn leaves no sibling running
+                for t in self.spawned:
+                    t.close()
+                raise errors[0]
+            transports = [f.result() for f in futures]
+        else:
+            transports = [self._make_transport(i, rcfg, fake_clock)
+                          for i, rcfg in enumerate(self._replica_cfgs)]
+        self.replicas = [PlannerReplica(i, t)
+                         for i, t in enumerate(transports)]
         self._n = n
-        # fan-out pool of the process transport (calls to DISTINCT
-        # replicas concurrently, one planner process per core). None
-        # in process: the in-process replicas share one GIL, so a pool
-        # would only add switch overhead to the deterministic path.
-        self._pool = None
+        # fan-out pool of the process transport: calls to DISTINCT
+        # replicas run concurrently (one planner process per core — the
+        # multi-core speedup); each replica's own connection lock keeps
+        # its binds and prepares ordered. None in process: the in-process
+        # replicas share one GIL, so a pool would only add switch
+        # overhead to the deterministic path.
+        self._pool = (ThreadPoolExecutor(
+            max_workers=n, thread_name_prefix="tpukube-shard-fanout",
+        ) if self.mode == "subprocess" else None)
         self._inflight = 0
         self.health_checks_total = 0
         self.health_failures_total = 0
@@ -869,6 +1578,8 @@ class ShardRouter:
         # HTTP read per pod. Advisory — the divergence checkers read
         # allocations() straight from the replicas.
         self._alloc_cache: dict[str, AllocResult] = {}
+        # the bind effector in subprocess mode (see binder)
+        self._proc_binder = None
         # N=1 parity gate: every entry point delegates VERBATIM to the
         # sole replica's Extender (same objects, same code path). Only
         # the in-process transport has an extender in this process —
@@ -984,13 +1695,30 @@ class ShardRouter:
     def _make_transport(self, index: int, rcfg: GpuKubeConfig,
                         fake_clock: bool):
         if self.mode == "subprocess":
-            raise ShardError(
-                "shard_transport: subprocess: the process transport "
-                "(ROADMAP Queue 1, item 5b) is not ported yet")
+            transport = SubprocessTransport(
+                index, rcfg, fake_clock=fake_clock,
+                on_down=self._on_transport_down,
+            )
+            self.spawned.append(transport)
+            return transport
         return InProcessTransport(Extender(
             rcfg, clock=self.clock,
             eviction_sink=self.pending_evictions,
         ))
+
+    def _on_transport_down(self, idx: int) -> None:
+        """A transport-level connection failure: the daemon is gone (or
+        unreachable) mid-call. Mark the replica dead with the SAME
+        semantics as ``crash_replica`` — excluded from the federated
+        views, rendezvous parts treated as lost by the janitor, warm
+        restart via ``restart_replica``."""
+        rep = self.replicas[idx]
+        if rep.alive or not rep.killed:
+            rep.alive = False
+            rep.killed = True
+            self._drop_dead_alloc_cache(idx)
+            log.error("replica %s marked dead (transport failure)",
+                      rep.name)
 
     def _drop_dead_alloc_cache(self, idx: int) -> None:
         """Purge the dead replica's entries from the bind-answer alloc
@@ -1005,10 +1733,40 @@ class ShardRouter:
                 self._alloc_cache.pop(key, None)
 
     def _fan_out(self, reps: list[PlannerReplica], fn) -> dict[int, Any]:
-        """Run ``fn(rep)`` for each replica, serially (the in-process
-        replicas share one GIL; a pool would only reorder the
-        deterministic path). A replica that dies mid-call is skipped."""
+        """Run ``fn(rep)`` for each replica — concurrently in subprocess
+        mode (the multi-core fan-out), serially in process (one GIL; a
+        pool would only reorder the deterministic path). A replica that
+        dies mid-call is skipped; its death is already recorded by the
+        transport's ``on_down``."""
         out: dict[int, Any] = {}
+        if self._pool is not None and len(reps) > 1:
+            ctx = trace_mod.TRACE_CONTEXT.get()
+            if ctx is not None:
+                # ThreadPoolExecutor does not propagate contextvars:
+                # re-set the trace context inside each pooled call so
+                # the transport stamps the X-Tpukube-Trace header
+                inner = fn
+
+                def fn(rep, _inner=inner, _ctx=ctx):
+                    tok = trace_mod.TRACE_CONTEXT.set(_ctx)
+                    try:
+                        return _inner(rep)
+                    finally:
+                        trace_mod.TRACE_CONTEXT.reset(tok)
+            with self._lock:
+                self._inflight += 1
+            try:
+                futures = {rep.index: self._pool.submit(fn, rep)
+                           for rep in reps}
+                for idx, fut in futures.items():
+                    try:
+                        out[idx] = fut.result()
+                    except ReplicaUnavailable:
+                        continue
+            finally:
+                with self._lock:
+                    self._inflight -= 1
+            return out
         for rep in reps:
             try:
                 out[rep.index] = fn(rep)
@@ -1290,6 +2048,8 @@ class ShardRouter:
 
     @property
     def binder(self):
+        if self.mode == "subprocess":
+            return self._proc_binder
         ext = self.replicas[0].extender
         return ext.binder if ext is not None else None
 
@@ -1309,6 +2069,10 @@ class ShardRouter:
                 return _inner(self._global_alloc(alloc))
 
             fn.globalizes_gang_env = True
+        if self.mode == "subprocess":
+            # a worker daemon has no effector of this process: the router
+            # applies it from each bind answer (_after_bind)
+            self._proc_binder = fn
         for rep in self.replicas:
             rep.transport.set_binder(fn)
 
@@ -2546,6 +3310,11 @@ class ShardRouter:
                             self._alloc_cache[key] = alloc
             if rdv is not None:
                 self._globalize_gang_env(out, rdv)
+            if self._proc_binder is not None:
+                err = self._apply_proc_binder(key, idx, out)
+                if err is not None:
+                    return err
+            if rdv is not None:
                 # EAGER commit check at the bind that may have closed
                 # the last part's quorum: waiting for the next janitor
                 # sweep leaves a window where a replica killed after
@@ -2553,6 +3322,41 @@ class ShardRouter:
                 # the janitor dissolves a fully-committed gang
                 self._check_rendezvous_commit(rdv)
         return out
+
+    def _apply_proc_binder(self, key: str, idx: int,
+                           out: dict) -> Optional[dict]:
+        """Subprocess mode: run the bind effector on the alloc of a bind
+        answer, as a replica's extender runs it in process — a rendezvous
+        member's with the global gang env the answer now carries. When
+        the effector fails the pod is not bound on the cluster: its
+        allocation is released on its replica and the answer becomes a
+        retryable bind error. Returns that error, else None."""
+        payload = (out.get("Annotations") or {}).get(codec.ANNO_ALLOC)
+        try:
+            alloc = codec.decode_alloc(payload) if payload else None
+        except codec.CodecError:
+            alloc = None
+        if alloc is None:
+            return None
+        try:
+            self._proc_binder(alloc)
+        except Exception as e:
+            log.error("bind effector for %s failed: %s", key, e)
+            self.events.emit(
+                "BindFailed", obj=f"pod/{key}",
+                message=(f"apiserver bind failed after a successful "
+                         f"ledger commit; undone for retry: {e}"),
+            )
+            try:
+                self.replicas[idx].transport.release_many([key])
+            except ReplicaUnavailable:
+                pass  # the dead replica's ledger is gone with it
+            with self._lock:
+                self._pod_replica.pop(key, None)
+                self._alloc_cache.pop(key, None)
+            return kube.binding_result(
+                f"{key}: apiserver bind failed: {e}; scheduler will retry")
+        return None
 
     def _handle_bind(self, body: Any) -> Any:
         key, idx, err = self._bind_target(body)
@@ -3098,6 +3902,7 @@ class ShardRouter:
         parts restore by their LOCAL quorum either way. Returns
         allocations restored."""
         old = self.replicas[idx]
+        fake_clock = hasattr(self.clock, "advance")
         # stat the durable segment BEFORE the fresh replica's journal
         # re-creates the (empty) WAL file: no pre-crash bytes on disk
         # means the warm path has nothing to replay — go cold
@@ -3106,6 +3911,13 @@ class ShardRouter:
             os.path.exists(seg) or os.path.exists(seg + ".ckpt"))
 
         def make_transport():
+            if self.mode == "subprocess":
+                transport = self._make_transport(
+                    idx, self._replica_cfgs[idx], fake_clock
+                )
+                if self._flights is not None:
+                    transport.on_wire = self._record_flight
+                return transport
             ext = Extender(
                 self._replica_cfgs[idx], clock=self.clock,
                 eviction_sink=self.pending_evictions,
@@ -3120,6 +3932,8 @@ class ShardRouter:
             ext.degraded_gate = old.extender.degraded_gate
             return InProcessTransport(ext)
 
+        if self.mode == "subprocess":
+            old.transport.kill()  # reap a half-dead daemon first
         self.replicas[idx] = PlannerReplica(idx, make_transport())
         rep = self.replicas[idx]
         with self._lock:
@@ -3168,6 +3982,8 @@ class ShardRouter:
                 log.error("restart r%d: journal recovery failed (%s); "
                           "falling back to the full re-ingest", idx,
                           err)
+                if self.mode == "subprocess":
+                    rep.transport.kill()
                 self.replicas[idx] = PlannerReplica(idx,
                                                     make_transport())
                 rep = self.replicas[idx]
@@ -3230,12 +4046,17 @@ class ShardRouter:
 
     def shutdown(self) -> None:
         """Close every replica (sinks in-process, graceful daemon stop
-        in subprocess mode) — the harness stop path."""
+        in subprocess mode) — the harness stop path. Every worker this
+        router spawned has ended when it returns."""
         for rep in self.replicas:
             rep.transport.close()
+        for transport in self.spawned:
+            transport.close()  # a replaced one was killed already
         if self._pool is not None:
             self._pool.shutdown(wait=False)
         if self.trace is not None:
             self.trace.close()
         if self.decisions is not None:
             self.decisions.close()
+
+    close = shutdown

@@ -250,12 +250,16 @@ class SimCluster:
                     name=name, chips=chips, shares_per_chip=shares,
                     slice_id=sid,
                 )
-        if self.config.planner_replicas > 1:
+        if (self.config.planner_replicas > 1
+                or self.config.shard_transport == "subprocess"):
             # Slice-partitioned control plane (sched/shard.py): N full
             # planner replicas behind the router, each owning a
             # disjoint slice set. The router speaks the Extender
             # decision surface, so everything downstream (effectors,
-            # schedulers, chaos checkers) runs unchanged.
+            # schedulers, chaos checkers) runs unchanged. With
+            # shard_transport=subprocess each replica is a spawned
+            # worker daemon (at N=1 too: the process mode's parity and
+            # throughput baseline), reached over HTTP.
             from tpukube_torch.sched.shard import ShardRouter
 
             self.extender: Any = ShardRouter(self.config,
@@ -342,7 +346,8 @@ class SimCluster:
         nothing for an ``in_process`` cluster."""
         if self._in_process:
             return
-        if self.config.planner_replicas > 1:
+        if (self.config.planner_replicas > 1
+                or self.config.shard_transport == "subprocess"):
             raise RuntimeError(
                 "a sharded SimCluster (planner_replicas > 1) runs "
                 "in_process=True — the in-process router is the "
@@ -449,7 +454,8 @@ class SimCluster:
         disappears and every piece of in-memory scheduler state — ledger,
         gang reservations, pending webhook context, queued evictions — is
         gone. Nothing is flushed or unwound; that is the point."""
-        if self.config.planner_replicas > 1:
+        if (self.config.planner_replicas > 1
+                or self.config.shard_transport == "subprocess"):
             raise RuntimeError(
                 "sharded cluster: crash/restart individual replicas "
                 "(crash_replica/restart_replica), not the whole plane"
@@ -674,35 +680,65 @@ class SimCluster:
         if ext.cycle is None:
             raise RuntimeError("schedule_pending needs batch_enabled=true")
         self._sync_nodes()
+        # the router's batched driver surface (admit_many / planned_many /
+        # bind_many): one fanned-out call per replica per round instead
+        # of one dispatch per pod — over processes a per-pod HTTP round
+        # trip would hand the router's cost the whole multi-core win
+        # back. A plain Extender has none: the per-pod path is the same
+        # protocol.
+        admit_many = getattr(ext, "admit_many", None)
+        planned_many = getattr(ext, "planned_many", None)
+        bind_many = getattr(ext, "bind_many", None)
         results: dict[str, tuple[str, AllocResult]] = {}
         remaining = list(pods)
         for _ in range(retries):
             if not remaining:
                 break
             self.drain_evictions()
-            for obj in remaining:
-                ext.admit(kube.pod_from_k8s(obj))
+            infos = [kube.pod_from_k8s(obj) for obj in remaining]
+            if admit_many is not None:
+                admit_many(infos)
+            else:
+                for info in infos:
+                    ext.admit(info)
             ext.plan_pending()
             keys = [f"{o['metadata']['namespace']}/"
                     f"{o['metadata']['name']}" for o in remaining]
-            planned = {k: ext.planned_node(k) for k in keys}
+            if planned_many is not None:
+                planned = planned_many(keys)
+            else:
+                planned = {k: ext.planned_node(k) for k in keys}
             still: list[dict[str, Any]] = []
+            bind_objs: list[dict[str, Any]] = []
+            bind_bodies: list[dict[str, Any]] = []
             for obj, key in zip(remaining, keys):
                 meta = obj["metadata"]
                 node = planned.get(key)
                 if node is None:
                     still.append(obj)
                     continue
-                bres = self._post("/bind", {
+                body = {
                     "PodName": meta["name"],
                     "PodNamespace": meta["namespace"],
                     "PodUID": meta["uid"],
                     "Node": node,
-                })
+                }
+                if bind_many is not None:
+                    bind_objs.append(obj)
+                    bind_bodies.append(body)
+                    continue
+                bres = self._post("/bind", body)
                 if bres.get("Error"):
                     still.append(obj)
                     continue
                 self._apply_bind(obj, node, bres, results)
+            if bind_bodies:
+                for obj, body, bres in zip(bind_objs, bind_bodies,
+                                           bind_many(bind_bodies)):
+                    if bres.get("Error"):
+                        still.append(obj)
+                        continue
+                    self._apply_bind(obj, body["Node"], bres, results)
             remaining = still
         if remaining:
             names = [o["metadata"]["name"] for o in remaining[:3]]

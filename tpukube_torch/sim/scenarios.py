@@ -629,8 +629,8 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
                 ],
                 "slice_assignment": doc["slice_assignment"],
                 "rendezvous": doc["rendezvous"],
-                # the router's transport section (its process-mode
-                # RTTs and health checks are not ported)
+                # the router's transport section: over processes, the
+                # replicas' RTTs and health-check counters
                 "transport": doc["transport"],
             }
         wire_fn = getattr(ext, "wire_totals", None)
@@ -651,6 +651,14 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
                 "per_replica": wt["per_replica"],
                 "top_ops": dict(top[:8]),
             }
+            if "codec" in wt:
+                # the binary codec: pre-compression frame bytes and the
+                # on-wire compression ratio (keys only with the codec
+                # on, so the json drive's result is unchanged)
+                result["wire"]["codec"] = wt["codec"]
+                result["wire"]["raw_bytes"] = wt["raw_tx"] + wt["raw_rx"]
+                result["wire"]["saved_bytes"] = wt["saved"]
+                result["wire"]["compress_ratio"] = wt["ratio"]
         if ext.decisions is not None:
             # the measured-overhead guard: provenance's cumulative
             # record wall as a fraction of the drive wall

@@ -387,9 +387,42 @@ Drives the port's main path the way a cluster does, on the card:
       cores counted, kill -> respawn -> ready, the member's forward, the
       parent's threads and children, the step's and the run's seconds);
    ``shard_proc_phase(card, c0, prov, t_start)`` runs step 20 alone;
-21. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
+21. the lint prover and the lock-order monitor (``tpukube_torch/analysis``),
+   in a fresh interpreter (``analysis_child``, so nothing earlier steps
+   left running shares its interpreter lock or its threading patch):
+   a. ``python -m tpukube_torch.analysis <checkout>/tpukube_torch`` three
+      times, each a fresh process, two from the checkout and one from
+      ``/``: each exits 0 with ``tpukube-lint: clean``, and their median
+      wall is at most tools/perf_floor.json's ``lint_wall_s_floor`` x
+      ``allowed_regression``; ``--list-rules`` names the 13 rules; a
+      seeded tree (the lock-discipline fixture as ``sched/gang.py``, a
+      rules file reading ``tpukube_nonexistent_total``) exits 1 with
+      exactly those findings; ``--rules made-up-rule`` exits 2; the
+      rules-file cross-check reads deploy/prometheus-rules.yaml's
+      expressions without a YAML library; an in-process ``run_all`` is
+      clean;
+   b. scenarios 1-7 with the monitor off, under ``lockgraph.monitor()``,
+      and off again: no cycle, more than 1,000 acquisitions, the extender
+      -> gang and gang -> state edges, the threading factories restored
+      after;
+   c. ``lockgraph_life``: step 20's 1,024-node fleet behind two
+      ``shard-worker`` daemons with ``lock_monitor`` on in the config the
+      router and both workers read, 384 pods placed from batch plans;
+      this machine's Node (the real-backend node agent's annotation)
+      ingested by the router and a one-GPU pod bound to ``tpu-0``, its
+      env the plugin's Allocate, serving Llama-3-8B (B=1, S=2048) for
+      one request; the router's ``lockgraph_report()`` and its listener's
+      ``GET /lockgraph`` both show r0 and r1 reporting, no cycle and
+      acquisitions; no worker left alive;
+   d. the ``lint:`` line (each clean run's wall, the median and the gate,
+      files, lines, rules, findings, the rule expressions read, the
+      seeded findings by rule, the monitor's counts with the scenarios'
+      walls on and off, the federated report, the member's forward, the
+      step's seconds); ``analysis_phase(card, t_start)`` runs step 21
+      alone;
+22. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-22. prints the kernels line: the JAX package has no Pallas kernel, so the
+23. prints the kernels line: the JAX package has no Pallas kernel, so the
    port has none to hold against a plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
@@ -5159,6 +5192,347 @@ def shard_proc_phase(card: str, c0, prov: dict, t_start: float):
     return line
 
 
+# -- the lint prover and the lock-order monitor (step 21) ---------------------
+
+# the seeded tree's sched/gang.py: the reference's lock-discipline fixture,
+# three blocking calls under the scheduling locks
+LINT_SEEDED_GANG = """\
+import time
+
+class GangManager:
+    def bad_write(self):
+        with self._lock:
+            self._sink_file.write("line")
+
+    def bad_sleep(self):
+        with self._decision_lock:
+            time.sleep(0.1)
+
+    def bad_open(self):
+        with self._pending_lock:
+            with open("/tmp/x", "w") as f:
+                pass
+"""
+# ... and its rules file, reading a series no registry renders
+LINT_SEEDED_RULES = (
+    "apiVersion: monitoring.coreos.com/v1\n"
+    "kind: PrometheusRule\n"
+    "spec:\n"
+    "  groups:\n"
+    "    - name: g\n"
+    "      rules:\n"
+    "        - record: r\n"
+    "          expr: rate(tpukube_nonexistent_total[5m])\n"
+)
+LINT_SEEDED_WANT = {"lock-discipline": 3, "name-consistency": 1}
+LINT_CWDS = (ROOT, ROOT, "/")  # the clean CLI runs, each a fresh process
+LINT_CLI_S = 300  # one CLI run's time limit
+ANALYSIS_CHILD_S = 600  # the step's child's time limit
+# step 21c: step 20's 1,024-node fleet (4 slices of 8x8x16, host block
+# 2,2,1) behind two worker daemons, router and workers under the monitor
+LOCKGRAPH_ENV = {"TPUKUBE_SIM_MESH_DIMS": "8,8,16", "TPUKUBE_SIM_HOST_BLOCK": "2,2,1",
+                 "TPUKUBE_BATCH_ENABLED": "1", "TPUKUBE_BATCH_MAX_PODS": "2048",
+                 "TPUKUBE_PLANNER_REPLICAS": "2",
+                 "TPUKUBE_SHARD_TRANSPORT": "subprocess",
+                 "TPUKUBE_LOCK_MONITOR": "1"}
+LOCKGRAPH_PODS = 384  # placed from batch plans before the card pod
+
+
+def lint_cli(args: list, cwd: str) -> tuple:
+    """``python -m tpukube_torch.analysis *args`` as a fresh process from
+    ``cwd``: (exit code, stdout and stderr, wall seconds)."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpukube_torch.analysis", *args], cwd=cwd,
+        env=pod_env({}), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=LINT_CLI_S)
+    return proc.returncode, proc.stdout, time.perf_counter() - t
+
+
+def lint_static() -> dict:
+    """Step 21a: the lint prover over the port's tree, three times as a
+    fresh process (two from the checkout, one from ``/``), each exit 0
+    and ``tpukube-lint: clean``, the median wall within
+    tools/perf_floor.json's ``lint_wall_s_floor`` x ``allowed_regression``;
+    ``--list-rules`` names the 13 rules; a seeded tree (the
+    lock-discipline fixture as ``sched/gang.py``, a rules file reading
+    ``tpukube_nonexistent_total``) exits 1 with exactly those findings;
+    ``--rules made-up-rule`` exits 2; the rules-file cross-check reads
+    deploy/prometheus-rules.yaml's expressions; an in-process ``run_all``
+    is clean. Raises RuntimeError naming the failed check."""
+    import tempfile
+
+    from tpukube_torch.analysis import base
+    from tpukube_torch.analysis.consistency import rule_expressions
+
+    tree = os.path.join(ROOT, "tpukube_torch")
+    walls = []
+    for cwd in LINT_CWDS:
+        rc, out, wall = lint_cli([tree], cwd)
+        if rc != 0 or out.strip().splitlines()[-1:] != ["tpukube-lint: clean"]:
+            raise RuntimeError(f"the clean run from {cwd} exited {rc}: "
+                               f"{out[-3000:]!r}")
+        walls.append(wall)
+    rc, out, _ = lint_cli(["--list-rules"], ROOT)
+    listed = [ln.split()[0] for ln in out.splitlines() if ln.strip()]
+    if rc != 0 or listed != list(base.ALL_RULES) or len(listed) != 13:
+        raise RuntimeError(f"--list-rules exited {rc}: {out!r}")
+    with tempfile.TemporaryDirectory() as td:
+        os.makedirs(os.path.join(td, "sched"))
+        with open(os.path.join(td, "sched", "gang.py"), "w") as f:
+            f.write(LINT_SEEDED_GANG)
+        rules = os.path.join(td, "rules.yaml")
+        with open(rules, "w") as f:
+            f.write(LINT_SEEDED_RULES)
+        rc, out, seeded_s = lint_cli(["--json", "--rules-file", rules, td], ROOT)
+    seeded: dict = {}
+    for ln in out.splitlines():
+        if ln.startswith("{"):
+            rule = json.loads(ln)["rule"]
+            seeded[rule] = seeded.get(rule, 0) + 1
+    if rc != 1 or seeded != LINT_SEEDED_WANT:
+        raise RuntimeError(f"the seeded tree exited {rc} with {seeded}, want "
+                           f"exit 1 with {LINT_SEEDED_WANT}: {out[-3000:]!r}")
+    rc, out, _ = lint_cli(["--rules", "made-up-rule", tree], ROOT)
+    if rc != 2:
+        raise RuntimeError(f"--rules made-up-rule exited {rc}, want 2: {out!r}")
+    exprs = rule_expressions(os.path.join(ROOT, "deploy", "prometheus-rules.yaml"))
+    if not exprs:
+        raise RuntimeError("the rules-file cross-check read no expression")
+    sources, errors = base.iter_source_files([tree])
+    t = time.perf_counter()
+    findings = base.run_all([tree])
+    inproc_s = time.perf_counter() - t
+    if findings or errors:
+        raise RuntimeError(f"in-process run_all: {[str(f) for f in findings + errors]}")
+    with open(os.path.join(ROOT, "tools", "perf_floor.json")) as f:
+        floor = json.load(f)
+    limit = floor["lint_wall_s_floor"] * floor["allowed_regression"]
+    median = statistics.median(walls)
+    if median > limit:
+        raise RuntimeError(f"median lint wall {median:.3f} s over the gate "
+                           f"{limit:.3f} s (walls {walls})")
+    return {"walls_s": walls, "median_s": median, "gate_s": limit,
+            "lint_wall_s_floor": floor["lint_wall_s_floor"],
+            "allowed_regression": floor["allowed_regression"],
+            "inprocess_s": inproc_s, "files": len(sources),
+            "lines": sum(sf.text.count("\n") for sf in sources),
+            "rules": len(base.ALL_RULES), "findings": 0,
+            "rule_expressions": len(exprs), "seeded": seeded,
+            "seeded_s": seeded_s}
+
+
+def lint_dynamic() -> dict:
+    """Step 21b: scenarios 1-7 of the port with the lock-order monitor
+    off, under ``lockgraph.monitor()``, and off again: no cycle, more than
+    1,000 acquisitions, the extender -> gang and gang -> state edges of
+    the declared order, and the threading factories restored after.
+    Returns the report's counts and the walls (the first run pays the
+    imports; the monitor's cost is its run against the second off run);
+    raises RuntimeError naming the failed check."""
+    from tpukube_torch.analysis import lockgraph
+    from tpukube_torch.sim import scenarios
+
+    def drive() -> float:
+        t = time.perf_counter()
+        for i in range(1, 8):
+            scenarios.run(i, None)
+        return time.perf_counter() - t
+
+    cold_s = drive()
+    with lockgraph.monitor() as mon:
+        on_s = drive()
+    off_s = drive()
+    rep = mon.report()
+    edges = {(e["from"].rsplit(":", 1)[0], e["to"].rsplit(":", 1)[0])
+             for e in rep["edges"]}
+    want = {("tpukube_torch/sched/extender.py", "tpukube_torch/sched/gang.py"),
+            ("tpukube_torch/sched/gang.py", "tpukube_torch/sched/state.py")}
+    if rep["cycles"] or rep["acquisitions"] <= 1000 or not want <= edges:
+        raise RuntimeError(f"scenarios 1-7 under the monitor: cycles "
+                           f"{rep['cycles']}, {rep['acquisitions']} acquisitions, "
+                           f"missing edges {sorted(want - edges)}")
+    if threading.Lock is not lockgraph._REAL_LOCK \
+            or threading.RLock is not lockgraph._REAL_RLOCK:
+        raise RuntimeError("the threading factories were not restored")
+    return {"acquisitions": rep["acquisitions"], "edges": len(rep["edges"]),
+            "sites": len(rep["sites"]), "cycles": rep["cycles"],
+            "monitor_off_first_s": cold_s, "monitor_off_s": off_s,
+            "monitor_on_s": on_s}
+
+
+def lockgraph_life(card_agent, run_solo) -> dict:
+    """Step 21c: ``LOCKGRAPH_ENV``'s fleet in a ``SimCluster`` over a
+    ``ShardRouter`` of two ``shard-worker`` daemons, the config (the one
+    the router and, through their per-replica files, both workers read)
+    turning the lock-order monitor on; ``LOCKGRAPH_PODS`` pods placed
+    from batch plans; then this machine's Node, annotated by
+    ``card_agent()``'s node agent, ingested by the router, and a
+    one-GPU pod bound to tpu-0 through the router's webhooks, its env
+    the plugin's Allocate, run by ``run_solo(env)``. The router's
+    ``lockgraph_report()`` and its listener's ``GET /lockgraph`` must
+    each show both workers reporting, no cycle and acquisitions. No
+    worker may outlive the cluster. Returns the counts and host-clock
+    times; raises RuntimeError naming the failed check."""
+    from tpukube_torch.analysis import lockgraph
+    from tpukube_torch.core import codec
+    from tpukube_torch.core.config import load_config
+    from tpukube_torch.sched.extender import run_server
+    from tpukube_torch.sched.kube import pod_object
+    from tpukube_torch.sched.shardworker import make_router_app
+    from tpukube_torch.sim import SimCluster
+
+    cfg = load_config(env=LOCKGRAPH_ENV)
+    out: dict = {}
+    t = time.perf_counter()
+    with SimCluster(cfg, slices=_shard_mp_slices(cfg), in_process=True) as c, \
+            contextlib.ExitStack() as stack:
+        router = c.extender
+        if c.lock_monitor is None or lockgraph.active() is not c.lock_monitor:
+            raise RuntimeError("lock_monitor did not install the monitor")
+        out["spawn_ready_ms"] = {f"r{tr.index}": tr.spawn_ready_s * 1e3
+                                 for tr in router.spawned}
+        out["nodes"] = len(c.nodes)
+        t_place = time.perf_counter()
+        placed = c.schedule_pending([c.make_pod(f"lg-{i}", tpu=1)
+                                     for i in range(LOCKGRAPH_PODS)])
+        out["placed"] = len(placed)
+        out["place_ms"] = (time.perf_counter() - t_place) * 1e3
+        if len(placed) != LOCKGRAPH_PODS:
+            raise RuntimeError(f"{len(placed)} of {LOCKGRAPH_PODS} pods placed")
+        agent = stack.enter_context(card_agent())
+        node = agent.mgr.host
+        res = router.upsert_nodes_many([{
+            "name": node,
+            "annotations": codec.annotate_node(agent.mgr.node_info(),
+                                               agent.mgr.mesh)}])
+        if isinstance(res[0], dict) and res[0].get("error"):
+            raise RuntimeError(f"the router refused {node}: {res[0]['error']}")
+        host, alloc = route_cycle(router, codec, pod_object("lockgraph-0", tpu=1),
+                                  [node])
+        if host != node or alloc.device_ids != ["tpu-0"]:
+            raise RuntimeError(f"lockgraph-0 bound {alloc.device_ids} on {host}")
+        out["card_replica"] = f"r{router._node_replica[node]}"
+        out["member_pod"] = run_solo(allocate(agent, alloc))
+        server = run_server(make_router_app(router), "127.0.0.1", 0)
+        stack.callback(server.server_close)
+        stack.callback(server.shutdown)
+        rep = router.lockgraph_report()
+        url = f"http://127.0.0.1:{server.server_address[1]}/lockgraph"
+        with urllib.request.urlopen(url, timeout=REST_WAIT_S) as r:
+            http = json.loads(r.read())
+        for what, doc in (("lockgraph_report()", rep), ("GET /lockgraph", http)):
+            if (doc is None or doc["replicas_reporting"] != ["r0", "r1"]
+                    or doc["cycles"] or doc["acquisitions"] <= 0):
+                raise RuntimeError(f"{what}: " + json.dumps(
+                    doc and {k: doc[k] for k in ("replicas_reporting", "cycles",
+                                                 "acquisitions")}))
+        out["report"] = {"replicas_reporting": rep["replicas_reporting"],
+                         "acquisitions": rep["acquisitions"],
+                         "edges": len(rep["edges"]), "sites": len(rep["sites"]),
+                         "cycles": rep["cycles"],
+                         "http_acquisitions": http["acquisitions"]}
+    left = [ch for ch in live_children() if "shard-worker" in ch[1]]
+    if left:
+        raise RuntimeError(f"worker daemons left alive: {left}")
+    if threading.Lock is not lockgraph._REAL_LOCK:
+        raise RuntimeError("the cluster's stop did not restore threading.Lock")
+    out["step_s"] = time.perf_counter() - t
+    return out
+
+
+def analysis_child() -> int:
+    """Step 21 in this (fresh) interpreter: 21a ``lint_static``, 21b
+    ``lint_dynamic``, 21c ``lockgraph_life`` with the card's node agent
+    and a Llama-3-8B pod (B=1, S=2048, one request); prints the results
+    as one JSON line, last. A failed check prints ``analysis 21x: ...``
+    on stderr and returns 1; so does a YAML, aiohttp, gRPC or protobuf
+    module loaded here."""
+    with node_agent({}) as agent:
+        chip_id = agent.mgr.chips()[0].chip_id
+
+    def run_solo(env):
+        r = run_pod(["--requests", "1", "--batch", "1"], env, "pod")
+        if r is None or r["uuid"] != chip_id or r["batch"] != 1:
+            raise RuntimeError(f"lockgraph-0's pod failed: {r}")
+        return r
+
+    out: dict = {}
+    for tag, fn in (("21a", lint_static), ("21b", lint_dynamic),
+                    ("21c", lambda: lockgraph_life(lambda: node_agent({}),
+                                                   run_solo))):
+        t = time.perf_counter()
+        try:
+            out[tag] = fn()
+        except Exception as e:  # noqa: BLE001 (every failure fails the step)
+            import traceback
+
+            traceback.print_exc()
+            return fail(f"analysis {tag}: {type(e).__name__}: {e}")
+        out[tag].setdefault("step_s", time.perf_counter() - t)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("grpc", "yaml", "aiohttp")
+                    or m.startswith("google.protobuf"))
+    if loaded:
+        return fail(f"analysis 21: the step imported {loaded}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def analysis_phase(card: str, t_start: float):
+    """Step 21 on the card machine: ``analysis_child`` in a fresh
+    interpreter, then the ``lint:`` line (21d). Returns the line's
+    object, or None when a check failed (the child's stderr names it
+    as ``analysis 21x: ...``; its stdout is quoted here)."""
+    t_step = time.perf_counter()
+    host = host_cpu()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.analysis_child())"],
+        cwd=ROOT, env=pod_env({}), stdout=subprocess.PIPE, text=True,
+        timeout=ANALYSIS_CHILD_S)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0 or not lines:
+        print(proc.stdout, flush=True)
+        fail(f"analysis 21: the child exited {proc.returncode} (its stderr "
+             f"above names the check: analysis 21a/21b/21c)")
+        return None
+    r = json.loads(lines[-1])
+    a, b, c = r["21a"], r["21b"], r["21c"]
+    member = c.pop("member_pod")
+    print("lockgraph-0: " + json.dumps(member, sort_keys=True), flush=True)
+    line = {"card": card, "host": host, "static": a, "dynamic": b,
+            "federated": c, "member_forward_ms": member["forward_ms_median"],
+            "member_tokens_per_s": member["tokens_per_s"],
+            "step_s": time.perf_counter() - t_step,
+            "run_s": time.monotonic() - t_start}
+    print(
+        f"lint: clean runs {', '.join(f'{w:.3f}' for w in a['walls_s'])} s "
+        f"(cwd {', '.join(LINT_CWDS)}), median {a['median_s']:.3f} s, gate "
+        f"{a['gate_s']:.3f} s (lint_wall_s_floor {a['lint_wall_s_floor']} x "
+        f"{a['allowed_regression']}), in-process run_all {a['inprocess_s']:.3f} s; "
+        f"{a['files']} files, {a['lines']} lines, {a['rules']} rules, "
+        f"{a['findings']} findings; {a['rule_expressions']} rule expressions "
+        f"read from deploy/prometheus-rules.yaml; seeded tree "
+        f"{json.dumps(a['seeded'], sort_keys=True)}; scenarios 1-7 under the "
+        f"monitor: {b['acquisitions']} acquisitions, {b['edges']} edges, "
+        f"{b['sites']} sites, cycles {b['cycles']}, {b['monitor_on_s']:.3f} s "
+        f"on vs {b['monitor_off_s']:.3f} s off (the first run, off: "
+        f"{b['monitor_off_first_s']:.3f} s); federated over 2 workers at "
+        f"{c['nodes']} nodes + this node ({c['placed']} pods placed): replicas "
+        f"{c['report']['replicas_reporting']}, {c['report']['acquisitions']} "
+        f"acquisitions, {c['report']['edges']} edges, cycles "
+        f"{c['report']['cycles']}; lockgraph-0 on {c['card_replica']} Llama-3-8B "
+        f"B=1 S=2048 {member['forward_ms_median']:.3f} ms; step "
+        f"{line['step_s']:.1f} s, run so far {line['run_s']:.1f} s "
+        f"[host CPU times; {host}; {card}]",
+        flush=True,
+    )
+    return line
+
+
 def mps_daemon_running() -> bool:
     """Whether an MPS control daemon runs on this machine: without one,
     CUDA_MPS_ACTIVE_THREAD_PERCENTAGE binds nothing."""
@@ -5637,6 +6011,12 @@ def main() -> int:
         return 1
     print("shard_proc: " + json.dumps(shard_proc, sort_keys=True), flush=True)
 
+    # -- the lint prover and the lock-order monitor, a card pod under it ----
+    lint = analysis_phase(card, t_start)
+    if lint is None:
+        return 1
+    print("lint: " + json.dumps(lint, sort_keys=True), flush=True)
+
     # -- dryrun_multichip(4) on gloo ranks, leg 2 on a port-minted gang env -
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -5678,8 +6058,9 @@ def main() -> int:
                 "evaluator, drain, the autoscaler, capacity analytics, "
                 "decision provenance, the shard router, its process "
                 "transport, the shard-worker daemons and the TKW1 wire "
-                "codec, and the incremental resync log are host Python "
-                "(numpy)",
+                "codec, the incremental resync log, the lint prover "
+                "(tpukube_torch.analysis) and the lock-order monitor "
+                "(analysis.lockgraph) are host Python (numpy)",
     }), flush=True)
     print(json.dumps({
         "ok": True,

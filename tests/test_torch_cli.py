@@ -416,6 +416,8 @@ ACCEPTED_FILES = {
     ),
     "empty": "# nothing but a comment\n\n",
     "chaos-seed": "chaos_seed: 7\n",
+    # refused until the lock-order monitor was ported
+    "lock-monitor": "lock_monitor: true\n",
     "sharded-resync": (
         "planner_replicas: 2\n"
         "shard_transport: inprocess\n"
@@ -454,7 +456,6 @@ REFUSED_FILES = {
     "unknown-key": "no_such_field: 1\n",
     "journal-path-without-journal": "journal_path: /var/lib/wal\n",
     "tenancy-quotas-without-tenancy": "tenancy_quotas: a=1\n",
-    "unported-plane-on": "lock_monitor: true\n",
     "bad-int": "extender_port: twelve\n",
     "bad-range": "extender_port: 70000\n",
     "short-tuple": "sim_mesh_dims: [8, 1]\n",
@@ -514,8 +515,6 @@ def test_config_file_forms_outside_the_subset_are_refused(tmp_path, name):
     assert isinstance(got, ValueError), got
     if name in _PARSE_REFUSALS:
         assert re.search(r"config\.yaml:\d+: ", str(got)), got
-    if name.startswith("unported"):
-        assert "not ported yet" in str(got)
     assert isinstance(want, Exception) is (name in REFERENCE_REFUSES_TOO), want
 
 

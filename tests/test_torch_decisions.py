@@ -60,16 +60,11 @@ from torch_twin import REF_SIM_DEFAULTS, TMP_PATH, reference_tests, run_twin
 
 use_private_tpuinfo()
 
-_LINT = ("the decision-provenance lint rule of the reference's analysis/ "
-         "package, which the port has not ported (ROADMAP.md Queue 1, "
-         "item 6)")
 DECISIONS_SKIPS = {
-    "test_provenance_lint_fixture_pair": _LINT,
-    "test_provenance_lint_clean_fixture": _LINT,
-    "test_provenance_lint_delegation_counts": _LINT,
-    "test_provenance_lint_out_of_scope_ignored": _LINT,
-    "test_provenance_lint_tree_clean": _LINT,
-    "test_lint_cli_lists_new_rule": _LINT,
+    "test_provenance_lint_tree_clean":
+        "lints the reference's package by its __path__, which the port's "
+        "stand-in module does not hand out; "
+        "test_provenance_lint_tree_clean_on_the_port lints the port's tree",
 }
 # the tests that scrape the reference's sim over HTTP (base_url)
 _SERVED = {"test_explain_route_and_cli_file_mode",
@@ -85,6 +80,15 @@ FIXTURES = {**TMP_PATH, "capsys": lambda g: _capsys()}
                          ids=lambda f: f.__name__)
 def test_reference_decisions_tests_hold_on_the_port(fn):
     run_twin(fn, FIXTURES, serve_ref=fn.__name__ in _SERVED)
+
+
+def test_provenance_lint_tree_clean_on_the_port():
+    # the port's refusal seams all record: zero findings, zero waivers
+    import tpukube_torch
+    from tpukube_torch.analysis.base import run_all
+
+    assert run_all([tpukube_torch.__path__[0]],
+                   rules=["decision-provenance"]) == []
 
 
 # -- sampling -----------------------------------------------------------------

@@ -147,9 +147,45 @@ def test_once_unported_scenario_15_runs(monkeypatch):
     assert got["autoscale"]["scale_ups"] == 1
 
 
-def test_passthrough_of_an_unported_plane_is_refused(monkeypatch):
-    # a refused plane's knob reaches load_config through the passthrough
-    # and is refused there, never ignored
+def test_passthrough_of_the_lock_monitor_reaches_the_scenario(monkeypatch):
+    # refused while the lock-order monitor was not ported: the knob
+    # reaches scenario 2's SimCluster through the passthrough, which
+    # installs the monitor; its lock graph is cycle-free
+    from tpukube_torch.analysis import lockgraph
+
+    installed = []
+    install = lockgraph.install
+
+    def recording(*args, **kw):
+        installed.append(install(*args, **kw))
+        return installed[-1]
+
+    monkeypatch.setattr(lockgraph, "install", recording)
     monkeypatch.setenv("TPUKUBE_LOCK_MONITOR", "1")
-    with pytest.raises(ValueError, match="is not ported yet"):
-        scenarios.run(2)
+    got = scenarios.run(2)
+    assert got["scenario"] == 2 and installed
+    rep = installed[0].report()
+    assert rep["cycles"] == [] and rep["acquisitions"] > 0
+    assert lockgraph.active() is None
+
+
+def test_kilonode_drive_carries_the_capacity_keys(monkeypatch):
+    # the capacity flight recorder on, a small scenario-12 slice on both
+    # packages: the same utilization over time and stranded rollup; the
+    # recorder's stats and its overhead share (wall-clock time, so a
+    # number on both sides and not compared)
+    for k, v in {"TPUKUBE_KILONODE10K_PODS": "2500",
+                 "TPUKUBE_CAPACITY_ENABLED": "1",
+                 "TPUKUBE_CAPACITY_SAMPLE_INTERVAL_SECONDS": "1"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("TPUKUBE_BATCH_ENABLED", raising=False)
+    want = ref_scenarios.run(12)
+    got = scenarios.run(12)
+    assert got["utilization_over_time"] == want["utilization_over_time"]
+    assert got["utilization_over_time"]
+    assert got["stranded"] == want["stranded"]
+    assert set(got["capacity"]) == set(want["capacity"])
+    for side in (got, want):
+        assert isinstance(side["capacity"]["overhead_pct"], float)
+    assert got["capacity"]["samples"] == want["capacity"]["samples"] > 0
+    assert got["capacity"]["enabled"] is True

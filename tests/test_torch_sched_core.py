@@ -5,7 +5,8 @@ The reference's own tests of ``tpukube/core/mesh.py`` and ``codec.py`` run
 twice, once per package (``torch_twin``, whose port run is held to reach
 only the port); the two node agents must annotate
 the same sim host with the same ``node-topology`` payload; the port's
-config refuses every plane it has not ported.
+config loads every plane the reference's does, the lock-order monitor
+last.
 """
 
 import contextlib
@@ -71,7 +72,8 @@ def _builds_a_reference_extender():
 
 
 def _imports_what_the_port_lacks():
-    from tpukube.analysis.lockgraph import LockOrderMonitor  # noqa: F401
+    # the port's discovery shim is native/gpuinfo.py: no tpuinfo module
+    from tpukube.native.tpuinfo import TpuInfoError  # noqa: F401
 
 
 def _uses_a_global_the_port_lacks():
@@ -82,7 +84,7 @@ def _uses_a_global_the_port_lacks():
 @pytest.mark.parametrize("fn,error,match", [
     (_builds_a_reference_extender, AssertionError, "built the reference's Extender"),
     (_imports_what_the_port_lacks, ImportError,
-     "no module tpukube_torch.analysis.lockgraph"),
+     "no module tpukube_torch.native.tpuinfo"),
     (_uses_a_global_the_port_lacks, AssertionError,
      "no tpukube_torch.sched.shard._free_port"),
 ])
@@ -174,15 +176,31 @@ def test_config_defaults_are_the_reference_s():
         load_config(env={"TPUKUBE_SCORE_MODE": "random"})
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("TPUKUBE_LOCK_MONITOR", "1", "item 6"),
+@pytest.mark.parametrize("key,value", [
+    ("TPUKUBE_LOCK_MONITOR", "1"),
 ])
-def test_every_opt_in_plane_is_refused(key, value, item):
-    with pytest.raises(ValueError, match="is not ported yet") as e:
-        load_config(env={key: value})
-    assert item in str(e.value)
-    # off, the same key is accepted
-    load_config(env={key: "0"})
+def test_once_refused_lock_monitor_loads_and_builds(key, value):
+    # refused until the lock-order monitor was ported: on, it loads as the
+    # reference's does, and a SimCluster built from it installs the
+    # monitor (the threading factories patched for its life, restored by
+    # its stop)
+    import threading
+
+    from tpukube_torch.analysis import lockgraph
+    from tpukube_torch.sim import SimCluster
+
+    cfg, ref = load_config(env={key: value}), ref_load_config(env={key: value})
+    assert cfg.lock_monitor is ref.lock_monitor is True
+    assert load_config(env={key: "0"}).lock_monitor is False
+    with SimCluster(cfg) as c:
+        assert c.lock_monitor is not None
+        assert lockgraph.active() is c.lock_monitor
+        assert threading.Lock is not lockgraph._REAL_LOCK
+        c.schedule(c.make_pod("p0", tpu=1))
+        rep = c.lock_monitor.report()
+    assert rep["cycles"] == [] and rep["acquisitions"] > 0
+    assert threading.Lock is lockgraph._REAL_LOCK
+    assert lockgraph.active() is None
 
 
 @pytest.mark.parametrize("key,value", [

@@ -2,7 +2,7 @@
 shard.py``) held against the reference's.
 
 Twins (``run_twin``, both packages, decision by decision): test_shard.py
-but the tests named in ``SHARD_SKIPS``, each with its reason."""
+(``SHARD_SKIPS`` is empty: its lock-monitor smoke runs too)."""
 
 import random
 
@@ -24,18 +24,14 @@ from torch_twin import (
 
 use_private_tpuinfo()
 
-SHARD_SKIPS = {
-    "test_scenario14_smoke":
-        "runs under TPUKUBE_LOCK_MONITOR=1 and asserts the merged "
-        "lockgraph: the lock-order monitor (ROADMAP.md Queue 1, item 6); "
-        "test_scenario14_smoke_without_the_monitor stands in for it",
-}
+SHARD_SKIPS: dict = {}
+FIXTURES = {**TMP_PATH, "monkeypatch": lambda g: pytest.MonkeyPatch.context()}
 
 
 @pytest.mark.parametrize("fn,params",
                          reference_cases(test_shard, SHARD_SKIPS))
 def test_reference_shard_tests_hold_on_the_port(fn, params):
-    run_twin(fn, {**TMP_PATH, **value_fixtures(params)})
+    run_twin(fn, {**FIXTURES, **value_fixtures(params)})
 
 
 def test_n1_federated_exposition_is_sole_extender_verbatim():

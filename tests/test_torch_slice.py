@@ -286,6 +286,26 @@ def test_scenarios_in_process_load_no_control_plane_dependency():
         [1, 3, 5, 7, 8, 9, 11, 13, 15, 300], []]
 
 
+def test_lint_prover_imports_no_control_plane_dependency():
+    # the card machine has no yaml, aiohttp, grpc or protobuf: the lint
+    # prover, its rules-file reader and the lock-order monitor import
+    # none of them, nor anything of the JAX package
+    blocked = ("yaml", "aiohttp", "grpc", "google.protobuf", "jax", "tpukube")
+    code = (
+        "import json, sys\n"
+        "import tpukube_torch.analysis, tpukube_torch.analysis.cli\n"
+        "import tpukube_torch.analysis.lockgraph, "
+        "tpukube_torch.analysis.rulesyaml\n"
+        "from tpukube_torch.analysis import base\n"
+        "base._passes()\n"
+        f"print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{blocked!r} or m.startswith('google.protobuf'))))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                          capture_output=True, text=True, timeout=120)
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 def test_shard_worker_serves_without_the_control_plane_dependencies(tmp_path):
     # the card machine has no yaml, aiohttp, grpc or protobuf: the process
     # plane's modules import none of them, and a shard-worker whose

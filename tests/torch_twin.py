@@ -294,9 +294,11 @@ def _port_run():
 
 
 def _rebind(fn: Callable, port: bool, log: list,
-            serve_ref: bool = False) -> Callable:
+            serve_ref: bool = False,
+            overrides: Optional[dict] = None) -> Callable:
     """``fn`` with its module's globals remapped (helper functions and
-    classes of the same module rebuilt over the same remapped globals)."""
+    classes of the same module rebuilt over the same remapped globals);
+    ``overrides`` replaces globals by name after the remapping."""
     g = dict(fn.__globals__)
     base = (_PortRecorder if port
             else _RefServingRecorder if serve_ref else _RefRecorder)
@@ -313,6 +315,7 @@ def _rebind(fn: Callable, port: bool, log: list,
                 g[name] = _port_value(name, val)
             except PortLacks as e:
                 g[name] = _Lacking(str(e))
+    g.update(overrides or {})
     for name, val in list(g.items()):
         if (isinstance(val, types.FunctionType)
                 and val.__module__ == fn.__module__):
@@ -381,6 +384,20 @@ def run_twin(fn: Callable, fixtures: Optional[dict] = None,
     else:
         assert _placed(port_log) == _placed(ref_log)
     return ref_log
+
+
+def run_port(fn: Callable, fixtures: Optional[dict] = None,
+             port_globals: Optional[dict] = None) -> list:
+    """Run reference test ``fn`` against the port alone, its globals
+    remapped as for ``run_twin`` and then ``port_globals`` over them (a
+    path the test names, given as the port's). For tests whose
+    reference run their own module already makes and whose outcome is
+    the port's verdict, not a decision log to compare (the lint
+    prover's). Returns the port's decision log."""
+    log: list = []
+    with _port_run():
+        _call(_rebind(fn, True, log, overrides=port_globals), fixtures or {})
+    return log
 
 
 def reference_tests(module, skip: dict[str, str]) -> list:

@@ -11,7 +11,9 @@ trained dp×tp over a ``DeviceMesh``, the ResNet trained data-parallel, and
 two serving pods sharing one GPU under their quotas; the scheduler
 extender that places pods and gangs before they are allocated, with its
 whole HTTP surface, the Kubernetes REST channel and its loops, and the
-batch cycle (``sched``, ``sim``, ``apiserver``: host code, no torch); and
-the daemons and tools as users start them (``python -m tpukube_torch.cli
-plugin|syncer|extender|sim|ctl|obs``).
+batch cycle (``sched``, ``sim``, ``apiserver``: host code, no torch); the
+daemons and tools as users start them (``python -m tpukube_torch.cli
+plugin|syncer|extender|sim|ctl|obs``); and the lint prover over the
+port's own tree with the lock-order monitor (``analysis``, ``python -m
+tpukube_torch.analysis``). Every module of ``tpukube`` has its port.
 """

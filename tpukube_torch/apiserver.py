@@ -1171,11 +1171,12 @@ class _WatchLoop(_PollLoop):
                 sock = getattr(sock, "_sock", None)
                 if sock is not None:
                     sock.shutdown(socket.SHUT_RDWR)
-            # best-effort: the handle may already be half-closed by the peer
+            # tpukube: allow(exception-hygiene) best-effort unblock of the watch thread at stop(); the handle may already be half-closed by the peer
             except Exception:
                 pass
             try:
                 r.close()
+            # tpukube: allow(exception-hygiene) second best-effort close on the same dying handle; nothing to surface at shutdown
             except Exception:
                 pass
         super().stop()
@@ -2169,6 +2170,7 @@ class EvictionExecutor(_PollLoop):
                 try:
                     namespace, name = pod_key.split("/", 1)
                     ok = self._api.evict_pod(namespace, name)
+                # tpukube: allow(exception-hygiene) the error is carried to the requeue branch below, which logs it and bumps the failures counter
                 except Exception as e:
                     err = e
                 with self._state_lock:

@@ -606,11 +606,32 @@ def main_sim(argv: Optional[list[str]] = None) -> int:
 
     from tpukube_torch.sim import scenarios
 
-    # without --config each scenario uses its canonical BASELINE
-    # topology; with it, the user's topology/config drives it
-    result = scenarios.run(args.scenario, cfg if args.config else None)
+    # dynamic lock-order detection (tpukube_torch.analysis.lockgraph):
+    # the config flag wraps every Lock/RLock the port creates for the
+    # whole scenario run, whatever topology the scenario itself loads,
+    # and the result JSON gains the acquisition-order graph + any
+    # deadlock cycles. Off by default — zero overhead unless asked for.
+    monitor = None
+    if cfg.lock_monitor:
+        from tpukube_torch.analysis import lockgraph
+
+        monitor = lockgraph.install()
+    try:
+        # without --config each scenario uses its canonical BASELINE
+        # topology; with it, the user's topology/config drives it
+        result = scenarios.run(args.scenario, cfg if args.config else None)
+    finally:
+        if monitor is not None:
+            from tpukube_torch.analysis import lockgraph
+
+            lockgraph.uninstall()
+    if monitor is not None:
+        result["lock_graph"] = monitor.report()
+        if result["lock_graph"]["cycles"]:
+            log.error("lock-order cycles detected: %s",
+                      result["lock_graph"]["cycles"])
     print(json.dumps(result))
-    return 0
+    return 1 if monitor is not None and monitor.cycles() else 0
 
 
 # -- obs ----------------------------------------------------------------------

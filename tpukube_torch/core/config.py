@@ -18,10 +18,6 @@ several documents, a null) raises ValueError naming the line.
 
 :func:`write_yaml` writes a mapping in that subset (the per-replica
 config the shard router hands each worker daemon it spawns).
-
-The reference's opt-in plane that is not ported yet, the lock-order
-monitor: a config that turns it on is refused by :func:`load_config`
-rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -280,8 +276,13 @@ class GpuKubeConfig:
     # binary payloads of at least this many encoded bytes are compressed
     # (kept raw when compression does not shrink them)
     wire_compress_min_bytes: int = 1024
-    # The reference's lock-order monitor, not ported yet: load_config
-    # refuses a config that turns it on.
+    # dynamic lock-order detector (tpukube_torch.analysis.lockgraph):
+    # when true, threading.Lock/RLock created by the port's code are
+    # wrapped to record acquisition-order edges; `cli sim` attaches the
+    # resulting lock graph (edges + deadlock cycles) to its result JSON,
+    # SimCluster and each shard-worker daemon install it for their
+    # lives. Off by default: nothing is patched and lock creation is
+    # untouched.
     lock_monitor: bool = False
 
     def sim_mesh(self) -> MeshSpec:
@@ -300,15 +301,9 @@ class GpuKubeConfig:
 
 _TUPLE_FIELDS = {"sim_mesh_dims", "sim_host_block", "sim_torus"}
 
-# opt-in field -> the plane it would turn on (refused until ported)
-_NOT_PORTED = {
-    "lock_monitor": "the lock-order monitor (Queue 1, item 6)",
-}
 
-
-# keys of the reference's config whose planes the port has not ported: a
-# config file that sets one is refused, naming the plane (ROADMAP.md
-# Queue 1 item of each)
+# keys of the reference's config the port has no plane for (the TPU
+# backend's): a config file that sets one is refused, naming the plane
 _UNPORTED_KEYS = {
     "libtpu_path": "the TPU backend (the port's real backend is NVML: "
                    "nvml_path)",
@@ -788,9 +783,6 @@ def load_config(yaml_path: Optional[str] = None,
         )
     if cfg.autoscale_cooldown_seconds < 0:
         raise ValueError("autoscale_cooldown_seconds must be >= 0")
-    for name, plane in _NOT_PORTED.items():
-        if getattr(cfg, name):
-            raise ValueError(f"{name}: {plane} is not ported yet")
     if cfg.planner_replicas < 1:
         raise ValueError("planner_replicas must be >= 1")
     if cfg.shard_transport not in ("inprocess", "subprocess"):

@@ -222,7 +222,8 @@ class GpuInfo:
         # it on GC (explicit close() remains the contract)
         try:
             self.close()
-        except Exception:  # interpreter shutdown: nothing left to report to
+        # tpukube: allow(exception-hygiene) GC-time best effort: logging machinery may already be finalized at interpreter shutdown
+        except Exception:
             pass
 
     def mesh(self) -> MeshSpec:

@@ -25,6 +25,44 @@ from typing import Any, Iterable, Optional
 NORMAL = "Normal"
 WARNING = "Warning"
 
+#: The declared reason enum. Every emit() call in the tree must use one
+#: of these (enforced source-level by the lint prover's name-consistency
+#: pass; consumers — /events filters, ``obs events``, the
+#: tpukube_events_total{reason} counter — key off these strings).
+REASONS: tuple[str, ...] = (
+    "AllocDiverged",
+    "AutoscaleDown",
+    "AutoscaleUp",
+    "BindFailed",
+    "CheckpointWritten",
+    "ChipRecovered",
+    "ChipUnhealthy",
+    "CircuitClosed",
+    "CircuitOpen",
+    "DegradedMode",
+    "DrainCancelled",
+    "DrainCompleted",
+    "DrainStarted",
+    "GangCommitted",
+    "GangDissolved",
+    "GangReserved",
+    "GangRollback",
+    "JournalTruncated",
+    "KubeletReregistered",
+    "LinkFault",
+    "LinkRecovered",
+    "PreemptionExecuted",
+    "PreemptionPlanned",
+    "RecoveryCompleted",
+    "RecoveryDiverged",
+    "RetryExhausted",
+    "TenantAdmissionShed",
+    "TenantQuotaDenied",
+    "VictimEvicted",
+    "VictimGone",
+    "WatchReconnected",
+)
+
 
 class EventJournal:
     """Bounded, deduplicating ring of typed events + optional JSONL sink.

@@ -11,8 +11,9 @@ like a scrape of the reference:
   * metrics render in registration order, labeled children in creation
     order.
 
-The reference's ``DECLARED_SERIES`` (its lint pass's name list) is not
-ported: the port has no lint pass.
+``DECLARED_SERIES`` is the name list the lint prover's name-consistency
+pass (``tpukube_torch/analysis/consistency.py``) holds every series
+constructor and ``deploy/prometheus-rules.yaml`` expression to.
 """
 
 from __future__ import annotations
@@ -26,6 +27,196 @@ from typing import Callable, Iterable, Optional, Sequence
 DEFAULT_BUCKETS: tuple[float, ...] = (
     0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
+
+#: The declared series registry: every metric family any daemon's
+#: builders may construct. The lint prover's name-consistency pass
+#: (``tpukube_torch.analysis``) checks source-level constructor calls (reg.counter/gauge/summary/histogram,
+#: Histogram(...)) AND every metric name deploy/prometheus-rules.yaml
+#: expressions reference against this set — a renamed or typo'd series
+#: fails lint before any dashboard or alert silently goes blind.
+#: Summary/histogram families imply their _bucket/_count/_sum children.
+DECLARED_SERIES: frozenset[str] = frozenset({
+    # extender (tpukube_torch.metrics.build_extender_registry)
+    "tpu_chip_utilization_percent",
+    "gang_schedule_latency_seconds",
+    "tpukube_ici_links_down",
+    "tpukube_binds_total",
+    "tpukube_gang_rollbacks_total",
+    "tpukube_preemptions_total",
+    "tpukube_webhook_latency_seconds",
+    "tpukube_gang_victims_terminating",
+    "tpukube_evictions_pending",
+    "tpukube_evictions_total",
+    "tpukube_evictions_blocked_total",
+    "tpukube_eviction_failures_total",
+    "tpukube_eviction_oldest_age_seconds",
+    "tpukube_reconciles_total",
+    "tpukube_node_refreshes_total",
+    "tpukube_lifecycle_releases_total",
+    # both daemons (event journal)
+    "tpukube_events_total",
+    # extender: epoch-cached scheduling snapshot (sched/snapshot.py) —
+    # cache effectiveness + the per-slice free-space health it serves
+    "tpukube_snapshot_rebuilds_total",
+    "tpukube_snapshot_hits_total",
+    "tpukube_snapshot_rebuild_seconds",
+    # snapshot audit sentinel (snapshot_audit_rate > 0): sampled
+    # cache-hit rebuild-and-compare checks and the divergences they
+    # caught (any nonzero divergence count is a missed epoch bump)
+    "tpukube_snapshot_audit_checks_total",
+    "tpukube_snapshot_audit_divergence_total",
+    # incremental snapshot maintenance (; series render only
+    # while snapshot_delta_enabled — legacy exposition stays
+    # byte-identical with the feature off): O(Δ) delta advances vs the
+    # full rebuilds the log could not cover, and the apply latency
+    "tpukube_snapshot_delta_applies_total",
+    "tpukube_snapshot_delta_overflows_total",
+    "tpukube_snapshot_delta_apply_seconds",
+    # extender: durable-state journal + crash recovery (sched/
+    # journal.py; series render only while journal_enabled built a
+    # StateJournal — legacy exposition stays byte-identical with the
+    # journal off)
+    # extender: bulk cold-start ingestion + generation-based
+    # incremental resync (; ingest series render only while
+    # bulk_ingest_enabled, resync series only when the extender runs a
+    # generation log AND a lifecycle loop is wired — the
+    # feature-off exposition stays byte-identical)
+    "tpukube_ingest_nodes_total",
+    "tpukube_ingest_seconds",
+    "tpukube_resync_full_total",
+    "tpukube_resync_incremental_total",
+    "tpukube_resync_bytes_total",
+    "tpukube_journal_appends_total",
+    "tpukube_journal_bytes_total",
+    "tpukube_checkpoint_seconds",
+    "tpukube_recovery_seconds",
+    "tpukube_recovery_replayed_deltas_total",
+    "tpukube_slice_fragmentation",
+    "tpukube_slice_largest_free_box_chips",
+    # extender: batched scheduling cycles (sched/cycle.py; series
+    # render only when batch_enabled is on — legacy exposition stays
+    # byte-identical with batching off)
+    "tpukube_cycles_total",
+    "tpukube_cycle_pods_planned_total",
+    "tpukube_cycle_plan_hits_total",
+    "tpukube_cycle_plan_misses_total",
+    "tpukube_cycle_assumes_total",
+    "tpukube_cycle_batch_size",
+    "tpukube_cycle_wall_seconds",
+    "tpukube_cycle_queue_depth",
+    # queue-age histogram: the starvation signal as _bucket
+    # series so it can be alerted on (renders only with batching on)
+    "tpukube_cycle_queue_age_seconds",
+    # extender: decision provenance + cycle phase profiling
+    # (tpukube_torch/obs/decisions.py; series render only when
+    # decisions_enabled built a DecisionLog — legacy exposition stays
+    # byte-identical with provenance off)
+    "tpukube_decisions_total",
+    "tpukube_decisions_record_seconds_total",
+    "tpukube_cycle_phase_seconds",
+    # extender: multi-tenant serving plane (tpukube_torch/tenancy; series
+    # render only when tenancy_enabled built a TenantPlane — legacy
+    # exposition stays byte-identical with tenancy off)
+    "tpukube_tenant_chips_used",
+    "tpukube_tenant_hbm_used_bytes",
+    "tpukube_tenant_dominant_share",
+    "tpukube_tenant_quota_chips",
+    "tpukube_tenant_quota_hbm_fraction",
+    "tpukube_tenant_sheds_total",
+    "tpukube_tenant_quota_denials_total",
+    "tpukube_tenancy_burn_rate",
+    "tpukube_tenancy_shedding",
+    # tenancy v2: per-tenant admission/commit latency
+    # histograms and the per-tenant windowed SLO burn the shedding
+    # decision cites (all render whenever tenancy is on)
+    "tpukube_tenant_admission_seconds",
+    "tpukube_tenant_commit_seconds",
+    "tpukube_tenant_slo_burn",
+    # sharded control plane (sched/shard.py; series render
+    # only from tpukube_torch.metrics.render_router_metrics on a
+    # planner_replicas > 1 plane — single-planner exposition is
+    # untouched): router topology, routing volume, the two-phase
+    # rendezvous ledger, and one summary row per replica
+    "tpukube_router_replicas",
+    "tpukube_router_rendezvous_total",
+    "tpukube_replica_up",
+    "tpukube_replica_nodes",
+    "tpukube_replica_slices",
+    "tpukube_replica_allocs",
+    "tpukube_replica_pods_routed_total",
+    "tpukube_replica_binds_total",
+    "tpukube_replica_utilization",
+    "tpukube_replica_queue_depth",
+    # process-mode transport telemetry: per-replica wire
+    # RTT + router health-check counters, rendered ONLY when the
+    # router runs the subprocess transport
+    "tpukube_replica_rtt_seconds",
+    "tpukube_replica_health_checks_total",
+    "tpukube_replica_health_check_failures_total",
+    # federated observability plane: cumulative wire bytes
+    # per {op, dir, replica} over the subprocess transport — the
+    # measured baseline the ROADMAP codec item is judged against
+    "tpukube_router_wire_bytes_total",
+    # compact binary wire codec (sched/wirecodec.py): bytes
+    # the TKW1 codec kept off the transport, per {op, replica} —
+    # rendered ONLY when a binary-codec transport exists, so the
+    # default (wire_codec: json) exposition stays byte-identical
+    "tpukube_router_wire_saved_bytes_total",
+    # capacity analytics & demand forensics (tpukube_torch/obs/capacity.py,
+    #; series render only when capacity_enabled built a
+    # CapacityRecorder — legacy exposition stays byte-identical with
+    # the recorder off)
+    "tpukube_capacity_samples_total",
+    "tpukube_capacity_sample_seconds_total",
+    "tpukube_capacity_fleet_chips",
+    "tpukube_capacity_stranded_chips",
+    "tpukube_capacity_stranded_demands",
+    "tpukube_capacity_recoverable_chips",
+    "tpukube_unschedulable_pods",
+    # fleet elasticity (sched/drain.py + sched/autoscale.py;
+    # rendered only when drain_enabled / autoscale_enabled built them)
+    "tpukube_drain_started_total",
+    "tpukube_drain_completed_total",
+    "tpukube_drain_evictions_total",
+    "tpukube_drain_nodes_removed_total",
+    "tpukube_drain_chips_removed_total",
+    "tpukube_drain_slices_dropped_total",
+    "tpukube_drain_peak_tick_moves",
+    "tpukube_drain_active",
+    "tpukube_autoscaler_scale_ups_total",
+    "tpukube_autoscaler_scale_downs_total",
+    "tpukube_autoscaler_nodes_added_total",
+    "tpukube_autoscaler_ticks_total",
+    # both daemons (unified retry/circuit layer, core/retry.py; series
+    # render only where a Retrier/CircuitBreaker is actually wired)
+    "tpukube_retry_attempts_total",
+    "tpukube_retry_retries_total",
+    "tpukube_retry_exhausted_total",
+    "tpukube_circuit_state",
+    "tpukube_circuit_opens_total",
+    "tpukube_degraded_mode",
+    # node agent (tpukube_torch.metrics.build_plugin_registry)
+    "tpukube_plugin_allocations_total",
+    "tpukube_plugin_devices",
+    "tpukube_plugin_resource_info",
+    "tpukube_plugin_inventory_source",
+    "tpukube_plugin_intent_depth",
+    "tpukube_plugin_divergences_total",
+    "tpukube_plugin_health_transitions_total",
+    "tpukube_plugin_reregistrations_total",
+    "tpukube_plugin_intent_watch_events_total",
+    "tpukube_chip_healthy",
+    "tpukube_chip_duty_cycle_percent",
+    "tpukube_chip_hbm_used_bytes",
+    "tpukube_chip_hbm_total_bytes",
+    "tpukube_chip_ici_link_errors_total",
+    "tpukube_chip_health_transitions_total",
+    "tpukube_node_chips",
+    "tpukube_telemetry_samples_total",
+    # annotation syncer sidecar
+    "tpukube_syncer_syncs_total",
+})
+
 
 def quantile(values: Iterable[float], q: float) -> float:
     """Nearest-rank quantile; 0.0 on empty input."""

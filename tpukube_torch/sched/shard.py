@@ -274,8 +274,18 @@ def replica_summary(extender: Extender) -> dict[str, Any]:
         "latencies": {h: list(w)
                       for h, w in extender.latencies.items()},
     }
-    # the reference's lock-order monitor adds a "lock_graph" key here
-    # when it is on; it is not ported (load_config refuses it)
+    # federated lockgraph: with the dynamic lock-order detector
+    # installed in THIS process (lock_monitor on), the replica's
+    # observed edge set rides its summary row — the same surface the
+    # subprocess transport serves over /worker/summary, so
+    # worker-process edges reach the router's fleet-wide cycle merge
+    # with no new wire protocol. Key absent when the monitor is off
+    # (off-is-off: summaries unchanged).
+    from tpukube_torch.analysis import lockgraph
+
+    mon = lockgraph.active()
+    if mon is not None:
+        out["lock_graph"] = mon.report()
     return out
 
 
@@ -4039,10 +4049,60 @@ class ShardRouter:
         return restored
 
     def lockgraph_report(self) -> Optional[dict]:
-        """The fleet-wide dynamic lock-order report. None: the
-        lock-order monitor (ROADMAP Queue 1, item 6) is not ported, and
-        load_config refuses ``lock_monitor``."""
-        return None
+        """The fleet-wide dynamic lock-order report: this process's
+        monitor merged with every subprocess replica's edge set (which
+        rides ``replica_summary``'s ``lock_graph`` key over the worker
+        status surface — no extra wire protocol). None when no monitor
+        is installed here (``lock_monitor`` off).
+
+        In-process replicas share THIS process's ref-counted monitor,
+        so their summaries report the same graph the router already
+        holds — merging them would only double the counts; they are
+        counted as reporting and skipped. Cycle detection runs on the
+        merged edge multiset: a worker-process inversion (held->acquired
+        the other way around on the far side of the HTTP boundary)
+        closes a cycle here exactly as a local one would."""
+        from tpukube_torch.analysis import lockgraph
+
+        mon = lockgraph.active()
+        if mon is None:
+            return None
+        own = mon.report()
+        sites = dict(own["sites"])
+        acquisitions = own["acquisitions"]
+        merged: dict[tuple[str, str], int] = {
+            (e["from"], e["to"]): e["count"] for e in own["edges"]
+        }
+        reporting = []
+        for rep in self.replicas:
+            doc = None
+            if not rep.killed:
+                try:
+                    doc = rep.transport.summary()
+                except ReplicaUnavailable:
+                    doc = None
+            lg = (doc or {}).get("lock_graph")
+            if lg is None:
+                continue
+            reporting.append(rep.name)
+            if rep.transport.mode == "inprocess":
+                continue  # same process, same monitor: already merged
+            acquisitions += lg["acquisitions"]
+            for site, n in lg["sites"].items():
+                sites[site] = sites.get(site, 0) + n
+            for e in lg["edges"]:
+                key = (e["from"], e["to"])
+                merged[key] = merged.get(key, 0) + e["count"]
+        return {
+            "sites": dict(sorted(sites.items())),
+            "acquisitions": acquisitions,
+            "edges": [
+                {"from": a, "to": b, "count": n}
+                for (a, b), n in sorted(merged.items())
+            ],
+            "cycles": lockgraph.LockOrderMonitor._cycles_of(merged),
+            "replicas_reporting": reporting,
+        }
 
     def shutdown(self) -> None:
         """Close every replica (sinks in-process, graceful daemon stop

@@ -556,6 +556,17 @@ def main_worker(argv: Optional[list[str]] = None) -> int:
         p.error("a shard worker is ONE planner replica: the config must say "
                 "planner_replicas: 1 (the router writes per-replica configs)")
     clock = FakeClock() if args.fake_clock else SYSTEM
+    # federated lockgraph: install the dynamic lock-order detector
+    # BEFORE the Extender is built so every scheduling lock this replica
+    # creates is wrapped; the observed edge set then rides
+    # replica_summary's lock_graph key over /worker/summary and the
+    # router merges a fleet-wide cycle report
+    monitor_installed = False
+    if cfg.lock_monitor:
+        from tpukube_torch.analysis import lockgraph
+
+        lockgraph.install()
+        monitor_installed = True
     extender = Extender(cfg, clock=clock)
     server = None
     try:
@@ -582,5 +593,9 @@ def main_worker(argv: Optional[list[str]] = None) -> int:
         if extender.journal is not None:
             extender.journal.close()
             extender.state.retire()
+        if monitor_installed:
+            from tpukube_torch.analysis import lockgraph
+
+            lockgraph.uninstall()
         sys.stdout.flush()
     return 0

@@ -725,10 +725,9 @@ class ClusterState:
             # re-apply the restored occupancy exactly as the eager
             # restore would; materialization changes NOTHING observable
             # (the same content was reachable through the lazy doc), so
-            # no epoch moves — the seeded snapshot stays valid (a cache
-            # promotion, not a mutation)
-            view.add_ids(alloc.device_ids)
-        self._nodes[name] = view
+            # no epoch moves — the seeded snapshot stays valid
+            view.add_ids(alloc.device_ids)  # tpukube: allow(epoch-discipline) materialization promotes equivalent state; nothing observable changes, so the snapshot must NOT invalidate
+        self._nodes[name] = view  # tpukube: allow(epoch-discipline) see above — cache promotion, not a mutation
         self._drop_lazy_fd_locked()
         return view
 
@@ -780,11 +779,10 @@ class ClusterState:
                         health_summary=summary)
         for alloc in self._lazy_allocs.pop(name, ()):
             # checkpoint-restored occupancy re-applies exactly as the
-            # eager restore would
-            view.add_ids(alloc.device_ids)
-        # cache promotion, not a mutation: nothing observable changes,
-        # so no epoch moves
-        self._nodes[name] = view
+            # eager restore would; materialization changes NOTHING
+            # observable, so no epoch moves (see _view_locked)
+            view.add_ids(alloc.device_ids)  # tpukube: allow(epoch-discipline) materialization promotes equivalent state; nothing observable changes, so the snapshot must NOT invalidate
+        self._nodes[name] = view  # tpukube: allow(epoch-discipline) see above — cache promotion, not a mutation
         return view
 
     def _materialize_slice_locked(self, slice_id: Optional[str]) -> None:

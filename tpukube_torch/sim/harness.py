@@ -221,6 +221,27 @@ class SimCluster:
         self.clock = clock if clock is not None else SYSTEM
         if slices is not None and mesh is not None:
             raise ValueError("pass either mesh or slices, not both")
+        # the dynamic lock-order detector must be live BEFORE the
+        # extender (and its gang/ledger locks) is constructed below;
+        # install is ref-counted, so a cluster inside an outer
+        # lockgraph.monitor() shares that monitor. A constructor that
+        # fails later must unwind the install (stop() never runs for a
+        # half-built cluster) — a leaked patch would silently wrap every
+        # lock of the port for the rest of the process.
+        self.lock_monitor = None
+        self._lock_monitor_installed = False
+        if self.config.lock_monitor:
+            from tpukube_torch.analysis import lockgraph
+
+            self.lock_monitor = lockgraph.install()
+            self._lock_monitor_installed = True
+        try:
+            self._init_cluster(mesh, vtpu_nodes, slices, vtpu_shares)
+        except BaseException:
+            self._uninstall_lock_monitor()
+            raise
+
+    def _init_cluster(self, mesh, vtpu_nodes, slices, vtpu_shares) -> None:
         self._prefixed = slices is not None
         if slices is None:
             slices = {self.config.slice_id: mesh or self.config.sim_mesh()}
@@ -283,6 +304,15 @@ class SimCluster:
         # names-only body (see _extender_node_args)
         self._synced_objs: list[dict[str, Any]] = []
         self._synced_names: list[str] = []
+
+    def _uninstall_lock_monitor(self) -> None:
+        """Undo this cluster's install of the lock-order monitor (once):
+        the process-wide threading patch must not outlive the cluster."""
+        if self._lock_monitor_installed:
+            from tpukube_torch.analysis import lockgraph
+
+            lockgraph.uninstall()
+            self._lock_monitor_installed = False
 
     def _make_store_api(self):
         """The apiserver surface the effectors run against; the chaos
@@ -355,7 +385,13 @@ class SimCluster:
                 "separate extender daemons"
             )
         if self._http is None:
-            self._serve()
+            try:
+                self._serve()
+            except BaseException:
+                # __enter__ raising means __exit__/stop() never runs:
+                # the threading patch must not outlive the failed start
+                self._uninstall_lock_monitor()
+                raise
 
     def _serve(self) -> None:
         self._http = serve(self.extender, "127.0.0.1",
@@ -372,21 +408,27 @@ class SimCluster:
 
     def stop(self) -> None:
         """Stop serving, then close the trace and event sinks and the
-        journal (their drain threads)."""
-        self._stop_serving()
-        shutdown = getattr(self.extender, "shutdown", None)
-        if shutdown is not None:
-            shutdown()  # ShardRouter: closes every replica's sinks
-        else:
-            if self.extender.trace is not None:
-                self.extender.trace.close()
-            if self.extender.capacity is not None:
-                self.extender.capacity.close()
-            self.extender.events.close()
-            if self.extender.journal is not None:
-                self.extender.journal.close()
-                self.extender.state.retire()
-        self._serving_port = None
+        journal (their drain threads), and unwind the lock-order monitor
+        this cluster installed."""
+        try:
+            self._stop_serving()
+            shutdown = getattr(self.extender, "shutdown", None)
+            if shutdown is not None:
+                shutdown()  # ShardRouter: closes every replica's sinks
+            else:
+                if self.extender.trace is not None:
+                    self.extender.trace.close()
+                if self.extender.capacity is not None:
+                    self.extender.capacity.close()
+                self.extender.events.close()
+                if self.extender.journal is not None:
+                    self.extender.journal.close()
+                    self.extender.state.retire()
+            self._serving_port = None
+        finally:
+            # the process-wide threading patch must unwind even when a
+            # sink close raises (full disk)
+            self._uninstall_lock_monitor()
 
     def __enter__(self) -> "SimCluster":
         self.start()

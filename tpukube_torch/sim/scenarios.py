@@ -40,9 +40,7 @@ from tpukube_torch.sim.harness import SimCluster
 
 #: knobs that pass through from the process environment into every
 #: scenario's canonical config (which would otherwise shadow them). The
-#: reference's whole list: a key of a plane the port has not ported is
-#: refused by load_config, as ever, and a key the port has no field for
-#: is not read
+#: reference's whole list: a key the port has no field for is not read
 _PASSTHROUGH_KEYS = (
     "TPUKUBE_CHAOS_SEED",
     "TPUKUBE_SNAPSHOT_AUDIT_RATE",
@@ -435,8 +433,9 @@ def kilonode_sharded(config: GpuKubeConfig | None) -> dict[str, Any]:
     uncommitted, ledger/store divergence, leaked reservations, a dead
     replica, or a pod shortfall. ``TPUKUBE_KILONODE100K_PODS`` scales
     the trace (default 40000; a smoke runs a much smaller fleet via the
-    env knobs). The reference's ``lock_graph`` result key is left out:
-    the lock-order monitor is not ported (load_config refuses it)."""
+    env knobs). With ``lock_monitor`` on, ``shard.lock_graph`` carries
+    the router's fleet-wide lock-order report (cycles, acquisitions,
+    edge count, the replicas that reported)."""
     import os
 
     from tpukube_torch.core.mesh import MeshSpec
@@ -501,11 +500,14 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
 
     With decision provenance on the result carries ``decisions``: the
     ring's stats and ``overhead_pct``, the record wall as a share of the
-    drive wall. On the sharded plane it carries ``shard`` (replica rows,
-    slice assignment, rendezvous ledger, transport section) and
-    ``wire`` (all zeros over the in-process transport); the reference's
-    ``lock_graph`` and ``capacity`` keys are left out (the lock-order
-    monitor is not ported; the capacity rollup is not carried here)."""
+    drive wall. With the capacity recorder on it carries
+    ``utilization_over_time`` (each sample's fleet utilization),
+    ``stranded`` (the stranded-demand rollup) and ``capacity`` (the
+    recorder's stats and ``overhead_pct``, its sample wall as a share of
+    the drive wall). On the sharded plane it carries ``shard`` (replica
+    rows, slice assignment, rendezvous ledger, transport section, and
+    ``lock_graph`` with the lock-order monitor on) and ``wire`` (all
+    zeros over the in-process transport)."""
     from collections import deque as _deque
 
     from tpukube_torch.chaos import leaked_reservations, ledger_divergence
@@ -633,6 +635,20 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
                 # replicas' RTTs and health-check counters
                 "transport": doc["transport"],
             }
+            # federated lockgraph: with lock_monitor on, the router
+            # merges its own observed lock-order edges with each
+            # subprocess replica's (reported over the worker status
+            # surface) and the fleet-wide cycle check rides the result
+            lg_fn = getattr(ext, "lockgraph_report", None)
+            if lg_fn is not None:
+                lg = lg_fn()
+                if lg is not None:
+                    result["shard"]["lock_graph"] = {
+                        "cycles": lg["cycles"],
+                        "acquisitions": lg["acquisitions"],
+                        "edge_count": len(lg["edges"]),
+                        "replicas_reporting": lg["replicas_reporting"],
+                    }
         wire_fn = getattr(ext, "wire_totals", None)
         if wire_fn is not None:
             # federated wire-cost accounting: the transport byte bill
@@ -667,6 +683,30 @@ def _kilonode_drive(cfg: GpuKubeConfig, metric: str, total_target: int,
                 **ds,
                 "overhead_pct": (round(100.0 * ds["record_seconds"]
                                        / wall, 3) if wall else None),
+            }
+        # capacity flight recorder: utilization-over-time + the stranded
+        # forensics rollup ride the result, plus the measured recorder
+        # overhead (its sample wall as a share of the drive wall)
+        cap = getattr(ext, "capacity", None)  # raw extender
+        if cap is not None:
+            cap_doc = cap.capacity_doc()
+        else:  # router surface (federated; None when capacity is off)
+            cap_fn = getattr(ext, "capacity_doc", None)
+            cap_doc = cap_fn() if cap_fn is not None else None
+        if cap_doc is not None:
+            result["utilization_over_time"] = [
+                (s.get("fleet") or {}).get("utilization")
+                for s in cap_doc["samples"]
+            ]
+            result["stranded"] = cap_doc["stranded"]
+            cstats = cap_doc.get("stats") or {}
+            secs = cstats.get("sample_seconds")
+            result["capacity"] = {
+                **cstats,
+                "overhead_pct": (
+                    round(100.0 * secs / wall, 3)
+                    if wall and isinstance(secs, (int, float))
+                    else None),
             }
         if delta_stats:
             # the snapshot-maintenance numbers: the O(Δ) delta-advance

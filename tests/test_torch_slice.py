@@ -364,17 +364,3 @@ def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
 
-
-def test_breakdown_sorts_kernels_by_kind_and_needs_the_card(monkeypatch):
-    # the measurement script behind PERF.md's step breakdown: kernel names
-    # map to kinds, and without CUDA it exits non-zero, measuring nothing
-    from tpukube_torch import breakdown
-
-    assert breakdown._kind("ncclDevKernel_AllReduce_Sum_f32_RING_LL") == "nccl"
-    assert breakdown._kind("sm90_xmma_fprop_implicit_gemm_bf16bf16") == "convolution"
-    assert breakdown._kind("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT") == "matmul"
-    assert breakdown._kind("void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel") == "normalization"
-    assert breakdown._kind("void at::native::unrolled_elementwise_kernel<direct_copy_kernel_cuda>") == "copy/cast"
-    assert breakdown._kind("void at::native::vectorized_elementwise_kernel<4, AddFunctor>") == "elementwise"
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert breakdown.main() == 1

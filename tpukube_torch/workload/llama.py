@@ -24,6 +24,10 @@ math with activations recomputed in the backward pass. :func:`_block` also
 serves the tensor-parallel step of :mod:`tpukube_torch.workload.train`,
 which hands it its local head counts and the collectives that enter and
 leave each parallel region.
+
+While a torch profiler runs, :func:`forward` is a ``tpukube.forward`` span
+and each block's attention a ``tpukube.attention`` span inside it
+(:mod:`tpukube_torch.obs.spans`); outside one each costs a flag check.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from tpukube_torch.obs.spans import span
 
 # The dtype activations are computed in: the reference's bfloat16. Every
 # cast to the compute dtype reads it here, so the parity tests can run the
@@ -183,13 +189,14 @@ def _block(h: torch.Tensor, layer: dict, cfg: LlamaConfig,
     q = _rope(q.reshape(B, S, H, HD), cfg.rope_theta)
     k = _rope(k.reshape(B, S, KV, HD), cfg.rope_theta)
     v = v.reshape(B, S, KV, HD)
-    # GQA: group query heads (g) over kv heads (k)
-    q = q.reshape(B, S, KV, H // KV, HD)
-    logits = torch.einsum("bskgd,btkd->bkgst", q, k) * (HD ** -0.5)
-    causal = torch.ones((S, S), dtype=torch.bool, device=h.device).tril()
-    logits = logits.masked_fill(~causal, -1e9)
-    probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-    ctx = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H * HD)
+    with span("tpukube.attention", q):
+        # GQA: group query heads (g) over kv heads (k)
+        q = q.reshape(B, S, KV, H // KV, HD)
+        logits = torch.einsum("bskgd,btkd->bkgst", q, k) * (HD ** -0.5)
+        causal = torch.ones((S, S), dtype=torch.bool, device=h.device).tril()
+        logits = logits.masked_fill(~causal, -1e9)
+        probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        ctx = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H * HD)
     h = h + leave(ctx @ layer["wo"].to(x.dtype))
 
     x = enter(_rmsnorm(h, layer["mlp_norm"], cfg.norm_eps))
@@ -214,11 +221,12 @@ def run_blocks(h: torch.Tensor, layers: dict, cfg: LlamaConfig,
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
             remat: bool = False) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, vocab) float32."""
-    # gather, then cast: the same values as the reference's cast-then-gather
-    h = params["embed"][tokens].to(COMPUTE_DTYPE)
-    h = run_blocks(h, params["layers"], cfg, remat)
-    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return (h @ params["unembed"].to(h.dtype)).float()
+    with span("tpukube.forward", tokens):
+        # gather, then cast: the same values as the reference's cast-then-gather
+        h = params["embed"][tokens].to(COMPUTE_DTYPE)
+        h = run_blocks(h, params["layers"], cfg, remat)
+        h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        return (h @ params["unembed"].to(h.dtype)).float()
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,

@@ -19,7 +19,9 @@ Rounding points follow the reference:
 
 :func:`make_dp_train_step` is the reference's data-parallel SGD step: the
 batch split over ``dp`` (``("dcn", "dp")`` on a multislice mesh), params
-replicated, gradients averaged by an explicit all-reduce.
+replicated, gradients averaged by an explicit all-reduce. While a torch
+profiler runs, a step is a ``tpukube.step`` span around its
+``tpukube.grads`` and ``tpukube.update`` spans (:mod:`tpukube_torch.obs.spans`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from tpukube_torch.obs.spans import span
 from tpukube_torch.workload import tp as tpc
 from tpukube_torch.workload.meshenv import batch_group, mesh_device
 
@@ -235,17 +238,19 @@ def make_dp_train_step(cfg: ResNetConfig, mesh: DeviceMesh,
         return a[rank * n:(rank + 1) * n].to(device)
 
     def step(params: dict, images, labels):
-        leaves = param_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = loss_fn(params, rows(images), rows(labels), cfg)
-        grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
-            for p, g in zip(leaves, grads):
-                g = g.contiguous()
-                dist.all_reduce(g, group=group)
-                p.sub_(g.div_(ranks), alpha=learning_rate)
-            loss = tpc.all_reduce(loss.detach(), group).div_(ranks)
+        with span("tpukube.step", device):
+            leaves = param_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            with span("tpukube.grads", device):
+                loss = loss_fn(params, rows(images), rows(labels), cfg)
+                grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad(), span("tpukube.update", device):
+                for p, g in zip(leaves, grads):
+                    g = g.contiguous()
+                    dist.all_reduce(g, group=group)
+                    p.sub_(g.div_(ranks), alpha=learning_rate)
+                loss = tpc.all_reduce(loss.detach(), group).div_(ranks)
         return params, loss
 
     return step

@@ -26,6 +26,10 @@ The optimizer is the reference's ``optax.chain(clip_by_global_norm(1.0),
 adamw(lr))``. The step updates params and optimizer state in place, as
 ``torch.optim`` does; the reference's buffer donation (``donate``) has no
 counterpart here and is not emulated.
+
+While a torch profiler runs, a step is a ``tpukube.step`` span around its
+``tpukube.grads``, ``tpukube.grad_norm`` and ``tpukube.update`` spans
+(:mod:`tpukube_torch.obs.spans`).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from tpukube_torch.obs.spans import span
 from tpukube_torch.workload import llama
 from tpukube_torch.workload import tp as tpc
 from tpukube_torch.workload.llama import (
@@ -362,10 +367,16 @@ def make_train_step(cfg: LlamaConfig, mesh: DeviceMesh, opt: AdamW | None = None
     collective."""
     opt = opt or make_optimizer()
     loss_and_grad = make_loss_and_grad(cfg, mesh, remat, seq_parallel)
+    device = mesh_device(mesh)
 
     def step(params: dict, opt_state: dict, tokens):
-        loss, grads = loss_and_grad(params, tokens)
-        opt.update(params, grads, opt_state, global_grad_norm(grads, cfg, mesh))
+        with span("tpukube.step", device):
+            with span("tpukube.grads", device):
+                loss, grads = loss_and_grad(params, tokens)
+            with span("tpukube.grad_norm", device):
+                norm = global_grad_norm(grads, cfg, mesh)
+            with span("tpukube.update", device):
+                opt.update(params, grads, opt_state, norm)
         return params, opt_state, loss
 
     return step, opt.init

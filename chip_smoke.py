@@ -47,8 +47,10 @@ Drives the port's main path the way a cluster does, on the card:
    the CPU;
 6. ResNet pod: ``python -m tpukube_torch.graft --resnet``: ResNet-50 (224x224,
    1000 classes) data-parallel over NCCL, batch 64, SGD lr 1e-2, 1 warm-up
-   and 3 timed steps; the loss must fall, and one step at batch 2 on 64x64
-   images must agree with the CPU;
+   and 3 timed steps; the loss must fall, the four steps must launch the
+   GroupNorm pair's four kernels for each of the 49 norms, and one step at
+   batch 2 on 64x64 images must agree with the CPU (which runs the plain
+   GroupNorm);
 7. ``python -m tpukube_torch.graft --dryrun``: ``dryrun_multichip`` over
    every visible GPU, NCCL;
 8. vGPU (BASELINE config 3, two inference pods sharing one card under a
@@ -422,8 +424,18 @@ Drives the port's main path the way a cluster does, on the card:
       alone;
 22. ``dryrun_multichip(4, device="cpu")``: both legs over gloo ranks, leg 2
    on a DCN gang env the port's extender mints on a two-slice sim fleet;
-23. prints the kernels line: the JAX package has no Pallas kernel, so the
-   port has none to hold against a plain version.
+23. the GroupNorm kernel pair (``tpukube_torch/kernels/group_norm.py``), in a
+   fresh interpreter on the allocated card (``kernels_phase``): at the
+   ResNet cell's batch, 64, in bf16, at C=64 on 224², 256 on 224², 1024 on
+   56² and 2048 on 28², the pair's output and the gradients of x, scale
+   and bias against its plain version (``group_norm_plain``), the ReLU on
+   and off, within the bounds ``norm_check`` states (one ulp plus 2**-18
+   of the largest magnitude; the parameters' gradients 2**-18 of their
+   terms' magnitudes; what the ReLU's edge can move), four launches a
+   forward and backward; then each direction of both by CUDA
+   events and each kernel's device time by the profiler, beside its byte
+   bound; a line a shape, then the kernels line: each kernel's ms, its
+   ``bound_ms`` and the plain version's ms for its direction.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
 NCCL init, a child's exit, a check, any error of the REST channel) exits
@@ -5533,6 +5545,264 @@ def analysis_phase(card: str, t_start: float):
     return line
 
 
+# Step 23: the GroupNorm kernel pair (tpukube_torch/kernels/group_norm.py)
+# against its plain version at the ResNet cell's batch; (channels, side,
+# the cell's ReLU) of stage 1's first norm, stage 1's last, stage 3's last
+# and stage 4's last
+KERNEL_BATCH = 64
+KERNEL_ITERS = 20
+KERNEL_SHAPES = [(64, 224, True), (256, 224, False), (1024, 56, False), (2048, 28, False)]
+HBM_BYTES_PER_S = 3.35e12  # NVIDIA data sheet, H100 SXM
+# the bytes an element each kernel must move, bf16: stats reads x; apply
+# reads x and writes y; grad_reduce reads x and dy; grad_apply reads x and
+# dy and writes dx
+KERNEL_BYTES = {"group_norm_stats": 2, "group_norm_apply": 4,
+                "group_norm_grad_reduce": 4, "group_norm_grad_apply": 6}
+
+
+def norm_inputs(c: int, side: int, device, seed: int, batch: int = KERNEL_BATCH,
+                dtype=None) -> tuple:
+    """``channels_last`` x and dy of (batch, c, side, side) in ``dtype``
+    (bf16 by default), float32 scale and bias; each channel's values
+    offset, so that the groups' means lie off zero."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape, dtype = (batch, c, side, side), dtype or torch.bfloat16
+    x = torch.randn(shape, generator=g, device=device).mul_(2.0)
+    x = x.add_(torch.randn((1, c, 1, 1), generator=g, device=device)).to(dtype)
+    dy = torch.randn(shape, generator=g, device=device).to(dtype)
+    scale = 1.0 + 0.5 * torch.randn((c,), generator=g, device=device)
+    bias = 0.5 * torch.randn((c,), generator=g, device=device)
+    return (x.contiguous(memory_format=torch.channels_last), scale, bias,
+            dy.contiguous(memory_format=torch.channels_last))
+
+
+def norm_grads(fn, x, scale, bias, dy, relu: bool) -> tuple:
+    """``fn``'s output and its gradients for x, scale and bias, given dy."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in (x, scale, bias)]
+    y = fn(*leaves, 32, relu=relu)
+    return (y.detach(), *torch.autograd.grad(y, leaves, dy))
+
+
+def norm_excess(got, want, keep, extra=0.0) -> float:
+    """The largest excess, over ``keep``, of |got - want| past one ulp of
+    the dtype at the larger of the two, plus 2**-18 of max|want|, plus
+    ``extra``. At most 0 passes."""
+    import torch
+
+    mant = {torch.bfloat16: 7, torch.float32: 23}[got.dtype]
+
+    def ulp(t):
+        a = t.float().abs().clamp_min(torch.finfo(t.dtype).tiny)
+        return torch.exp2(torch.floor(torch.log2(a)) - mant)
+
+    bound = torch.maximum(ulp(got), ulp(want)) + want.float().abs().max() * 2.0 ** -18 + extra
+    return float(((got.float() - want.float()).abs() - bound)[keep].max())
+
+
+def norm_check(c: int, side: int, relu: bool, device, batch: int = KERNEL_BATCH,
+               dtype=None) -> dict:
+    """The pair against its plain version on the card, forward and
+    backward, at (batch, c, side, side) in ``dtype`` (bf16 by default).
+    The two round their float32 statistics and sums in other orders
+    (about 2**-24 relative each), and a cast then lands on neighbouring
+    values, so:
+
+    - y and dx: within one ulp of the dtype at the larger of the two,
+      plus 2**-18 of the largest magnitude (``norm_excess``);
+    - dscale and dbias: within 2**-18 of the sum of their terms'
+      magnitudes (g and g * xhat), channel by channel: a tree sum's error
+      over N*H*W terms is about log2(N*H*W) * 2**-24 of that;
+    - with the ReLU, the edge: elements whose float32 pre-activation lies
+      within 2**-20 of its largest magnitude of zero may fall on either
+      side of the mask in the two versions. They are left out of the
+      elementwise comparisons, and what they can move is added to the
+      bounds: their terms, unmasked, to dscale's and dbias's; to each dx
+      of their (sample, group), rstd * (E1 + |xhat| * E2), where E1 and E2
+      are the edge's sums of |dy * scale| and |dy * scale * xhat| over the
+      group's M elements, divided by M: the most they move the group's
+      two sums in dx.
+
+    Returns each number's largest excess past its bound (at most 0), the
+    edge's size and the launches; raises past a bound, or unless the
+    pair launched four kernels and gave ``channels_last`` y and dx."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpukube_torch.kernels import group_norm as gn
+
+    x, scale, bias, dy = norm_inputs(c, side, device, c + side, batch, dtype)
+    before = gn.GroupNormNHWC.launches
+    y, dx, dscale, dbias = norm_grads(gn.group_norm, x, scale, bias, dy, relu)
+    launches = gn.GroupNormNHWC.launches - before
+    py, pdx, pdscale, pdbias = norm_grads(gn.group_norm_plain, x, scale, bias, dy, relu)
+    if not (y.is_contiguous(memory_format=torch.channels_last)
+            and dx.is_contiguous(memory_format=torch.channels_last)
+            and y.dtype == dx.dtype == x.dtype):
+        raise RuntimeError(f"the pair's y or dx is not {x.dtype} channels_last")
+    pre = F.group_norm(x.float(), 32, scale, bias, 1e-5)
+    edge = pre.abs() <= 2.0 ** -20 * pre.abs().max() if relu else torch.zeros_like(pre, dtype=torch.bool)
+    del pre
+    keep = ~edge
+    out = {"y": norm_excess(y, py, keep)}
+    del y
+    v = x.float().reshape(batch, 32, -1)
+    rstd = torch.rsqrt(v.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    xhat = ((v - v.mean(-1, keepdim=True)) * rstd).reshape(x.shape)
+    del v
+    g = dy.float()
+    moved = 0.0
+    if relu:
+        share = (g * scale[:, None, None]).abs() * edge
+        e1 = share.reshape(batch, 32, -1).sum(-1, keepdim=True) / (share[0].numel() // 32)
+        e2 = (share * xhat.abs()).reshape(batch, 32, -1).sum(-1, keepdim=True)
+        e2 = e2 / (share[0].numel() // 32)
+        del share
+        moved = (rstd * (e1 + xhat.abs().reshape(batch, 32, -1) * e2)).reshape(x.shape)
+    out["dx"] = norm_excess(dx, pdx, keep, moved)
+    del dx, pdx, moved
+    masked = g * (py > 0) if relu else g
+    for name, got, want, terms, unmasked in (("dbias", dbias, pdbias, masked, g),
+                                             ("dscale", dscale, pdscale, masked * xhat, g * xhat)):
+        bound = (terms.abs().sum((0, 2, 3)).double() * 2.0 ** -18
+                 + (unmasked.abs() * edge).sum((0, 2, 3)).double())
+        out[name] = float(((got.double() - want.double()).abs() - bound).max())
+    bad = {k: v for k, v in out.items() if not v <= 0}
+    out.update(edge=int(edge.sum()), launches=launches)
+    if bad or launches != 4:
+        raise RuntimeError(f"C={c} {side}x{side} relu={relu}: past the bound by {bad}, "
+                           f"{launches} launches (4)")
+    return out
+
+
+def norm_times(c: int, side: int, relu: bool, device) -> dict:
+    """Times at (KERNEL_BATCH, c, side, side), over KERNEL_ITERS calls
+    after a warm-up on an idle card: each direction of the pair and of
+    the plain version by CUDA events (the backward alone, its forward
+    run before each call), each kernel's device time a launch by
+    ``torch.profiler``, and the byte bounds at HBM_BYTES_PER_S."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpukube_torch.kernels import group_norm as gn
+
+    x, scale, bias, dy = norm_inputs(c, side, device, seed=c + side)
+    leaves = [x.requires_grad_(True), scale.requires_grad_(True), bias.requires_grad_(True)]
+    elems = x.numel()
+
+    def forward_ms(fn) -> float:
+        with torch.no_grad():
+            fn(x, scale, bias, 32, relu=relu)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(KERNEL_ITERS):
+                fn(x, scale, bias, 32, relu=relu)
+            end.record()
+            torch.cuda.synchronize()
+        return start.elapsed_time(end) / KERNEL_ITERS
+
+    def backward_ms(fn) -> float:
+        total = 0.0
+        for i in range(KERNEL_ITERS + 1):
+            y = fn(x, scale, bias, 32, relu=relu)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.autograd.grad(y, leaves, dy)
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end) if i else 0.0
+        return total / KERNEL_ITERS
+
+    out = {"forward_ms": forward_ms(gn.group_norm), "backward_ms": backward_ms(gn.group_norm),
+           "plain_forward_ms": forward_ms(gn.group_norm_plain),
+           "plain_backward_ms": backward_ms(gn.group_norm_plain),
+           "forward_bound_ms": 4 * elems / HBM_BYTES_PER_S * 1e3,
+           "backward_bound_ms": 6 * elems / HBM_BYTES_PER_S * 1e3, "kernels": {}}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(KERNEL_ITERS):
+            torch.autograd.grad(gn.group_norm(x, scale, bias, 32, relu=relu), leaves, dy)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        name = next((k for k in KERNEL_BYTES if e.key.startswith(k)), None)
+        if name and e.count:
+            ms = e.device_time_total / e.count / 1e3
+            bound = KERNEL_BYTES[name] * elems / HBM_BYTES_PER_S * 1e3
+            out["kernels"][name] = {"ms": ms, "bound_ms": bound, "roofline_pct": 100 * bound / ms}
+    if set(out["kernels"]) != set(KERNEL_BYTES):
+        raise RuntimeError(f"the profiler saw {sorted(out['kernels'])}, not the four kernels")
+    return out
+
+
+def kernels_child() -> int:
+    """Step 23 in this (fresh) interpreter on the card: at each of
+    KERNEL_SHAPES, ``norm_check`` with the ReLU on and off, then
+    ``norm_times`` with the cell's ReLU; prints the results as one JSON
+    line, last. A failed check prints ``kernels 23: ...`` on stderr and
+    returns 1."""
+    import torch
+
+    device = torch.device("cuda", 0)
+    out = []
+    for c, side, relu in KERNEL_SHAPES:
+        try:
+            checks = {str(r).lower(): norm_check(c, side, r, device) for r in (True, False)}
+            torch.cuda.empty_cache()
+            times = norm_times(c, side, relu, device)
+        except Exception as e:  # noqa: BLE001 (every failure fails the step)
+            import traceback
+
+            traceback.print_exc()
+            return fail(f"kernels 23: {type(e).__name__}: {e}")
+        torch.cuda.empty_cache()
+        out.append({"shape": [KERNEL_BATCH, c, side, side], "relu": relu,
+                    "checks": checks, **times})
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def kernels_phase(card: str, env: dict):
+    """Step 23: ``kernels_child`` in a fresh interpreter on the allocated
+    card (``env``), a line a shape, then the ``kernels`` line: each
+    kernel's device time a launch, its byte bound and the plain version's
+    time for the kernel's direction. Returns the line's object, or None
+    when a check failed."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.kernels_child())"],
+        cwd=ROOT, env=pod_env(env), stdout=subprocess.PIPE, text=True, timeout=POD_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        print(proc.stdout, flush=True)
+        fail(f"kernels 23: the child exited {proc.returncode} (its stderr above names the check)")
+        return None
+    rows = []
+    for r in json.loads(lines[-1]):
+        n, c, h, w = r["shape"]
+        print(
+            f"group_norm bf16 ({n}, {c}, {h}, {w}), ReLU {r['relu']}: forward "
+            f"{r['forward_ms']:.3f} ms (bytes' bound {r['forward_bound_ms']:.3f}, plain "
+            f"{r['plain_forward_ms']:.3f}), backward {r['backward_ms']:.3f} ms (bound "
+            f"{r['backward_bound_ms']:.3f}, plain {r['plain_backward_ms']:.3f}); "
+            + ", ".join(f"{k} {v['ms']:.4f} ms / {v['bound_ms']:.4f} ({v['roofline_pct']:.1f}%)"
+                        for k, v in r["kernels"].items())
+            + "; checks, ReLU on / off, largest excess past the bound (<= 0): "
+            + "; ".join(f"{k} " + json.dumps(v, sort_keys=True) for k, v in r["checks"].items())
+            + f" [{card}]",
+            flush=True,
+        )
+        for name, k in r["kernels"].items():
+            forward = name in ("group_norm_stats", "group_norm_apply")
+            rows.append({"name": name, "shape": r["shape"], "relu": r["relu"],
+                         "ms": k["ms"], "bound_ms": k["bound_ms"],
+                         "roofline_pct": k["roofline_pct"],
+                         "plain_ms": r["plain_forward_ms" if forward else "plain_backward_ms"]})
+    return {"kernels": rows, "card": card}
+
+
 def mps_daemon_running() -> bool:
     """Whether an MPS control daemon runs on this machine: without one,
     CUDA_MPS_ACTIVE_THREAD_PERCENTAGE binds nothing."""
@@ -5880,8 +6150,15 @@ def main() -> int:
     if rn["uuid"] != c0.chip_id:
         return fail(f"ResNet pod ran on {rn['uuid']}, allocated {c0.chip_id}")
     print("resnet: " + json.dumps(rn, sort_keys=True), flush=True)
+    # each of the 49 norms launches the pair, two kernels a direction
+    want = 4 * 49 * (rn["steps"] + 1)
+    if rn["norms"] != 49 or rn["norm_launches"] != want:
+        return fail(f"ResNet pod: {rn['norm_launches']} GroupNorm launches over "
+                    f"{rn['norms']} norms, not {want} over 49")
     print(
-        f"ResNet-50 DP step ({rn['params']} params, bf16 compute, f32 GroupNorm), "
+        f"ResNet-50 DP step ({rn['params']} params, bf16 compute, GroupNorm and "
+        f"its ReLU by the Triton pair: {rn['norm_launches']} launches in "
+        f"{rn['steps'] + 1} steps), "
         f"batch {rn['batch']} at {rn['image_size']}x{rn['image_size']}, NCCL "
         f"world 1: median {rn['step_ms_median']:.3f} ms, "
         f"{rn['images_per_s']:.1f} images/s, peak {rn['max_memory_allocated']} "
@@ -6045,14 +6322,24 @@ def main() -> int:
                     or m.startswith("google.protobuf"))
     if loaded:
         return fail(f"the card path imported {loaded}")
+
+    # -- the GroupNorm pair against its plain version ------------------------
+    kernels = kernels_phase(card, env)
+    if kernels is None:
+        return 1
     print(f"chip_smoke: whole run {time.monotonic() - t_start:.1f} s [{card}]",
           flush=True)
 
     print(json.dumps({
-        "kernels": [],
-        "note": "no Pallas kernel in tpukube; the port's native code is host "
-                "C++: gpuinfo (NVML discovery, XID health, telemetry) and "
-                "cudaguard (CUDA driver quota guard); the scheduler extender, "
+        **kernels,
+        "note": "the JAX package has no Pallas kernel; the port's one hand "
+                "kernel pair is kernels/group_norm.py (Triton; ms: the "
+                "profiler's device time a launch at batch 64, bound_ms: each "
+                "byte the kernel must move once at 3.35 TB/s, plain_ms: its "
+                "direction in the plain version, F.group_norm on the float32 "
+                "copy, the cast and F.relu, by CUDA events). The native code "
+                "is host C++: gpuinfo (NVML discovery, XID health, telemetry) "
+                "and cudaguard (CUDA driver quota guard); the scheduler extender, "
                 "its durable journal (WAL, CRC, checkpoints), the tenancy "
                 "plane (quotas, DRF order, SLO-burn shedding), the SLO "
                 "evaluator, drain, the autoscaler, capacity analytics, "

@@ -285,3 +285,6 @@ def test_resnet_pod_at_tiny_size_on_cpu():
     assert out["losses"][-1] < out["losses"][0]
     assert out["parity_loss"] == pytest.approx(out["parity_ref_loss"], rel=2e-2)
     assert out["max_memory_allocated"] is None
+    # the stem's norm and two a basic block; the CPU launches no kernel
+    assert out["norms"] == 1 + 2 * sum(TINY.stage_blocks)
+    assert out["norm_launches"] == 0

@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from tpukube_torch.kernels.group_norm import GroupNormNHWC
 from tpukube_torch.native import GpuInfo, cudaguard
 from tpukube_torch.workload import resnet
 from tpukube_torch.workload.llama import (
@@ -340,9 +341,11 @@ def train_resnet(cfg: resnet.ResNetConfig, mesh: DeviceMesh, *, seed: int,
     """Build ResNet params from ``seed``, take one warm-up and ``steps``
     timed data-parallel SGD steps (lr 1e-2) on one fixed batch of
     ``cfg.image_size`` images, and check that the loss is finite and
-    falls. Parity: one step at ``parity_batch`` images of ``parity_size``
-    on the mesh's device against the same step on the CPU (loss, and the
-    updated stem and head). Raises on any failed check. Collective."""
+    falls; ``norm_launches`` counts the GroupNorm kernels those steps
+    launched (none on the CPU). Parity: one step at ``parity_batch``
+    images of ``parity_size`` on the mesh's device against the same step
+    on the CPU (loss, and the updated stem and head). Raises on any
+    failed check. Collective."""
     device = mesh_device(mesh)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = resnet.init_params(gen, cfg, device)
@@ -353,6 +356,7 @@ def train_resnet(cfg: resnet.ResNetConfig, mesh: DeviceMesh, *, seed: int,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     losses, times = [], []
+    GroupNormNHWC.launches = 0
     for i in range(steps + 1):
         t0 = time.perf_counter()
         params, loss = step(params, images, labels)
@@ -360,6 +364,7 @@ def train_resnet(cfg: resnet.ResNetConfig, mesh: DeviceMesh, *, seed: int,
         if i:
             times.append(time.perf_counter() - t0)
         losses.append(float(loss))
+    norm_launches = GroupNormNHWC.launches
     _check_falls(losses, "resnet")
     peak = _peak_memory(device)
 
@@ -383,6 +388,8 @@ def train_resnet(cfg: resnet.ResNetConfig, mesh: DeviceMesh, *, seed: int,
     median = statistics.median(times)
     return {
         "params": sum(p.numel() for p in resnet.param_leaves(params)),
+        "norms": 1 + sum(len(b["norms"]) for blocks in params["stages"] for b in blocks),
+        "norm_launches": norm_launches,
         "batch": batch,
         "image_size": size,
         "steps": steps,

@@ -12,9 +12,12 @@ Rounding points follow the reference:
 - SAME padding computed as XLA does: a stride-2 3×3 conv on an even input
   pads (0, 1), not ``padding=1``'s (1, 1); asymmetric pads go through
   ``F.pad``;
-- GroupNorm statistics and its scale/bias in float32 (``F.group_norm`` on
-  the float32 input groups contiguous channels, as the reference does),
-  then cast to bfloat16;
+- GroupNorm (:mod:`tpukube_torch.kernels.group_norm`) groups contiguous
+  channels, as the reference does: float32 statistics, normalisation and
+  scale/bias, one cast to bfloat16, then the ReLU where the block has one.
+  On the card a Triton kernel pair reads and writes the ``channels_last``
+  bf16 bytes and fuses the ReLU; on the CPU the plain version runs,
+  ``F.group_norm`` on the float32 input, the cast, then ``F.relu``;
 - the global average pool in float32, then the head in float32.
 
 :func:`make_dp_train_step` is the reference's data-parallel SGD step: the
@@ -34,6 +37,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from tpukube_torch.kernels.group_norm import group_norm
 from tpukube_torch.obs.spans import span
 from tpukube_torch.workload import tp as tpc
 from tpukube_torch.workload.meshenv import batch_group, mesh_device
@@ -168,20 +172,13 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     return F.conv2d(x, w, stride=stride)
 
 
-def _group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                groups: int, eps: float = 1e-5) -> torch.Tensor:
-    return F.group_norm(x.float(), groups, scale, bias, eps).to(x.dtype)
-
-
 def _apply_block(x: torch.Tensor, p: dict, cfg: ResNetConfig,
                  stride: int) -> torch.Tensor:
     y = x
     n = len(p["convs"])
     for i, (w, (scale, bias)) in enumerate(zip(p["convs"], p["norms"])):
         y = _conv(y, w, stride=stride if i == 0 else 1)
-        y = _group_norm(y, scale, bias, cfg.groups)
-        if i < n - 1:
-            y = F.relu(y)
+        y = group_norm(y, scale, bias, cfg.groups, relu=i < n - 1)
     if "proj" in p:
         x = _conv(x, p["proj"], stride=stride)
     elif stride != 1:
@@ -194,7 +191,7 @@ def forward(params: dict, images: torch.Tensor, cfg: ResNetConfig) -> torch.Tens
     float32. Compute in ``COMPUTE_DTYPE``."""
     x = images.to(COMPUTE_DTYPE).permute(0, 3, 1, 2)  # NCHW, channels_last
     x = x.contiguous(memory_format=torch.channels_last)
-    x = F.relu(_group_norm(_conv(x, params["stem"]), *params["stem_norm"], cfg.groups))
+    x = group_norm(_conv(x, params["stem"]), *params["stem_norm"], cfg.groups, relu=True)
     for s, blocks in enumerate(params["stages"]):
         for b, p in enumerate(blocks):
             x = _apply_block(x, p, cfg, 2 if (s > 0 and b == 0) else 1)

@@ -26,7 +26,7 @@ from kubebench.manifest import load_part
 from tpukube_torch import trace
 from tpukube_torch.graft import free_port
 from tpukube_torch.obs import spans, timeline
-from tpukube_torch.workload import llama, resnet, train
+from tpukube_torch.workload import llama, mla_moe, resnet, train
 from tpukube_torch.workload.meshenv import build_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -98,6 +98,60 @@ def test_forward_records_its_attention_spans_nested_in_the_profilers_trace():
                    if e.is_user_annotation() and e.device_type() == DeviceType.CPU]
     assert annotations.count("tpukube.forward") == 1
     assert annotations.count("tpukube.attention") == CFG.n_layers
+
+
+MOE = mla_moe.MlaMoeConfig(vocab=64, d_model=32, n_layers=3, n_heads=2, kv_rank=16, qk_nope_dim=8,
+                           qk_rope_dim=8, v_dim=8, d_ff_dense=64, n_experts=4, top_k=2, d_expert=16)
+
+
+def test_moe_forward_records_attention_and_moe_spans_as_the_forwards_children():
+    params = mla_moe.init_params(torch.Generator().manual_seed(0), MOE, torch.device("cpu"))
+    tokens = torch.randint(0, MOE.vocab, (1, 10), generator=torch.Generator().manual_seed(1))
+    with profile(activities=[ProfilerActivity.CPU]):
+        mla_moe.forward(params, tokens, MOE)
+    got = _by_name(spans.RECORDER.drain())
+    assert sorted(got) == ["tpukube.attention", "tpukube.forward", "tpukube.moe"]
+    (fwd,) = got["tpukube.forward"]
+    assert len(got["tpukube.attention"]) == MOE.n_layers and len(got["tpukube.moe"]) == MOE.n_moe
+    for s in got["tpukube.attention"] + got["tpukube.moe"]:
+        assert s["parent"] == fwd["id"] and fwd["t0"] <= s["t0"] < s["t1"] <= fwd["t1"]
+    for s in got["tpukube.moe"]:
+        rows = s["counts"]["rows_per_expert"]
+        assert len(rows) == MOE.n_experts and sum(rows) == 10 * MOE.top_k
+    assert all("counts" not in s for s in got["tpukube.attention"] + [fwd])
+
+
+class _Watched(torch.Tensor):
+    """A tensor that logs every torch function applied to it."""
+
+    calls: list = []
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        cls.calls.append(getattr(func, "__name__", str(func)))
+        return super().__torch_function__(func, types, args, kwargs or {})
+
+
+def test_a_span_counter_is_read_only_at_export():
+    rows = torch.tensor([3, 0, 5]).as_subclass(_Watched)
+    _Watched.calls.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.span("tpukube.moe") as s:
+            s.count("rows_per_expert", rows)
+            assert _Watched.calls == []  # nothing read, so nothing waits for the device
+    assert _Watched.calls == []
+    (done,) = spans.RECORDER.drain()
+    assert done["counts"] == {"rows_per_expert": [3, 0, 5]}
+    assert "tolist" in _Watched.calls
+
+
+def test_the_no_op_span_takes_a_counter_and_keeps_nothing():
+    rows = torch.tensor([1, 2]).as_subclass(_Watched)
+    _Watched.calls.clear()
+    with spans.span("tpukube.moe", rows) as s:
+        assert s is spans.OFF
+        s.count("rows_per_expert", rows)
+    assert spans.RECORDER.drain() == [] and _Watched.calls == []
 
 
 def test_decoder_train_step_records_its_phases_in_order(mesh):

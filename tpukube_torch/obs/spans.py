@@ -19,7 +19,14 @@ nothing is allocated and nothing recorded. Inside one (``kubebench``'s
   events on that device's current stream; their elapsed time, read at
   export, is the span's ``device_ms``: the device's wall time from the
   span's first work to its last, idle time inside included. Elsewhere
-  ``device_ms`` is the host's duration.
+  ``device_ms`` is the host's duration;
+- keeps the counters its work hands it (``s.count("rows_per_expert",
+  t)``: a small tensor, on the device where the work ran, that nothing
+  writes afterwards) and reads them only at export, beside the timing
+  events, so that the hot path never waits for the device. They go out
+  as ``counts``, each a list.
+
+The no-op span takes the same ``count`` call and keeps nothing.
 
 A span opened on a thread with none open is a root: the recomputation
 that a backward pass runs on autograd's device thread records its
@@ -81,18 +88,22 @@ class _Off:
     def __exit__(self, *exc) -> bool:
         return False
 
+    def count(self, name: str, value) -> None:
+        pass
+
 
 OFF = _Off()
 
 
 class _Span:
-    __slots__ = ("_rec", "_device", "_stream", "_events", "_range", "name", "id",
-                 "parent", "root", "t0", "t1")
+    __slots__ = ("_rec", "_device", "_stream", "_events", "_range", "_counts", "name",
+                 "id", "parent", "root", "t0", "t1")
 
     def __init__(self, rec: "Recorder", name: str, device: Optional[torch.device]):
         self._rec = rec
         self._device = device
         self._events = None
+        self._counts = None
         self.name = name
 
     def __enter__(self) -> "_Span":
@@ -123,15 +134,24 @@ class _Span:
         self._rec._finish(self)
         return False
 
+    def count(self, name: str, value: torch.Tensor) -> None:
+        """Keep ``value`` (not read now) as the counter ``name``."""
+        if self._counts is None:
+            self._counts = {}
+        self._counts[name] = value
+
     def as_dict(self) -> dict:
         device_ms = (self.t1 - self.t0) / 1e6
         if self._events is not None:
             start, end = self._events
             end.synchronize()
             device_ms = start.elapsed_time(end)
-        return {"name": self.name, "t0": self.t0 / 1e9, "t1": self.t1 / 1e9,
-                "device_ms": device_ms, "id": self.id, "parent": self.parent,
-                "root": self.root}
+        out = {"name": self.name, "t0": self.t0 / 1e9, "t1": self.t1 / 1e9,
+               "device_ms": device_ms, "id": self.id, "parent": self.parent,
+               "root": self.root}
+        if self._counts:
+            out["counts"] = {k: v.tolist() for k, v in self._counts.items()}
+        return out
 
 
 class Recorder:

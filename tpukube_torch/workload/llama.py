@@ -26,8 +26,9 @@ which hands it its local head counts and the collectives that enter and
 leave each parallel region.
 
 While a torch profiler runs, :func:`forward` is a ``tpukube.forward`` span
-and each block's attention a ``tpukube.attention`` span inside it
-(:mod:`tpukube_torch.obs.spans`); outside one each costs a flag check.
+and each block's attention (:func:`causal_attention`, shared with
+:mod:`tpukube_torch.workload.mla_moe`) a ``tpukube.attention`` span inside
+it (:mod:`tpukube_torch.obs.spans`); outside one each costs a flag check.
 """
 
 from __future__ import annotations
@@ -168,6 +169,26 @@ def _same(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The explicit causal core over q (B, S, H, dq), k (B, S, KV, dq) and
+    v (B, S, KV, dv) in the compute dtype -> (B, S, H * dv): query heads
+    grouped over kv heads (query head h reads kv head h // (H // KV)),
+    QK^T scaled by dq^-1/2 in the compute dtype, masked with -1e9, softmax
+    in float32, probabilities cast back before PV. A ``tpukube.attention``
+    span. Both the decoder's blocks and ``mla_moe``'s (dq 192, dv 128)
+    call it."""
+    B, S, H, HD = q.shape
+    KV, DV = k.shape[2], v.shape[-1]
+    with span("tpukube.attention", q):
+        # GQA: group query heads (g) over kv heads (k)
+        q = q.reshape(B, S, KV, H // KV, HD)
+        logits = torch.einsum("bskgd,btkd->bkgst", q, k) * (HD ** -0.5)
+        causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~causal, -1e9)
+        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        return torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H * DV)
+
+
 def _block(h: torch.Tensor, layer: dict, cfg: LlamaConfig,
            heads: Optional[int] = None, kv_heads: Optional[int] = None,
            enter: Callable = _same, leave: Callable = _same) -> torch.Tensor:
@@ -189,15 +210,7 @@ def _block(h: torch.Tensor, layer: dict, cfg: LlamaConfig,
     q = _rope(q.reshape(B, S, H, HD), cfg.rope_theta)
     k = _rope(k.reshape(B, S, KV, HD), cfg.rope_theta)
     v = v.reshape(B, S, KV, HD)
-    with span("tpukube.attention", q):
-        # GQA: group query heads (g) over kv heads (k)
-        q = q.reshape(B, S, KV, H // KV, HD)
-        logits = torch.einsum("bskgd,btkd->bkgst", q, k) * (HD ** -0.5)
-        causal = torch.ones((S, S), dtype=torch.bool, device=h.device).tril()
-        logits = logits.masked_fill(~causal, -1e9)
-        probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        ctx = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H * HD)
-    h = h + leave(ctx @ layer["wo"].to(x.dtype))
+    h = h + leave(causal_attention(q, k, v) @ layer["wo"].to(x.dtype))
 
     x = enter(_rmsnorm(h, layer["mlp_norm"], cfg.norm_eps))
     gate = x @ layer["w_gate"].to(x.dtype)

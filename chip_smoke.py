@@ -32,8 +32,9 @@ Drives the port's main path the way a cluster does, on the card:
 4. pod: ``python -m tpukube_torch.graft`` runs as a child process with that
    env, checks it got the allocated GPU (UUID), builds Llama-3-8B at full
    width and depth from a seed, serves 3 forward requests (B=2, S=2048),
-   and checks shape, finiteness, loss, causality and card-vs-CPU parity.
-   Meanwhile a ``HealthSampler`` on the node agent samples NVML telemetry
+   and checks shape, finiteness, loss, causality and card-vs-CPU parity;
+   the served forwards launch the attention kernel once a layer each
+   (``attention_launches``, 32 x 3). Meanwhile a ``HealthSampler`` on the node agent samples NVML telemetry
    (one sample must show memory in use above the idle reading); then the
    plugin's ``/metrics`` page must count its Allocates, list every GPU
    Healthy and carry one telemetry series per GPU, and the ``plugin:``
@@ -435,7 +436,18 @@ Drives the port's main path the way a cluster does, on the card:
    forward and backward; then each direction of both by CUDA
    events and each kernel's device time by the profiler, beside its byte
    bound; a line a shape, then the kernels line: each kernel's ms, its
-   ``bound_ms`` and the plain version's ms for its direction.
+   ``bound_ms`` and the plain version's ms for its direction;
+24. the causal attention kernel (``tpukube_torch/kernels/attention.py``), in
+   a fresh interpreter on the allocated card (``attention_phase``): at
+   Mistral-7B's shape (32 heads over 8, d 128) and Moonlight-16B-A3B's (16
+   heads, dq 192, dv 128, v a strided slice), 256, 1,385 and 4,096 tokens,
+   the kernel and its plain version against an f32 computation of the same
+   function, within the bounds ``attention_check`` states, one launch a
+   call; then the kernel's device time a launch by the profiler beside its
+   bound (FLOPs at 989 TFLOP/s, bytes at 3.35 TB/s), and by CUDA events the
+   kernel, the chain and ``F.scaled_dot_product_attention`` (``library_ms``
+   only; the port never calls it); a line a shape and length, then the
+   ``attention`` line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed step (an
 NCCL init, a child's exit, a check, any error of the REST channel) exits
@@ -5803,6 +5815,246 @@ def kernels_phase(card: str, env: dict):
     return {"kernels": rows, "card": card}
 
 
+# Step 24: the causal attention kernel (tpukube_torch/kernels/attention.py)
+# against its plain version and an f32 computation of the same function:
+# (query heads, kv heads, dq, dv). Step 24 checks and times the two
+# decoders' shapes (ATTENTION_TIMED); the card tests also check two narrow
+# ones, whose head dims fill part of a 128-byte row of shared memory.
+ATTENTION_SHAPES = {"mistral": (32, 8, 128, 128), "moonlight": (16, 16, 192, 128),
+                    "narrow": (8, 4, 24, 16), "dv40": (12, 4, 96, 40)}
+ATTENTION_TIMED = ("mistral", "moonlight")
+ATTENTION_LENGTHS = (256, 1385, 4096)
+ATTENTION_ITERS = 20
+# the kernel's errors may be this many times the chain's, plus a floor: of
+# the largest output magnitude for the largest error, of a row's largest
+# magnitude for a row's (attention_check says why)
+ATTENTION_RATIO = 1.25
+ATTENTION_FLOOR = 2.0 ** -9
+ATTENTION_ROW_FLOOR = 2.0 ** -8
+
+
+def attention_inputs(shape: str, seq: int, device, seed: int) -> tuple:
+    """bf16 q (1, S, H, dq), k (1, S, KV, dq) and v (1, S, KV, dv) at
+    ``shape`` (ATTENTION_SHAPES), made from ``seed``. Outside Mistral-7B's
+    shape v is a strided slice of a wider tensor, as Moonlight's forward
+    makes it (the latter half of each head's values of ``kv``). Scores
+    spread about 1.5 (q scaled), so the softmax is neither flat nor
+    one-hot."""
+    import torch
+
+    H, KV, dq, dv = ATTENTION_SHAPES[shape]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = (1.5 * torch.randn((1, seq, H, dq), generator=g, device=device)).to(torch.bfloat16)
+    k = torch.randn((1, seq, KV, dq), generator=g, device=device).to(torch.bfloat16)
+    if shape != "mistral":
+        kv = torch.randn((1, seq, KV, 128 + dv), generator=g, device=device).to(torch.bfloat16)
+        v = kv[..., 128:]
+    else:
+        v = torch.randn((1, seq, KV, dv), generator=g, device=device).to(torch.bfloat16)
+    return q, k, v
+
+
+def attention_f32(q, k, v):
+    """The same function as the chain, every step in float32 from the bf16
+    inputs: the yardstick both are held to."""
+    import torch
+
+    B, S, H, dq = q.shape
+    KV, dv = k.shape[2], v.shape[3]
+    qf = q.float().reshape(B, S, KV, H // KV, dq)
+    out = torch.empty((B, S, H * dv), device=q.device, dtype=torch.float32)
+    for j in range(KV):  # one kv head at a time: S x S f32 scores per group
+        logits = torch.einsum("bsgd,btd->bgst", qf[:, :, j], k[:, :, j].float()) * dq ** -0.5
+        logits = logits.masked_fill(~torch.ones((S, S), dtype=torch.bool,
+                                                device=q.device).tril(), float("-inf"))
+        o = torch.einsum("bgst,btd->bsgd", torch.softmax(logits, dim=-1), v[:, :, j].float())
+        g = H // KV
+        out.view(B, S, H, dv)[:, :, j * g:(j + 1) * g] = o
+    return out
+
+
+def attention_check(shape: str, seq: int, device, seed: int = 0) -> dict:
+    """The kernel and the plain chain against ``attention_f32`` at one
+    shape and ``seq`` tokens: each one's largest error, mean error and
+    largest error of a row (a token's head) over that row's largest
+    magnitude.
+
+    Both round where the chain rounds (the scores to bf16 before and after
+    the scale, the probabilities to bf16, the output to bf16); the kernel
+    rounds probabilities not yet normalised and sums in another order, so
+    its errors are the chain's kind and size, not the same numbers. Three
+    gates, each ATTENTION_RATIO times the chain's figure plus a floor:
+
+    - the largest error, plus ATTENTION_FLOOR of the largest output
+      magnitude: the final cast alone puts either half a bf16 ulp (2**-9
+      of a value's binade) off, and where the chain's sum lands next to a
+      rounding point and the kernel's on the far side, the two differ by
+      that much while each is right;
+    - the largest row-relative error, plus ATTENTION_ROW_FLOOR: half an
+      ulp of a row's largest value is at most 2**-8 of it. The outputs
+      of long rows average more values and are smaller, so this is the
+      gate that sees a fault confined to late rows or late key tiles;
+    - the mean error, with no floor.
+
+    Raises past a bound, or unless one launch made a (1, S, H * dv) bf16
+    output."""
+    import torch
+
+    from tpukube_torch.kernels import attention
+
+    q, k, v = attention_inputs(shape, seq, device, seed + seq)
+    before = attention.launches
+    got = attention.causal_attention_fwd(q, k, v)
+    launches = attention.launches - before
+    plain = attention.causal_attention_plain(q, k, v)
+    want = attention_f32(q, k, v)
+    H, _, _, dv = ATTENTION_SHAPES[shape]
+    if tuple(got.shape) != (1, seq, H * dv) or got.dtype != torch.bfloat16 or launches != 1:
+        raise RuntimeError(f"{shape} S={seq}: {tuple(got.shape)} {got.dtype}, {launches} launches")
+    top = float(want.abs().max())
+    rows = want.view(1, seq, H, dv).abs().amax(-1)
+
+    def errors(x) -> tuple:
+        err = (x.float() - want).abs()
+        row = float((err.view(1, seq, H, dv).amax(-1) / rows).max())
+        return float(err.max()), float(err.mean()), row
+
+    kmax, kmean, krow = errors(got)
+    pmax, pmean, prow = errors(plain)
+    out = {"kernel_max": kmax, "kernel_mean": kmean, "kernel_row": krow,
+           "plain_max": pmax, "plain_mean": pmean, "plain_row": prow,
+           "kernel_vs_plain_max": float((got.float() - plain.float()).abs().max()),
+           "floor": ATTENTION_FLOOR * top}
+    out["bound"] = ATTENTION_RATIO * pmax + out["floor"]
+    out["row_bound"] = ATTENTION_RATIO * prow + ATTENTION_ROW_FLOOR
+    out["mean_bound"] = ATTENTION_RATIO * pmean
+    for name, bound in (("max", "bound"), ("row", "row_bound"), ("mean", "mean_bound")):
+        if not out[f"kernel_{name}"] <= out[bound]:
+            raise RuntimeError(f"{shape} S={seq}: the kernel's {name} error {out[f'kernel_{name}']} "
+                               f"is past {out[bound]} (chain {out[f'plain_{name}']})")
+    return out
+
+
+def attention_bound(shape: str, seq: int) -> dict:
+    """The kernel's least time at one decoder's shape: the causal FLOPs,
+    2 * H * S(S+1)/2 * (dq + dv), at the bf16 peak, and the bytes of q, k,
+    v and the output once each at HBM_BYTES_PER_S; the larger binds."""
+    H, KV, dq, dv = ATTENTION_SHAPES[shape]
+    flops = H * seq * (seq + 1) * (dq + dv)
+    nbytes = 2 * seq * (H * dq + KV * dq + KV * dv + H * dv)
+    return {"flops": flops, "bytes": nbytes, "flop_ms": flops / H100_BF16_FLOPS * 1e3,
+            "byte_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def attention_times(shape: str, seq: int, device) -> dict:
+    """Times at one decoder's shape and ``seq`` tokens on an idle card, over
+    ATTENTION_ITERS calls after a warm-up: the kernel, the plain chain and
+    ``F.scaled_dot_product_attention(is_causal=True)`` (the library's
+    yardstick, ``library_ms``; the port never calls it) by CUDA events; the
+    kernel's device time a launch by ``torch.profiler``; its bound and its
+    share of the FLOP bound."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpukube_torch.kernels import attention
+
+    q, k, v = attention_inputs(shape, seq, device, seed=seq)
+    H, KV = ATTENTION_SHAPES[shape][:2]
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True,
+                                              enable_gqa=H != KV)
+
+    def events_ms(fn) -> float:
+        with torch.inference_mode():
+            fn(q, k, v)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(ATTENTION_ITERS):
+                fn(q, k, v)
+            end.record()
+            torch.cuda.synchronize()
+        return start.elapsed_time(end) / ATTENTION_ITERS
+
+    out = {"kernel_ms": events_ms(attention.causal_attention_fwd),
+           "plain_ms": events_ms(attention.causal_attention_plain), **attention_bound(shape, seq)}
+    try:  # the yardstick only: the step does not stand or fall with it
+        out["library_ms"] = events_ms(library)
+    except RuntimeError as e:
+        out["library_ms"], out["library_error"] = None, str(e)[:200]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, torch.inference_mode():
+        for _ in range(ATTENTION_ITERS):
+            attention.causal_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if e.key.startswith("causal_attention_fwd") and e.count]
+    if len(seen) != 1:
+        raise RuntimeError(f"the profiler saw {[e.key for e in seen]}, not the one kernel")
+    out["device_ms"] = seen[0].device_time_total / seen[0].count / 1e3
+    out["bound_ms"] = max(out["flop_ms"], out["byte_ms"])
+    out["flop_pct"] = 100 * out["flop_ms"] / out["device_ms"]
+    out["tflops"] = out["flops"] / out["device_ms"] / 1e9
+    return out
+
+
+def attention_child() -> int:
+    """Step 24 in this (fresh) interpreter on the card: at each of
+    ATTENTION_TIMED and ATTENTION_LENGTHS, ``attention_check`` then
+    ``attention_times``; prints the results as one JSON line, last. A
+    failed check prints ``attention 24: ...`` on stderr and returns 1."""
+    import torch
+
+    device = torch.device("cuda", 0)
+    out = []
+    for shape in ATTENTION_TIMED:
+        for seq in ATTENTION_LENGTHS:
+            try:
+                checks = attention_check(shape, seq, device)
+                torch.cuda.empty_cache()
+                times = attention_times(shape, seq, device)
+            except Exception as e:  # noqa: BLE001 (every failure fails the step)
+                import traceback
+
+                traceback.print_exc()
+                return fail(f"attention 24: {type(e).__name__}: {e}")
+            torch.cuda.empty_cache()
+            out.append({"shape": shape, "seq": seq, "checks": checks, **times})
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def attention_phase(card: str, env: dict):
+    """Step 24: ``attention_child`` in a fresh interpreter on the allocated
+    card (``env``), a line a shape and length, then the ``attention``
+    line. Returns the line's object, or None when a check failed."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.attention_child())"],
+        cwd=ROOT, env=pod_env(env), stdout=subprocess.PIPE, text=True, timeout=POD_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        print(proc.stdout, flush=True)
+        fail(f"attention 24: the child exited {proc.returncode} (its stderr above names the check)")
+        return None
+    rows = json.loads(lines[-1])
+    for r in rows:
+        H, KV, dq, dv = ATTENTION_SHAPES[r["shape"]]
+        c = r["checks"]
+        print(
+            f"causal_attention_fwd {r['shape']} (H {H}, KV {KV}, dq {dq}, dv {dv}), S {r['seq']}: "
+            f"{r['device_ms']:.4f} ms a launch (bound {r['bound_ms']:.4f}: FLOPs "
+            f"{r['flop_ms']:.4f}, bytes {r['byte_ms']:.4f}; {r['flop_pct']:.1f}% of the FLOP "
+            f"bound, {r['tflops']:.0f} TFLOP/s); events: kernel {r['kernel_ms']:.4f}, chain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms'] or float('nan'):.4f} ms; largest error vs f32 "
+            f"kernel {c['kernel_max']:.3e} (bound {c['bound']:.3e}), chain {c['plain_max']:.3e}; "
+            f"of a row {c['kernel_row']:.3e} (bound {c['row_bound']:.3e}), chain "
+            f"{c['plain_row']:.3e}; mean {c['kernel_mean']:.3e} / {c['plain_mean']:.3e} [{card}]",
+            flush=True,
+        )
+    return {"attention": rows, "card": card}
+
+
 def mps_daemon_running() -> bool:
     """Whether an MPS control daemon runs on this machine: without one,
     CUDA_MPS_ACTIVE_THREAD_PERCENTAGE binds nothing."""
@@ -6090,6 +6342,10 @@ def main() -> int:
     if pod["uuid"] != c0.chip_id or pod["device"] != props.name:
         return fail(f"pod ran on {pod['device']} {pod['uuid']}, allocated {c0.chip_id}")
     print("pod: " + json.dumps(pod, sort_keys=True), flush=True)
+    # every served forward takes the attention kernel, once a layer
+    if pod["attention_launches"] != pod["n_layers"] * pod["requests"]:
+        return fail(f"pod: {pod['attention_launches']} attention launches in "
+                    f"{pod['requests']} forwards of {pod['n_layers']} layers")
     print(
         f"pod forward, Llama-3-8B ({pod['params']} params, f32 weights, bf16 "
         f"compute), B={pod['batch']} S={pod['seq']}: median "
@@ -6327,6 +6583,12 @@ def main() -> int:
     kernels = kernels_phase(card, env)
     if kernels is None:
         return 1
+
+    # -- the causal attention kernel against its plain version ---------------
+    attn = attention_phase(card, env)
+    if attn is None:
+        return 1
+    print("attention: " + json.dumps(attn, sort_keys=True), flush=True)
     print(f"chip_smoke: whole run {time.monotonic() - t_start:.1f} s [{card}]",
           flush=True)
 

@@ -114,6 +114,8 @@ def test_pod_serve_at_tiny_size_on_cpu():
     assert abs(out["loss"] - out["ln_vocab"]) < 1.0
     assert out["parity_max_abs_err"] == 0.0  # CPU against itself
     assert out["max_memory_allocated"] is None
+    # a CPU tensor takes the plain chain: no kernel launch to count
+    assert out["n_layers"] == CFG.n_layers and out["attention_launches"] == 0
 
 
 def test_serve_waits_on_warm_before_its_timed_requests(monkeypatch):

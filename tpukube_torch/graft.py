@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from tpukube_torch.kernels import attention
 from tpukube_torch.kernels.group_norm import GroupNormNHWC
 from tpukube_torch.native import GpuInfo, cudaguard
 from tpukube_torch.workload import resnet
@@ -155,7 +156,8 @@ def serve(cfg: LlamaConfig, device: torch.device, *, seed: int, requests: int,
     random weights within 1.0 of ln(vocab); causality (changing token t
     leaves the logits before t unchanged); and the first ``parity_layers``
     layers with the full embed and unembed agree with the same function on
-    the CPU."""
+    the CPU. ``attention_launches`` counts the attention kernel's launches
+    in the timed requests (none on the CPU)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     model = Llama(cfg, init_params(gen, cfg, device))
     toks = [torch.randint(cfg.vocab, (batch, seq), generator=gen, device=device)
@@ -165,6 +167,7 @@ def serve(cfg: LlamaConfig, device: torch.device, *, seed: int, requests: int,
     if on_warm is not None:
         on_warm()
     times, logits = [], None
+    attention.launches = 0
     for t in toks[1:]:
         t0 = time.perf_counter()
         logits = model(t)
@@ -174,6 +177,7 @@ def serve(cfg: LlamaConfig, device: torch.device, *, seed: int, requests: int,
             raise RuntimeError(f"logits {tuple(logits.shape)} {logits.dtype}")
         if not bool(torch.isfinite(logits).all()):
             raise RuntimeError("non-finite logits")
+    attention_launches = attention.launches
 
     loss = float(model.loss(toks[-1]))
     if not abs(loss - math.log(cfg.vocab)) < 1.0:
@@ -208,6 +212,8 @@ def serve(cfg: LlamaConfig, device: torch.device, *, seed: int, requests: int,
         "batch": batch,
         "seq": seq,
         "requests": requests,
+        "n_layers": cfg.n_layers,
+        "attention_launches": attention_launches,
         "forward_ms": [t * 1e3 for t in times],
         "forward_ms_median": median * 1e3,
         "forward_flops": forward_flops(cfg, batch, seq),

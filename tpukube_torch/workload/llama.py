@@ -13,10 +13,13 @@ is bfloat16 with the reference's rounding points:
   float32 and probabilities cast to bf16 before PV;
 - float32 logits.
 
-Attention is written as the explicit einsum/softmax of the reference, not
-``F.scaled_dot_product_attention``, whose masking and rounding differ. The
-projections are plain matrix products: XLA computes them outside any
-kernel in the reference, and the JAX package has no hand kernel here.
+Attention where a gradient is needed is the explicit einsum/softmax of the
+reference, not ``F.scaled_dot_product_attention``, whose masking and
+rounding differ; a forward that needs none (serving) runs the port's own
+kernel, ``tpukube_torch/kernels/attention.py``, which keeps the chain's
+rounding points. The projections are plain matrix products: XLA computes
+them outside any kernel in the reference, and the JAX package has no hand
+kernel here.
 
 ``remat=True`` checkpoints each block (``torch.utils.checkpoint``, not
 reentrant): the counterpart of the reference's ``jax.checkpoint``, the same
@@ -42,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tpukube_torch.kernels import attention
 from tpukube_torch.obs.spans import span
 
 # The dtype activations are computed in: the reference's bfloat16. Every
@@ -170,23 +174,19 @@ def _same(x: torch.Tensor) -> torch.Tensor:
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The explicit causal core over q (B, S, H, dq), k (B, S, KV, dq) and
-    v (B, S, KV, dv) in the compute dtype -> (B, S, H * dv): query heads
-    grouped over kv heads (query head h reads kv head h // (H // KV)),
-    QK^T scaled by dq^-1/2 in the compute dtype, masked with -1e9, softmax
-    in float32, probabilities cast back before PV. A ``tpukube.attention``
-    span. Both the decoder's blocks and ``mla_moe``'s (dq 192, dv 128)
-    call it."""
-    B, S, H, HD = q.shape
-    KV, DV = k.shape[2], v.shape[-1]
+    """The causal core over q (B, S, H, dq), k (B, S, KV, dq) and v (B, S,
+    KV, dv) in the compute dtype -> (B, S, H * dv), query head h reading kv
+    head h // (H // KV). Where autograd needs a gradient through the call,
+    the explicit chain (``attention.causal_attention_plain``: QK^T scaled
+    by dq^-1/2 in the compute dtype, masked with -1e9, softmax in float32,
+    probabilities cast back before PV); otherwise the forward kernel
+    (``attention.causal_attention_fwd``, the same chain on a CPU tensor).
+    A ``tpukube.attention`` span. Both the decoder's blocks and
+    ``mla_moe``'s (dq 192, dv 128) call it."""
     with span("tpukube.attention", q):
-        # GQA: group query heads (g) over kv heads (k)
-        q = q.reshape(B, S, KV, H // KV, HD)
-        logits = torch.einsum("bskgd,btkd->bkgst", q, k) * (HD ** -0.5)
-        causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-        logits = logits.masked_fill(~causal, -1e9)
-        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-        return torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H * DV)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return attention.causal_attention_plain(q, k, v)
+        return attention.causal_attention_fwd(q, k, v)
 
 
 def _block(h: torch.Tensor, layer: dict, cfg: LlamaConfig,
